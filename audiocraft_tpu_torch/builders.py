@@ -1,0 +1,71 @@
+"""Model factories (counterpart of ``audiocraft_tpu/builders.py``).
+
+Weights are random, drawn on the CPU from a ``torch.Generator`` seeded with
+``seed``, so one seed gives the same weights on every device; real weights
+come in through ``load_state_dict`` (see ``ckpt/from_jax.py``).
+
+``device=None`` means the CUDA card, and raises when there is none: the
+entry points never fall back to the CPU quietly.  Pass ``device='cpu'`` to run
+the plain versions of the kernels on the CPU.
+"""
+
+from __future__ import annotations
+
+import typing as tp
+
+import torch
+
+from .codec.encodec import EncodecModel
+from .nn.seanet import SEANetDecoder, SEANetEncoder
+from .quant.vq import ResidualVectorQuantizer
+
+
+def resolve_device(device: tp.Union[str, torch.device, None]) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device found; pass device='cpu' to run on the CPU")
+        return torch.device('cuda')
+    return torch.device(device)
+
+
+def _finish(model: EncodecModel, device: torch.device) -> EncodecModel:
+    return model.to(device).eval().requires_grad_(False)
+
+
+def get_encodec_32khz(n_filters: int = 64, dimension: int = 128, n_q: int = 4,
+                      bins: int = 2048, causal: bool = False,
+                      compute_dtype: tp.Optional[str] = 'bfloat16', *,
+                      device: tp.Union[str, torch.device, None] = None,
+                      seed: int = 0) -> EncodecModel:
+    """The MusicGen tokenizer: 32 kHz mono, hop 640, 50 Hz frames, 4 x 2048
+    codebooks (facebook/encodec_32khz).  bf16 conv and LSTM stacks by default;
+    ``compute_dtype=None`` gives fp32 parity."""
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    seanet = dict(channels=1, dimension=dimension, n_filters=n_filters,
+                  n_residual_layers=1, ratios=(8, 5, 4, 4), norm='weight_norm',
+                  lstm=2, causal=causal, generator=gen)
+    model = EncodecModel(SEANetEncoder(**seanet), SEANetDecoder(**seanet),
+                         ResidualVectorQuantizer(dimension=dimension, n_q=n_q, bins=bins,
+                                                 generator=gen),
+                         frame_rate=50, sample_rate=32000, channels=1, causal=causal,
+                         compute_dtype=compute_dtype, lstm_kernel='auto')
+    return _finish(model, device)
+
+
+def get_debug_compression_model(sample_rate: int = 32000, *,
+                                device: tp.Union[str, torch.device, None] = None,
+                                seed: int = 0) -> EncodecModel:
+    """Tiny codec for tests (the reference's debug compression model)."""
+    if sample_rate not in (16000, 32000):
+        raise ValueError(f"sample_rate must be 16000 or 32000, not {sample_rate}")
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    ratios = {16000: (10, 8, 8), 32000: (10, 8, 16)}[sample_rate]
+    seanet = dict(channels=1, dimension=32, n_filters=4, n_residual_layers=1,
+                  ratios=ratios, generator=gen)
+    model = EncodecModel(SEANetEncoder(**seanet), SEANetDecoder(**seanet),
+                         ResidualVectorQuantizer(dimension=32, bins=400, n_q=4,
+                                                 generator=gen),
+                         frame_rate=25, sample_rate=sample_rate, channels=1)
+    return _finish(model, device)

@@ -1,0 +1,39 @@
+"""Activations used by SEANet (counterpart of ``audiocraft_tpu/nn/activations.py``).
+
+Only ELU is ported: it is the one activation the EnCodec configs use.
+"""
+
+from __future__ import annotations
+
+import typing as tp
+
+import torch
+import torch.nn.functional as F
+
+
+def elu(x: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
+    return F.elu(x, alpha)
+
+
+_ACTIVATIONS: tp.Dict[str, tp.Callable[..., torch.Tensor]] = {'elu': elu}
+
+
+def get_activation_fn(name: str) -> tp.Callable[..., torch.Tensor]:
+    try:
+        return _ACTIVATIONS[name]
+    except KeyError:
+        raise RuntimeError(f"activation should be one of {sorted(_ACTIVATIONS)}, not {name}")
+
+
+class Activation(torch.nn.Module):
+    """An activation layer named as SEANet configs name it (torch class names,
+    e.g. ``'ELU'``); it holds no parameters but takes an index in the layer
+    list, as in the reference state-dict layout."""
+
+    def __init__(self, name: str = 'ELU', alpha: float = 1.0):
+        super().__init__()
+        self.fn = get_activation_fn(name.lower())
+        self.alpha = alpha
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fn(x, self.alpha)

@@ -1,0 +1,382 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``audiocraft_tpu_torch``) on one CUDA card.
+
+Run from the repository root, with no arguments:  python3 chip_smoke.py
+
+1. Card and build: prints the card's name and power limit, builds the CUDA
+   kernels from ``audiocraft_tpu_torch/csrc`` and prints the build time.
+2. Kernels against their plain PyTorch versions, on the card, at the main
+   path's shapes: RVQ encode (codes equal, near-ties excluded and counted)
+   and one LSTM layer (fp32 and bf16), each timed beside its bound, its plain
+   version and, where one exists, one PyTorch call computing the same thing.
+3. The main path: ``get_encodec_32khz()`` (bf16, random weights from a seed)
+   tokenizes and reconstructs 128 clips of 10 s; both kernels' launch counts
+   must rise during that run.
+4. fp32 parity: the same weights with ``compute_dtype=None`` on the card and
+   on the CPU (plain versions), TF32 off.
+Then one JSON line on the kernels and, last, one JSON line with the result.
+Any failed check ends the run with a non-zero exit and no result line, as
+does a host without a CUDA card.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+import typing as tp
+import warnings
+
+import torch
+
+from audiocraft_tpu_torch.builders import get_encodec_32khz
+from audiocraft_tpu_torch.ops import _build
+from audiocraft_tpu_torch.ops.lstm import lstm_layer, lstm_layer_reference
+from audiocraft_tpu_torch.ops.rvq import rvq_encode, rvq_encode_reference
+from audiocraft_tpu_torch.quant.codebook import compute_distances, quantize
+
+# Published H100 SXM peaks (dense): fp32 outside the tensor cores, bf16
+# tensor cores, and HBM bandwidth.
+PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
+PEAK_BYTES = 3.35e12
+
+BATCH, SECONDS, SAMPLE_RATE = 128, 10, 32000       # main path: b128 x 10 s clips
+RVQ_SHAPE = dict(n=BATCH * SECONDS * 50, d=128, k=2048, n_q=4)
+LSTM_SHAPE = dict(t=SECONDS * 50, b=BATCH, h=1024)
+
+
+class CheckFailed(RuntimeError):
+    pass
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise CheckFailed(what)
+
+
+def card() -> str:
+    out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(ops: float, peak_ops: float, nbytes: float) -> tuple:
+    """The least time for the work, and whether operations or bytes set it."""
+    t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
+
+
+def phase_build() -> None:
+    print('== phase 1: card and build', flush=True)
+    print('card:', card())
+    print('torch', torch.__version__, 'cuda', torch.version.cuda,
+          'device', torch.cuda.get_device_name(0))
+    result = _build.build()
+    _build.library()
+    print(f'build: {result.seconds:.1f} s -> {result.path.name}')
+    for line in result.log.splitlines():
+        if 'registers' in line or 'spill' in line or 'error' in line:
+            print('  ptxas:', line.strip())
+
+
+def _rvq_inputs(device, n, d, k, n_q, seed=1):
+    """Random rows and codebooks with planted ties: codes 7, 16, 25, ... copy
+    code 3 in every codebook, and every 97th row equals code 3 of the first."""
+    gen = torch.Generator().manual_seed(seed)
+    embeds = torch.randn(n_q, k, d, generator=gen)
+    x = torch.randn(n, d, generator=gen)
+    embeds[:, 7::9] = embeds[:, 3:4]
+    x[::97] = embeds[0, 3]
+    return x.to(device), embeds.to(device)
+
+
+def _near_ties(x, embeds, codes, rel=1e-6):
+    """Rows whose top-2 plain distances lie within ``rel`` of each other at
+    some codebook of the chain that ``codes`` takes."""
+    residual, near = x.clone(), torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    for q, embed in enumerate(embeds):
+        top2 = compute_distances(residual, embed).topk(2, dim=1).values
+        near |= (top2[:, 0] - top2[:, 1]).abs() <= rel * top2[:, 0].abs()
+        residual = residual - embed[codes[q].long()]
+    return near
+
+
+def check_rvq(x, embeds) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel codes against the plain codes on ``_rvq_inputs``: equal on every
+    row but the near-ties, and every planted tie goes to the first equal
+    code.  Returns (kernel codes, plain codes, near-tie mask)."""
+    codes = rvq_encode(x, embeds)
+    plain = rvq_encode_reference(x, embeds)
+    torch.cuda.synchronize()
+    what = f'rvq {tuple(x.shape)} x {tuple(embeds.shape)}'
+    check(bool((codes[0, ::97] == 3).all() and (plain[0, ::97] == 3).all()),
+          f'{what}: planted ties do not go to the first equal code')
+    copies = torch.arange(7, embeds.shape[1], 9, device=x.device)
+    check(not bool(torch.isin(codes, copies).any()),
+          f'{what}: a copy of code 3 won over code 3')
+    near = _near_ties(x, embeds, plain)
+    diff = (codes != plain)[:, ~near]
+    check(not bool(diff.any()), f'{what}: {int(diff.any(0).sum())} rows differ from the plain codes')
+    return codes, plain, near
+
+
+def check_off_tile_shapes(device) -> None:
+    """Shapes off the kernels' tiles, masked inside the kernels: RVQ at the
+    debug codec's D = 32 and K = 400 with N not a multiple of 64; LSTM with
+    B and H not multiples of 32; and a row wider than the RVQ kernel's
+    maximum, which must raise."""
+    x, embeds = _rvq_inputs(device, n=517, d=32, k=400, n_q=4, seed=8)
+    _, _, near = check_rvq(x, embeds)
+    gen = torch.Generator().manual_seed(9)
+    T, B, C, H = 7, 3, 48, 40
+    args = [torch.randn(shape, generator=gen) * 0.5
+            for shape in ((T, B, C), (4 * H, C), (4 * H, H), (4 * H,), (4 * H,))]
+    errs = []
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 5e-2)):
+        a = [t.to(device, dtype) for t in args]
+        errs.append(float((lstm_layer(*a).float() - lstm_layer_reference(*a).float())
+                          .abs().max()))
+        check(errs[-1] <= tol, f'lstm T={T} B={B} H={H} {dtype}: max-abs {errs[-1]:.3g} > {tol}')
+    try:
+        rvq_encode(torch.zeros(8, 256, device=device), torch.zeros(1, 16, 256, device=device))
+    except ValueError:
+        pass
+    else:
+        raise CheckFailed('rvq: D = 256 did not raise')
+    print(f'off-tile shapes: rvq N=517 D=32 K=400 codes equal ({int(near.sum())} near-tie '
+          f'rows excluded); lstm T={T} B={B} C={C} H={H} max-abs fp32 {errs[0]:.3g} (<= 1e-5), '
+          f'bf16 {errs[1]:.3g} (<= 5e-2); D=256 refused', flush=True)
+
+
+def phase_kernels(device) -> dict:
+    print('== phase 2: kernels against their plain versions', flush=True)
+    results = {}
+    check_off_tile_shapes(device)
+
+    s = RVQ_SHAPE
+    x, embeds = _rvq_inputs(device, **s)
+    codes, plain, near = check_rvq(x, embeds)
+    checked = ~near
+    ops = 2.0 * s['n'] * s['d'] * s['k'] * s['n_q']
+    nbytes = 4.0 * (s['n'] * s['d'] + s['n_q'] * s['k'] * s['d'] + s['n_q'] * s['n'])
+    b_ms, b_by = bound_ms(ops, PEAK_FP32, nbytes)
+    rvq = dict(name='rvq_encode', route='cuda', source='audiocraft_tpu_torch/csrc/rvq.cu',
+               replaces='audiocraft_tpu/ops/rvq_pallas.py:46',
+               max_abs_err=float((codes - plain)[:, checked].abs().max()),
+               ms=time_ms(lambda: rvq_encode(x, embeds), 5),
+               plain_ms=time_ms(lambda: rvq_encode_reference(x, embeds), 5),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    print(f"rvq N={s['n']} D={s['d']} K={s['k']} n_q={s['n_q']}: codes equal on "
+          f"{int(checked.sum())} rows, {int(near.sum())} near-tie rows excluded; "
+          f"kernel {rvq['ms']:.3f} ms, plain {rvq['plain_ms']:.3f} ms, "
+          f"bound {b_ms:.3f} ms ({b_by})", flush=True)
+    results['rvq_encode'] = rvq
+    del x, embeds, codes, plain
+
+    s = LSTM_SHAPE
+    T, B, H = s['t'], s['b'], s['h']
+    gen = torch.Generator().manual_seed(2)
+    bound = 1.0 / math.sqrt(H)
+    weights = [(torch.rand(shape, generator=gen) * 2 - 1) * bound
+               for shape in ((4 * H, H), (4 * H, H), (4 * H,), (4 * H,))]
+    x = torch.randn(T, B, H, generator=gen) * 0.5
+    errs = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+        args = [a.to(device, dtype) for a in (x, *weights)]
+        out = lstm_layer(*args)
+        ref = lstm_layer_reference(*args)
+        errs[dtype] = float((out.float() - ref.float()).abs().max())
+        check(bool(torch.isfinite(out).all()), f'lstm {dtype}: non-finite output')
+        check(errs[dtype] <= tol, f'lstm {dtype}: max-abs {errs[dtype]:.3g} > {tol}')
+    # timed in bf16, the main path's dtype
+    args = [a.to(device, torch.bfloat16) for a in (x, *weights)]
+    cudnn = torch.nn.LSTM(H, H, num_layers=1).to(device, torch.bfloat16)
+    with torch.no_grad(), warnings.catch_warnings():
+        for p, w in zip((cudnn.weight_ih_l0, cudnn.weight_hh_l0, cudnn.bias_ih_l0,
+                         cudnn.bias_hh_l0), args[1:]):
+            p.copy_(w)
+        # nn.LSTM cannot flatten bf16 weights into one buffer, so cuDNN packs
+        # them on every call (an 8 MB copy, timed with it) and warns each time
+        warnings.filterwarnings('ignore', message='RNN module weights are not part')
+        library = time_ms(lambda: cudnn(args[0]), 3)
+    ops = 2.0 * T * B * 4 * H * (H + H)          # input projection + recurrence
+    nbytes = 2.0 * (2 * T * B * H + 8 * H * H + 8 * H)
+    b_ms, b_by = bound_ms(ops, PEAK_BF16, nbytes)
+    lstm = dict(name='lstm_step', route='cuda', source='audiocraft_tpu_torch/csrc/lstm.cu',
+                replaces='audiocraft_tpu/ops/lstm_pallas.py:44',
+                max_abs_err=errs[torch.bfloat16],
+                ms=time_ms(lambda: lstm_layer(*args), 3),
+                plain_ms=time_ms(lambda: lstm_layer_reference(*args), 3),
+                bound_ms=b_ms, bound_by=b_by, library_ms=library)
+    print(f'lstm T={T} B={B} H={H}: max-abs fp32 {errs[torch.float32]:.3g} (<= 1e-4), '
+          f'bf16 {errs[torch.bfloat16]:.3g} (<= 5e-2); one layer in bf16: kernel '
+          f"{lstm['ms']:.3f} ms, plain {lstm['plain_ms']:.3f} ms, cuDNN nn.LSTM "
+          f'{library:.3f} ms, bound {b_ms:.3f} ms ({b_by})', flush=True)
+    results['lstm_step'] = lstm
+    return results
+
+
+def _clips(batch: int, samples: int, device, seed: int) -> torch.Tensor:
+    """Seeded test audio: a few random tones plus noise, [batch, 1, samples]."""
+    gen = torch.Generator().manual_seed(seed)
+    t = torch.arange(samples) / SAMPLE_RATE
+    freqs = 50 + 2000 * torch.rand(batch, 4, 1, generator=gen)
+    tones = torch.sin(2 * math.pi * freqs * t).sum(1, keepdim=True) * 0.1
+    noise = 0.02 * torch.randn(batch, 1, samples, generator=gen)
+    return (tones + noise).to(device)
+
+
+def seed_codebooks(model, wav: torch.Tensor, seed: int = 3) -> None:
+    """Codebook q takes random residual frames left after q codebooks, as a
+    k-means init would start, so that codes spread over the codebook."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        x = model.encoder(model._cast(wav)).float()
+        residual = x.transpose(1, 2).reshape(-1, x.shape[1])
+        for layer in model.quantizer.vq.layers:
+            cb = layer._codebook
+            pick = torch.randperm(residual.shape[0], generator=gen)[:cb.embed.shape[0]]
+            cb.embed.copy_(residual[pick.to(residual.device)])
+            cb.embed_avg.copy_(cb.embed)
+            residual = residual - cb.embed[quantize(residual, cb.embed).long()]
+
+
+def layer_ms(stack, x: torch.Tensor) -> tp.Tuple[torch.Tensor, tp.List[tp.Tuple[str, float]]]:
+    """Run a SEANet stack layer by layer, with CUDA events around each layer."""
+    marks = []
+    with torch.no_grad():
+        for layer in stack.model:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            x = layer(x)
+            end.record()
+            marks.append((type(layer).__name__, start, end))
+    torch.cuda.synchronize()
+    return x, [(name, start.elapsed_time(end)) for name, start, end in marks]
+
+
+def print_breakdown(model, wav: torch.Tensor) -> None:
+    """Where one encode and one decode spend device time, by layer kind."""
+    emb, enc = layer_ms(model.encoder, model._cast(wav))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    codes = model.quantizer.encode(emb.float())
+    latent = model.decode_latent(codes)
+    end.record()
+    _, dec = layer_ms(model.decoder, model._cast(latent))
+    for stack, times in (('encoder', enc), ('decoder', dec)):
+        kinds: tp.Dict[str, float] = {}
+        for name, ms in times:
+            kinds[name] = kinds.get(name, 0.0) + ms
+        print(f'{stack} layers (ms): ' + ', '.join(f'{i}:{n} {ms:.2f}' for i, (n, ms)
+                                                   in enumerate(times)))
+        print(f'{stack} by kind (ms): ' + ', '.join(f'{n} {ms:.2f}' for n, ms in kinds.items())
+              + f', total {sum(kinds.values()):.2f}')
+    print(f'rvq encode + latent lookup: {start.elapsed_time(end):.2f} ms', flush=True)
+
+
+def phase_main_path(device) -> dict:
+    print('== phase 3: main path, get_encodec_32khz() encode + decode', flush=True)
+    model = get_encodec_32khz()
+    check(model.compute_dtype == 'bfloat16', 'the 32 kHz default is not bf16')
+    seed_codebooks(model, _clips(16, SECONDS * SAMPLE_RATE, device, seed=4))
+    wav = _clips(BATCH, SECONDS * SAMPLE_RATE, device, seed=5)
+    model.decode(model.encode(wav)[0])   # warm-up, not counted
+    torch.cuda.synchronize()
+
+    rvq_encode.launches = lstm_layer.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    codes, scale = model.encode(wav)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = model.decode(codes)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {'rvq_encode': rvq_encode.launches, 'lstm_step': lstm_layer.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    frames = SECONDS * 50
+    check(tuple(codes.shape) == (BATCH, 4, frames) and codes.dtype == torch.int32,
+          f'codes {tuple(codes.shape)} {codes.dtype}')
+    check(bool(((codes >= 0) & (codes < 2048)).all()), 'codes out of range')
+    check(tuple(out.shape) == (BATCH, 1, SECONDS * SAMPLE_RATE), f'wav {tuple(out.shape)}')
+    check(bool(torch.isfinite(out).all()), 'non-finite waveform')
+    check(launches['rvq_encode'] == 1, f"rvq launches {launches['rvq_encode']} != 1")
+    check(launches['lstm_step'] == 2 * 2 * frames,
+          f"lstm launches {launches['lstm_step']} != {2 * 2 * frames}")
+    audio = BATCH * SECONDS
+    name = card()
+    print(f'codes {tuple(codes.shape)}, {int(codes.unique().numel())} distinct; wav '
+          f'{tuple(out.shape)}; launches {launches}')
+    print(f'encode {t1 - t0:.4f} s = {audio / (t1 - t0):.1f} audio-s tokenized/s; decode '
+          f'{t2 - t1:.4f} s = {audio / (t2 - t1):.1f} audio-s decoded/s; peak memory '
+          f'{peak / 2**30:.2f} GiB; card {name}', flush=True)
+    print_breakdown(model, wav)
+    return launches
+
+
+def phase_parity(device) -> None:
+    print('== phase 4: fp32 parity, card vs CPU (TF32 off)', flush=True)
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          'TF32 is on')
+    gpu = get_encodec_32khz(compute_dtype=None)
+    cpu = get_encodec_32khz(compute_dtype=None, device='cpu')
+    seed_codebooks(gpu, _clips(8, SECONDS * SAMPLE_RATE, device, seed=6))
+    wav = _clips(8, 2 * SAMPLE_RATE, device, seed=7)
+    cpu.quantizer.load_state_dict(gpu.quantizer.state_dict())
+    with torch.no_grad():
+        lat_gpu = gpu.encoder(wav).float()
+        lat_cpu = cpu.encoder(wav.cpu()).float()
+        rel = float((lat_gpu.cpu() - lat_cpu).abs().max() / lat_cpu.abs().max())
+        share = float((gpu.quantizer.encode(lat_gpu).cpu()
+                       == cpu.quantizer.encode(lat_cpu)).float().mean())
+    print(f'encoder latent [8, 128, 100]: max-abs / max {rel:.3g} (<= 1e-4); '
+          f'code match share {share:.6f} (>= 0.995)', flush=True)
+    check(rel <= 1e-4, f'latent rel {rel:.3g} > 1e-4')
+    check(share >= 0.995, f'code match share {share:.6f} < 0.995')
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print('TF32 off for fp32 matmuls and convolutions')
+    device = torch.device('cuda')
+    phase_build()
+    kernels = phase_kernels(device)
+    launches = phase_main_path(device)
+    phase_parity(device)
+    for name, n in launches.items():
+        kernels[name]['launches'] = n
+    keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err', 'ms',
+            'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
+    print(card())
+    print(json.dumps({'kernels': [{k: kern[k] for k in keys} for kern in kernels.values()]}))
+    print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
+                                             'kind': torch.cuda.get_device_name(0),
+                                             'count': torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -1,0 +1,56 @@
+"""Rules of the PyTorch port's package: what it imports, where it runs,
+and what it builds."""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from audiocraft_tpu_torch import builders
+from audiocraft_tpu_torch.ops import _build
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "audiocraft_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "audiocraft_tpu")
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_and_smoke_import_nothing_of_jax():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        for module in _imported_modules(path):
+            top = module.split(".")[0]
+            assert top not in FORBIDDEN, f"{path.relative_to(ROOT)} imports {module}"
+
+
+@pytest.mark.parametrize("build", [builders.get_encodec_32khz,
+                                   builders.get_debug_compression_model])
+def test_entry_points_refuse_to_fall_back_to_the_cpu(build, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build()
+
+
+def test_build_directory_is_ignored_by_git():
+    lines = (ROOT / ".gitignore").read_text().splitlines()
+    assert "audiocraft_tpu_torch/_build/" in lines
+    assert _build.BUILD_DIR == PORT / "_build"
+
+
+def test_each_ported_kernel_has_a_cuda_source_and_entry_point():
+    sources = {p.name: p.read_text() for p in (PORT / "csrc").glob("*.cu")}
+    assert {"rvq.cu", "lstm.cu"} <= set(sources)
+    assert 'extern "C" int acx_rvq_encode(' in sources["rvq.cu"]
+    assert 'extern "C" int acx_lstm_step(' in sources["lstm.cu"]
+    assert "rvq_pallas.py:_rvq_kernel" in sources["rvq.cu"]
+    assert "lstm_pallas.py:_lstm_kernel" in sources["lstm.cu"]
+    assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
