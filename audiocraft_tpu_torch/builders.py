@@ -16,6 +16,9 @@ import typing as tp
 import torch
 
 from .codec.encodec import EncodecModel
+from .cond.conditioners import ConditioningProvider, T5Conditioner
+from .cond.fuser import ConditionFuser
+from .lm.magnet import MagnetLMModel
 from .nn.seanet import SEANetDecoder, SEANetEncoder
 from .quant.vq import ResidualVectorQuantizer
 
@@ -28,7 +31,7 @@ def resolve_device(device: tp.Union[str, torch.device, None]) -> torch.device:
     return torch.device(device)
 
 
-def _finish(model: EncodecModel, device: torch.device) -> EncodecModel:
+def _finish(model: torch.nn.Module, device: torch.device) -> tp.Any:
     return model.to(device).eval().requires_grad_(False)
 
 
@@ -69,3 +72,35 @@ def get_debug_compression_model(sample_rate: int = 32000, *,
                                                  generator=gen),
                          frame_rate=25, sample_rate=sample_rate, channels=1)
     return _finish(model, device)
+
+
+_MUSICGEN_SIZES = {
+    # public MusicGen / MAGNeT transformer shapes (300M / 1.5B / 3.3B)
+    'small': dict(dim=1024, num_layers=24, num_heads=16),
+    'medium': dict(dim=1536, num_layers=48, num_heads=24),
+    'large': dict(dim=2048, num_layers=48, num_heads=32),
+}
+
+
+def get_magnet_lm(size: str = 'small', n_q: int = 4, card: int = 2048,
+                  segment_duration: int = 10, *,
+                  device: tp.Union[str, torch.device, None] = None,
+                  seed: int = 0) -> tp.Tuple[MagnetLMModel, ConditioningProvider]:
+    """MAGNeT LM and its T5-base text conditioning at the published sizes
+    (facebook/magnet-small-10secs, -30secs, ...): non-causal, span 3,
+    restricted subcode context 5, cross-attention to the description.
+    ``attn_kernel='auto'`` sends every mask-free full-sequence self-attention
+    (stage 0) to the flash kernel on the card.  Returns (lm, provider)."""
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    shape = _MUSICGEN_SIZES[size]
+    provider = ConditioningProvider.from_dict({
+        'description': T5Conditioner(name='t5-base', output_dim=shape['dim'], generator=gen)})
+    fuser = ConditionFuser.from_dict({'cross': ('description',)})
+    lm = MagnetLMModel(
+        fuser, n_q=n_q, card=card, hidden_scale=4, norm_first=True, bias_proj=False,
+        bias_ff=False, bias_attn=False, cross_attention=True, causal=False,
+        activation='gelu', weight_init='gaussian',
+        attn_kernel='auto', subcodes_context=5, span_len=3, compression_model_framerate=50,
+        segment_duration=segment_duration, generator=gen, **shape)
+    return _finish(lm, device), _finish(provider, device)

@@ -1,12 +1,20 @@
-"""Carry EnCodec weights from the JAX package's param tree into the port.
+"""Carry weights from the JAX package's param trees into the port.
 
-:func:`encodec_state_from_jax` takes the tree that the JAX package's
-``EncodecModel.init`` or ``import_encodec`` produces, as nested dicts of numpy
-arrays (the quantizer state as a dict of ``embed``, ``cluster_size``,
-``embed_avg`` and ``inited``), and returns a state dict for the port's
-``EncodecModel.load_state_dict``.  The JAX tree names layers ``layer{i}`` at
-the same indices as the port's ``model`` lists, resnet convs ``conv{j}`` and
-LSTM layers ``l{k}``.  Nothing of the JAX package is imported.
+Each function takes a tree as the JAX package's ``init`` or its
+``ckpt/torch_import`` importers produce it, as nested dicts of numpy arrays,
+and returns a state dict for the port module's ``load_state_dict``:
+
+* :func:`encodec_state_from_jax`: EnCodec (the quantizer state as a dict of
+  ``embed``, ``cluster_size``, ``embed_avg`` and ``inited``).  The JAX tree
+  names layers ``layer{i}`` at the same indices as the port's ``model``
+  lists, resnet convs ``conv{j}`` and LSTM layers ``l{k}``.
+* :func:`lm_state_from_jax`: ``LMModel`` and ``MagnetLMModel`` (stacked
+  ``[K, ...]`` embeddings and heads, transformer layers ``layer{i}``).
+* :func:`t5_state_from_jax`: the T5 encoder, under HF T5 names.
+* :func:`conditioners_state_from_jax`: a ``ConditioningProvider``.
+
+The names produced are the reference audiocraft ones, which the JAX
+package's importers read back.  Nothing of the JAX package is imported.
 """
 
 from __future__ import annotations
@@ -17,6 +25,8 @@ import numpy as np
 import torch
 
 from ..codec.encodec import EncodecModel
+from ..cond.conditioners import ConditioningProvider, LUTConditioner, T5Conditioner
+from ..lm.model import LMModel
 from ..nn.conv import StreamableConv1d, StreamableConvTranspose1d
 from ..nn.lstm import StreamableLSTM
 from ..nn.seanet import SEANetResnetBlock
@@ -24,7 +34,11 @@ from ..nn.seanet import SEANetResnetBlock
 Tree = tp.Mapping[str, tp.Any]
 
 
-def _conv(sd: dict, prefix: str, params: Tree) -> None:
+def _tensors(sd: tp.Mapping[str, tp.Any]) -> tp.Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def _weight_bias(sd: dict, prefix: str, params: Tree) -> None:
     for name in ('weight', 'bias'):
         if name in params:
             sd[f'{prefix}.{name}'] = params[name]
@@ -34,15 +48,15 @@ def _seanet(sd: dict, side: str, stack: torch.nn.Module, params: Tree) -> None:
     for i, layer in enumerate(stack.model):
         prefix = f'{side}.model.{i}'
         if isinstance(layer, StreamableConv1d):
-            _conv(sd, f'{prefix}.conv.conv', params[f'layer{i}'])
+            _weight_bias(sd, f'{prefix}.conv.conv', params[f'layer{i}'])
         elif isinstance(layer, StreamableConvTranspose1d):
-            _conv(sd, f'{prefix}.convtr.convtr', params[f'layer{i}'])
+            _weight_bias(sd, f'{prefix}.convtr.convtr', params[f'layer{i}'])
         elif isinstance(layer, SEANetResnetBlock):
             p = params[f'layer{i}']
             for j in range(len(layer.block) // 2):
-                _conv(sd, f'{prefix}.block.{2 * j + 1}.conv.conv', p[f'conv{j}'])
+                _weight_bias(sd, f'{prefix}.block.{2 * j + 1}.conv.conv', p[f'conv{j}'])
             if layer.shortcut is not None:
-                _conv(sd, f'{prefix}.shortcut.conv.conv', p['shortcut'])
+                _weight_bias(sd, f'{prefix}.shortcut.conv.conv', p['shortcut'])
         elif isinstance(layer, StreamableLSTM):
             for k in range(layer.num_layers):
                 p = params[f'layer{i}'][f'l{k}']
@@ -63,4 +77,83 @@ def encodec_state_from_jax(model: EncodecModel, params: Tree) -> tp.Dict[str, to
         sd[f'{base}.cluster_size'] = q['cluster_size'][i]
         sd[f'{base}.embed_avg'] = q['embed_avg'][i]
         sd[f'{base}.inited'] = np.reshape(q['inited'][i], (1,))
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+    return _tensors(sd)
+
+
+def _attention(sd: dict, prefix: str, p: Tree) -> None:
+    sd[f'{prefix}.in_proj_weight'] = p['in_proj_weight']
+    if 'in_proj_bias' in p:
+        sd[f'{prefix}.in_proj_bias'] = p['in_proj_bias']
+    _weight_bias(sd, f'{prefix}.out_proj', p['out_proj'])
+    for norm in ('q_layer_norm', 'k_layer_norm'):
+        if norm in p:
+            _weight_bias(sd, f'{prefix}.{norm}', p[norm])
+
+
+def _transformer(sd: dict, prefix: str, params: Tree, num_layers: int) -> None:
+    for i in range(num_layers):
+        p, base = params[f'layer{i}'], f'{prefix}.layers.{i}'
+        _attention(sd, f'{base}.self_attn', p['self_attn'])
+        for name in ('norm1', 'norm2', 'linear1', 'linear2'):
+            _weight_bias(sd, f'{base}.{name}', p[name])
+        if 'cross_attention' in p:
+            _attention(sd, f'{base}.cross_attention', p['cross_attention'])
+            _weight_bias(sd, f'{base}.norm_cross', p['norm_cross'])
+        for name in ('layer_scale_1', 'layer_scale_2', 'layer_scale_cross'):
+            if name in p:
+                sd[f'{base}.{name}.scale'] = p[name]
+
+
+def lm_state_from_jax(lm: LMModel, params: Tree) -> tp.Dict[str, torch.Tensor]:
+    """The port's state dict for ``lm`` holding the JAX LM ``params``."""
+    sd: tp.Dict[str, tp.Any] = {}
+    for k in range(lm.n_q):
+        sd[f'emb.{k}.weight'] = params['emb'][k]
+        sd[f'linears.{k}.weight'] = params['linears']['weight'][k]
+        if 'bias' in params['linears']:
+            sd[f'linears.{k}.bias'] = params['linears']['bias'][k]
+    _transformer(sd, 'transformer', params['transformer'], len(lm.transformer.layers))
+    if 'out_norm' in params:
+        _weight_bias(sd, 'out_norm', params['out_norm'])
+    return _tensors(sd)
+
+
+def t5_state_from_jax(params: Tree) -> tp.Dict[str, torch.Tensor]:
+    """HF ``T5EncoderModel`` names for the JAX T5 encoder ``params``
+    (``shared``, ``relative_attention_bias``, ``final_layer_norm``,
+    ``block{i}``)."""
+    sd: tp.Dict[str, tp.Any] = {
+        'shared.weight': params['shared'],
+        'encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight':
+            params['relative_attention_bias'],
+        'encoder.final_layer_norm.weight': params['final_layer_norm'],
+    }
+    i = 0
+    while f'block{i}' in params:
+        p, b = params[f'block{i}'], f'encoder.block.{i}'
+        for name in ('q', 'k', 'v', 'o'):
+            sd[f'{b}.layer.0.SelfAttention.{name}.weight'] = p[name]
+        sd[f'{b}.layer.0.layer_norm.weight'] = p['ln_attn']
+        sd[f'{b}.layer.1.layer_norm.weight'] = p['ln_ff']
+        for name in ('wi', 'wi_0', 'wi_1', 'wo'):
+            if name in p:
+                sd[f'{b}.layer.1.DenseReluDense.{name}.weight'] = p[name]
+        i += 1
+    return _tensors(sd)
+
+
+def conditioners_state_from_jax(provider: ConditioningProvider,
+                                params: Tree) -> tp.Dict[str, torch.Tensor]:
+    """The port's state dict for ``provider`` holding the JAX provider's
+    ``params`` (``{name: conditioner params}``)."""
+    out: tp.Dict[str, torch.Tensor] = {}
+    for name, cond in provider.conditioners.items():
+        p, base = params[name], f'conditioners.{name}'
+        sd: tp.Dict[str, tp.Any] = {}
+        _weight_bias(sd, f'{base}.output_proj', p['output_proj'])
+        if isinstance(cond, LUTConditioner):
+            sd[f'{base}.embed.weight'] = p['embed']
+        out.update(_tensors(sd))
+        if isinstance(cond, T5Conditioner):
+            out.update({f'{base}.t5.{k}': v for k, v in t5_state_from_jax(p['t5']).items()})
+    return out

@@ -1,6 +1,8 @@
-"""Activations used by SEANet (counterpart of ``audiocraft_tpu/nn/activations.py``).
+"""Activations (counterpart of ``audiocraft_tpu/nn/activations.py``).
 
-Only ELU is ported: it is the one activation the EnCodec configs use.
+Ported so far: ELU (the EnCodec configs) and the transformer feed-forward
+activations, exact GELU and ReLU.  The gated units wait for a config that
+uses them.
 """
 
 from __future__ import annotations
@@ -15,7 +17,12 @@ def elu(x: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
     return F.elu(x, alpha)
 
 
-_ACTIVATIONS: tp.Dict[str, tp.Callable[..., torch.Tensor]] = {'elu': elu}
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x)  # exact (erf) form, as jax.nn.gelu(approximate=False)
+
+
+_ACTIVATIONS: tp.Dict[str, tp.Callable[..., torch.Tensor]] = {
+    'elu': elu, 'gelu': gelu, 'relu': F.relu}
 
 
 def get_activation_fn(name: str) -> tp.Callable[..., torch.Tensor]:

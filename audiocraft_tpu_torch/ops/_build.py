@@ -26,13 +26,15 @@ BUILD_DIR = PACKAGE_DIR / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC', '-Xptxas=-v')
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry points: every pointer and the stream are void*, every size an int;
-# each launch returns cudaGetLastError() as an int.
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# C entry points: every pointer and the stream are void*, every size an int,
+# every stride a long long; each launch returns cudaGetLastError() as an int.
 _SIGNATURES = {
     'acx_rvq_encode': ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     'acx_rvq_max_dim': ([], _I),
     'acx_lstm_step': ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    'acx_attention_fwd': ([_P, _P, _P, _P, _I, _I, _I, _I, *[_L] * 9, _F, _I, _I, _P], _I),
+    'acx_attention_max_dim': ([], _I),
     'acx_error_string': ([_I], ctypes.c_char_p),
 }
 

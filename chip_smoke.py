@@ -6,14 +6,25 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
 1. Card and build: prints the card's name and power limit, builds the CUDA
    kernels from ``audiocraft_tpu_torch/csrc`` and prints the build time.
 2. Kernels against their plain PyTorch versions, on the card, at the main
-   path's shapes: RVQ encode (codes equal, near-ties excluded and counted)
-   and one LSTM layer (fp32 and bf16), each timed beside its bound, its plain
-   version and, where one exists, one PyTorch call computing the same thing.
-3. The main path: ``get_encodec_32khz()`` (bf16, random weights from a seed)
-   tokenizes and reconstructs 128 clips of 10 s; both kernels' launch counts
-   must rise during that run.
-4. fp32 parity: the same weights with ``compute_dtype=None`` on the card and
-   on the CPU (plain versions), TF32 off.
+   paths' shapes: RVQ encode (codes equal, near-ties excluded and counted),
+   one LSTM layer (fp32 and bf16) and flash attention (fp32 and bf16,
+   causal and not, at MAGNeT-small's [8, 1500, 16, 64] and off the tiles),
+   each timed beside its bound, its plain version and, where one exists, one
+   PyTorch call computing the same thing.
+3. The codec path: ``get_encodec_32khz()`` (bf16, random weights from a
+   seed) tokenizes and reconstructs 128 clips of 10 s; both codec kernels'
+   launch counts must rise during that run.
+4. fp32 codec parity: the same weights with ``compute_dtype=None`` on the
+   card and on the CPU (plain versions), TF32 off.
+5. The MAGNeT path: ``get_magnet_lm('small', segment_duration=30)`` with its
+   T5-base conditioning (bf16, random weights from a seed) generates 30 s for
+   4 seeded descriptions with CFG, and the 32 kHz codec decodes them; every
+   stage-0 self-attention must go through the attention kernel and the
+   decode through the LSTM kernel.  Then the debug MAGNeT facade generates
+   from a text prompt on the card.
+6. MAGNeT parity: the same LM in fp32 (TF32 off), one stage-0 forward
+   through the attention kernel against the plain path, and the greedy
+   token match of a generate on each route.
 Then one JSON line on the kernels and, last, one JSON line with the result.
 Any failed check ends the run with a non-zero exit and no result line, as
 does a host without a CUDA card.
@@ -21,6 +32,7 @@ does a host without a CUDA card.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import subprocess
@@ -31,8 +43,10 @@ import warnings
 
 import torch
 
-from audiocraft_tpu_torch.builders import get_encodec_32khz
+from audiocraft_tpu_torch.builders import get_encodec_32khz, get_magnet_lm
+from audiocraft_tpu_torch.gen.magnet import get_debug_magnet
 from audiocraft_tpu_torch.ops import _build
+from audiocraft_tpu_torch.ops.attention import fused_attention, fused_attention_reference
 from audiocraft_tpu_torch.ops.lstm import lstm_layer, lstm_layer_reference
 from audiocraft_tpu_torch.ops.rvq import rvq_encode, rvq_encode_reference
 from audiocraft_tpu_torch.quant.codebook import compute_distances, quantize
@@ -46,6 +60,9 @@ PEAK_BYTES = 3.35e12
 BATCH, SECONDS, SAMPLE_RATE = 128, 10, 32000       # main path: b128 x 10 s clips
 RVQ_SHAPE = dict(n=BATCH * SECONDS * 50, d=128, k=2048, n_q=4)
 LSTM_SHAPE = dict(t=SECONDS * 50, b=BATCH, h=1024)
+# MAGNeT-small-30s: 4 prompts x 2 (CFG), 30 s at 50 Hz, 16 heads of 64
+PROMPTS, MAGNET_SECONDS, DESC_LEN = 4, 30, 12
+ATTN_SHAPE = dict(b=2 * PROMPTS, t=MAGNET_SECONDS * 50, h=16, d=64)
 
 
 class CheckFailed(RuntimeError):
@@ -230,7 +247,69 @@ def phase_kernels(device) -> dict:
           f"{lstm['ms']:.3f} ms, plain {lstm['plain_ms']:.3f} ms, cuDNN nn.LSTM "
           f'{library:.3f} ms, bound {b_ms:.3f} ms ({b_by})', flush=True)
     results['lstm_step'] = lstm
+    results['flash_attention'] = check_attention(device)
     return results
+
+
+def _attn_err(q, k, v, causal: bool) -> float:
+    out = fused_attention(q, k, v, causal=causal)
+    ref = fused_attention_reference(q, k, v, causal=causal)
+    check(bool(torch.isfinite(out).all()), f'attention {tuple(q.shape)}: non-finite output')
+    return float((out.float() - ref.float()).abs().max())
+
+
+def check_attention(device) -> dict:
+    """K3 against its plain version (the plain one computed from the same
+    inputs in the same dtype), fp32 at 1e-5 (TF32 off; only the order of the
+    fp32 sums differs) and bf16 at 2e-2 (the online rescaling, P carried as
+    two bf16 parts into the tensor-core product and the bf16 rounding of the
+    output), causal and not, at the main path's shape and off the 64-row
+    tiles; D = 256 must raise.  Then times at S = 1500 and 500 in bf16."""
+    gen = torch.Generator().manual_seed(10)
+    errs = {}
+    shapes = {'main': tuple(ATTN_SHAPE.values()), 'off-tile': (1, 130, 3, 32)}
+    for name, shape in shapes.items():
+        qkv = [torch.randn(shape, generator=gen).to(device) for _ in range(3)]
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            for causal in (False, True):
+                err = _attn_err(*(x.to(dtype) for x in qkv), causal)
+                errs[(name, dtype, causal)] = err
+                check(err <= tol, f'attention {shape} {dtype} causal={causal}: max-abs '
+                                  f'{err:.3g} > {tol}')
+        print(f'attention {name} {shape}: max-abs fp32 {errs[(name, torch.float32, False)]:.3g}'
+              f' / causal {errs[(name, torch.float32, True)]:.3g} (<= 1e-5), bf16 '
+              f'{errs[(name, torch.bfloat16, False)]:.3g} / causal '
+              f'{errs[(name, torch.bfloat16, True)]:.3g} (<= 2e-2)', flush=True)
+        del qkv
+    try:
+        x = torch.zeros(1, 8, 1, 256, device=device)
+        fused_attention(x, x, x, causal=False)
+    except ValueError:
+        pass
+    else:
+        raise CheckFailed('attention: D = 256 did not raise')
+
+    times = {}
+    B, H, D = ATTN_SHAPE['b'], ATTN_SHAPE['h'], ATTN_SHAPE['d']
+    for T in (ATTN_SHAPE['t'], 500):   # bf16, non-causal: MAGNeT stage 0 at 30 s and 10 s
+        q, k, v = (torch.randn(B, T, H, D, generator=gen).to(device, torch.bfloat16)
+                   for _ in range(3))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        b_ms, b_by = bound_ms(4.0 * B * H * T * T * D, PEAK_BF16, 2.0 * 4 * B * T * H * D)
+        times[T] = dict(ms=time_ms(lambda: fused_attention(q, k, v, causal=False), 10),
+                        plain_ms=time_ms(lambda: fused_attention_reference(q, k, v,
+                                                                           causal=False), 5),
+                        library_ms=time_ms(sdpa, 10), bound_ms=b_ms, bound_by=b_by)
+        t = times[T]
+        print(f'attention bf16 B={B} T={T} H={H} D={D}: kernel {t["ms"]:.3f} ms, plain '
+              f'{t["plain_ms"]:.3f} ms, SDPA {t["library_ms"]:.3f} ms, bound {b_ms:.4f} ms '
+              f'({b_by})', flush=True)
+        del q, k, v
+    return dict(name='flash_attention', route='cuda',
+                source='audiocraft_tpu_torch/csrc/attention.cu',
+                replaces='audiocraft_tpu/ops/attention_pallas.py:117',
+                max_abs_err=errs[('main', torch.bfloat16, False)], **times[ATTN_SHAPE['t']])
 
 
 def _clips(batch: int, samples: int, device, seed: int) -> torch.Tensor:
@@ -354,6 +433,139 @@ def phase_parity(device) -> None:
     check(share >= 0.995, f'code match share {share:.6f} < 0.995')
 
 
+def set_attn_kernel(lm, flag) -> None:
+    """Route every self-attention of ``lm`` by ``flag`` (see ops.attention.kernel_route)."""
+    for layer in lm.transformer.layers:
+        layer.self_attn.attn_kernel = flag
+
+
+def _descriptions(n: int, device, seed: int) -> dict:
+    """n seeded T5 id rows of DESC_LEN, then n null rows (mask 0): what the
+    CFG dropout of the facade yields for n descriptions."""
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(1, 32100, (n, DESC_LEN), generator=gen)
+    ids = torch.cat([ids, torch.zeros_like(ids)])
+    mask = torch.cat([torch.ones(n, DESC_LEN, dtype=torch.long),
+                      torch.zeros(n, DESC_LEN, dtype=torch.long)])
+    return {'description': (ids.to(device), mask.to(device))}
+
+
+def _stage_sequence(lm, batch: int, device, seed: int) -> torch.Tensor:
+    """A stage-0 input: all mask ids but a seeded quarter of the positions."""
+    gen = torch.Generator().manual_seed(seed)
+    T = MAGNET_SECONDS * 50
+    seq = torch.full((batch, lm.n_q, T), lm.special_token_id, dtype=torch.long)
+    keep = torch.rand(batch, lm.n_q, T, generator=gen) < 0.25
+    seq[keep] = torch.randint(0, lm.card, (int(keep.sum()),), generator=gen)
+    return seq.to(device)
+
+
+def phase_magnet(device, lm32, provider32, codec) -> dict:
+    print('== phase 5: MAGNeT path, get_magnet_lm(small, 30 s) generate + codec decode',
+          flush=True)
+    lm = copy.deepcopy(lm32).to(torch.bfloat16)
+    provider = copy.deepcopy(provider32).to(torch.bfloat16)
+    tokenized = _descriptions(PROMPTS, device, seed=20)
+    with torch.no_grad():   # warm-up: one stage-0 forward, not counted
+        cond = provider(tokenized)
+        lm(_stage_sequence(lm, 2 * PROMPTS, device, seed=21), cond)
+    torch.cuda.synchronize()
+
+    gen = torch.Generator().manual_seed(22)
+    rvq_encode.launches = lstm_layer.launches = fused_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cond = provider(tokenized)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tokens = lm.generate_magnet(gen, condition_tensors=cond, num_samples=PROMPTS,
+                                max_gen_len=MAGNET_SECONDS * 50)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    attn_launches = fused_attention.launches
+    audio = codec.decode(tokens)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = {'flash_attention': attn_launches, 'lstm_step': lstm_layer.launches,
+                'rvq_encode': rvq_encode.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    frames = MAGNET_SECONDS * 50
+    n_layers = len(lm.transformer.layers)
+    check(tuple(tokens.shape) == (PROMPTS, 4, frames), f'tokens {tuple(tokens.shape)}')
+    check(bool(((tokens >= 0) & (tokens < lm.card)).all()), 'tokens out of range or masked')
+    check(tuple(audio.shape) == (PROMPTS, 1, frames * 640), f'audio {tuple(audio.shape)}')
+    check(bool(torch.isfinite(audio).all()), 'non-finite audio')
+    check(attn_launches == 20 * n_layers,
+          f'attention launches {attn_launches} != 20 stage-0 forwards x {n_layers} layers')
+    check(launches['lstm_step'] == 2 * frames, f"lstm launches {launches['lstm_step']}")
+    audio_s = PROMPTS * MAGNET_SECONDS
+    print(f'tokens {tuple(tokens.shape)}, {int(tokens.unique().numel())} distinct; audio '
+          f'{tuple(audio.shape)}; launches {launches}')
+    print(f'conditions {t1 - t0:.4f} s, generate {t2 - t1:.4f} s, decode {t3 - t2:.4f} s: '
+          f'{audio_s / (t3 - t0):.2f} audio-s generated/s end to end '
+          f'({audio_s / (t2 - t1):.2f} for the generate alone); peak memory '
+          f'{peak / 2**30:.2f} GiB; card {card()}', flush=True)
+
+    with torch.no_grad():
+        seq = torch.cat([tokens, tokens])
+        cross_kv = lm.transformer.precompute_cross_kv(lm.cross_source(cond, 2 * PROMPTS))
+        band = lm.restricted_context_attn_mask(frames, device)
+        stage0 = time_ms(lambda: lm(seq, cond, cross_kv=cross_kv), 3)
+        banded = time_ms(lambda: lm(seq, cond, cross_kv=cross_kv, attn_mask=band), 3)
+        t5 = time_ms(lambda: provider(tokenized), 5)
+    print(f'one forward at B={2 * PROMPTS} T={frames}: stage 0 (attention kernel) '
+          f'{stage0:.2f} ms, stages 1-3 (plain banded attention) {banded:.2f} ms; '
+          f'T5-base encoder + projection at B={2 * PROMPTS} L={DESC_LEN}: {t5:.3f} ms',
+          flush=True)
+    del lm, provider, cond, cross_kv
+
+    facade = get_debug_magnet()
+    audio, tokens = facade.generate(['a short jingle'], generator=torch.Generator().manual_seed(23),
+                                    return_tokens=True)
+    torch.cuda.synchronize()
+    check(tokens.shape[:2] == (1, 4) and bool(((tokens >= 0) & (tokens < 400)).all()),
+          f'debug facade tokens {tuple(tokens.shape)}')
+    check(bool(torch.isfinite(audio).all()), 'debug facade: non-finite audio')
+    print(f'debug facade on {audio.device}: tokens {tuple(tokens.shape)}, audio '
+          f'{tuple(audio.shape)}', flush=True)
+    return launches
+
+
+def phase_magnet_parity(device, lm, provider) -> None:
+    print('== phase 6: MAGNeT parity in fp32 (TF32 off), attention kernel vs plain path',
+          flush=True)
+    check(not torch.backends.cuda.matmul.allow_tf32, 'TF32 is on')
+    n = 2
+    with torch.no_grad():
+        cond = provider(_descriptions(n, device, seed=30))
+        seq = _stage_sequence(lm, 2 * n, device, seed=31)
+        set_attn_kernel(lm, 'auto')
+        before = fused_attention.launches
+        fast = lm(seq, cond)
+        check(fused_attention.launches - before == len(lm.transformer.layers),
+              'the stage-0 forward did not take the attention kernel')
+        set_attn_kernel(lm, False)
+        plain = lm(seq, cond)
+    rel = float((fast - plain).abs().max() / plain.abs().max())
+    share = float((fast.argmax(-1) == plain.argmax(-1)).float().mean())
+    print(f'stage-0 logits [{2 * n}, 4, {seq.shape[-1]}, {lm.card}]: max-abs / max {rel:.3g} '
+          f'(<= 1e-4), argmax share {share:.6f} (>= 0.999)', flush=True)
+    check(rel <= 1e-4, f'stage-0 logits rel {rel:.3g} > 1e-4')
+    check(share >= 0.999, f'stage-0 argmax share {share:.6f} < 0.999')
+    tokens = {}
+    for flag in ('auto', False):
+        set_attn_kernel(lm, flag)
+        tokens[flag] = lm.generate_magnet(torch.Generator().manual_seed(32),
+                                          condition_tensors=cond, num_samples=n,
+                                          max_gen_len=MAGNET_SECONDS * 50, use_sampling=False)
+    set_attn_kernel(lm, 'auto')
+    match = float((tokens['auto'] == tokens[False]).float().mean())
+    print(f'greedy generate, kernel route vs plain route: token match share {match:.6f} '
+          f'(information; re-masking feeds back its own choices)', flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -366,6 +578,10 @@ def main() -> int:
     kernels = phase_kernels(device)
     launches = phase_main_path(device)
     phase_parity(device)
+    lm, provider = get_magnet_lm('small', segment_duration=MAGNET_SECONDS)
+    magnet_launches = phase_magnet(device, lm, provider, get_encodec_32khz())
+    phase_magnet_parity(device, lm, provider)
+    launches['flash_attention'] = magnet_launches['flash_attention']
     for name, n in launches.items():
         kernels[name]['launches'] = n
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err', 'ms',
