@@ -7,6 +7,9 @@ come in through ``load_state_dict`` (see ``ckpt/from_jax.py``).
 ``device=None`` means the CUDA card, and raises when there is none: the
 entry points never fall back to the CPU quietly.  Pass ``device='cpu'`` to run
 the plain versions of the kernels on the CPU.
+
+Models come back frozen for serving (eval mode, ``requires_grad`` off); a
+trainer (``dist/train.make_lm_train_step``) turns gradients back on.
 """
 
 from __future__ import annotations
@@ -16,9 +19,11 @@ import typing as tp
 import torch
 
 from .codec.encodec import EncodecModel
-from .cond.conditioners import ConditioningProvider, T5Conditioner
+from .cond.conditioners import ConditioningProvider, LUTConditioner, T5Conditioner
 from .cond.fuser import ConditionFuser
 from .lm.magnet import MagnetLMModel
+from .lm.model import LMModel
+from .patterns import DelayedPatternProvider
 from .nn.seanet import SEANetDecoder, SEANetEncoder
 from .quant.vq import ResidualVectorQuantizer
 
@@ -80,6 +85,50 @@ _MUSICGEN_SIZES = {
     'medium': dict(dim=1536, num_layers=48, num_heads=24),
     'large': dict(dim=2048, num_layers=48, num_heads=32),
 }
+
+
+def get_debug_musicgen_lm(*, device: tp.Union[str, torch.device, None] = None,
+                          seed: int = 0) -> tp.Tuple[LMModel, ConditioningProvider]:
+    """Debug MusicGen LM of the reference tests: dim 16, 2 layers, 4 heads,
+    card 400, post-norm with ReLU, a whitespace lookup-table text
+    conditioner.  Returns (lm, provider)."""
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    provider = ConditioningProvider.from_dict({
+        'description': LUTConditioner(n_bins=128, dim=16, output_dim=16, tokenizer='whitespace',
+                                      generator=gen)})
+    fuser = ConditionFuser.from_dict({'cross': ('description',)})
+    lm = LMModel(fuser, n_q=4, card=400, dim=16, num_heads=4, num_layers=2,
+                 cross_attention=True, causal=True, norm_first=False, activation='relu',
+                 pattern_provider=DelayedPatternProvider(4), generator=gen)
+    return _finish(lm, device), _finish(provider, device)
+
+
+def get_musicgen_lm(size: str = 'small', n_q: int = 4, card: int = 2048, *,
+                    melody: bool = False, style: bool = False,
+                    device: tp.Union[str, torch.device, None] = None,
+                    seed: int = 0) -> tp.Tuple[LMModel, ConditioningProvider]:
+    """Text-to-music MusicGen LM and its T5-base text conditioning at the
+    published sizes (facebook/musicgen-small, -medium, -large): causal,
+    pre-norm, no biases, gaussian init, the delay pattern, cross-attention to
+    the description.  ``attn_kernel='auto'`` sends every full-sequence
+    self-attention (the training forward) to the flash kernels on the card.
+    Returns (lm, provider)."""
+    if melody or style:
+        raise NotImplementedError("the melody (chroma) and style conditioners are not ported "
+                                  "yet; only text conditioning is")
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    shape = _MUSICGEN_SIZES[size]
+    provider = ConditioningProvider.from_dict({
+        'description': T5Conditioner(name='t5-base', output_dim=shape['dim'], generator=gen)})
+    fuser = ConditionFuser.from_dict({'cross': ('description',)})
+    lm = LMModel(
+        fuser, n_q=n_q, card=card, hidden_scale=4, norm_first=True, bias_proj=False,
+        bias_ff=False, bias_attn=False, cross_attention=True, causal=True, activation='gelu',
+        weight_init='gaussian', attn_kernel='auto',
+        pattern_provider=DelayedPatternProvider(n_q), generator=gen, **shape)
+    return _finish(lm, device), _finish(provider, device)
 
 
 def get_magnet_lm(size: str = 'small', n_q: int = 4, card: int = 2048,

@@ -20,7 +20,10 @@
 // zeros.  A row whose keys so far are all masked keeps max -inf; its
 // exponentials are taken against 0 instead, so no inf - inf turns into NaN.
 // q * scale is rounded to the input dtype before the products, as the plain
-// version computes it.
+// version computes it.  When asked, the kernel also writes each row's fp32
+// log-sum-exp, lse[b, h, t] = m + log(l) of the scores it normalised (the
+// JAX forward saves l and m, which carry the same), for the backward kernels
+// in attention_bwd.cu to recompute P = exp(s - lse).
 //
 // - bf16 (the serving path): tensor cores through mma.sync m16n8k16, fp32
 //   accumulation.  Each of 4 warps owns 16 query rows, keeps their q
@@ -88,7 +91,8 @@ __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint32_t b0, ui
 template <int DP>
 __global__ void __launch_bounds__(kThreadsBf16)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o, Strides qs_,
+                      const bf16* __restrict__ v, bf16* __restrict__ o,
+                      float* __restrict__ lse, Strides qs_,
                       Strides ks_, Strides vs_, int seq, int heads, int dim, float scale,
                       int causal) {
   constexpr int LD = DP + 8;     // padded rows: fragment reads hit distinct banks
@@ -223,6 +227,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     if (rows[r] >= seq) continue;
     const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    if (lse != nullptr && tig == 0)
+      lse[((size_t)b * heads + h) * seq + rows[r]] = l[r] > 0.f ? m[r] + logf(l[r]) : -INFINITY;
     bf16* out = o + (((size_t)b * seq + rows[r]) * heads + h) * dim;
 #pragma unroll
     for (int n = 0; n < NT_O; ++n)
@@ -246,7 +252,8 @@ constexpr size_t smem_bytes_f32() {
 template <int DP>
 __global__ void __launch_bounds__(kThreadsF32)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, Strides qs_,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, Strides qs_,
                      Strides ks_, Strides vs_, int seq, int heads, int dim, float scale,
                      int causal) {
   constexpr int LD = DP + 1;  // padded rows: the 16 key rows a half-warp reads hit 16 banks
@@ -361,6 +368,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int t = q0 + 4 * ty + i;
     if (t >= seq) continue;
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * heads + h) * seq + t] = l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
     float* row = o + (((size_t)b * seq + t) * heads + h) * dim;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
@@ -375,6 +384,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 struct Args {
   const void *q, *k, *v;
   void* o;
+  float* lse;  // [B, H, T] or null
   int batch, seq, heads, dim;
   Strides qs, ks, vs;
   float scale;
@@ -387,7 +397,7 @@ int launch_bf16(const Args& a) {
   const dim3 grid((a.seq + kRowsQ - 1) / kRowsQ, a.heads, a.batch);
   flash_fwd_bf16_kernel<DP><<<grid, kThreadsBf16, 0, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.qs, a.ks, a.vs, a.seq,
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.lse, a.qs, a.ks, a.vs, a.seq,
       a.heads, a.dim, a.scale, a.causal);
   return (int)cudaGetLastError();
 }
@@ -402,7 +412,7 @@ int launch_f32(const Args& a) {
   const dim3 grid((a.seq + kRowsQ - 1) / kRowsQ, a.heads, a.batch);
   kernel<<<grid, kThreadsF32, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.qs, a.ks, a.vs, a.seq,
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.qs, a.ks, a.vs, a.seq,
       a.heads, a.dim, a.scale, a.causal);
   return (int)cudaGetLastError();
 }
@@ -420,9 +430,9 @@ extern "C" int acx_attention_max_dim() { return kMaxDim; }
 // q, k, v: [B, T, H, D] views with contiguous D and the given element strides
 // (batch, time, head); o: contiguous [B, T, H, D].  All four in one dtype (bf16
 // when is_bf16, else fp32).  Scores use q * scale; causal masks keys after the
-// query.
+// query.  lse: contiguous fp32 [B, H, T] for each row's log-sum-exp, or null.
 extern "C" int acx_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                 int batch, int seq, int heads, int dim,
+                                 float* lse, int batch, int seq, int heads, int dim,
                                  long long q_sb, long long q_st, long long q_sh,
                                  long long k_sb, long long k_st, long long k_sh,
                                  long long v_sb, long long v_st, long long v_sh,
@@ -430,7 +440,7 @@ extern "C" int acx_attention_fwd(const void* q, const void* k, const void* v, vo
   if (batch <= 0 || seq <= 0 || heads <= 0 || dim <= 0 || dim > kMaxDim || heads > 65535 ||
       batch > 65535)
     return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, o, batch, seq, heads, dim, {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh},
+  const Args a{q, k, v, o, lse, batch, seq, heads, dim, {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh},
                {v_sb, v_st, v_sh}, scale, causal, (cudaStream_t)stream};
   return dispatch(a, is_bf16 != 0);
 }

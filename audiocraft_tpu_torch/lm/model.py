@@ -11,9 +11,13 @@ The heads, like the JAX package's ``preferred_element_type=float32``, give
 fp32 results from bf16 weights: their operands are upcast, which is exact for
 bf16 values.  Logits, CFG and sampling stay fp32.
 
-Not ported yet (the MusicGen slice): ``generate`` and its KV-cache buckets,
-``compute_predictions`` and the codebook patterns, the quantized heads, RoPE
-positions, ``kv_repeat > 1`` and the 'uniform' weight init.
+``compute_predictions`` is the training forward: codes are laid out by the
+codebook pattern, run through the model, and the logits reverted to the
+codes' frames with NaN where a frame has no prediction.
+
+Not ported yet: ``generate`` (MusicGen's delay-pattern decode) and its
+KV-cache buckets, the quantized heads, RoPE positions, ``kv_repeat > 1``, the
+'uniform' weight init and the depthwise init scaling.
 """
 
 from __future__ import annotations
@@ -27,6 +31,12 @@ import torch.nn.functional as F
 from ..cond.fuser import ConditionFuser, ConditionType
 from ..nn import init
 from ..nn.transformer import CrossKV, LayerNorm, StreamingTransformer
+from ..patterns import CodebooksPatternProvider
+
+
+class LMOutput(tp.NamedTuple):
+    logits: torch.Tensor  # [B, K, T, card] fp32, NaN where no prediction
+    mask: torch.Tensor    # [B, K, T] bool
 
 
 class LMModel(torch.nn.Module):
@@ -40,11 +50,13 @@ class LMModel(torch.nn.Module):
                  bias_attn: bool = True, qk_layer_norm: bool = False,
                  qk_layer_norm_cross: bool = False, activation: str = 'gelu',
                  attn_kernel: tp.Union[bool, str] = False,
+                 pattern_provider: tp.Optional[CodebooksPatternProvider] = None,
                  generator: tp.Optional[torch.Generator] = None):
         super().__init__()
         if weight_init not in (None, 'gaussian'):
             raise ValueError(f"weight_init {weight_init!r}: None or 'gaussian'")
         self.fuser = fuser
+        self.pattern_provider = pattern_provider
         self.n_q, self.card, self.dim = n_q, card, dim
         self.cross_attention = cross_attention
         std = 1.0 / math.sqrt(dim)
@@ -118,3 +130,20 @@ class LMModel(torch.nn.Module):
         if self.fuser.has_prepend:
             logits = logits[:, :, -S:]
         return logits
+
+    def compute_predictions(self, codes: torch.Tensor,
+                            condition_tensors: tp.Mapping[str, ConditionType]) -> LMOutput:
+        """Training forward through the codebook pattern (its valid steps
+        only): codes [B, K, T] -> logits [B, K, T, card] and the mask of
+        frames that have a prediction."""
+        if self.pattern_provider is None:
+            raise ValueError("compute_predictions needs a model built with a pattern_provider")
+        B, K, T = codes.shape
+        pattern = self.pattern_provider.get_pattern(T)
+        sequence, _, _ = pattern.build_pattern_sequence(codes, self.special_token_id,
+                                                        keep_only_valid_steps=True)
+        logits = self(sequence, condition_tensors).permute(0, 3, 1, 2)  # [B, card, K, S]
+        logits, _, mask = pattern.revert_pattern_logits(logits, float('nan'),
+                                                        keep_only_valid_steps=True)
+        mask = torch.as_tensor(mask, device=codes.device)[None].expand(B, K, T)
+        return LMOutput(logits.permute(0, 2, 3, 1), mask)

@@ -13,11 +13,12 @@ products, cast back.  Full-sequence self-attention with no extra mask and no
 ``past_context`` goes to the hand-written kernel (``ops/attention.py``) when
 ``attn_kernel`` routes it; every other call (MAGNeT's banded stages,
 cross-attention, ``past_context`` windows) stays on the plain masked path, as
-in the JAX package.
+in the JAX package.  The kernel route is differentiable: on the card its
+gradient comes from the backward kernels (K3b), so training takes it too.
 
 Not ported yet: the KV cache and its growth, int8 KV, RoPE (and the
 positional options beside 'sin'), ``kv_repeat > 1``, scanned and
-checkpointed layers.
+checkpointed (rematerialised) layers.
 """
 
 from __future__ import annotations

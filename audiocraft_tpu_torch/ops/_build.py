@@ -33,7 +33,10 @@ _SIGNATURES = {
     'acx_rvq_encode': ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     'acx_rvq_max_dim': ([], _I),
     'acx_lstm_step': ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    'acx_attention_fwd': ([_P, _P, _P, _P, _I, _I, _I, _I, *[_L] * 9, _F, _I, _I, _P], _I),
+    'acx_attention_fwd': ([_P, _P, _P, _P, _P, _I, _I, _I, _I, *[_L] * 9, _F, _I, _I, _P],
+                          _I),
+    'acx_attention_bwd_dkv': ([*[_P] * 8, _I, _I, _I, _I, *[_L] * 12, _F, _I, _I, _P], _I),
+    'acx_attention_bwd_dq': ([*[_P] * 7, _I, _I, _I, _I, *[_L] * 12, _F, _I, _I, _P], _I),
     'acx_attention_max_dim': ([], _I),
     'acx_error_string': ([_I], ctypes.c_char_p),
 }

@@ -1,20 +1,28 @@
-"""Full-sequence self-attention on a hand-written CUDA kernel (K3 forward).
+"""Full-sequence self-attention on hand-written CUDA kernels: the forward
+(K3f) and its backward (K3b).
 
-Replaces the Pallas flash-attention forward that
-``audiocraft_tpu/ops/attention_pallas.py:fused_attention`` runs on the TPU
-with ``csrc/attention.cu``: an fp32 online softmax over key tiles streamed
-through shared memory, so the ``[B, H, T, T]`` scores never reach device
-memory; bf16 inputs run on the tensor cores, fp32 inputs on fp32 FMA.  q, k
-and v are read in the JAX package's ``[B, T, H, D]`` layout by strides (a
-slice of a fused qkv projection needs no copy); the ragged tail of T and the
-causal mask are masked inside the kernel, so nothing is padded.  Bound on an
-H100 and design: see the note at the top of ``csrc/attention.cu``.
+Replaces the Pallas flash attention that
+``audiocraft_tpu/ops/attention_pallas.py:fused_attention`` runs on the TPU,
+forward and custom VJP.  ``csrc/attention.cu`` (K3f) streams key tiles
+through shared memory with an fp32 online softmax, so the ``[B, H, T, T]``
+scores never reach device memory, and writes each row's fp32 log-sum-exp
+when asked; ``csrc/attention_bwd.cu`` (K3b) recomputes P from it in two
+kernels, one for dK and dV and one for dQ.  q, k, v and dO are read in the
+JAX package's ``[B, T, H, D]`` layout by strides (a slice of a fused qkv
+projection needs no copy); the ragged tail of T and the causal mask are
+masked inside the kernels, so nothing is padded.  Bounds on an H100 and
+designs: see the notes at the top of the two sources.
 
 :func:`plain_attention` is the plain PyTorch version, the twin of the JAX
 package's ``_xla_attention`` and ``nn/transformer._attend``: q pre-scaled in
 its dtype, fp32 scores, softmax and products, the output cast back.
-:func:`fused_attention` runs it on a CPU tensor; on a CUDA tensor it
-launches the kernel, or raises.
+:func:`attention_lse_reference`, :func:`attention_bwd_dkv_reference` and
+:func:`attention_bwd_dq_reference` are the plain versions of the log-sum-exp
+and of the two backward kernels.  On a CPU tensor every wrapper runs its
+plain version (and :func:`fused_attention` is differentiated by autograd);
+on a CUDA tensor it launches its kernel, or raises.  On the card
+:func:`fused_attention` is a ``torch.autograd.Function`` whose forward runs
+K3f with the log-sum-exp and whose backward runs K3b.
 """
 
 from __future__ import annotations
@@ -75,6 +83,21 @@ def causal_mask(t: int, device: torch.device,
     return additive_mask(valid)
 
 
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
+            sm_scale: float) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 (q * scale rounded to q's dtype, [B, H, T, D]) and the scores
+    [B, H, T, T], -inf at keys after the query when causal."""
+    qs = (q * sm_scale).float().transpose(1, 2)
+    s = torch.matmul(qs, k.float().permute(0, 2, 3, 1))
+    if causal:
+        s = s + causal_mask(q.shape[1], q.device)
+    return qs, s
+
+
+def _scale(q: torch.Tensor, sm_scale: tp.Optional[float]) -> float:
+    return 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None else float(sm_scale)
+
+
 def fused_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                               causal: bool,
                               sm_scale: tp.Optional[float] = None) -> torch.Tensor:
@@ -83,46 +106,220 @@ def fused_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return plain_attention(q, k, v, mask, sm_scale)
 
 
-def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
-                    sm_scale: tp.Optional[float] = None) -> torch.Tensor:
-    """Self-attention over a full sequence: q, k, v [B, T, H, D], fp32 or bf16,
-    with a contiguous last axis -> [B, T, H, D] in q's dtype."""
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == 'cpu':
-        return fused_attention_reference(q, k, v, causal=causal, sm_scale=sm_scale)
+def attention_lse_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                            causal: bool, sm_scale: tp.Optional[float] = None) -> torch.Tensor:
+    """Plain version of K3f's second output: each row's fp32 log-sum-exp of
+    the scores, [B, H, T]."""
+    return torch.logsumexp(_scores(q, k, causal, _scale(q, sm_scale))[1], dim=-1)
+
+
+def attention_di(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """di = rowsum(dO * O) in fp32, [B, H, T] (plain torch, as the JAX
+    backward computes it outside its kernels)."""
+    return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _recompute(q, k, v, do, lse, di, causal, sm_scale):
+    """P and dS as the backward kernels recompute them, fp32 [B, H, T, T]."""
+    qs, s = _scores(q, k, causal, sm_scale)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.matmul(do.float().transpose(1, 2), v.float().permute(0, 2, 3, 1))
+    return qs, p, p * (dp - di[..., None])
+
+
+def attention_bwd_dkv_reference(q, k, v, do, lse, di, *, causal: bool,
+                                sm_scale: tp.Optional[float] = None):
+    """Plain version of the dK/dV kernel: (dk, dv) [B, T, H, D] in q's dtype
+    from q, k, v, dO [B, T, H, D] and fp32 lse, di [B, H, T]."""
+    qs, p, ds = _recompute(q, k, v, do, lse, di, causal, _scale(q, sm_scale))
+    dv = torch.matmul(p.transpose(-1, -2), do.float().transpose(1, 2))
+    dk = torch.matmul(ds.transpose(-1, -2), qs)
+    return dk.transpose(1, 2).to(q.dtype), dv.transpose(1, 2).to(q.dtype)
+
+
+def attention_bwd_dq_reference(q, k, v, do, lse, di, *, causal: bool,
+                               sm_scale: tp.Optional[float] = None) -> torch.Tensor:
+    """Plain version of the dQ kernel: dq [B, T, H, D] in q's dtype."""
+    scale = _scale(q, sm_scale)
+    _, _, ds = _recompute(q, k, v, do, lse, di, causal, scale)
+    dq = scale * torch.matmul(ds, k.float().transpose(1, 2))
+    return dq.transpose(1, 2).to(q.dtype)
+
+
+def fused_attention_backward_reference(q, k, v, o, lse, do, *, causal: bool,
+                                       sm_scale: tp.Optional[float] = None):
+    """Plain version of K3b: (dq, dk, dv) from the forward's o and lse and the
+    output gradient dO, with P recomputed in fp32."""
+    di = attention_di(o, do)
+    dk, dv = attention_bwd_dkv_reference(q, k, v, do, lse, di, causal=causal,
+                                         sm_scale=sm_scale)
+    dq = attention_bwd_dq_reference(q, k, v, do, lse, di, causal=causal, sm_scale=sm_scale)
+    return dq, dk, dv
+
+
+def _check_cuda(what: str, *xs: torch.Tensor) -> None:
+    """Raise unless the [B, T, H, D] tensors suit the CUDA kernels."""
+    q = xs[0]
     if q.device.type != 'cuda':
-        raise ValueError(f"fused_attention runs on CUDA or CPU tensors, not {q.device}")
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k, v must share one [B, T, H, D] shape (self-attention over "
-                         f"the full sequence), not {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"the attention kernel takes fp32 or bf16 q, k, v of one dtype, not "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if k.device != q.device or v.device != q.device:
-        raise ValueError("q, k and v must be on one device")
-    if any(x.stride(3) != 1 for x in (q, k, v)):
-        raise ValueError("the attention kernel reads D contiguously")
+        raise ValueError(f"{what} runs on CUDA or CPU tensors, not {q.device}")
+    if q.dim() != 4 or any(x.shape != q.shape for x in xs):
+        raise ValueError(f"{what}: q, k, v (and dO) must share one [B, T, H, D] shape "
+                         f"(self-attention over the full sequence), not "
+                         f"{[tuple(x.shape) for x in xs]}")
+    if q.dtype not in _DTYPES or any(x.dtype != q.dtype for x in xs):
+        raise ValueError(f"{what} takes fp32 or bf16 inputs of one dtype, not "
+                         f"{[x.dtype for x in xs]}")
+    if any(x.device != q.device for x in xs):
+        raise ValueError(f"{what}: the inputs must be on one device")
+    if any(x.stride(3) != 1 for x in xs):
+        raise ValueError(f"{what} reads D contiguously")
     B, T, H, D = q.shape
     lib = _build.library()
     if D > lib.acx_attention_max_dim():
-        raise ValueError(f"head dim {D} is wider than the attention kernel's "
+        raise ValueError(f"head dim {D} is wider than the attention kernels' "
                          f"{lib.acx_attention_max_dim()}")
     if B > 65535 or H > 65535 or B * T * H * D >= 2 ** 62:
-        raise ValueError(f"shape {tuple(q.shape)} exceeds the attention kernel's grid")
+        raise ValueError(f"shape {tuple(q.shape)} exceeds the attention kernels' grid")
+
+
+def _strides(*xs: torch.Tensor) -> tp.List[int]:
+    return [s for x in xs for s in (x.stride(0), x.stride(1), x.stride(2))]
+
+
+def _launch(fn, x: torch.Tensor, *args) -> int:
+    """Call a kernel entry point on x's device and its current stream."""
+    with torch.cuda.device(x.device):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+
+
+def _check_stats(q: torch.Tensor, *stats: torch.Tensor) -> None:
+    B, T, H, _ = q.shape
+    for x in stats:
+        if x.shape != (B, H, T) or x.dtype != torch.float32 or not x.is_contiguous() \
+                or x.device != q.device:
+            raise ValueError(f"lse and di must be contiguous fp32 [B, H, T] = {(B, H, T)} on "
+                             f"{q.device}, not {tuple(x.shape)} {x.dtype} on {x.device}")
+
+
+def fused_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                             causal: bool, sm_scale: tp.Optional[float] = None
+                             ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """K3f with its log-sum-exp: (o [B, T, H, D] in q's dtype, lse fp32
+    [B, H, T]).  Not differentiable; :func:`fused_attention` is."""
+    sm_scale = _scale(q, sm_scale)
+    if q.device.type == 'cpu':
+        return (fused_attention_reference(q, k, v, causal=causal, sm_scale=sm_scale),
+                attention_lse_reference(q, k, v, causal=causal, sm_scale=sm_scale))
+    return _forward_kernel(q, k, v, causal, sm_scale, with_lse=True)
+
+
+def _forward_kernel(q, k, v, causal: bool, sm_scale: float, with_lse: bool):
+    _check_cuda('the attention kernel', q, k, v)
+    B, T, H, D = q.shape
     out = torch.empty(B, T, H, D, dtype=q.dtype, device=q.device)
+    lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device) if with_lse else None
     if T == 0 or B == 0 or H == 0:
-        return out
-    strides = [s for x in (q, k, v) for s in (x.stride(0), x.stride(1), x.stride(2))]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.acx_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                    B, T, H, D, *strides, float(sm_scale), int(causal),
-                                    int(q.dtype == torch.bfloat16), stream)
+        return out, lse
+    err = _launch(
+        _build.library().acx_attention_fwd, q,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, T, H, D, *_strides(q, k, v),
+        sm_scale, int(causal), int(q.dtype == torch.bfloat16))
     _build.check(err, 'acx_attention_fwd')
     fused_attention.launches += 1
-    return out
+    return out, lse
 
 
-fused_attention.launches = 0  # kernel launches since the last reset
+def attention_bwd_dkv(q, k, v, do, lse, di, *, causal: bool,
+                      sm_scale: tp.Optional[float] = None):
+    """K3b's dK/dV kernel: (dk, dv) [B, T, H, D] in q's dtype from q, k, v,
+    dO [B, T, H, D] and fp32 lse, di [B, H, T]."""
+    sm_scale = _scale(q, sm_scale)
+    if q.device.type == 'cpu':
+        return attention_bwd_dkv_reference(q, k, v, do, lse, di, causal=causal,
+                                           sm_scale=sm_scale)
+    _check_cuda('the attention backward', q, k, v, do)
+    _check_stats(q, lse, di)
+    dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
+    if q.numel() == 0:
+        return dk, dv
+    B, T, H, D = q.shape
+    err = _launch(
+        _build.library().acx_attention_bwd_dkv, q,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        di.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, H, D, *_strides(q, k, v, do),
+        sm_scale, int(causal), int(q.dtype == torch.bfloat16))
+    _build.check(err, 'acx_attention_bwd_dkv')
+    attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def attention_bwd_dq(q, k, v, do, lse, di, *, causal: bool,
+                     sm_scale: tp.Optional[float] = None) -> torch.Tensor:
+    """K3b's dQ kernel: dq [B, T, H, D] in q's dtype."""
+    sm_scale = _scale(q, sm_scale)
+    if q.device.type == 'cpu':
+        return attention_bwd_dq_reference(q, k, v, do, lse, di, causal=causal,
+                                          sm_scale=sm_scale)
+    _check_cuda('the attention backward', q, k, v, do)
+    _check_stats(q, lse, di)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if q.numel() == 0:
+        return dq
+    B, T, H, D = q.shape
+    err = _launch(
+        _build.library().acx_attention_bwd_dq, q,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        di.data_ptr(), dq.data_ptr(), B, T, H, D, *_strides(q, k, v, do),
+        sm_scale, int(causal), int(q.dtype == torch.bfloat16))
+    _build.check(err, 'acx_attention_bwd_dq')
+    attention_bwd_dq.launches += 1
+    return dq
+
+
+def fused_attention_backward(q, k, v, o, lse, do, *, causal: bool,
+                             sm_scale: tp.Optional[float] = None):
+    """K3b: (dq, dk, dv) from the forward's o and lse and the output gradient
+    dO: di in plain torch, then the dK/dV and the dQ kernels."""
+    do = do if do.stride(-1) == 1 else do.contiguous()
+    di = attention_di(o, do)
+    dk, dv = attention_bwd_dkv(q, k, v, do, lse, di, causal=causal, sm_scale=sm_scale)
+    dq = attention_bwd_dq(q, k, v, do, lse, di, causal=causal, sm_scale=sm_scale)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K3f forward with the log-sum-exp saved; K3b backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
+        out, lse = _forward_kernel(q, k, v, causal, sm_scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = fused_attention_backward(q, k, v, out, lse, do, causal=ctx.causal,
+                                              sm_scale=ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                    sm_scale: tp.Optional[float] = None) -> torch.Tensor:
+    """Self-attention over a full sequence: q, k, v [B, T, H, D], fp32 or bf16,
+    with a contiguous last axis -> [B, T, H, D] in q's dtype.  Differentiable:
+    on the card the gradient comes from the K3b kernels."""
+    sm_scale = _scale(q, sm_scale)
+    if q.device.type == 'cpu':
+        return fused_attention_reference(q, k, v, causal=causal, sm_scale=sm_scale)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, sm_scale)
+    return _forward_kernel(q, k, v, causal, sm_scale, with_lse=False)[0]
+
+
+# kernel launches since the last reset
+fused_attention.launches = 0     # K3f
+attention_bwd_dkv.launches = 0   # K3b, dK and dV
+attention_bwd_dq.launches = 0    # K3b, dQ

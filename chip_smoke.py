@@ -25,6 +25,15 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
 6. MAGNeT parity: the same LM in fp32 (TF32 off), one stage-0 forward
    through the attention kernel against the plain path, and the greedy
    token match of a generate on each route.
+7. The training path: ``get_musicgen_lm('small')`` (published widths, 24
+   layers, random weights from a seed) trains with AdamW in bf16 compute on
+   fp32 masters, each step encoding 4 clips of 30 s with
+   ``get_encodec_32khz()``; every self-attention must run the flash forward
+   and both backward kernels, the loss must fall, and every parameter must
+   get a finite, non-zero gradient.  Then the training CLI takes two debug
+   steps on the card.
+8. Training parity in fp32 (TF32 off): loss and every gradient of the
+   kernel route against the plain route, then three AdamW steps on each.
 Then one JSON line on the kernels and, last, one JSON line with the result.
 Any failed check ends the run with a non-zero exit and no result line, as
 does a host without a CUDA card.
@@ -43,12 +52,20 @@ import warnings
 
 import torch
 
-from audiocraft_tpu_torch.builders import get_encodec_32khz, get_magnet_lm
+from audiocraft_tpu_torch.apps import train_lm
+from audiocraft_tpu_torch.builders import get_encodec_32khz, get_magnet_lm, get_musicgen_lm
+from audiocraft_tpu_torch.cond.attributes import (ClassifierFreeGuidanceDropout,
+                                                  ConditioningAttributes)
+from audiocraft_tpu_torch.dist.train import lm_loss, lm_loss_and_grads, make_lm_train_step
 from audiocraft_tpu_torch.gen.magnet import get_debug_magnet
 from audiocraft_tpu_torch.ops import _build
-from audiocraft_tpu_torch.ops.attention import fused_attention, fused_attention_reference
+from audiocraft_tpu_torch.ops.attention import (
+    attention_bwd_dkv, attention_bwd_dkv_reference, attention_bwd_dq, attention_bwd_dq_reference,
+    attention_di, attention_lse_reference, fused_attention, fused_attention_backward,
+    fused_attention_backward_reference, fused_attention_reference, fused_attention_with_lse)
 from audiocraft_tpu_torch.ops.lstm import lstm_layer, lstm_layer_reference
 from audiocraft_tpu_torch.ops.rvq import rvq_encode, rvq_encode_reference
+from audiocraft_tpu_torch.optim import make_optimizer
 from audiocraft_tpu_torch.quant.codebook import compute_distances, quantize
 
 # Published H100 SXM peaks (dense): fp32 outside the tensor cores, bf16
@@ -63,6 +80,9 @@ LSTM_SHAPE = dict(t=SECONDS * 50, b=BATCH, h=1024)
 # MAGNeT-small-30s: 4 prompts x 2 (CFG), 30 s at 50 Hz, 16 heads of 64
 PROMPTS, MAGNET_SECONDS, DESC_LEN = 4, 30, 12
 ATTN_SHAPE = dict(b=2 * PROMPTS, t=MAGNET_SECONDS * 50, h=16, d=64)
+# MusicGen-small training: 4 clips x 30 s, T = 1500 codes, S = 1501 steps
+TRAIN_BATCH, TRAIN_SECONDS, TRAIN_STEPS, TRAIN_LR = 4, 30, 5, 1e-4
+TRAIN_ATTN_SHAPE = (TRAIN_BATCH, TRAIN_SECONDS * 50 + 1, 16, 64)
 
 
 class CheckFailed(RuntimeError):
@@ -248,6 +268,8 @@ def phase_kernels(device) -> dict:
           f'{library:.3f} ms, bound {b_ms:.3f} ms ({b_by})', flush=True)
     results['lstm_step'] = lstm
     results['flash_attention'] = check_attention(device)
+    dkv, dq = check_attention_backward(device)
+    results[dkv['name']], results[dq['name']] = dkv, dq
     return results
 
 
@@ -310,6 +332,88 @@ def check_attention(device) -> dict:
                 source='audiocraft_tpu_torch/csrc/attention.cu',
                 replaces='audiocraft_tpu/ops/attention_pallas.py:117',
                 max_abs_err=errs[('main', torch.bfloat16, False)], **times[ATTN_SHAPE['t']])
+
+
+def _attn_bwd_errs(q, k, v, do, causal: bool) -> tp.Tuple[float, float, float]:
+    """K3f's lse and K3b's gradients against their plain versions on the
+    same inputs: (lse max-abs, worst gradient max-abs / max-abs of the plain
+    gradient, worst gradient max-abs)."""
+    o, lse = fused_attention_with_lse(q, k, v, causal=causal)
+    lse_err = float((lse - attention_lse_reference(q, k, v, causal=causal)).abs().max())
+    grads = fused_attention_backward(q, k, v, o, lse, do, causal=causal)
+    refs = fused_attention_backward_reference(q, k, v, o, lse, do, causal=causal)
+    rel = err = 0.0
+    for g, r in zip(grads, refs):
+        check(bool(torch.isfinite(g).all()), f'attention backward {tuple(q.shape)}: non-finite')
+        diff = float((g.float() - r.float()).abs().max())
+        check(math.isfinite(diff), f'attention backward {tuple(q.shape)}: error {diff}')
+        err, rel = max(err, diff), max(rel, diff / float(r.float().abs().max()))
+    return lse_err, rel, err
+
+
+def check_attention_backward(device) -> tp.Tuple[dict, dict]:
+    """K3b (and K3f's lse) against the plain versions: fp32 (TF32 off; only
+    the order of fp32 sums differs) within 1e-4 of each gradient's max-abs,
+    bf16 within 2e-2 (the gradients are rounded to bf16; P and dS stay fp32
+    on both sides), lse within 1e-5; at the training shape (causal),
+    MAGNeT's (not causal) and off the tiles (both).  Then each kernel timed
+    at the training shape in bf16."""
+    gen = torch.Generator().manual_seed(11)
+    cases = [(TRAIN_ATTN_SHAPE, (True,)), (tuple(ATTN_SHAPE.values()), (False,)),
+             ((1, 130, 3, 32), (True, False))]
+    worst = {}
+    for shape, masks in cases:
+        q, k, v, do = (torch.randn(shape, generator=gen).to(device) for _ in range(4))
+        for causal in masks:
+            for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+                lse_err, rel, err = _attn_bwd_errs(*(x.to(dtype) for x in (q, k, v, do)),
+                                                   causal)
+                worst[(shape, causal, dtype)] = err
+                print(f'attention backward {shape} causal={causal} {dtype}: lse max-abs '
+                      f'{lse_err:.3g} (<= 1e-5), gradients max-abs / max {rel:.3g} '
+                      f'(<= {tol})', flush=True)
+                check(lse_err <= 1e-5, f'lse {shape} {dtype}: max-abs {lse_err:.3g} > 1e-5')
+                check(rel <= tol, f'attention backward {shape} causal={causal} {dtype}: '
+                                  f'{rel:.3g} > {tol}')
+        del q, k, v, do
+
+    B, T, H, D = TRAIN_ATTN_SHAPE
+    q, k, v, do = (torch.randn(TRAIN_ATTN_SHAPE, generator=gen).to(device, torch.bfloat16)
+                   for _ in range(4))
+    o, lse = fused_attention_with_lse(q, k, v, causal=True)
+    di = attention_di(o, do)
+    args = (q, k, v, do, lse, di)
+    leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True)
+    sdpa_bwd = lambda: torch.autograd.grad(out, leaves, do.transpose(1, 2), retain_graph=True)
+    library = time_ms(sdpa_bwd, 10)
+    pairs = T * (T + 1) / 2            # (query, key) pairs a causal row set needs
+    product = 2.0 * B * H * pairs * D  # one [T, T] x D product over those pairs
+    elems, stats = B * T * H * D, B * H * T
+    entries = []
+    for name, fn, ref, n_products, n_out in (
+            ('flash_attention_bwd_dkv', attention_bwd_dkv, attention_bwd_dkv_reference, 4, 2),
+            ('flash_attention_bwd_dq', attention_bwd_dq, attention_bwd_dq_reference, 3, 1)):
+        b_ms, b_by = bound_ms(n_products * product, PEAK_BF16,
+                              2.0 * (4 + n_out) * elems + 4.0 * 2 * stats)
+        entry = dict(name=name, route='cuda', source='audiocraft_tpu_torch/csrc/attention_bwd.cu',
+                     replaces='audiocraft_tpu/ops/attention_pallas.py:167 (bundled '
+                              f'flash_attention.py:{941 if n_out == 2 else 1287} '
+                              f'_flash_attention_bwd_{name.rsplit("_", 1)[1]})',
+                     max_abs_err=worst[(TRAIN_ATTN_SHAPE, True, torch.bfloat16)],
+                     ms=time_ms(lambda: fn(*args, causal=True), 10),
+                     plain_ms=time_ms(lambda: ref(*args, causal=True), 3),
+                     bound_ms=b_ms, bound_by=b_by, library_ms=library)
+        entries.append(entry)
+        print(f'{name} bf16 {TRAIN_ATTN_SHAPE} causal: kernel {entry["ms"]:.3f} ms, plain '
+              f'{entry["plain_ms"]:.3f} ms, bound {b_ms:.4f} ms ({b_by}; {n_products} products)',
+              flush=True)
+    whole = bound_ms(5 * product, PEAK_BF16, 2.0 * 7 * elems + 8.0 * stats)[0]
+    print(f'attention backward bf16 {TRAIN_ATTN_SHAPE} causal: both kernels '
+          f'{entries[0]["ms"] + entries[1]["ms"]:.3f} ms, SDPA backward (dq, dk, dv in one '
+          f'call) {library:.3f} ms, bound of the whole backward {whole:.4f} ms '
+          f'(5 products, {5 * product / 1e9:.1f} GFLOP)', flush=True)
+    return entries[0], entries[1]
 
 
 def _clips(batch: int, samples: int, device, seed: int) -> torch.Tensor:
@@ -566,6 +670,222 @@ def phase_magnet_parity(device, lm, provider) -> None:
           f'(information; re-masking feeds back its own choices)', flush=True)
 
 
+def _train_conditions(provider, n: int, device, seed: int,
+                      cfg_drop: tp.Optional[ClassifierFreeGuidanceDropout] = None) -> dict:
+    """Condition tensors of n seeded T5 id rows of DESC_LEN, computed under
+    no_grad.  With ``cfg_drop`` the training app's CFG dropout nullifies the
+    descriptions (all or none, as the reference does), and a nullified row
+    gets mask 0, as the T5 conditioner gives an empty text."""
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(1, 32100, (n, DESC_LEN), generator=gen)
+    mask = torch.ones(n, DESC_LEN, dtype=torch.long)
+    if cfg_drop is not None:
+        attrs = cfg_drop([ConditioningAttributes(text={'description': f'row {i}'})
+                          for i in range(n)])
+        for i, attr in enumerate(attrs):
+            if attr.text['description'] is None:
+                mask[i] = 0
+    with torch.no_grad():
+        return provider({'description': (ids.to(device), mask.to(device))})
+
+
+def _launch_counts() -> tp.Dict[str, int]:
+    return {'flash_attention': fused_attention.launches,
+            'flash_attention_bwd_dkv': attention_bwd_dkv.launches,
+            'flash_attention_bwd_dq': attention_bwd_dq.launches,
+            'rvq_encode': rvq_encode.launches, 'lstm_step': lstm_layer.launches}
+
+
+def _reset_launch_counts() -> None:
+    fused_attention.launches = attention_bwd_dkv.launches = attention_bwd_dq.launches = 0
+    rvq_encode.launches = lstm_layer.launches = 0
+
+
+def print_train_breakdown(lm, optimizer, state, codec, wav, codes, cond) -> None:
+    """Where one training step spends device time: codec encode, forward
+    (to the loss), backward, optimizer update, with CUDA events."""
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    params = list(lm.parameters())
+    marks[0].record()
+    codec.encode(wav)
+    marks[1].record()
+    loss = lm_loss(lm, codes, cond, compute_dtype='bfloat16')
+    marks[2].record()
+    grads = torch.autograd.grad(loss, params)
+    marks[3].record()
+    optimizer.update(grads, state, params)
+    marks[4].record()
+    torch.cuda.synchronize()
+    parts = [marks[i].elapsed_time(marks[i + 1]) for i in range(4)]
+    print('training step split (ms): ' + ', '.join(
+        f'{name} {ms:.2f}' for name, ms in zip(('codec encode', 'forward', 'backward',
+                                                 'optimizer'), parts))
+          + f', total {sum(parts):.2f}', flush=True)
+
+
+def print_train_profile(step, state, codes, cond) -> None:
+    """torch.profiler over one LM step: device busy time against the step's
+    wall time (both under the profiler), and the kernels that take most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, codes, cond)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms == 0:
+        print('profiler: no device time seen', flush=True)
+        return
+    print(f'profiled LM step: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall, idle share '
+          f'{1 - busy_ms / wall_ms:.3f} (under the profiler); top kernels (ms, calls): ' + '; '.join(
+              f'{e.key[:70]} {e.self_device_time_total / 1e3:.2f} {e.count}' for e in kernels[:8]),
+          flush=True)
+
+
+def phase_train(device, lm, provider) -> tp.Dict[str, int]:
+    print("== phase 7: training path, get_musicgen_lm('small') + get_encodec_32khz() encode, "
+          'AdamW in bf16 compute on fp32 masters', flush=True)
+    codec = get_encodec_32khz()
+    samples = TRAIN_SECONDS * SAMPLE_RATE
+    seed_codebooks(codec, _clips(8, SECONDS * SAMPLE_RATE, device, seed=40))
+    wav = _clips(TRAIN_BATCH, samples, device, seed=41)   # the fixed batch
+    optimizer = make_optimizer('adamw', TRAIN_LR, betas=(0.9, 0.95), weight_decay=0.1)
+    step = make_lm_train_step(lm, optimizer, compute_dtype='bfloat16')
+    state = optimizer.init(list(lm.parameters()))
+    cfg_drop = ClassifierFreeGuidanceDropout(p=0.1, seed=42)
+    n_layers = len(lm.transformer.layers)
+
+    def one_step():
+        cond = _train_conditions(provider, TRAIN_BATCH, device, seed=43, cfg_drop=cfg_drop)
+        t0 = time.perf_counter()
+        codes = codec.encode(wav)[0]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = float(step(state, codes, cond)['loss'])   # synchronises
+        return codes, cond, loss, t1 - t0, time.perf_counter() - t1
+
+    one_step()   # warm-up, not counted
+    _reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, encode_s, step_s, per_step = [], [], [], []
+    for i in range(TRAIN_STEPS):
+        before = _launch_counts()
+        codes, cond, loss, t_enc, t_step = one_step()
+        after = _launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        losses.append(loss)
+        encode_s.append(t_enc)
+        step_s.append(t_step)
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    B, K, T = codes.shape
+    check((B, K, T) == (TRAIN_BATCH, 4, TRAIN_SECONDS * 50), f'codes {tuple(codes.shape)}')
+    expect = {'flash_attention': n_layers, 'flash_attention_bwd_dkv': n_layers,
+              'flash_attention_bwd_dq': n_layers, 'rvq_encode': 1, 'lstm_step': 2 * T}
+    for i, counts in enumerate(per_step):
+        check(counts == expect, f'step {i} launches {counts} != {expect}')
+    check(all(math.isfinite(x) for x in losses), f'non-finite loss {losses}')
+    check(losses[-1] < losses[0], f'the loss did not fall: {losses}')
+    check(all(p.dtype == torch.float32 for p in lm.parameters()), 'master parameters not fp32')
+
+    mean_enc, mean_step = sum(encode_s) / TRAIN_STEPS, sum(step_s) / TRAIN_STEPS
+    audio = TRAIN_BATCH * TRAIN_SECONDS
+    print(f'losses {[round(x, 5) for x in losses]}; launches over {TRAIN_STEPS} steps '
+          f'{launches}')
+    print(f'step (mean of {TRAIN_STEPS}): codec encode {mean_enc * 1e3:.1f} ms, LM step '
+          f'{mean_step * 1e3:.1f} ms; {B * K * T / mean_step:.0f} codes trained/s by the LM '
+          f'step, {B * K * T / (mean_enc + mean_step):.0f} with the encode; '
+          f'{audio / (mean_enc + mean_step):.2f} audio-s trained/s; peak memory '
+          f'{peak / 2**30:.2f} GiB; card {card()}', flush=True)
+    print(f'step times (s): encode {[round(x, 4) for x in encode_s]}, LM '
+          f'{[round(x, 4) for x in step_s]}', flush=True)
+    print_train_breakdown(lm, optimizer, state, codec, wav, codes, cond)
+    print_train_profile(step, state, codes, cond)
+
+    # the gradient of every parameter, the self-attention projections included
+    _, grads = lm_loss_and_grads(lm, codes, cond, compute_dtype='bfloat16')
+    names = [name for name, _ in lm.named_parameters()]
+    for name, g in zip(names, grads):
+        check(bool(torch.isfinite(g).all()), f'{name}: non-finite gradient')
+        parts = g.chunk(3) if name.endswith('self_attn.in_proj_weight') else (g,)
+        check(all(float(part.abs().max()) > 0 for part in parts), f'{name}: zero gradient')
+    in_proj = sum(name.endswith('self_attn.in_proj_weight') for name in names)
+    check(in_proj == n_layers, f'{in_proj} self-attention projections')
+    print(f'gradients: {len(names)} parameters finite and non-zero, the q, k and v rows of '
+          f'{in_proj} self_attn.in_proj_weight included', flush=True)
+    del grads, state
+
+    train_lm.main(['--debug', '--synthetic', '--steps', '2', '--log-every', '1'])
+    torch.cuda.synchronize()
+    print('training CLI: --debug --synthetic --steps 2 on the card', flush=True)
+    return launches
+
+
+def phase_train_parity(device, lm, provider) -> None:
+    print('== phase 8: training parity in fp32 (TF32 off), kernel route vs plain route',
+          flush=True)
+    check(not torch.backends.cuda.matmul.allow_tf32, 'TF32 is on')
+    codec = get_encodec_32khz()
+    seed_codebooks(codec, _clips(8, SECONDS * SAMPLE_RATE, device, seed=50))
+    codes = codec.encode(_clips(2, SECONDS * SAMPLE_RATE, device, seed=51))[0]
+    cond = _train_conditions(provider, 2, device, seed=52)
+    n_layers = len(lm.transformer.layers)
+    start = {k: v.clone() for k, v in lm.state_dict().items()}
+    results = {}
+    for flag in ('auto', False):
+        set_attn_kernel(lm, flag)
+        before = _launch_counts()
+        loss, grads = lm_loss_and_grads(lm, codes, cond)
+        after = _launch_counts()
+        if flag:
+            for name in ('flash_attention', 'flash_attention_bwd_dkv', 'flash_attention_bwd_dq'):
+                check(after[name] - before[name] == n_layers,
+                      f'kernel route: {name} launched {after[name] - before[name]} times')
+        results[flag] = (float(loss), grads)
+    (loss_k, grads_k), (loss_p, grads_p) = results['auto'], results[False]
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+    worst, worst_name = 0.0, ''
+    for (name, _), gk, gp in zip(lm.named_parameters(), grads_k, grads_p):
+        top = float(gp.abs().max())
+        err = float((gk - gp).abs().max()) / top if top > 0 else float(gk.abs().max())
+        if err > worst:
+            worst, worst_name = err, name
+    diff = torch.sqrt(sum((gk - gp).double().square().sum() for gk, gp in zip(grads_k, grads_p)))
+    norm = torch.sqrt(sum(gp.double().square().sum() for gp in grads_p))
+    rel_l2 = float(diff / norm)
+    print(f'B=2 T={codes.shape[-1]} fp32: loss {loss_k:.6f} vs {loss_p:.6f}, relative '
+          f'{rel_loss:.3g} (<= 1e-5); worst parameter gradient max-abs / max {worst:.3g} '
+          f'({worst_name}, <= 1e-3); whole gradient relative L2 {rel_l2:.3g} (<= 1e-4)',
+          flush=True)
+    check(rel_loss <= 1e-5, f'fp32 loss relative {rel_loss:.3g} > 1e-5')
+    check(worst <= 1e-3, f'{worst_name}: gradient max-abs / max {worst:.3g} > 1e-3')
+    check(rel_l2 <= 1e-4, f'gradient relative L2 {rel_l2:.3g} > 1e-4')
+    del results, grads_k, grads_p
+
+    trajectories, finals = {}, {}
+    for flag in ('auto', False):
+        set_attn_kernel(lm, flag)
+        lm.load_state_dict(start)
+        optimizer = make_optimizer('adamw', TRAIN_LR, betas=(0.9, 0.95), weight_decay=0.1)
+        step = make_lm_train_step(lm, optimizer)
+        state = optimizer.init(list(lm.parameters()))
+        trajectories[flag] = [float(step(state, codes, cond)['loss']) for _ in range(3)]
+        finals[flag] = [p.detach().clone() for p in lm.parameters()]
+    set_attn_kernel(lm, 'auto')
+    rels = [abs(a - b) / abs(b) for a, b in zip(trajectories['auto'], trajectories[False])]
+    moved = max(float((a - b).abs().max()) for a, b in zip(finals['auto'], finals[False]))
+    print(f'3 AdamW steps (lr {TRAIN_LR}): losses kernel {trajectories["auto"]}, plain '
+          f'{trajectories[False]}; relative {[f"{r:.3g}" for r in rels]} (step 1 <= 1e-5, '
+          f'later <= 1e-4: Adam turns rounding of near-zero gradients into whole lr steps); '
+          f'parameters max-abs apart {moved:.3g} (information)', flush=True)
+    check(rels[0] <= 1e-5 and max(rels[1:]) <= 1e-4, f'AdamW losses apart: {rels}')
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -581,7 +901,13 @@ def main() -> int:
     lm, provider = get_magnet_lm('small', segment_duration=MAGNET_SECONDS)
     magnet_launches = phase_magnet(device, lm, provider, get_encodec_32khz())
     phase_magnet_parity(device, lm, provider)
+    del lm, provider
+    lm, provider = get_musicgen_lm('small', seed=1)
+    train_launches = phase_train(device, lm, provider)
+    phase_train_parity(device, lm, provider)
     launches['flash_attention'] = magnet_launches['flash_attention']
+    for name in ('flash_attention_bwd_dkv', 'flash_attention_bwd_dq'):
+        launches[name] = train_launches[name]
     for name, n in launches.items():
         kernels[name]['launches'] = n
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err', 'ms',

@@ -35,7 +35,8 @@ def test_port_and_smoke_import_nothing_of_jax():
 
 @pytest.mark.parametrize("build", [builders.get_encodec_32khz,
                                    builders.get_debug_compression_model,
-                                   builders.get_magnet_lm, get_debug_magnet])
+                                   builders.get_magnet_lm, get_debug_magnet,
+                                   builders.get_musicgen_lm, builders.get_debug_musicgen_lm])
 def test_entry_points_refuse_to_fall_back_to_the_cpu(build, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -50,13 +51,24 @@ def test_build_directory_is_ignored_by_git():
 
 def test_each_ported_kernel_has_a_cuda_source_and_entry_point():
     sources = {p.name: p.read_text() for p in (PORT / "csrc").glob("*.cu")}
-    assert {"rvq.cu", "lstm.cu", "attention.cu"} <= set(sources)
+    assert {"rvq.cu", "lstm.cu", "attention.cu", "attention_bwd.cu"} <= set(sources)
     assert 'extern "C" int acx_rvq_encode(' in sources["rvq.cu"]
     assert 'extern "C" int acx_lstm_step(' in sources["lstm.cu"]
     assert 'extern "C" int acx_attention_fwd(' in sources["attention.cu"]
+    assert 'extern "C" int acx_attention_bwd_dkv(' in sources["attention_bwd.cu"]
+    assert 'extern "C" int acx_attention_bwd_dq(' in sources["attention_bwd.cu"]
     assert "rvq_pallas.py:_rvq_kernel" in sources["rvq.cu"]
     assert "lstm_pallas.py:_lstm_kernel" in sources["lstm.cu"]
     assert "attention_pallas.py:fused_attention" in sources["attention.cu"]
-    for name in ('acx_rvq_encode', 'acx_lstm_step', 'acx_attention_fwd'):
+    for pallas_fn in ("_flash_attention_bwd_dkv", "_flash_attention_bwd_dq"):
+        assert pallas_fn in sources["attention_bwd.cu"]
+    for name in ('acx_rvq_encode', 'acx_lstm_step', 'acx_attention_fwd',
+                 'acx_attention_bwd_dkv', 'acx_attention_bwd_dq'):
         assert name in _build._SIGNATURES
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+def test_musicgen_melody_and_style_are_not_ported_yet():
+    for flag in ('melody', 'style'):
+        with pytest.raises(NotImplementedError):
+            builders.get_musicgen_lm('small', device='cpu', **{flag: True})
