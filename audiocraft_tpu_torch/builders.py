@@ -61,6 +61,25 @@ def get_encodec_32khz(n_filters: int = 64, dimension: int = 128, n_q: int = 4,
     return _finish(model, device)
 
 
+def get_encodec_24khz(n_filters: int = 32, dimension: int = 128, n_q: int = 8,
+                      bins: int = 1024, *, device: tp.Union[str, torch.device, None] = None,
+                      seed: int = 0) -> EncodecModel:
+    """The causal streaming EnCodec 24 kHz config (facebook/encodec_24khz:
+    hop 320, 75 Hz frames, causal convs, 8 x 1024 codebooks), fp32.  The
+    fused-stage plan declines it (causal); ``conv0_kernel`` runs K5 on its
+    left-padded signal."""
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    seanet = dict(channels=1, dimension=dimension, n_filters=n_filters,
+                  n_residual_layers=1, ratios=(8, 5, 4, 2), norm='weight_norm',
+                  lstm=2, causal=True, generator=gen)
+    model = EncodecModel(SEANetEncoder(**seanet), SEANetDecoder(**seanet),
+                         ResidualVectorQuantizer(dimension=dimension, n_q=n_q, bins=bins,
+                                                 generator=gen),
+                         frame_rate=75, sample_rate=24000, channels=1, causal=True)
+    return _finish(model, device)
+
+
 def get_debug_compression_model(sample_rate: int = 32000, *,
                                 device: tp.Union[str, torch.device, None] = None,
                                 seed: int = 0) -> EncodecModel:

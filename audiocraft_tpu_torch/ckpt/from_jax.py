@@ -4,6 +4,7 @@ Each function takes a tree as the JAX package's ``init`` or its
 ``ckpt/torch_import`` importers produce it, as nested dicts of numpy arrays,
 and returns a state dict for the port module's ``load_state_dict``:
 
+* :func:`seanet_state_from_jax`: one SEANet encoder or decoder alone.
 * :func:`encodec_state_from_jax`: EnCodec (the quantizer state as a dict of
   ``embed``, ``cluster_size``, ``embed_avg`` and ``inited``).  The JAX tree
   names layers ``layer{i}`` at the same indices as the port's ``model``
@@ -63,6 +64,14 @@ def _seanet(sd: dict, side: str, stack: torch.nn.Module, params: Tree) -> None:
                 for ours, theirs in (('weight_ih', 'w_ih'), ('weight_hh', 'w_hh'),
                                      ('bias_ih', 'b_ih'), ('bias_hh', 'b_hh')):
                     sd[f'{prefix}.lstm.{ours}_l{k}'] = p[theirs]
+
+
+def seanet_state_from_jax(stack: torch.nn.Module, params: Tree) -> tp.Dict[str, torch.Tensor]:
+    """The state dict of a SEANet encoder or decoder on its own (keys
+    ``model.{i}...``) holding the JAX stack's ``params``."""
+    sd: tp.Dict[str, tp.Any] = {}
+    _seanet(sd, 'stack', stack, params)
+    return _tensors({k[len('stack.'):]: v for k, v in sd.items()})
 
 
 def encodec_state_from_jax(model: EncodecModel, params: Tree) -> tp.Dict[str, torch.Tensor]:

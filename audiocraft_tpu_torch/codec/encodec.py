@@ -11,6 +11,11 @@ them.  ``lstm_kernel`` is kept for config compatibility with the JAX package
 and selects nothing here: on a CUDA tensor every LSTM layer runs the
 hand-written recurrence kernel at every batch size, and on a CPU tensor its
 plain version.
+
+``encode(x, fused=True)`` runs the input conv and the first two encoder
+stages through the fused stage kernel (K4, ``ops/seanet.py``);
+``encode(x, conv0_kernel=True)`` runs the mono input conv through K5.  Both
+default to off, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -64,12 +69,18 @@ class EncodecModel(torch.nn.Module):
         return x
 
     @torch.no_grad()
-    def encode(self, x: torch.Tensor) -> tp.Tuple[torch.Tensor, tp.Optional[torch.Tensor]]:
-        """x [B, C, T] float -> (codes [B, K, T_frames] int32, scale)."""
+    def encode(self, x: torch.Tensor, fused: tp.Optional[bool] = None,
+               conv0_kernel: tp.Optional[bool] = None
+               ) -> tp.Tuple[torch.Tensor, tp.Optional[torch.Tensor]]:
+        """x [B, C, T] float -> (codes [B, K, T_frames] int32, scale).
+
+        ``fused`` routes the encoder front end (input conv + 2 stages) through
+        K4, ``conv0_kernel`` the input conv through K5; None means off."""
         if x.dim() != 3:
             raise ValueError(f"expected [B, C, T], got {tuple(x.shape)}")
         x, scale = self.preprocess(x)
-        emb = self.encoder(self._cast(x)).float()
+        emb = self.encoder(self._cast(x), fused_stages=2 if fused else 0,
+                           conv0_kernel=bool(conv0_kernel)).float()
         return self.quantizer.encode(emb), scale
 
     @torch.no_grad()

@@ -15,8 +15,10 @@ import typing as tp
 import numpy as np
 import torch
 
+from ..ops.seanet import banded_mono_conv, fused_encoder_apply
 from .activations import Activation
-from .conv import StreamableConv1d, StreamableConvTranspose1d
+from .conv import (StreamableConv1d, StreamableConvTranspose1d,
+                   get_extra_padding_for_conv1d, pad1d)
 from .lstm import StreamableLSTM
 
 
@@ -57,7 +59,10 @@ class SEANetResnetBlock(torch.nn.Module):
 class SEANetEncoder(torch.nn.Module):
     """Input conv, then per ratio (applied in reversed order) residual blocks,
     an activation and a strided conv that doubles the channels, then the
-    optional LSTM, an activation and the final conv to ``dimension``."""
+    optional LSTM, an activation and the final conv to ``dimension``.
+
+    The configuration is kept on the module: ``ops/seanet.encoder_stage_plan``
+    reads it to decide which stages the fused kernel takes."""
 
     def __init__(self, channels: int = 1, dimension: int = 128, n_filters: int = 32,
                  n_residual_layers: int = 3, ratios: tp.Sequence[int] = (8, 5, 4, 2),
@@ -70,6 +75,12 @@ class SEANetEncoder(torch.nn.Module):
         super().__init__()
         self.ratios = tuple(ratios)
         self.hop_length = int(np.prod(self.ratios))
+        self.channels, self.n_filters, self.kernel_size = channels, n_filters, kernel_size
+        self.n_residual_layers, self.norm = n_residual_layers, norm
+        self.activation, self.activation_alpha = activation, activation_alpha
+        self.residual_kernel_size, self.dilation_base = residual_kernel_size, dilation_base
+        self.causal, self.pad_mode = causal, pad_mode
+        self.true_skip, self.compress = true_skip, compress
         conv = dict(causal=causal, pad_mode=pad_mode, norm=norm, generator=generator)
         act = dict(activation=activation, activation_alpha=activation_alpha)
         mult = 1
@@ -92,11 +103,50 @@ class SEANetEncoder(torch.nn.Module):
         layers.append(StreamableConv1d(mult * n_filters, dimension, last_kernel_size, **conv))
         self.model = torch.nn.ModuleList(layers)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, C, T] -> [B, dimension, T / hop_length]."""
-        for layer in self.model:
+    @property
+    def enc_ratios(self) -> tp.Tuple[int, ...]:
+        return tuple(reversed(self.ratios))
+
+    def forward(self, x: torch.Tensor, fused_stages: int = 0,
+                conv0_kernel: bool = False) -> torch.Tensor:
+        """[B, C, T] -> [B, dimension, T / hop_length].
+
+        ``conv0_kernel`` runs the mono input conv through K5 and consumes
+        layer 0.  ``fused_stages > 0`` then runs the input conv and the first
+        N planned stages through K4, but only while layer 0 is still to do;
+        an ineligible config or length runs the module stack instead."""
+        start = 0
+        if conv0_kernel:
+            y = self._conv0_kernel(x)
+            if y is not None:
+                x, start = y, 1
+        if fused_stages and start == 0:
+            fused = fused_encoder_apply(self, x, fused_stages)
+            if fused is not None:
+                x, start = fused
+        for layer in self.model[start:]:
             x = layer(x)
         return x
+
+    def _conv0_kernel(self, x: torch.Tensor) -> tp.Optional[torch.Tensor]:
+        """The input conv through K5 (None when it is not a mono stride-1
+        conv): StreamableConv1d's exact padding, then the kernel on the padded
+        signal, with the weight and bias in the input dtype."""
+        mod = self.model[0]
+        if mod.in_channels != 1 or mod.stride != 1 or mod.dilation != 1:
+            return None
+        ks = mod.effective_kernel_size
+        padding_total = ks - mod.stride
+        extra = get_extra_padding_for_conv1d(x.shape[-1], ks, mod.stride, padding_total)
+        if mod.causal:
+            pads = (padding_total, extra)
+        else:
+            right = padding_total // 2
+            pads = (padding_total - right, right + extra)
+        p = mod.conv['conv']
+        bias = p['bias'] if 'bias' in p else torch.zeros(mod.out_channels, device=x.device)
+        return banded_mono_conv(pad1d(x, pads, mode=mod.pad_mode), p['weight'].to(x.dtype),
+                                bias.to(x.dtype))
 
 
 class SEANetDecoder(torch.nn.Module):

@@ -34,7 +34,18 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    steps on the card.
 8. Training parity in fp32 (TF32 off): loss and every gradient of the
    kernel route against the plain route, then three AdamW steps on each.
-Then one JSON line on the kernels and, last, one JSON line with the result.
+9. The fused encode path: ``get_encodec_32khz()`` encodes 128 clips of 10 s
+   three times on each route, the default, ``fused=True`` (the input conv
+   and two stages through K4) and ``conv0_kernel=True`` (K5); K4 must launch
+   twice per fused encode, K5 once per ``conv0_kernel`` encode, K1 once and
+   K2 1000 times per encode on every route; each route's bf16 latent is held
+   against the default route's, and the fp32 latent of the fused and K5
+   routes (TF32 off) against the plain route on the CPU.
+10. The data-movement probe (P1): ``apps/probe_ops`` runs its seven bf16
+   operations on the card, each of which must equal torch's result.
+Phase 2 also holds K4 (both 32 kHz stage shapes), K5 and K6 against their
+plain versions.  Then one JSON line on the kernels and, last, one JSON line
+with the result.
 Any failed check ends the run with a non-zero exit and no result line, as
 does a host without a CUDA card.
 """
@@ -52,7 +63,7 @@ import warnings
 
 import torch
 
-from audiocraft_tpu_torch.apps import train_lm
+from audiocraft_tpu_torch.apps import probe_ops, train_lm
 from audiocraft_tpu_torch.builders import get_encodec_32khz, get_magnet_lm, get_musicgen_lm
 from audiocraft_tpu_torch.cond.attributes import (ClassifierFreeGuidanceDropout,
                                                   ConditioningAttributes)
@@ -64,7 +75,11 @@ from audiocraft_tpu_torch.ops.attention import (
     attention_di, attention_lse_reference, fused_attention, fused_attention_backward,
     fused_attention_backward_reference, fused_attention_reference, fused_attention_with_lse)
 from audiocraft_tpu_torch.ops.lstm import lstm_layer, lstm_layer_reference
+from audiocraft_tpu_torch.ops.probe import gather, split_contract, split_contract_reference
 from audiocraft_tpu_torch.ops.rvq import rvq_encode, rvq_encode_reference
+from audiocraft_tpu_torch.ops.seanet import (
+    StageSpec, banded_mono_conv, banded_mono_conv_reference, fused_encoder_apply, fused_stage,
+    fused_stage_reference, mono_input_conv, mono_input_conv_reference)
 from audiocraft_tpu_torch.optim import make_optimizer
 from audiocraft_tpu_torch.quant.codebook import compute_distances, quantize
 
@@ -83,6 +98,11 @@ ATTN_SHAPE = dict(b=2 * PROMPTS, t=MAGNET_SECONDS * 50, h=16, d=64)
 # MusicGen-small training: 4 clips x 30 s, T = 1500 codes, S = 1501 steps
 TRAIN_BATCH, TRAIN_SECONDS, TRAIN_STEPS, TRAIN_LR = 4, 30, 5, 1e-4
 TRAIN_ATTN_SHAPE = (TRAIN_BATCH, TRAIN_SECONDS * 50 + 1, 16, 64)
+# the two stages that encode(fused=True) runs through K4 at 32 kHz, b128 x 10 s
+STAGES = ((StageSpec(c_in=64, c_out=128, stride=4), SECONDS * SAMPLE_RATE),
+          (StageSpec(c_in=128, c_out=256, stride=4), SECONDS * SAMPLE_RATE // 4))
+CONV0_CHANNELS, CONV0_TAPS = 64, 7
+ENCODES = 3   # timed encodes per route in phase 9
 
 
 class CheckFailed(RuntimeError):
@@ -270,6 +290,8 @@ def phase_kernels(device) -> dict:
     results['flash_attention'] = check_attention(device)
     dkv, dq = check_attention_backward(device)
     results[dkv['name']], results[dq['name']] = dkv, dq
+    results['fused_stage'] = check_fused_stage(device)
+    results.update(check_mono_conv(device))
     return results
 
 
@@ -414,6 +436,185 @@ def check_attention_backward(device) -> tp.Tuple[dict, dict]:
           f'call) {library:.3f} ms, bound of the whole backward {whole:.4f} ms '
           f'(5 products, {5 * product / 1e9:.1f} GFLOP)', flush=True)
     return entries[0], entries[1]
+
+
+def _stage_params(spec: StageSpec, device, dtype, seed: int) -> tp.Dict[str, torch.Tensor]:
+    """Random stage weights in the kernel's layout (ops/seanet.stage_params),
+    uniform in +-1/sqrt(fan_in) as the encoder's init draws them."""
+    gen = torch.Generator().manual_seed(seed)
+    C, H, s, C_out = spec.c_in, spec.res_hidden, spec.stride, spec.c_out
+    shapes = dict(w1=((3 * C, H), 3 * C), b1=((H,), 3 * C), w2=((H, C), H), b2=((C,), H),
+                  wd=((2 * s * C, C_out), 2 * s * C), bd=((C_out,), 2 * s * C))
+    return {name: ((torch.rand(shape, generator=gen) * 2 - 1) / math.sqrt(fan_in))
+            .to(device, dtype) for name, (shape, fan_in) in shapes.items()}
+
+
+def _stage_errs(x, params, spec, chunk: int) -> tp.Tuple[tp.Tuple[float, ...], float]:
+    """K4 against its plain version, the plain one run on ``chunk`` batch rows
+    at a time (its fp32 temporaries at b128 would not fit): max-abs / max-abs
+    of the plain output over all frames, the first 4 and the last 4; and the
+    max-abs over all frames."""
+    out = fused_stage(x, params, spec)
+    check(bool(torch.isfinite(out).all()), f'fused_stage {spec} {tuple(x.shape)}: non-finite')
+    worst = [0.0, 0.0, 0.0]
+    top = [0.0, 0.0, 0.0]
+    for i in range(0, x.shape[0], chunk):
+        ref = fused_stage_reference(x[i:i + chunk], params, spec).float()
+        got = out[i:i + chunk].float()
+        for j, sl in enumerate((slice(None), slice(0, 4), slice(-4, None))):
+            worst[j] = max(worst[j], float((got[..., sl] - ref[..., sl]).abs().max()))
+            top[j] = max(top[j], float(ref[..., sl].abs().max()))
+        del ref, got
+    return tuple(w / max(t, 1e-30) for w, t in zip(worst, top)), worst[0]
+
+
+def check_fused_stage(device) -> dict:
+    """K4 against its plain version on the same inputs: fp32 (TF32 off; only
+    the order of fp32 sums differs) within 1e-5 of the max at B = 16, bf16
+    within 1e-2 (the same rounding points; a sum in another order can move a
+    bf16-stored z or ELU(r) by one step) at b128, the first and last 4 frames
+    checked on their own, at both stage shapes of the fused encode; then
+    shapes off the tiles: B = 1, a length whose frames fill no whole tile,
+    the shortest length the route takes (one frame), and the debug codec's
+    widths (C = 4, s = 16, the fp32-FMA variant in bf16).  Then each stage
+    timed in bf16 at b128 beside its bound, its plain version and the
+    module stack it replaces (resnet block, ELU, downsample conv: cuDNN)."""
+    gen = torch.Generator(device=device).manual_seed(60)   # b128 inputs are drawn on the card
+    lines = []
+    bf16_abs = 0.0
+    for si, (spec, L) in enumerate(STAGES):
+        for dtype, batch, tol in ((torch.float32, 16, 1e-5), (torch.bfloat16, BATCH, 1e-2)):
+            params = _stage_params(spec, device, dtype, seed=61 + si)
+            x = (torch.randn(batch, spec.c_in, L, generator=gen, device=device) * 0.5).to(dtype)
+            errs, abs_err = _stage_errs(x, params, spec, chunk=16)
+            del x
+            if dtype == torch.bfloat16:
+                bf16_abs = max(bf16_abs, abs_err)
+            lines.append(f'stage {si} {dtype} B={batch}: max-abs / max {errs[0]:.3g}, first 4 '
+                         f'frames {errs[1]:.3g}, last 4 {errs[2]:.3g} (<= {tol})')
+            check(max(errs) <= tol, f'fused_stage {si} {dtype}: {errs} > {tol}')
+    debug = StageSpec(c_in=4, c_out=8, stride=16)
+    for spec, L in ((STAGES[0][0], 4 * 67), (STAGES[1][0], 4 * 97), (STAGES[0][0], 4),
+                    (STAGES[1][0], 4), (debug, 16 * 37)):
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+            params = _stage_params(spec, device, dtype, seed=65)
+            x = (torch.randn(1, spec.c_in, L, generator=gen, device=device) * 0.5).to(dtype)
+            errs, _ = _stage_errs(x, params, spec, chunk=1)
+            check(max(errs) <= tol, f'fused_stage {spec} L={L} {dtype}: {errs} > {tol}')
+    lines.append('off the tiles (B = 1; frames 67, 97, 1; C = 4, s = 16): fp32 <= 1e-5, '
+                 'bf16 <= 1e-2, edges included')
+    try:
+        x = torch.zeros(1, 64, 6, device=device)
+        fused_stage(x, _stage_params(STAGES[0][0], device, torch.float32, seed=66), STAGES[0][0])
+    except ValueError:
+        lines.append('a length not a multiple of the stride refused')
+    else:
+        raise CheckFailed('fused_stage: L = 6 at stride 4 did not raise')
+    for line in lines:
+        print(line, flush=True)
+
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    bound_by = {}   # each stage's limit, weighted by its bound
+    encoder = get_encodec_32khz().encoder
+    for si, (spec, L) in enumerate(STAGES):
+        C, H, s, C_out = spec.c_in, spec.res_hidden, spec.stride, spec.c_out
+        params = _stage_params(spec, device, torch.bfloat16, seed=61 + si)
+        x = (torch.randn(BATCH, C, L, generator=gen, device=device) * 0.5).to(torch.bfloat16)
+        stack = torch.nn.Sequential(*encoder.model[1 + 3 * si:4 + 3 * si])
+        ms = time_ms(lambda: fused_stage(x, params, spec), 5)
+        plain = time_ms(lambda: [fused_stage_reference(x[i:i + 16], params, spec)
+                                 for i in range(0, BATCH, 16)], 1)
+        with torch.no_grad():
+            unfused = time_ms(lambda: stack(x), 3)
+        U = L // s
+        ops = 2.0 * BATCH * L * (3 * C * H + H * C) + 2.0 * BATCH * U * (2 * s * C * C_out)
+        nbytes = 2.0 * (BATCH * C * L + BATCH * C_out * U + 3 * C * H + H * C
+                        + 2 * s * C * C_out + H + C + C_out)
+        b_ms, b_by = bound_ms(ops, PEAK_BF16, nbytes)
+        print(f'fused_stage {si} bf16 [{BATCH}, {C}, {L}] -> [{BATCH}, {C_out}, {U}]: kernel '
+              f'{ms:.3f} ms, plain {plain:.3f} ms (8 chunks of 16), module stack it replaces '
+              f'(cuDNN, information) {unfused:.3f} ms, bound {b_ms:.3f} ms ({b_by}; '
+              f'{ops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB)', flush=True)
+        total['ms'] += ms
+        total['plain_ms'] += plain
+        total['bound_ms'] += b_ms
+        bound_by[b_by] = bound_by.get(b_by, 0.0) + b_ms
+        del x
+    # the two launches are bounded one by one; the larger share names the limit
+    return dict(name='fused_stage', route='cuda', source='audiocraft_tpu_torch/csrc/seanet.cu',
+                replaces='audiocraft_tpu/ops/seanet_pallas.py:157',
+                max_abs_err=bf16_abs, ms=total['ms'], plain_ms=total['plain_ms'],
+                bound_ms=total['bound_ms'], bound_by=max(bound_by, key=bound_by.get),
+                library_ms=None)
+
+
+def _mono_errs(fn, ref, x, w, b) -> tp.Tuple[float, float]:
+    out = fn(x, w, b)
+    check(bool(torch.isfinite(out).all()), f'{fn.__name__} {tuple(x.shape)}: non-finite')
+    plain = ref(x, w, b)
+    check(out.shape == plain.shape, f'{fn.__name__}: {tuple(out.shape)} != {tuple(plain.shape)}')
+    diff = (out.float() - plain.float()).abs()
+    scale = plain.float().abs()
+    if x.dtype == torch.bfloat16:   # one bf16 step of each output
+        check(bool((diff <= 2 ** -7 * scale + 1e-6 * float(scale.max())).all()),
+              f'{fn.__name__} {tuple(x.shape)} bf16: more than one bf16 step apart')
+    return float(diff.max() / scale.max()), float(diff.max())
+
+
+def check_mono_conv(device) -> tp.Dict[str, dict]:
+    """K5 and K6 against their plain versions: fp32 within 1e-6 of the max
+    (TF32 off; seven fp32 products summed in another order), bf16 within one
+    bf16 step of each output; at b128 x 10 s, at B = 1 off the 1024-sample
+    tiles, and at the shortest lengths (K5: one output; K6: T = 4, one more
+    than its pad).  Then both timed in bf16 at b128 beside the bound, the
+    plain version and one cuDNN F.conv1d on the padded signal."""
+    gen = torch.Generator().manual_seed(70)
+    k, h = CONV0_TAPS, (CONV0_TAPS - 1) // 2
+    T = SECONDS * SAMPLE_RATE
+    w32 = (torch.rand(CONV0_CHANNELS, 1, k, generator=gen) * 2 - 1) / math.sqrt(k)
+    b32 = (torch.rand(CONV0_CHANNELS, generator=gen) * 2 - 1) / math.sqrt(k)
+    cases = {'banded_mono_conv': (banded_mono_conv, banded_mono_conv_reference, k - 1),
+             'mono_input_conv': (mono_input_conv, mono_input_conv_reference, 0)}
+    errs: tp.Dict[tuple, float] = {}
+    abs_errs: tp.Dict[str, float] = {}
+    for name, (fn, ref, extra) in cases.items():
+        for batch, length in ((BATCH, T), (1, 1000 + 3), (1, 1 if extra else h + 1)):
+            x = torch.randn(batch, 1, length + extra, generator=gen) * 0.4
+            for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, None)):
+                xd, wd, bd = (t.to(device, dtype) for t in (x, w32, b32))
+                err, abs_err = _mono_errs(fn, ref, xd, wd, bd)
+                errs[(name, batch, length, dtype)] = err
+                if (batch, dtype) == (BATCH, torch.bfloat16):
+                    abs_errs[name] = abs_err
+                if tol is not None:
+                    check(err <= tol, f'{name} B={batch} T={length} {dtype}: {err:.3g} > {tol}')
+            del x
+        print(f'{name}: max-abs / max fp32 {errs[(name, BATCH, T, torch.float32)]:.3g} at '
+              f'[{BATCH}, 1, {T}] (<= 1e-6), bf16 {errs[(name, BATCH, T, torch.bfloat16)]:.3g} '
+              f'(one bf16 step of each output); B = 1 at T = 1003 and at the shortest length '
+              f'held to the same', flush=True)
+
+    results = {}
+    x = (torch.randn(BATCH, 1, T + k - 1, generator=gen) * 0.4).to(device, torch.bfloat16)
+    w, b = w32.to(device, torch.bfloat16), b32.to(device, torch.bfloat16)
+    library = time_ms(lambda: torch.nn.functional.conv1d(x, w, b), 5)
+    ops = 2.0 * BATCH * T * CONV0_CHANNELS * k
+    nbytes = 2.0 * (BATCH * (T + k - 1) + BATCH * CONV0_CHANNELS * T + CONV0_CHANNELS * (k + 1))
+    b_ms, b_by = bound_ms(ops, PEAK_BF16, nbytes)
+    for name, (fn, ref, extra) in cases.items():
+        xin = x if extra else x[..., h:h + T].contiguous()
+        entry = dict(name=name, route='cuda', source='audiocraft_tpu_torch/csrc/seanet.cu',
+                     replaces=('audiocraft_tpu/ops/seanet_pallas.py:407' if extra else
+                               'audiocraft_tpu/ops/seanet_pallas.py:515'),
+                     max_abs_err=abs_errs[name],
+                     ms=time_ms(lambda: fn(xin, w, b), 10),
+                     plain_ms=time_ms(lambda: ref(xin, w, b), 3),
+                     bound_ms=b_ms, bound_by=b_by, library_ms=library)
+        results[name] = entry
+        print(f'{name} bf16 [{BATCH}, 1, {T}] -> [{BATCH}, {CONV0_CHANNELS}, {T}]: kernel '
+              f'{entry["ms"]:.3f} ms, plain {entry["plain_ms"]:.3f} ms, cuDNN F.conv1d on the '
+              f'padded signal {library:.3f} ms, bound {b_ms:.3f} ms ({b_by})', flush=True)
+    return results
 
 
 def _clips(batch: int, samples: int, device, seed: int) -> torch.Tensor:
@@ -886,6 +1087,178 @@ def phase_train_parity(device, lm, provider) -> None:
     check(rels[0] <= 1e-5 and max(rels[1:]) <= 1e-4, f'AdamW losses apart: {rels}')
 
 
+def _event() -> torch.cuda.Event:
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event
+
+
+def print_fused_breakdown(model, wav: torch.Tensor) -> None:
+    """Where one fused encode spends device time, CUDA events around the
+    route's own calls: ``fused_encoder_apply`` (the input conv timed by hooks
+    on layer 0, the rest of the call being its K4 stages), each remaining
+    layer by kind, the RVQ."""
+    enc = model.encoder
+    conv0: tp.List[torch.cuda.Event] = []
+    hooks = (enc.model[0].register_forward_pre_hook(lambda *_: conv0.append(_event())),
+             enc.model[0].register_forward_hook(lambda *_: conv0.append(_event())))
+    with torch.no_grad():
+        start = _event()
+        x, next_layer = fused_encoder_apply(enc, model._cast(wav), 2)
+        end = _event()
+        for hook in hooks:
+            hook.remove()
+        check(len(conv0) == 2 and next_layer == 7, f'fused route: next layer {next_layer}')
+        marks = [('conv0 (cuDNN)', start, conv0[1]), ('K4 stages 0-1', conv0[1], end)]
+        for layer in enc.model[next_layer:]:
+            begin = _event()
+            x = layer(x)
+            marks.append((type(layer).__name__, begin, _event()))
+        begin = _event()
+        model.quantizer.encode(x.float())
+        marks.append(('rvq encode', begin, _event()))
+    torch.cuda.synchronize()
+    times = [(name, start.elapsed_time(end)) for name, start, end in marks]
+    kinds: tp.Dict[str, float] = {}
+    for name, ms in times:
+        kinds[name] = kinds.get(name, 0.0) + ms
+    print('fused encode by kind (ms): ' + ', '.join(f'{n} {ms:.2f}' for n, ms in kinds.items())
+          + f', total {sum(kinds.values()):.2f}', flush=True)
+
+
+def _seanet_launches() -> tp.Dict[str, int]:
+    return {'fused_stage': fused_stage.launches, 'banded_mono_conv': banded_mono_conv.launches,
+            'rvq_encode': rvq_encode.launches, 'lstm_step': lstm_layer.launches}
+
+
+def phase_fused_encode(device) -> tp.Dict[str, int]:
+    print('== phase 9: fused encode path, get_encodec_32khz() encode(fused=True) and '
+          'encode(conv0_kernel=True)', flush=True)
+    model = get_encodec_32khz()
+    seed_codebooks(model, _clips(16, SECONDS * SAMPLE_RATE, device, seed=4))
+    wav = _clips(BATCH, SECONDS * SAMPLE_RATE, device, seed=5)
+    routes = {'default': {}, 'fused': dict(fused=True), 'conv0_kernel': dict(conv0_kernel=True)}
+    frames = SECONDS * 50
+    per_encode = {'default': dict(fused_stage=0, banded_mono_conv=0),
+                  'fused': dict(fused_stage=2, banded_mono_conv=0),
+                  'conv0_kernel': dict(fused_stage=0, banded_mono_conv=1)}
+    path_launches: tp.Dict[str, int] = {}
+    codes, latents = {}, {}
+    name = card()
+    for route, kw in routes.items():
+        model.encode(wav, **kw)   # warm-up, not counted
+        torch.cuda.synchronize()
+        fused_stage.launches = banded_mono_conv.launches = 0
+        rvq_encode.launches = lstm_layer.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(ENCODES):
+            t0 = time.perf_counter()
+            codes[route] = model.encode(wav, **kw)[0]
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = _seanet_launches()
+        peak = torch.cuda.max_memory_allocated()
+        expect = {k: ENCODES * v for k, v in per_encode[route].items()}
+        expect.update(rvq_encode=ENCODES, lstm_step=ENCODES * 2 * frames)
+        check(launches == expect, f'{route}: launches {launches} != {expect}')
+        for kernel in ('fused_stage', 'banded_mono_conv'):
+            if expect[kernel]:
+                path_launches[kernel] = launches[kernel]
+        c = codes[route]
+        check(tuple(c.shape) == (BATCH, 4, frames) and bool(((c >= 0) & (c < 2048)).all()),
+              f'{route}: codes {tuple(c.shape)}')
+        audio = BATCH * SECONDS
+        print(f'{route}: encode {", ".join(f"{t:.4f}" for t in times)} s = '
+              f'{", ".join(f"{audio / t:.1f}" for t in times)} audio-s tokenized/s; peak memory '
+              f'{peak / 2**30:.2f} GiB; launches over {ENCODES} encodes {launches}; card {name}',
+              flush=True)
+        with torch.no_grad():
+            latents[route] = model.encoder(model._cast(wav),
+                                           fused_stages=2 if kw.get('fused') else 0,
+                                           conv0_kernel=bool(kw.get('conv0_kernel'))).float()
+        check(bool(torch.isfinite(latents[route]).all()), f'{route}: non-finite latent')
+    ref = latents['default']
+    for route in ('fused', 'conv0_kernel'):
+        rel = float((latents[route] - ref).abs().max() / ref.abs().max())
+        share = float((codes[route] == codes['default']).float().mean())
+        print(f'{route} vs default, bf16 latent [{BATCH}, 128, {frames}]: max-abs / max '
+              f'{rel:.3g} (<= 3e-2); code match share {share:.6f} (information: other bf16 '
+              f'rounding points move near-tie codes)', flush=True)
+        check(rel <= 3e-2, f'{route}: bf16 latent rel {rel:.3g} > 3e-2')
+    print_fused_breakdown(model, wav)
+    del latents, codes, model, wav
+
+    check(not torch.backends.cudnn.allow_tf32, 'TF32 is on')
+    gpu = get_encodec_32khz(compute_dtype=None)
+    cpu = get_encodec_32khz(compute_dtype=None, device='cpu')
+    seed_codebooks(gpu, _clips(8, SECONDS * SAMPLE_RATE, device, seed=6))
+    cpu.quantizer.load_state_dict(gpu.quantizer.state_dict())
+    wav = _clips(8, 2 * SAMPLE_RATE, device, seed=7)
+    with torch.no_grad():
+        lat_cpu = cpu.encoder(wav.cpu()).float()
+        codes_cpu = cpu.quantizer.encode(lat_cpu)
+        for route, kw in (('fused', dict(fused_stages=2)), ('conv0_kernel',
+                                                             dict(conv0_kernel=True))):
+            before = fused_stage.launches + banded_mono_conv.launches
+            lat = gpu.encoder(wav, **kw).float()
+            ran = fused_stage.launches + banded_mono_conv.launches - before
+            check(ran == (2 if route == 'fused' else 1), f'{route} fp32: {ran} kernel launches')
+            rel = float((lat.cpu() - lat_cpu).abs().max() / lat_cpu.abs().max())
+            share = float((gpu.quantizer.encode(lat).cpu() == codes_cpu).float().mean())
+            print(f'{route} fp32 on the card vs the plain unfused route on the CPU, latent '
+                  f'[8, 128, 100]: max-abs / max {rel:.3g} (<= 1e-4); code match share '
+                  f'{share:.6f} (>= 0.995)', flush=True)
+            check(rel <= 1e-4, f'{route} fp32: latent rel {rel:.3g} > 1e-4')
+            check(share >= 0.995, f'{route} fp32: code match share {share:.6f} < 0.995')
+    return path_launches
+
+
+def phase_probe(device) -> tp.Tuple[tp.Dict[str, int], tp.Dict[str, dict]]:
+    print('== phase 10: data-movement probe (P1), apps/probe_ops on the card', flush=True)
+    gather.launches = split_contract.launches = 0
+    results = probe_ops.run(device)
+    launches = {'probe_gather': gather.launches, 'probe_contract': split_contract.launches}
+    for name, ok, shape, err in results:
+        print(f'{name}: {"OK" if ok else "FAIL"} {shape} (max-abs from torch {err:.3g})',
+              flush=True)
+    check(all(ok for _, ok, _, _ in results), 'a probe operation failed')
+    check(launches == {'probe_gather': 6, 'probe_contract': 1}, f'probe launches {launches}')
+
+    ops = probe_ops.probes(device)
+    gathers = [(kernel, plain) for name, kernel, plain in ops if 'dot_general' not in name]
+    contract = next((kernel, plain) for name, kernel, plain in ops if 'dot_general' in name)
+    moved = sum(2.0 * 2 * plain().numel() for _, plain in gathers)  # each element read + written
+    g_bound = bound_ms(0.0, PEAK_BF16, moved)
+    # a view is no copy: the plain version, and the one torch call doing each
+    # gather, is the plain result cloned
+    copy_ms = sum(time_ms(lambda: plain().clone(), 20) for _, plain in gathers)
+    entries = {'probe_gather': dict(
+        name='probe_gather', route='cuda', source='audiocraft_tpu_torch/csrc/probe.cu',
+        replaces='scripts/probe_mosaic_ops.py:13',
+        max_abs_err=max(err for name, _, _, err in results if 'dot_general' not in name),
+        ms=sum(time_ms(kernel, 20) for kernel, _ in gathers),
+        plain_ms=copy_ms, bound_ms=g_bound[0], bound_by=g_bound[1], library_ms=copy_ms)}
+    x, taps = torch.randn(512, 64, device=device).bfloat16(), torch.randn(4, 64, 32,
+                                                                          device=device).bfloat16()
+    c_bound = bound_ms(2.0 * 128 * 256 * 32, PEAK_BF16, 2.0 * (512 * 64 + 4 * 64 * 32 + 128 * 32))
+    entries['probe_contract'] = dict(
+        name='probe_contract', route='cuda', source='audiocraft_tpu_torch/csrc/probe.cu',
+        replaces='scripts/probe_mosaic_ops.py:46',
+        max_abs_err=next(err for name, _, _, err in results if 'dot_general' in name),
+        ms=time_ms(contract[0], 20),
+        plain_ms=time_ms(lambda: split_contract_reference(x, taps), 20),
+        bound_ms=c_bound[0], bound_by=c_bound[1],
+        library_ms=time_ms(lambda: x.reshape(128, 256) @ taps.reshape(256, 32), 20))
+    library = {'probe_gather': 'torch clone, one per gather; the six together',
+               'probe_contract': 'torch matmul'}
+    for name, entry in entries.items():
+        print(f'{name}: kernel {entry["ms"]:.4f} ms, plain {entry["plain_ms"]:.4f} ms, '
+              f'bound {entry["bound_ms"]:.6f} ms ({entry["bound_by"]}), {library[name]} '
+              f'{entry["library_ms"]:.4f} ms', flush=True)
+    return launches, entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -894,17 +1267,34 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print('TF32 off for fp32 matmuls and convolutions')
     device = torch.device('cuda')
+    start = time.perf_counter()
+    mark = lambda: print(f'-- {time.perf_counter() - start:.1f} s since the start', flush=True)
     phase_build()
+    mono_input_conv.launches = 0
     kernels = phase_kernels(device)
+    kernel_checks_k6 = mono_input_conv.launches
+    mark()
     launches = phase_main_path(device)
     phase_parity(device)
+    mark()
     lm, provider = get_magnet_lm('small', segment_duration=MAGNET_SECONDS)
     magnet_launches = phase_magnet(device, lm, provider, get_encodec_32khz())
     phase_magnet_parity(device, lm, provider)
     del lm, provider
+    mark()
     lm, provider = get_musicgen_lm('small', seed=1)
     train_launches = phase_train(device, lm, provider)
     phase_train_parity(device, lm, provider)
+    del lm, provider
+    mark()
+    launches.update(phase_fused_encode(device))
+    mark()
+    probe_launches, probe_kernels = phase_probe(device)
+    launches.update(probe_launches)
+    kernels.update(probe_kernels)
+    # K6 is on no model path (the JAX package calls it from tests only): its
+    # launches are phase 2's, its checks and timing
+    launches['mono_input_conv'] = kernel_checks_k6
     launches['flash_attention'] = magnet_launches['flash_attention']
     for name in ('flash_attention_bwd_dkv', 'flash_attention_bwd_dq'):
         launches[name] = train_launches[name]
