@@ -37,6 +37,7 @@ _SIGNATURES = {
                           _I),
     'acx_attention_bwd_dkv': ([*[_P] * 8, _I, _I, _I, _I, *[_L] * 12, _F, _I, _I, _P], _I),
     'acx_attention_bwd_dq': ([*[_P] * 7, _I, _I, _I, _I, *[_L] * 12, _F, _I, _I, _P], _I),
+    'acx_attention_bwd_info': ([_I, _I, _I, ctypes.POINTER(_I)], _I),
     'acx_attention_max_dim': ([], _I),
     'acx_seanet_stage': ([*[_P] * 8, *[_I] * 8, _P], _I),
     'acx_mono_conv': ([_P, _P, _P, _P, *[_I] * 7, _P], _I),

@@ -7,11 +7,12 @@ forward and custom VJP.  ``csrc/attention.cu`` (K3f) streams key tiles
 through shared memory with an fp32 online softmax, so the ``[B, H, T, T]``
 scores never reach device memory, and writes each row's fp32 log-sum-exp
 when asked; ``csrc/attention_bwd.cu`` (K3b) recomputes P from it in two
-kernels, one for dK and dV and one for dQ.  q, k, v and dO are read in the
-JAX package's ``[B, T, H, D]`` layout by strides (a slice of a fused qkv
-projection needs no copy); the ragged tail of T and the causal mask are
-masked inside the kernels, so nothing is padded.  Bounds on an H100 and
-designs: see the notes at the top of the two sources.
+kernels, one for dK and dV and one for dQ, on the tensor cores in bf16.
+q, k, v and dO are read in the JAX package's ``[B, T, H, D]`` layout by
+strides (a slice of a fused qkv projection needs no copy); the ragged tail
+of T and the causal mask are masked inside the kernels, so nothing is
+padded.  Bounds on an H100 and designs: see the notes at the top of the two
+sources.
 
 :func:`plain_attention` is the plain PyTorch version, the twin of the JAX
 package's ``_xla_attention`` and ``nn/transformer._attend``: q pre-scaled in
@@ -27,6 +28,7 @@ K3f with the log-sum-exp and whose backward runs K3b.
 
 from __future__ import annotations
 
+import ctypes
 import math
 import typing as tp
 
@@ -120,11 +122,16 @@ def attention_di(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 
 def _recompute(q, k, v, do, lse, di, causal, sm_scale):
-    """P and dS as the backward kernels recompute them, fp32 [B, H, T, T]."""
+    """P and dS as the backward kernels recompute them, fp32 [B, H, T, T].
+    For bf16 inputs each is rounded once to bf16, as the kernels round them
+    to enter the tensor cores (dS from the unrounded P)."""
     qs, s = _scores(q, k, causal, sm_scale)
     p = torch.exp(s - lse[..., None])
     dp = torch.matmul(do.float().transpose(1, 2), v.float().permute(0, 2, 3, 1))
-    return qs, p, p * (dp - di[..., None])
+    ds = p * (dp - di[..., None])
+    if q.dtype == torch.bfloat16:
+        p, ds = p.bfloat16().float(), ds.bfloat16().float()
+    return qs, p, ds
 
 
 def attention_bwd_dkv_reference(q, k, v, do, lse, di, *, causal: bool,
@@ -201,6 +208,61 @@ def _check_stats(q: torch.Tensor, *stats: torch.Tensor) -> None:
                              f"{q.device}, not {tuple(x.shape)} {x.dtype} on {x.device}")
 
 
+def _rows_on_16_bytes(*xs: torch.Tensor) -> tp.List[torch.Tensor]:
+    """The bf16 backward kernels copy rows in 16-byte pieces.  Views whose
+    rows all start on 16 bytes (D a multiple of 8, strides multiples of 8
+    elements, an aligned start) pass as they are, the fused qkv projection's
+    slices among them; any other is copied to a fresh contiguous tensor, with
+    D zero-padded to a multiple of 8 (zero features add nothing to s or dP,
+    and the gradients of the padding are dropped)."""
+    pad = -xs[0].shape[-1] % 8
+    out = []
+    for x in xs:
+        if pad:
+            x = torch.nn.functional.pad(x, (0, pad))
+        elif x.data_ptr() % 16 or any(s % 8 for s in x.stride()[:3]):
+            x = x.clone(memory_format=torch.contiguous_format)
+        out.append(x)
+    return out
+
+
+def _backward_launch(name: str, q, k, v, do, lse, di, n_out: int, causal: bool,
+                     sm_scale: float) -> tp.List[torch.Tensor]:
+    """Launch one backward kernel: n_out gradients [B, T, H, D] in q's dtype."""
+    _check_cuda('the attention backward', q, k, v, do)
+    _check_stats(q, lse, di)
+    D = q.shape[-1]
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = _rows_on_16_bytes(q, k, v, do)
+    outs = [torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(n_out)]
+    if q.numel() == 0:
+        return [x[..., :D] for x in outs]
+    B, T, H, Dk = q.shape
+    err = _launch(
+        getattr(_build.library(), name), q,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        di.data_ptr(), *(x.data_ptr() for x in outs), B, T, H, Dk, *_strides(q, k, v, do),
+        sm_scale, int(causal), int(q.dtype == torch.bfloat16))
+    _build.check(err, name)
+    return [x[..., :D] for x in outs]
+
+
+def attention_bwd_kernel_info(dim: int, dtype: torch.dtype) -> tp.Dict[str, tp.Dict[str, int]]:
+    """What the dK/dV and dQ kernels for head width ``dim`` and ``dtype`` use
+    on the current card (``cudaFuncGetAttributes`` and the occupancy API):
+    registers per thread, shared memory per block in bytes, blocks resident
+    per SM, threads per block and spilled bytes per thread."""
+    lib = _build.library()
+    info = {}
+    for name, dkv in (('dkv', 1), ('dq', 0)):
+        out = (ctypes.c_int * 5)()
+        _build.check(lib.acx_attention_bwd_info(dkv, dim, int(dtype == torch.bfloat16), out),
+                     'acx_attention_bwd_info')
+        info[name] = dict(zip(('registers', 'shared_bytes', 'blocks_per_sm', 'threads',
+                               'spill_bytes'), out))
+    return info
+
+
 def fused_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              causal: bool, sm_scale: tp.Optional[float] = None
                              ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
@@ -238,18 +300,8 @@ def attention_bwd_dkv(q, k, v, do, lse, di, *, causal: bool,
     if q.device.type == 'cpu':
         return attention_bwd_dkv_reference(q, k, v, do, lse, di, causal=causal,
                                            sm_scale=sm_scale)
-    _check_cuda('the attention backward', q, k, v, do)
-    _check_stats(q, lse, di)
-    dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
-    if q.numel() == 0:
-        return dk, dv
-    B, T, H, D = q.shape
-    err = _launch(
-        _build.library().acx_attention_bwd_dkv, q,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        di.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, H, D, *_strides(q, k, v, do),
-        sm_scale, int(causal), int(q.dtype == torch.bfloat16))
-    _build.check(err, 'acx_attention_bwd_dkv')
+    dk, dv = _backward_launch('acx_attention_bwd_dkv', q, k, v, do, lse, di, 2, causal,
+                              sm_scale)
     attention_bwd_dkv.launches += 1
     return dk, dv
 
@@ -261,18 +313,7 @@ def attention_bwd_dq(q, k, v, do, lse, di, *, causal: bool,
     if q.device.type == 'cpu':
         return attention_bwd_dq_reference(q, k, v, do, lse, di, causal=causal,
                                           sm_scale=sm_scale)
-    _check_cuda('the attention backward', q, k, v, do)
-    _check_stats(q, lse, di)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    if q.numel() == 0:
-        return dq
-    B, T, H, D = q.shape
-    err = _launch(
-        _build.library().acx_attention_bwd_dq, q,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        di.data_ptr(), dq.data_ptr(), B, T, H, D, *_strides(q, k, v, do),
-        sm_scale, int(causal), int(q.dtype == torch.bfloat16))
-    _build.check(err, 'acx_attention_bwd_dq')
+    dq, = _backward_launch('acx_attention_bwd_dq', q, k, v, do, lse, di, 1, causal, sm_scale)
     attention_bwd_dq.launches += 1
     return dq
 

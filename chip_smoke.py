@@ -33,7 +33,8 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    get a finite, non-zero gradient.  Then the training CLI takes two debug
    steps on the card.
 8. Training parity in fp32 (TF32 off): loss and every gradient of the
-   kernel route against the plain route, then three AdamW steps on each.
+   kernel route against the plain route, then three AdamW steps on each;
+   and the bf16-compute gradients of both routes on the same batch.
 9. The fused encode path: ``get_encodec_32khz()`` encodes 128 clips of 10 s
    three times on each route, the default, ``fused=True`` (the input conv
    and two stages through K4) and ``conv0_kernel=True`` (K5); K4 must launch
@@ -43,9 +44,10 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    routes (TF32 off) against the plain route on the CPU.
 10. The data-movement probe (P1): ``apps/probe_ops`` runs its seven bf16
    operations on the card, each of which must equal torch's result.
-Phase 2 also holds K4 (both 32 kHz stage shapes), K5 and K6 against their
-plain versions.  Then one JSON line on the kernels and, last, one JSON line
-with the result.
+Phase 2 also holds K3b (the attention backward, both dtypes, at the model
+shapes and the tiles' edges), K4
+(both 32 kHz stage shapes), K5 and K6 against their plain versions.  Then
+one JSON line on the kernels and, last, one JSON line with the result.
 Any failed check ends the run with a non-zero exit and no result line, as
 does a host without a CUDA card.
 """
@@ -69,7 +71,7 @@ from audiocraft_tpu_torch.cond.attributes import (ClassifierFreeGuidanceDropout,
                                                   ConditioningAttributes)
 from audiocraft_tpu_torch.dist.train import lm_loss, lm_loss_and_grads, make_lm_train_step
 from audiocraft_tpu_torch.gen.magnet import get_debug_magnet
-from audiocraft_tpu_torch.ops import _build
+from audiocraft_tpu_torch.ops import _build, attention
 from audiocraft_tpu_torch.ops.attention import (
     attention_bwd_dkv, attention_bwd_dkv_reference, attention_bwd_dq, attention_bwd_dq_reference,
     attention_di, attention_lse_reference, fused_attention, fused_attention_backward,
@@ -359,45 +361,87 @@ def check_attention(device) -> dict:
 def _attn_bwd_errs(q, k, v, do, causal: bool) -> tp.Tuple[float, float, float]:
     """K3f's lse and K3b's gradients against their plain versions on the
     same inputs: (lse max-abs, worst gradient max-abs / max-abs of the plain
-    gradient, worst gradient max-abs)."""
+    gradient, worst gradient max-abs).  A gradient that is zero in exact
+    arithmetic is rounding noise on both sides (dq and dk at T = 1, where
+    P = 1 and dS = dP - di = 0), so each gradient's max-abs is floored at
+    1e-2 of the largest of the three."""
     o, lse = fused_attention_with_lse(q, k, v, causal=causal)
     lse_err = float((lse - attention_lse_reference(q, k, v, causal=causal)).abs().max())
-    grads = fused_attention_backward(q, k, v, o, lse, do, causal=causal)
     refs = fused_attention_backward_reference(q, k, v, o, lse, do, causal=causal)
+    tops = [float(r.float().abs().max()) for r in refs]
+    floor = 1e-2 * max(tops)
     rel = err = 0.0
-    for g, r in zip(grads, refs):
-        check(bool(torch.isfinite(g).all()), f'attention backward {tuple(q.shape)}: non-finite')
+    grads = fused_attention_backward(q, k, v, o, lse, do, causal=causal)
+    for g, r, top in zip(grads, refs, tops):
+        what = f'attention backward {tuple(q.shape)}'
+        check(g.shape == r.shape and g.dtype == r.dtype,
+              f'{what}: gradient {tuple(g.shape)} {g.dtype}')
+        check(bool(torch.isfinite(g).all()), f'{what}: non-finite')
         diff = float((g.float() - r.float()).abs().max())
-        check(math.isfinite(diff), f'attention backward {tuple(q.shape)}: error {diff}')
-        err, rel = max(err, diff), max(rel, diff / float(r.float().abs().max()))
+        check(math.isfinite(diff), f'{what}: error {diff}')
+        err, rel = max(err, diff), max(rel, diff / max(top, floor))
     return lse_err, rel, err
+
+
+def _attn_inputs(shape, fused: bool, gen, device) -> tp.Callable[[torch.dtype], tuple]:
+    """Seeded q, k, v, dO [B, T, H, D] in a given dtype.  With ``fused``, q,
+    k and v are what the transformer passes: strided slices of one
+    [B, T, 3 H D] projection (nn/transformer.py), cast before the split."""
+    B, T, H, D = shape
+    if not fused:
+        inputs = [torch.randn(shape, generator=gen).to(device) for _ in range(4)]
+        return lambda dtype: tuple(x.to(dtype) for x in inputs)
+    qkv = torch.randn(B, T, 3 * H * D, generator=gen).to(device)
+    do = torch.randn(shape, generator=gen).to(device)
+    return lambda dtype: (*(x.unflatten(-1, (H, D)) for x in qkv.to(dtype).split(H * D, -1)),
+                          do.to(dtype))
+
+
+def print_attention_bwd_resources() -> None:
+    """Registers per thread, shared memory per block and blocks per SM of the
+    K3b kernels (cudaFuncGetAttributes and the occupancy API)."""
+    for dtype, dims in ((torch.bfloat16, (32, 64, 128)), (torch.float32, (64,))):
+        for dim in dims:
+            info = attention.attention_bwd_kernel_info(dim, dtype)
+            print(f'attention backward kernels {dtype} D={dim}: ' + '; '.join(
+                f"{name} {i['registers']} registers x {i['threads']} threads, "
+                f"{i['shared_bytes']} B shared, {i['blocks_per_sm']} blocks/SM, "
+                f"{i['spill_bytes']} B spilled" for name, i in info.items()), flush=True)
 
 
 def check_attention_backward(device) -> tp.Tuple[dict, dict]:
     """K3b (and K3f's lse) against the plain versions: fp32 (TF32 off; only
     the order of fp32 sums differs) within 1e-4 of each gradient's max-abs,
-    bf16 within 2e-2 (the gradients are rounded to bf16; P and dS stay fp32
-    on both sides), lse within 1e-5; at the training shape (causal),
-    MAGNeT's (not causal) and off the tiles (both).  Then each kernel timed
-    at the training shape in bf16."""
+    bf16 within 2e-2 (the gradients are rounded to bf16; P and dS are
+    rounded once to bf16 on both sides, at the same points), lse within
+    1e-5.  Shapes: the training shape (causal), MAGNeT's (not causal), the
+    tiles' edges at D = 64 (T = 1, 63, 65, 129), D = 32 and 128 at T = 130,
+    q, k, v as strided slices of one fused projection, and D = 36 (padded to
+    40 by the wrapper for the bf16 kernels' 16-byte copies); both masks except
+    at the two model shapes.  Then each kernel timed at the training shape in
+    bf16 beside SDPA's backward and the bound."""
+    print_attention_bwd_resources()
     gen = torch.Generator().manual_seed(11)
-    cases = [(TRAIN_ATTN_SHAPE, (True,)), (tuple(ATTN_SHAPE.values()), (False,)),
-             ((1, 130, 3, 32), (True, False))]
+    both = (True, False)
+    cases = [(TRAIN_ATTN_SHAPE, (True,), False), (tuple(ATTN_SHAPE.values()), (False,), False),
+             *(((2, t, 3, 64), both, False) for t in (1, 63, 65, 129)),
+             ((1, 130, 3, 32), both, False), ((1, 130, 3, 128), both, False),
+             ((2, 257, 4, 64), both, True), ((1, 70, 2, 36), both, False)]
     worst = {}
-    for shape, masks in cases:
-        q, k, v, do = (torch.randn(shape, generator=gen).to(device) for _ in range(4))
+    for shape, masks, fused in cases:
+        inputs = _attn_inputs(shape, fused, gen, device)
+        layout = ' fused qkv' if fused else ''
         for causal in masks:
             for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-                lse_err, rel, err = _attn_bwd_errs(*(x.to(dtype) for x in (q, k, v, do)),
-                                                   causal)
+                lse_err, rel, err = _attn_bwd_errs(*inputs(dtype), causal)
                 worst[(shape, causal, dtype)] = err
-                print(f'attention backward {shape} causal={causal} {dtype}: lse max-abs '
-                      f'{lse_err:.3g} (<= 1e-5), gradients max-abs / max {rel:.3g} '
+                print(f'attention backward {shape}{layout} causal={causal} {dtype}: lse '
+                      f'max-abs {lse_err:.3g} (<= 1e-5), gradients max-abs / max {rel:.3g} '
                       f'(<= {tol})', flush=True)
                 check(lse_err <= 1e-5, f'lse {shape} {dtype}: max-abs {lse_err:.3g} > 1e-5')
-                check(rel <= tol, f'attention backward {shape} causal={causal} {dtype}: '
-                                  f'{rel:.3g} > {tol}')
-        del q, k, v, do
+                check(rel <= tol, f'attention backward {shape}{layout} causal={causal} '
+                                  f'{dtype}: {rel:.3g} > {tol}')
+        del inputs
 
     B, T, H, D = TRAIN_ATTN_SHAPE
     q, k, v, do = (torch.randn(TRAIN_ATTN_SHAPE, generator=gen).to(device, torch.bfloat16)
@@ -423,18 +467,26 @@ def check_attention_backward(device) -> tp.Tuple[dict, dict]:
                               f'flash_attention.py:{941 if n_out == 2 else 1287} '
                               f'_flash_attention_bwd_{name.rsplit("_", 1)[1]})',
                      max_abs_err=worst[(TRAIN_ATTN_SHAPE, True, torch.bfloat16)],
-                     ms=time_ms(lambda: fn(*args, causal=True), 10),
+                     ms=time_ms(lambda: fn(*args, causal=True), 20),
                      plain_ms=time_ms(lambda: ref(*args, causal=True), 3),
                      bound_ms=b_ms, bound_by=b_by, library_ms=library)
         entries.append(entry)
-        print(f'{name} bf16 {TRAIN_ATTN_SHAPE} causal: kernel {entry["ms"]:.3f} ms, plain '
+        print(f'{name} bf16 {TRAIN_ATTN_SHAPE} causal: kernel {entry["ms"]:.4f} ms, plain '
               f'{entry["plain_ms"]:.3f} ms, bound {b_ms:.4f} ms ({b_by}; {n_products} products)',
               flush=True)
     whole = bound_ms(5 * product, PEAK_BF16, 2.0 * 7 * elems + 8.0 * stats)[0]
     print(f'attention backward bf16 {TRAIN_ATTN_SHAPE} causal: both kernels '
-          f'{entries[0]["ms"] + entries[1]["ms"]:.3f} ms, SDPA backward (dq, dk, dv in one '
-          f'call) {library:.3f} ms, bound of the whole backward {whole:.4f} ms '
+          f'{entries[0]["ms"] + entries[1]["ms"]:.4f} ms, SDPA backward (dq, dk, dv in one '
+          f'call) {library:.4f} ms, bound of the whole backward {whole:.4f} ms '
           f'(5 products, {5 * product / 1e9:.1f} GFLOP)', flush=True)
+    del q, k, v, out, leaves
+    fq, fk, fv, fdo = _attn_inputs(TRAIN_ATTN_SHAPE, True, gen, device)(torch.bfloat16)
+    check(fq.stride(1) == 3 * H * D, 'the fused layout is not strided')
+    fused = (fq, fk, fv, fdo, lse, attention_di(o, fdo))
+    fused_ms = [time_ms(lambda: fn(*fused, causal=True), 20)
+                for fn in (attention_bwd_dkv, attention_bwd_dq)]
+    print(f'the same on strided q, k, v slices of one fused projection (the model\'s layout): '
+          f'dK/dV {fused_ms[0]:.4f} ms, dQ {fused_ms[1]:.4f} ms (information)', flush=True)
     return entries[0], entries[1]
 
 
@@ -1027,38 +1079,68 @@ def phase_train(device, lm, provider) -> tp.Dict[str, int]:
     return launches
 
 
-def phase_train_parity(device, lm, provider) -> None:
-    print('== phase 8: training parity in fp32 (TF32 off), kernel route vs plain route',
-          flush=True)
-    check(not torch.backends.cuda.matmul.allow_tf32, 'TF32 is on')
-    codec = get_encodec_32khz()
-    seed_codebooks(codec, _clips(8, SECONDS * SAMPLE_RATE, device, seed=50))
-    codes = codec.encode(_clips(2, SECONDS * SAMPLE_RATE, device, seed=51))[0]
-    cond = _train_conditions(provider, 2, device, seed=52)
+# bf16 model gradients, kernel route against plain route (phase 8): the whole
+# gradient's relative L2 and the worst parameter's max-abs / max, bounded at
+# twice what the fp32-FMA K3b kernels gave on the same batch in the same
+# state, after phase 7 (2.96e-3 and 8.58e-3 on an NVIDIA H100 80GB HBM3 at
+# 700 W).  This bounds the model-level bf16 gap only: the tensor-core kernels
+# read the same (2.95e-3 and 8.55e-3), so the gap comes from bf16 rounding
+# elsewhere in the model, and this check cannot tell a small fault in K3b from
+# none.  Phase 2, which holds each K3b kernel against its plain twin at 2e-2
+# of each gradient's max-abs, is the check of K3b's numerics.
+BF16_GRAD_L2, BF16_GRAD_WORST = 5.9e-3, 1.72e-2
+
+
+def _route_gradients(lm, codes, cond, compute_dtype) -> tp.Tuple[float, float, float, str, float]:
+    """Loss and gradients of the kernel route and of the plain route on one
+    batch: (kernel loss, plain loss, worst parameter gradient max-abs / max,
+    its name, whole gradient relative L2).  The kernel route must launch
+    K3f and both K3b kernels once per layer."""
     n_layers = len(lm.transformer.layers)
-    start = {k: v.clone() for k, v in lm.state_dict().items()}
     results = {}
     for flag in ('auto', False):
         set_attn_kernel(lm, flag)
         before = _launch_counts()
-        loss, grads = lm_loss_and_grads(lm, codes, cond)
+        loss, grads = lm_loss_and_grads(lm, codes, cond, compute_dtype=compute_dtype)
         after = _launch_counts()
         if flag:
             for name in ('flash_attention', 'flash_attention_bwd_dkv', 'flash_attention_bwd_dq'):
                 check(after[name] - before[name] == n_layers,
                       f'kernel route: {name} launched {after[name] - before[name]} times')
         results[flag] = (float(loss), grads)
+    set_attn_kernel(lm, 'auto')
     (loss_k, grads_k), (loss_p, grads_p) = results['auto'], results[False]
-    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
     worst, worst_name = 0.0, ''
     for (name, _), gk, gp in zip(lm.named_parameters(), grads_k, grads_p):
+        check(bool(torch.isfinite(gk).all()), f'{name}: non-finite gradient ({compute_dtype})')
         top = float(gp.abs().max())
         err = float((gk - gp).abs().max()) / top if top > 0 else float(gk.abs().max())
         if err > worst:
             worst, worst_name = err, name
     diff = torch.sqrt(sum((gk - gp).double().square().sum() for gk, gp in zip(grads_k, grads_p)))
     norm = torch.sqrt(sum(gp.double().square().sum() for gp in grads_p))
-    rel_l2 = float(diff / norm)
+    return loss_k, loss_p, worst, worst_name, float(diff / norm)
+
+
+def phase_train_parity(device, lm, provider) -> None:
+    """fp32 (TF32 off): loss within 1e-5 relative, every parameter's gradient
+    within 1e-3 of its max-abs and the whole within 1e-4 relative L2 of the
+    plain route, then three AdamW steps on each route.  bf16 compute on the
+    same batch: both routes round at other points (K3f's output and K3b's
+    gradients in bf16, P and dS rounded once to bf16 in K3b, against fp32
+    softmax and autograd on the plain route), so the gap is that of bf16
+    rounding across the model, bounded by BF16_GRAD_L2 and BF16_GRAD_WORST
+    (see there; phase 2, not this, checks K3b's own numerics)."""
+    print('== phase 8: training parity in fp32 (TF32 off) and bf16, kernel route vs plain route',
+          flush=True)
+    check(not torch.backends.cuda.matmul.allow_tf32, 'TF32 is on')
+    codec = get_encodec_32khz()
+    seed_codebooks(codec, _clips(8, SECONDS * SAMPLE_RATE, device, seed=50))
+    codes = codec.encode(_clips(2, SECONDS * SAMPLE_RATE, device, seed=51))[0]
+    cond = _train_conditions(provider, 2, device, seed=52)
+    start = {k: v.clone() for k, v in lm.state_dict().items()}
+    loss_k, loss_p, worst, worst_name, rel_l2 = _route_gradients(lm, codes, cond, None)
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
     print(f'B=2 T={codes.shape[-1]} fp32: loss {loss_k:.6f} vs {loss_p:.6f}, relative '
           f'{rel_loss:.3g} (<= 1e-5); worst parameter gradient max-abs / max {worst:.3g} '
           f'({worst_name}, <= 1e-3); whole gradient relative L2 {rel_l2:.3g} (<= 1e-4)',
@@ -1066,7 +1148,14 @@ def phase_train_parity(device, lm, provider) -> None:
     check(rel_loss <= 1e-5, f'fp32 loss relative {rel_loss:.3g} > 1e-5')
     check(worst <= 1e-3, f'{worst_name}: gradient max-abs / max {worst:.3g} > 1e-3')
     check(rel_l2 <= 1e-4, f'gradient relative L2 {rel_l2:.3g} > 1e-4')
-    del results, grads_k, grads_p
+
+    loss_k, loss_p, worst, worst_name, rel_l2 = _route_gradients(lm, codes, cond, 'bfloat16')
+    print(f'B=2 T={codes.shape[-1]} bf16 compute: loss {loss_k:.6f} vs {loss_p:.6f}; worst '
+          f'parameter gradient max-abs / max {worst:.3g} ({worst_name}, <= {BF16_GRAD_WORST}); '
+          f'whole gradient relative L2 {rel_l2:.3g} (<= {BF16_GRAD_L2})', flush=True)
+    check(worst <= BF16_GRAD_WORST,
+          f'bf16 {worst_name}: gradient max-abs / max {worst:.3g} > {BF16_GRAD_WORST}')
+    check(rel_l2 <= BF16_GRAD_L2, f'bf16 gradient relative L2 {rel_l2:.3g} > {BF16_GRAD_L2}')
 
     trajectories, finals = {}, {}
     for flag in ('auto', False):
