@@ -5,12 +5,14 @@
 ``decode(codes) -> wav [B, C, T_frames * hop]``, the JAX package's layouts.
 
 ``compute_dtype`` ('bfloat16', or None for fp32) is the dtype of the conv and
-LSTM stacks; the stored weights stay fp32 and are cast per call.  The RVQ
-distances and the codebook lookup always stay fp32: token identity depends on
-them.  ``lstm_kernel`` is kept for config compatibility with the JAX package
-and selects nothing here: on a CUDA tensor every LSTM layer runs the
-hand-written recurrence kernel at every batch size, and on a CPU tensor its
-plain version.
+LSTM stacks; the stored weights stay fp32 and are cast per call.  In fp32 the
+conv stacks run cuDNN without TF32 whatever the caller's global flag
+(``nn/conv.fp32_convs``, restored after each stack), so the fp32 codec is the
+parity path on the card too.  The RVQ distances and the codebook lookup
+always stay fp32: token identity depends on them.  ``lstm_kernel`` is kept
+for config compatibility with the JAX package and selects nothing here: on a
+CUDA tensor every LSTM layer runs the hand-written recurrence kernel at every
+batch size, one launch a layer, and on a CPU tensor its plain version.
 
 ``encode(x, fused=True)`` runs the input conv and the first two encoder
 stages through the fused stage kernel (K4, ``ops/seanet.py``);

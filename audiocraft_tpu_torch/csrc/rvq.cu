@@ -10,12 +10,18 @@
 // cores would be faster but round the distances differently from the
 // reference, which changes tokens, so the kernel stays in fp32.
 //
-// Design: one block owns kRows residual rows and keeps them in shared memory
+// Design: one block owns ROWS residual rows and keeps them in shared memory
 // for the whole chain, so the residual never goes back to device memory
-// between codebooks (the point of the TPU kernel).  Codebook tiles of kCodes
-// rows stream through shared memory in chunks of kChunk features.  Each
-// (row, code) dot product is summed in fp32 over d = 0 .. D-1 in order, and
-// the distance is formed in the reference's order of operations.  A running
+// between codebooks (the point of the TPU kernel).  The residual tile is
+// dynamic shared memory, feature-major: (D rounded up to kChunk) rows of
+// ROWS + 1 floats, so a thread's four rows sit at fixed offsets from one
+// address (immediate offsets in the inner loop) and the per-row passes
+// (loading, |r|^2, the update) touch 32 banks.  64 rows while that fits a
+// block's shared memory (D <= 832), else 32, up to D = kMaxDim = 1024, the
+// widest the JAX package quantizes (the style conditioner's 1024).  Codebook
+// tiles of kCodes rows stream through shared memory in chunks of kChunk
+// features.  Each (row, code) dot product is summed in fp32 over d = 0 ..
+// D-1 in order, and the distance is formed in the reference's order of operations.  A running
 // (best, index) per thread is updated with strict '>' over increasing code
 // indices; the 16 threads that share a row then reduce with the lower index
 // winning on equal values, which is the first-index tie-break of torch.argmax
@@ -25,53 +31,60 @@
 
 namespace {
 
-constexpr int kRows = 64;      // residual rows owned by one block
+constexpr int kMaxRows = 64;   // residual rows owned by one block, at most
 constexpr int kCodes = 64;     // codebook rows per streamed tile
 constexpr int kChunk = 32;     // features per streamed chunk of a tile
-constexpr int kMaxDim = 128;   // widest residual row a block holds
+constexpr int kMaxDim = 1024;  // widest residual row a block holds
 constexpr int kThreads = 256;  // thread (tr, tc): rows tr + 16 i, codes tc + 16 j
 
+// Features of the residual tile: D rounded up to kChunk
+__host__ __device__ constexpr int res_features(int d) { return (d + kChunk - 1) / kChunk * kChunk; }
+
+template <int ROWS>
 __global__ void __launch_bounds__(kThreads)
 rvq_encode_kernel(const float* __restrict__ x, const float* __restrict__ embed,
                   const float* __restrict__ esq, int* __restrict__ codes,
                   int n, int d, int k, int n_q) {
-  __shared__ float res[kRows][kMaxDim + 1];
+  constexpr int RI = ROWS / 16;    // rows per thread
+  constexpr int LD = ROWS + 1;     // floats per feature of the residual tile
+  extern __shared__ float res[];   // [res_features(d)][LD]: res[c * LD + r]
   __shared__ float tile[kChunk][kCodes + 1];
-  __shared__ float xsq[kRows];
-  __shared__ int best_code[kRows];
+  __shared__ float xsq[kMaxRows];
+  __shared__ int best_code[kMaxRows];
 
   const int tid = threadIdx.x;
   const int tc = tid % 16;
   const int tr = tid / 16;
-  const int row0 = blockIdx.x * kRows;
+  const int row0 = blockIdx.x * ROWS;
 
-  for (int e = tid; e < kRows * d; e += kThreads) {
+  for (int e = tid; e < ROWS * d; e += kThreads) {
     const int r = e / d, c = e % d;
-    res[r][c] = row0 + r < n ? x[(size_t)(row0 + r) * d + c] : 0.f;
+    res[c * LD + r] = row0 + r < n ? x[(size_t)(row0 + r) * d + c] : 0.f;
   }
 
   for (int q = 0; q < n_q; ++q) {
     const float* eq = embed + (size_t)q * k * d;
     const float* esq_q = esq + (size_t)q * k;
     __syncthreads();  // residual of the previous codebook is complete
-    if (tid < kRows) {
+    if (tid < ROWS) {
       float s = 0.f;
-      for (int c = 0; c < d; ++c) s = __fadd_rn(s, __fmul_rn(res[tid][c], res[tid][c]));
+      for (int c = 0; c < d; ++c)
+        s = __fadd_rn(s, __fmul_rn(res[c * LD + tid], res[c * LD + tid]));
       xsq[tid] = s;
     }
 
-    float best[4];
-    int best_idx[4];
+    float best[RI];
+    int best_idx[RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       best[i] = -INFINITY;
       best_idx[i] = 0;
     }
 
     for (int k0 = 0; k0 < k; k0 += kCodes) {
-      float acc[4][4];
+      float acc[RI][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
@@ -85,13 +98,13 @@ rvq_encode_kernel(const float* __restrict__ x, const float* __restrict__ embed,
         __syncthreads();
         const int width = min(kChunk, d - d0);
         for (int c = 0; c < width; ++c) {
-          float a[4], b[4];
+          float a[RI], b[4];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = res[tr + 16 * i][d0 + c];
+          for (int i = 0; i < RI; ++i) a[i] = res[(d0 + c) * LD + tr + 16 * i];
 #pragma unroll
           for (int j = 0; j < 4; ++j) b[j] = tile[c][tc + 16 * j];
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < RI; ++i)
 #pragma unroll
             for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
         }
@@ -103,7 +116,7 @@ rvq_encode_kernel(const float* __restrict__ x, const float* __restrict__ embed,
         if (code >= k) continue;
         const float e2 = esq_q[code];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < RI; ++i) {
           const float t = __fsub_rn(xsq[tr + 16 * i], __fmul_rn(2.f, acc[i][j]));
           const float dist = -__fadd_rn(t, e2);
           if (dist > best[i]) {
@@ -115,7 +128,7 @@ rvq_encode_kernel(const float* __restrict__ x, const float* __restrict__ embed,
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       float v = best[i];
       int idx = best_idx[i];
 #pragma unroll
@@ -131,13 +144,24 @@ rvq_encode_kernel(const float* __restrict__ x, const float* __restrict__ embed,
     }
     __syncthreads();
 
-    for (int r = tid; r < kRows; r += kThreads)
+    for (int r = tid; r < ROWS; r += kThreads)
       if (row0 + r < n) codes[(size_t)q * n + row0 + r] = best_code[r];
-    for (int e = tid; e < kRows * d; e += kThreads) {
+    for (int e = tid; e < ROWS * d; e += kThreads) {
       const int r = e / d, c = e % d;
-      res[r][c] = __fsub_rn(res[r][c], eq[(size_t)best_code[r] * d + c]);
+      res[c * LD + r] = __fsub_rn(res[c * LD + r], eq[(size_t)best_code[r] * d + c]);
     }
   }
+}
+
+template <int ROWS>
+int launch(const float* x, const float* embed, const float* esq, int* codes, int n, int d,
+           int k, int n_q, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(rvq_encode_kernel<ROWS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + ROWS - 1) / ROWS);
+  rvq_encode_kernel<ROWS><<<grid, kThreads, smem, stream>>>(x, embed, esq, codes, n, d, k, n_q);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -148,10 +172,20 @@ extern "C" int acx_rvq_max_dim() { return kMaxDim; }
 extern "C" int acx_rvq_encode(const float* x, const float* embed, const float* esq,
                               int* codes, int n, int d, int k, int n_q, void* stream) {
   if (n <= 0 || d <= 0 || d > kMaxDim || k <= 0 || n_q <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + kRows - 1) / kRows);
-  rvq_encode_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(x, embed, esq, codes,
-                                                                 n, d, k, n_q);
-  return (int)cudaGetLastError();
+  int device = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  cudaFuncAttributes a;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, rvq_encode_kernel<kMaxRows>);
+  if (err != cudaSuccess) return (int)err;
+  const size_t features = res_features(d);
+  const size_t bytes64 = features * (kMaxRows + 1) * sizeof(float);
+  const size_t bytes32 = features * (kMaxRows / 2 + 1) * sizeof(float);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bytes64 + a.sharedSizeBytes <= (size_t)optin)
+    return launch<kMaxRows>(x, embed, esq, codes, n, d, k, n_q, bytes64, s);
+  return launch<kMaxRows / 2>(x, embed, esq, codes, n, d, k, n_q, bytes32, s);
 }
 
 extern "C" const char* acx_error_string(int err) {

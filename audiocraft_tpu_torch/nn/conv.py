@@ -11,11 +11,13 @@
 Weight norm is folded into the stored weight, as the JAX package stores it, so
 the parameters sit at the reference names ``conv.conv.weight`` and
 ``convtr.convtr.weight``.  The stored weights stay fp32; a call casts them to
-the input's dtype, so a bf16 input runs the conv in bf16.
+the input's dtype, so a bf16 input runs the conv in bf16.  ``fp32_convs``
+turns cuDNN's TF32 off around an fp32 conv stack.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import typing as tp
 
@@ -23,6 +25,27 @@ import torch
 import torch.nn.functional as F
 
 from .init import uniform
+
+
+@contextlib.contextmanager
+def fp32_convs(dtype: torch.dtype) -> tp.Iterator[None]:
+    """Run the fp32 convolutions inside in full fp32 on the card.
+
+    torch sends fp32 convolutions through cuDNN in TF32 by default
+    (``torch.backends.cudnn.allow_tf32`` is True), which keeps about three
+    decimal digits and changes codes against the reference.  For an fp32
+    ``dtype`` the flag is False inside and the caller's value is restored on
+    exit (it is process-global, as torch's own ``cudnn.flags`` is); any other
+    dtype leaves it alone."""
+    if dtype != torch.float32:
+        yield
+        return
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
 
 
 def get_extra_padding_for_conv1d(length: int, kernel_size: int, stride: int,

@@ -5,7 +5,8 @@ Each stack is one ``model`` list in the order of the JAX package's
 ``_layers()``, which is the reference Sequential's order: activations take an
 index too, so parameter names match the reference state dict
 (``encoder.model.{i}.conv.conv.weight``, ``encoder.model.{i}.block.{1,3}...``,
-``encoder.model.{i}.lstm.weight_ih_l0``).
+``encoder.model.{i}.lstm.weight_ih_l0``).  An fp32 stack runs its cuDNN
+convs without TF32 (``conv.fp32_convs``), whatever the caller's flag.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 
 from ..ops.seanet import banded_mono_conv, fused_encoder_apply
 from .activations import Activation
-from .conv import (StreamableConv1d, StreamableConvTranspose1d,
+from .conv import (StreamableConv1d, StreamableConvTranspose1d, fp32_convs,
                    get_extra_padding_for_conv1d, pad1d)
 from .lstm import StreamableLSTM
 
@@ -115,17 +116,18 @@ class SEANetEncoder(torch.nn.Module):
         layer 0.  ``fused_stages > 0`` then runs the input conv and the first
         N planned stages through K4, but only while layer 0 is still to do;
         an ineligible config or length runs the module stack instead."""
-        start = 0
-        if conv0_kernel:
-            y = self._conv0_kernel(x)
-            if y is not None:
-                x, start = y, 1
-        if fused_stages and start == 0:
-            fused = fused_encoder_apply(self, x, fused_stages)
-            if fused is not None:
-                x, start = fused
-        for layer in self.model[start:]:
-            x = layer(x)
+        with fp32_convs(x.dtype):
+            start = 0
+            if conv0_kernel:
+                y = self._conv0_kernel(x)
+                if y is not None:
+                    x, start = y, 1
+            if fused_stages and start == 0:
+                fused = fused_encoder_apply(self, x, fused_stages)
+                if fused is not None:
+                    x, start = fused
+            for layer in self.model[start:]:
+                x = layer(x)
         return x
 
     def _conv0_kernel(self, x: torch.Tensor) -> tp.Optional[torch.Tensor]:
@@ -191,6 +193,7 @@ class SEANetDecoder(torch.nn.Module):
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         """[B, dimension, T_frames] -> [B, channels, T_frames * hop_length]."""
-        for layer in self.model:
-            z = layer(z)
+        with fp32_convs(z.dtype):
+            for layer in self.model:
+                z = layer(z)
         return z

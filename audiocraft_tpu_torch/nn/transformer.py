@@ -11,10 +11,11 @@ Numerics follow the JAX package: projections in the input dtype, layer norms
 in fp32 and cast back, attention with q pre-scaled, fp32 scores, softmax and
 products, cast back.  Full-sequence self-attention with no extra mask and no
 ``past_context`` goes to the hand-written kernel (``ops/attention.py``) when
-``attn_kernel`` routes it; every other call (MAGNeT's banded stages,
-cross-attention, ``past_context`` windows) stays on the plain masked path, as
-in the JAX package.  The kernel route is differentiable: on the card its
-gradient comes from the backward kernels (K3b), so training takes it too.
+``attn_kernel`` routes it and the head is at most ``MAX_HEAD_DIM`` wide;
+every other call (MAGNeT's banded stages, cross-attention, ``past_context``
+windows, wider heads) stays on the plain masked path, as in the JAX
+package.  The kernel route is differentiable: on the card its gradient comes
+from the backward kernels (K3b), so training takes it too.
 
 Not ported yet: the KV cache and its growth, int8 KV, RoPE (and the
 positional options beside 'sin'), ``kv_repeat > 1``, scanned and
@@ -152,7 +153,7 @@ class StreamingMultiheadAttention(torch.nn.Module):
                 q, k = self.q_layer_norm(q), self.k_layer_norm(k)
             q, k, v = self._heads(q), self._heads(k), self._heads(v)
             if (attn_mask is None and Tq > 1 and self.past_context is None
-                    and kernel_route(self.attn_kernel)):
+                    and kernel_route(self.attn_kernel, self.head_dim)):
                 out = fused_attention(q, k, v, causal=self.causal, sm_scale=scale)
             else:
                 out = plain_attention(q, k, v, self._self_mask(Tq, query.device, attn_mask),

@@ -32,7 +32,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     'acx_rvq_encode': ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     'acx_rvq_max_dim': ([], _I),
-    'acx_lstm_step': ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    'acx_lstm_layer': ([_P, _P, _P, _P, *[_I] * 11, _L, _P], _I),
+    'acx_lstm_device': ([ctypes.POINTER(_I)], _I),
+    'acx_lstm_info': ([_I, _I, _I, ctypes.POINTER(_I)], _I),
     'acx_attention_fwd': ([_P, _P, _P, _P, _P, _I, _I, _I, _I, *[_L] * 9, _F, _I, _I, _P],
                           _I),
     'acx_attention_bwd_dkv': ([*[_P] * 8, _I, _I, _I, _I, *[_L] * 12, _F, _I, _I, _P], _I),

@@ -38,15 +38,25 @@ from . import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
+# The widest head the kernels hold (kMaxDim of csrc/attention.cu and
+# csrc/attention_bwd.cu; chip_smoke.py checks it against the library), kept
+# here so that the route is decided by shape, on any host, before a launch.
+MAX_HEAD_DIM = 128
 
-def kernel_route(flag: tp.Union[bool, str]) -> bool:
-    """Resolve an ``attn_kernel`` config flag.
+
+def kernel_route(flag: tp.Union[bool, str], head_dim: tp.Optional[int] = None) -> bool:
+    """Resolve an ``attn_kernel`` config flag for a call of ``head_dim``.
 
     ``'auto'``, ``'auto_local'`` and True take the kernel for every eligible
-    call, False keeps the plain masked path.  The JAX package's sequence
-    threshold and single-device rule are TPU measurements and a GSPMD rule;
-    no card number supports a threshold here yet.
+    call, False keeps the plain masked path.  A call is eligible when its
+    head is at most :data:`MAX_HEAD_DIM` wide; a wider one takes the plain
+    path by shape (the JAX package zero-pads D to its 128 tile instead, which
+    gives the same result).  The JAX package's sequence threshold and
+    single-device rule are TPU measurements and a GSPMD rule; no card number
+    supports a threshold here yet.
     """
+    if head_dim is not None and head_dim > MAX_HEAD_DIM:
+        return False
     if flag in ('auto', 'auto_local'):
         return True
     return bool(flag)

@@ -3,9 +3,10 @@
 Replaces ``audiocraft_tpu/ops/rvq_pallas.py:_rvq_kernel`` with
 ``csrc/rvq.cu``: for each of ``n_q`` codebooks, fp32 distances, a
 first-index argmax and ``r <- r - E[idx]``, with the residual kept in shared
-memory across the whole chain.  Bound on an H100 and design: see the note at
-the top of ``csrc/rvq.cu`` (fp32 FMA bound; TF32 is ruled out because it
-changes tokens).
+memory across the whole chain, for rows of up to ``acx_rvq_max_dim()`` =
+1024 features (the style conditioner's widest).  Bound on an H100 and
+design: see the note at the top of ``csrc/rvq.cu`` (fp32 FMA bound; TF32 is
+ruled out because it changes tokens).
 
 On a CPU tensor :func:`rvq_encode` runs :func:`rvq_encode_reference`, the
 plain version with the same distance expression and tie-break; on a CUDA

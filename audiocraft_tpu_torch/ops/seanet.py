@@ -16,7 +16,8 @@
 
 Layouts are PyTorch's ``[B, C, T]``; no channel is padded.  On a CPU tensor
 each wrapper runs its plain version (``*_reference``), which rounds where the
-TPU kernel rounds; on a CUDA tensor it launches its kernel, or raises.
+TPU kernel rounds and runs its fp32 convs without TF32 on the card; on a CUDA
+tensor it launches its kernel, or raises.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import typing as tp
 import torch
 import torch.nn.functional as F
 
-from ..nn.conv import pad1d
+from ..nn.conv import fp32_convs, pad1d
 from . import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -126,13 +127,14 @@ def fused_stage_reference(x: torch.Tensor, params: tp.Dict[str, torch.Tensor],
     w2 = params['w2'].float().t()[:, :, None]                           # [C, H, 1]
     wd = params['wd'].float().reshape(2 * s, C, C_out).permute(2, 1, 0)  # [C_out, C, 2s]
     a = x.float()
-    z = F.conv1d(pad1d(_elu(a).to(dt).float(), (1, 1), 'reflect'), w1)
-    z = _elu(z + params['b1'].float()[:, None]).to(dt).float()
-    r = a + F.conv1d(z, w2) + params['b2'].float()[:, None]
-    del a, z
-    e = pad1d(_elu(r).to(dt).float(), (spec.left_pad, spec.right_pad), 'reflect')
-    del r
-    return (F.conv1d(e, wd, stride=s) + params['bd'].float()[:, None]).to(dt)
+    with fp32_convs(torch.float32):
+        z = F.conv1d(pad1d(_elu(a).to(dt).float(), (1, 1), 'reflect'), w1)
+        z = _elu(z + params['b1'].float()[:, None]).to(dt).float()
+        r = a + F.conv1d(z, w2) + params['b2'].float()[:, None]
+        del a, z
+        e = pad1d(_elu(r).to(dt).float(), (spec.left_pad, spec.right_pad), 'reflect')
+        del r
+        return (F.conv1d(e, wd, stride=s) + params['bd'].float()[:, None]).to(dt)
 
 
 def _on_cpu(x: torch.Tensor, what: str) -> bool:
@@ -237,7 +239,9 @@ _MAX_TAPS = 15  # the kernel keeps a thread's window of taps in registers
 
 def _mono_conv_ref(xp: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                    dtype: torch.dtype) -> torch.Tensor:
-    return (F.conv1d(xp.float(), weight.to(dtype).float()) + bias.float()[:, None]).to(dtype)
+    with fp32_convs(torch.float32):
+        y = F.conv1d(xp.float(), weight.to(dtype).float())
+    return (y + bias.float()[:, None]).to(dtype)
 
 
 def banded_mono_conv_reference(x: torch.Tensor, weight: torch.Tensor,

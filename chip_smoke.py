@@ -4,18 +4,22 @@
 Run from the repository root, with no arguments:  python3 chip_smoke.py
 
 1. Card and build: prints the card's name and power limit, builds the CUDA
-   kernels from ``audiocraft_tpu_torch/csrc`` and prints the build time.
+   kernels from ``audiocraft_tpu_torch/csrc`` and prints the build time;
+   the attention route's widest head must equal the kernels'.
 2. Kernels against their plain PyTorch versions, on the card, at the main
-   paths' shapes: RVQ encode (codes equal, near-ties excluded and counted),
-   one LSTM layer (fp32 and bf16) and flash attention (fp32 and bf16,
-   causal and not, at MAGNeT-small's [8, 1500, 16, 64] and off the tiles),
+   paths' shapes: RVQ encode (codes equal, near-ties excluded and counted,
+   D from 32 to 1024), one LSTM layer (fp32 and bf16; one cooperative
+   launch a layer, timed at B = 128 and B = 4 beside cuDNN) and flash
+   attention (fp32 and bf16, causal and not, at MAGNeT-small's
+   [8, 1500, 16, 64] and off the tiles; heads of 256 take the plain path),
    each timed beside its bound, its plain version and, where one exists, one
    PyTorch call computing the same thing.
 3. The codec path: ``get_encodec_32khz()`` (bf16, random weights from a
    seed) tokenizes and reconstructs 128 clips of 10 s; both codec kernels'
    launch counts must rise during that run.
 4. fp32 codec parity: the same weights with ``compute_dtype=None`` on the
-   card and on the CPU (plain versions), TF32 off.
+   card and on the CPU (plain versions), with torch's default TF32 flags:
+   the codec turns cuDNN's TF32 off itself.
 5. The MAGNeT path: ``get_magnet_lm('small', segment_duration=30)`` with its
    T5-base conditioning (bf16, random weights from a seed) generates 30 s for
    4 seeded descriptions with CFG, and the 32 kHz codec decodes them; every
@@ -39,9 +43,9 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    three times on each route, the default, ``fused=True`` (the input conv
    and two stages through K4) and ``conv0_kernel=True`` (K5); K4 must launch
    twice per fused encode, K5 once per ``conv0_kernel`` encode, K1 once and
-   K2 1000 times per encode on every route; each route's bf16 latent is held
+   K2 twice per encode on every route; each route's bf16 latent is held
    against the default route's, and the fp32 latent of the fused and K5
-   routes (TF32 off) against the plain route on the CPU.
+   routes against the plain route on the CPU.
 10. The data-movement probe (P1): ``apps/probe_ops`` runs its seven bf16
    operations on the card, each of which must equal torch's result.
 Phase 2 also holds K3b (the attention backward, both dtypes, at the model
@@ -71,12 +75,14 @@ from audiocraft_tpu_torch.cond.attributes import (ClassifierFreeGuidanceDropout,
                                                   ConditioningAttributes)
 from audiocraft_tpu_torch.dist.train import lm_loss, lm_loss_and_grads, make_lm_train_step
 from audiocraft_tpu_torch.gen.magnet import get_debug_magnet
+from audiocraft_tpu_torch.nn.transformer import StreamingMultiheadAttention
 from audiocraft_tpu_torch.ops import _build, attention
+from audiocraft_tpu_torch.ops import lstm as lstm_ops
 from audiocraft_tpu_torch.ops.attention import (
     attention_bwd_dkv, attention_bwd_dkv_reference, attention_bwd_dq, attention_bwd_dq_reference,
     attention_di, attention_lse_reference, fused_attention, fused_attention_backward,
     fused_attention_backward_reference, fused_attention_reference, fused_attention_with_lse)
-from audiocraft_tpu_torch.ops.lstm import lstm_layer, lstm_layer_reference
+from audiocraft_tpu_torch.ops.lstm import lstm_kernel_info, lstm_layer, lstm_layer_reference
 from audiocraft_tpu_torch.ops.probe import gather, split_contract, split_contract_reference
 from audiocraft_tpu_torch.ops.rvq import rvq_encode, rvq_encode_reference
 from audiocraft_tpu_torch.ops.seanet import (
@@ -148,11 +154,17 @@ def phase_build() -> None:
     print('torch', torch.__version__, 'cuda', torch.version.cuda,
           'device', torch.cuda.get_device_name(0))
     result = _build.build()
-    _build.library()
+    lib = _build.library()
     print(f'build: {result.seconds:.1f} s -> {result.path.name}')
     for line in result.log.splitlines():
         if 'registers' in line or 'spill' in line or 'error' in line:
             print('  ptxas:', line.strip())
+    check(attention.MAX_HEAD_DIM == lib.acx_attention_max_dim(),
+          f'ops/attention.py MAX_HEAD_DIM {attention.MAX_HEAD_DIM} != the kernels\' '
+          f'{lib.acx_attention_max_dim()}')
+    print(f'attention route: heads up to {attention.MAX_HEAD_DIM} wide take the kernels '
+          f'(the library says {lib.acx_attention_max_dim()}); RVQ kernel rows up to '
+          f'D = {lib.acx_rvq_max_dim()}', flush=True)
 
 
 def _rvq_inputs(device, n, d, k, n_q, seed=1):
@@ -198,11 +210,16 @@ def check_rvq(x, embeds) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
 
 def check_off_tile_shapes(device) -> None:
     """Shapes off the kernels' tiles, masked inside the kernels: RVQ at the
-    debug codec's D = 32 and K = 400 with N not a multiple of 64; LSTM with
-    B and H not multiples of 32; and a row wider than the RVQ kernel's
-    maximum, which must raise."""
-    x, embeds = _rvq_inputs(device, n=517, d=32, k=400, n_q=4, seed=8)
-    _, _, near = check_rvq(x, embeds)
+    debug codec's D = 32 and K = 400 with N not a multiple of 64, and at the
+    style conditioner's widths D = 256, 512 and 1024 (64 residual rows a
+    block up to D = 832, 32 above); LSTM with B and H not multiples of 8 or
+    of the units a block owns; and a row wider than the RVQ kernel's maximum
+    (1024), which must raise.  Then the RVQ kernel timed at D = 1024 beside
+    D = 128 on the style conditioner's codebooks (K = 1024, n_q = 6)."""
+    nears = []
+    for n, d, k in ((517, 32, 400), (301, 256, 400), (301, 512, 1024), (517, 1024, 1024)):
+        x, embeds = _rvq_inputs(device, n=n, d=d, k=k, n_q=4, seed=8 + d)
+        nears.append(f'D={d}: {int(check_rvq(x, embeds)[2].sum())}')
     gen = torch.Generator().manual_seed(9)
     T, B, C, H = 7, 3, 48, 40
     args = [torch.randn(shape, generator=gen) * 0.5
@@ -214,14 +231,158 @@ def check_off_tile_shapes(device) -> None:
                           .abs().max()))
         check(errs[-1] <= tol, f'lstm T={T} B={B} H={H} {dtype}: max-abs {errs[-1]:.3g} > {tol}')
     try:
-        rvq_encode(torch.zeros(8, 256, device=device), torch.zeros(1, 16, 256, device=device))
+        rvq_encode(torch.zeros(8, 1032, device=device), torch.zeros(1, 16, 1032, device=device))
     except ValueError:
         pass
     else:
-        raise CheckFailed('rvq: D = 256 did not raise')
-    print(f'off-tile shapes: rvq N=517 D=32 K=400 codes equal ({int(near.sum())} near-tie '
-          f'rows excluded); lstm T={T} B={B} C={C} H={H} max-abs fp32 {errs[0]:.3g} (<= 1e-5), '
-          f'bf16 {errs[1]:.3g} (<= 5e-2); D=256 refused', flush=True)
+        raise CheckFailed('rvq: D = 1032 did not raise')
+    print(f'off-tile shapes: rvq N=517 D=32 K=400, N=301 D=256 K=400, N=301 D=512 K=1024, '
+          f'N=517 D=1024 K=1024 codes equal (near-tie rows excluded: {", ".join(nears)}); '
+          f'lstm T={T} B={B} C={C} H={H} max-abs fp32 {errs[0]:.3g} (<= 1e-5), '
+          f'bf16 {errs[1]:.3g} (<= 5e-2); D=1032 refused', flush=True)
+    times = {}
+    for d in (128, 1024):
+        x, embeds = _rvq_inputs(device, n=8192, d=d, k=1024, n_q=6, seed=12)
+        times[d] = time_ms(lambda: rvq_encode(x, embeds), 5)
+        del x, embeds
+    print(f'rvq N=8192 K=1024 n_q=6: kernel D=128 {times[128]:.3f} ms, D=1024 '
+          f'{times[1024]:.3f} ms ({times[1024] / times[128]:.2f}x for 8x the width)', flush=True)
+
+
+def _lstm_args(T: int, B: int, H: int, seed: int) -> tp.List[torch.Tensor]:
+    """Seeded x [T, B, H] and weights uniform in +-1/sqrt(H), as the codec's init."""
+    gen = torch.Generator().manual_seed(seed)
+    bound = 1.0 / math.sqrt(H)
+    weights = [(torch.rand(shape, generator=gen) * 2 - 1) * bound
+               for shape in ((4 * H, H), (4 * H, H), (4 * H,), (4 * H,))]
+    return [torch.randn(T, B, H, generator=gen) * 0.5, *weights]
+
+
+def plan_text(plan) -> str:
+    return f'{plan.grid} blocks of {plan.units} units x {plan.batch_rows} batch rows'
+
+
+def _cudnn_lstm(args: tp.List[torch.Tensor]) -> tp.Tuple[torch.nn.LSTM, bool]:
+    """cuDNN's nn.LSTM with the layer's weights, packed once into cuDNN's
+    flat buffer.  nn.LSTM packs only fp16 and fp32 weights itself; unpacked
+    bf16 weights are copied into a fresh buffer (8 MB at H = 1024) on every
+    call, which would be timed with it.  Returns the module and whether a
+    call ran on the packed buffer (cuDNN warns when it has to repack)."""
+    H = args[0].shape[-1]
+    cudnn = torch.nn.LSTM(H, H, num_layers=1).to(args[0].device, args[0].dtype)
+    with torch.no_grad(), warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        for p, w in zip((cudnn.weight_ih_l0, cudnn.weight_hh_l0, cudnn.bias_ih_l0,
+                         cudnn.bias_hh_l0), args[1:]):
+            p.copy_(w)
+        try:
+            torch._cudnn_rnn_flatten_weight(
+                cudnn._flat_weights, 4, H, torch.backends.cudnn.rnn.get_cudnn_mode('LSTM'),
+                H, 0, 1, False, False)
+        except (RuntimeError, AttributeError) as exc:   # timed repacking, and said so
+            print(f'cuDNN did not pack the {args[0].dtype} LSTM weights: {exc}', flush=True)
+        cudnn(args[0])
+        torch.cuda.synchronize()
+    packed = not any('not part of single contiguous' in str(w.message) for w in caught)
+    return cudnn, packed
+
+
+def time_lstm(args: tp.List[torch.Tensor], reps: int) -> dict:
+    """One bf16 layer on the card: the kernel held against its plain version
+    on the same inputs (max-abs <= 5e-2, as at the codec's shape), both timed
+    beside cuDNN's nn.LSTM with its weights packed once, the bound, and the
+    kernel's plan and resources."""
+    T, B, H = args[0].shape
+    out = lstm_layer(*args)
+    ref = lstm_layer_reference(*args)
+    err = float((out.float() - ref.float()).abs().max())
+    check(bool(torch.isfinite(out).all()), f'lstm bf16 T={T} B={B}: non-finite output')
+    check(err <= 5e-2, f'lstm bf16 T={T} B={B} H={H}: max-abs {err:.3g} > 5e-2')
+    cudnn, packed = _cudnn_lstm(args)
+    with torch.no_grad(), warnings.catch_warnings():
+        warnings.filterwarnings('ignore', message='RNN module weights are not part')
+        cudnn_err = float((cudnn(args[0])[0].float() - ref.float()).abs().max())
+        library = time_ms(lambda: cudnn(args[0]), reps)
+    del out, ref, cudnn
+    ops = 2.0 * T * B * 4 * H * (H + H)          # input projection + recurrence
+    nbytes = 2.0 * (2 * T * B * H + 8 * H * H + 8 * H)
+    b_ms, b_by = bound_ms(ops, PEAK_BF16, nbytes)
+    plan = lstm_ops.device_plan(H, B, torch.bfloat16, args[0].device)
+    info = lstm_kernel_info(torch.bfloat16, plan)
+    entry = dict(ms=time_ms(lambda: lstm_layer(*args), reps),
+                 plain_ms=time_ms(lambda: lstm_layer_reference(*args), 1),
+                 bound_ms=b_ms, bound_by=b_by, library_ms=library)
+    print(f"lstm one bf16 layer T={T} B={B} H={H}: max-abs against plain {err:.3g} (<= 5e-2); "
+          f"kernel {entry['ms']:.3f} ms ({entry['ms'] * 1e3 / T:.2f} us per step), plain "
+          f"{entry['plain_ms']:.3f} ms, cuDNN nn.LSTM {library:.3f} ms "
+          f"({library * 1e3 / T:.2f} us per step; weights "
+          f"{'packed once' if packed else 'repacked on every call'}; max-abs against plain "
+          f"{cudnn_err:.3g}, information), bound {b_ms:.3f} ms ({b_by}); plan: "
+          f"{plan_text(plan)}, batch tile {plan.batch_tile}, K chunk "
+          f"{plan.k_chunk} in a ring of {plan.stages}, weight slice {plan.weight_bytes} B "
+          f"{'resident' if plan.resident else 'streamed'}, {plan.smem_bytes} B dynamic shared "
+          f"memory a block; {info['registers']} registers x {info['threads']} threads, "
+          f"{info['static_shared_bytes']} B static shared, {info['spill_bytes']} B spilled",
+          flush=True)
+    return entry
+
+
+def check_lstm(device) -> dict:
+    """K2 against its plain version at the codec's shape, T = 500, B = 128,
+    H = 1024: fp32 within 1e-4 (TF32 plays no part; only the order of the
+    fp32 sums differs, over 500 steps), bf16 within 5e-2 (bf16 products are
+    exact in fp32; the sums' order moves a bf16-stored h by a step, which the
+    recurrence carries).  Then one bf16 layer checked (5e-2) and timed at the
+    training encode's and MAGNeT decode's shape, T = 1500, B = 4, at B = 4
+    to 128 for T = 500, and at the codec's shape."""
+    T, B, H = LSTM_SHAPE['t'], LSTM_SHAPE['b'], LSTM_SHAPE['h']
+    x, *weights = _lstm_args(T, B, H, seed=2)
+    errs = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+        args = [a.to(device, dtype) for a in (x, *weights)]
+        out = lstm_layer(*args)
+        ref = lstm_layer_reference(*args)
+        errs[dtype] = float((out.float() - ref.float()).abs().max())
+        check(bool(torch.isfinite(out).all()), f'lstm {dtype}: non-finite output')
+        check(errs[dtype] <= tol, f'lstm {dtype}: max-abs {errs[dtype]:.3g} > {tol}')
+    print(f'lstm T={T} B={B} H={H}: max-abs fp32 {errs[torch.float32]:.3g} (<= 1e-4), '
+          f'bf16 {errs[torch.bfloat16]:.3g} (<= 5e-2)', flush=True)
+    del out, ref, args
+    small = [a.to(device, torch.bfloat16) for a in _lstm_args(1500, 4, H, seed=3)]
+    time_lstm(small, 10)
+    del small
+    sweep, sweep_err = {}, {}
+    for b in (4, 8, 16, 32, 64, 128):   # how a step grows with the bytes of h
+        a = [t.to(device, torch.bfloat16) for t in _lstm_args(T, b, H, seed=4)]
+        sweep_err[b] = float((lstm_layer(*a).float() - lstm_layer_reference(*a).float())
+                             .abs().max())
+        check(sweep_err[b] <= 5e-2, f'lstm bf16 T={T} B={b}: max-abs {sweep_err[b]:.3g} > 5e-2')
+        sweep[b] = time_ms(lambda: lstm_layer(*a), 3) * 1e3 / T
+    print(f'lstm one bf16 layer T={T} H={H}, us per step by batch: '
+          + ', '.join(f'B={b} {us:.2f}' for b, us in sweep.items())
+          + f'; max-abs against plain <= {max(sweep_err.values()):.3g} (<= 5e-2)', flush=True)
+    # timed in bf16, the main path's dtype
+    args = [a.to(device, torch.bfloat16) for a in (x, *weights)]
+    entry = time_lstm(args, 10)
+    # the same layer with the plan held to one batch group (128 blocks of 8
+    # units over all 128 rows), timed in this call beside the plan's split
+    whole = lstm_ops.fit_plan(H, B, torch.bfloat16, 8, 1, True,
+                              lstm_ops.device_limits(device.index or 0)[1])
+    chosen = lstm_ops.device_plan
+    lstm_ops.device_plan = lambda *_: whole
+    try:
+        check(float((lstm_layer(*args).float() - lstm_layer_reference(*args).float())
+                    .abs().max()) <= 5e-2, 'lstm bf16, one batch group: max-abs > 5e-2')
+        one_group = time_ms(lambda: lstm_layer(*args), 3)
+    finally:
+        lstm_ops.device_plan = chosen
+    print(f'lstm one bf16 layer T={T} B={B} H={H} held to one batch group ({whole.grid} blocks '
+          f'of {whole.units} units x {whole.batch_rows} rows, information): {one_group:.3f} ms '
+          f'({one_group * 1e3 / T:.2f} us per step), against {entry["ms"]:.3f} ms for the '
+          f'plan\'s {plan_text(lstm_ops.device_plan(H, B, torch.bfloat16, device))}', flush=True)
+    return dict(name='lstm_step', route='cuda', source='audiocraft_tpu_torch/csrc/lstm.cu',
+                replaces='audiocraft_tpu/ops/lstm_pallas.py:44',
+                max_abs_err=errs[torch.bfloat16], **entry)
 
 
 def phase_kernels(device) -> dict:
@@ -249,46 +410,7 @@ def phase_kernels(device) -> dict:
     results['rvq_encode'] = rvq
     del x, embeds, codes, plain
 
-    s = LSTM_SHAPE
-    T, B, H = s['t'], s['b'], s['h']
-    gen = torch.Generator().manual_seed(2)
-    bound = 1.0 / math.sqrt(H)
-    weights = [(torch.rand(shape, generator=gen) * 2 - 1) * bound
-               for shape in ((4 * H, H), (4 * H, H), (4 * H,), (4 * H,))]
-    x = torch.randn(T, B, H, generator=gen) * 0.5
-    errs = {}
-    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
-        args = [a.to(device, dtype) for a in (x, *weights)]
-        out = lstm_layer(*args)
-        ref = lstm_layer_reference(*args)
-        errs[dtype] = float((out.float() - ref.float()).abs().max())
-        check(bool(torch.isfinite(out).all()), f'lstm {dtype}: non-finite output')
-        check(errs[dtype] <= tol, f'lstm {dtype}: max-abs {errs[dtype]:.3g} > {tol}')
-    # timed in bf16, the main path's dtype
-    args = [a.to(device, torch.bfloat16) for a in (x, *weights)]
-    cudnn = torch.nn.LSTM(H, H, num_layers=1).to(device, torch.bfloat16)
-    with torch.no_grad(), warnings.catch_warnings():
-        for p, w in zip((cudnn.weight_ih_l0, cudnn.weight_hh_l0, cudnn.bias_ih_l0,
-                         cudnn.bias_hh_l0), args[1:]):
-            p.copy_(w)
-        # nn.LSTM cannot flatten bf16 weights into one buffer, so cuDNN packs
-        # them on every call (an 8 MB copy, timed with it) and warns each time
-        warnings.filterwarnings('ignore', message='RNN module weights are not part')
-        library = time_ms(lambda: cudnn(args[0]), 3)
-    ops = 2.0 * T * B * 4 * H * (H + H)          # input projection + recurrence
-    nbytes = 2.0 * (2 * T * B * H + 8 * H * H + 8 * H)
-    b_ms, b_by = bound_ms(ops, PEAK_BF16, nbytes)
-    lstm = dict(name='lstm_step', route='cuda', source='audiocraft_tpu_torch/csrc/lstm.cu',
-                replaces='audiocraft_tpu/ops/lstm_pallas.py:44',
-                max_abs_err=errs[torch.bfloat16],
-                ms=time_ms(lambda: lstm_layer(*args), 3),
-                plain_ms=time_ms(lambda: lstm_layer_reference(*args), 3),
-                bound_ms=b_ms, bound_by=b_by, library_ms=library)
-    print(f'lstm T={T} B={B} H={H}: max-abs fp32 {errs[torch.float32]:.3g} (<= 1e-4), '
-          f'bf16 {errs[torch.bfloat16]:.3g} (<= 5e-2); one layer in bf16: kernel '
-          f"{lstm['ms']:.3f} ms, plain {lstm['plain_ms']:.3f} ms, cuDNN nn.LSTM "
-          f'{library:.3f} ms, bound {b_ms:.3f} ms ({b_by})', flush=True)
-    results['lstm_step'] = lstm
+    results['lstm_step'] = check_lstm(device)
     results['flash_attention'] = check_attention(device)
     dkv, dq = check_attention_backward(device)
     results[dkv['name']], results[dq['name']] = dkv, dq
@@ -310,7 +432,10 @@ def check_attention(device) -> dict:
     fp32 sums differs) and bf16 at 2e-2 (the online rescaling, P carried as
     two bf16 parts into the tensor-core product and the bf16 rounding of the
     output), causal and not, at the main path's shape and off the 64-row
-    tiles; D = 256 must raise.  Then times at S = 1500 and 500 in bf16."""
+    tiles; D = 256 must raise when the kernel is called, and a transformer
+    layer with heads of 256 and attn_kernel='auto' must take the plain path
+    by shape, launch nothing and equal the plain route (fp32, 1e-5).  Then
+    times at S = 1500 and 500 in bf16."""
     gen = torch.Generator().manual_seed(10)
     errs = {}
     shapes = {'main': tuple(ATTN_SHAPE.values()), 'off-tile': (1, 130, 3, 32)}
@@ -334,6 +459,22 @@ def check_attention(device) -> dict:
         pass
     else:
         raise CheckFailed('attention: D = 256 did not raise')
+    wide = []
+    for causal in (False, True):
+        layer = StreamingMultiheadAttention(512, 2, causal=causal, attn_kernel='auto',
+                                            generator=gen).to(device)
+        x = torch.randn(2, 300, 512, generator=gen).to(device)
+        before = fused_attention.launches
+        with torch.no_grad():
+            out = layer(x)
+            layer.attn_kernel = False
+            plain = layer(x)
+        check(fused_attention.launches == before, 'a head of 256 launched the attention kernel')
+        wide.append(float((out - plain).abs().max()))
+        check(wide[-1] <= 1e-5, f'attention layer D=256 causal={causal}: {wide[-1]:.3g} > 1e-5')
+    print(f"attention layer E=512, 2 heads of 256, attn_kernel='auto', T=300: plain path by "
+          f'shape, no launch; max-abs against attn_kernel=False {wide[0]:.3g} / causal '
+          f'{wide[1]:.3g} (<= 1e-5)', flush=True)
 
     times = {}
     B, H, D = ATTN_SHAPE['b'], ATTN_SHAPE['h'], ATTN_SHAPE['d']
@@ -756,8 +897,8 @@ def phase_main_path(device) -> dict:
     check(tuple(out.shape) == (BATCH, 1, SECONDS * SAMPLE_RATE), f'wav {tuple(out.shape)}')
     check(bool(torch.isfinite(out).all()), 'non-finite waveform')
     check(launches['rvq_encode'] == 1, f"rvq launches {launches['rvq_encode']} != 1")
-    check(launches['lstm_step'] == 2 * 2 * frames,
-          f"lstm launches {launches['lstm_step']} != {2 * 2 * frames}")
+    check(launches['lstm_step'] == 2 * 2,
+          f"lstm launches {launches['lstm_step']} != 4 (2 layers, encode and decode)")
     audio = BATCH * SECONDS
     name = card()
     print(f'codes {tuple(codes.shape)}, {int(codes.unique().numel())} distinct; wav '
@@ -770,9 +911,9 @@ def phase_main_path(device) -> dict:
 
 
 def phase_parity(device) -> None:
-    print('== phase 4: fp32 parity, card vs CPU (TF32 off)', flush=True)
-    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
-          'TF32 is on')
+    print("== phase 4: fp32 parity, card vs CPU (TF32 flags at torch's defaults)", flush=True)
+    check(not torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32,
+          "TF32 flags not at torch's defaults: this phase shows the codec turns cuDNN's off")
     gpu = get_encodec_32khz(compute_dtype=None)
     cpu = get_encodec_32khz(compute_dtype=None, device='cpu')
     seed_codebooks(gpu, _clips(8, SECONDS * SAMPLE_RATE, device, seed=6))
@@ -788,6 +929,7 @@ def phase_parity(device) -> None:
           f'code match share {share:.6f} (>= 0.995)', flush=True)
     check(rel <= 1e-4, f'latent rel {rel:.3g} > 1e-4')
     check(share >= 0.995, f'code match share {share:.6f} < 0.995')
+    check(torch.backends.cudnn.allow_tf32, "the codec did not restore cuDNN's TF32 flag")
 
 
 def set_attn_kernel(lm, flag) -> None:
@@ -856,7 +998,7 @@ def phase_magnet(device, lm32, provider32, codec) -> dict:
     check(bool(torch.isfinite(audio).all()), 'non-finite audio')
     check(attn_launches == 20 * n_layers,
           f'attention launches {attn_launches} != 20 stage-0 forwards x {n_layers} layers')
-    check(launches['lstm_step'] == 2 * frames, f"lstm launches {launches['lstm_step']}")
+    check(launches['lstm_step'] == 2, f"lstm launches {launches['lstm_step']} != 2 layers")
     audio_s = PROMPTS * MAGNET_SECONDS
     print(f'tokens {tuple(tokens.shape)}, {int(tokens.unique().numel())} distinct; audio '
           f'{tuple(audio.shape)}; launches {launches}')
@@ -1039,7 +1181,7 @@ def phase_train(device, lm, provider) -> tp.Dict[str, int]:
     B, K, T = codes.shape
     check((B, K, T) == (TRAIN_BATCH, 4, TRAIN_SECONDS * 50), f'codes {tuple(codes.shape)}')
     expect = {'flash_attention': n_layers, 'flash_attention_bwd_dkv': n_layers,
-              'flash_attention_bwd_dq': n_layers, 'rvq_encode': 1, 'lstm_step': 2 * T}
+              'flash_attention_bwd_dq': n_layers, 'rvq_encode': 1, 'lstm_step': 2}
     for i, counts in enumerate(per_step):
         check(counts == expect, f'step {i} launches {counts} != {expect}')
     check(all(math.isfinite(x) for x in losses), f'non-finite loss {losses}')
@@ -1249,7 +1391,7 @@ def phase_fused_encode(device) -> tp.Dict[str, int]:
         launches = _seanet_launches()
         peak = torch.cuda.max_memory_allocated()
         expect = {k: ENCODES * v for k, v in per_encode[route].items()}
-        expect.update(rvq_encode=ENCODES, lstm_step=ENCODES * 2 * frames)
+        expect.update(rvq_encode=ENCODES, lstm_step=ENCODES * 2)
         check(launches == expect, f'{route}: launches {launches} != {expect}')
         for kernel in ('fused_stage', 'banded_mono_conv'):
             if expect[kernel]:
@@ -1278,7 +1420,7 @@ def phase_fused_encode(device) -> tp.Dict[str, int]:
     print_fused_breakdown(model, wav)
     del latents, codes, model, wav
 
-    check(not torch.backends.cudnn.allow_tf32, 'TF32 is on')
+    check(torch.backends.cudnn.allow_tf32, "cuDNN's TF32 flag is not at torch's default")
     gpu = get_encodec_32khz(compute_dtype=None)
     cpu = get_encodec_32khz(compute_dtype=None, device='cpu')
     seed_codebooks(gpu, _clips(8, SECONDS * SAMPLE_RATE, device, seed=6))
@@ -1352,9 +1494,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print('TF32 off for fp32 matmuls and convolutions')
+    # the global flags stay at torch's defaults: fp32 matmuls without TF32,
+    # cuDNN convolutions with it, which the fp32 codec turns off itself
+    print(f'TF32 flags left at torch\'s defaults: matmul allow_tf32 '
+          f'{torch.backends.cuda.matmul.allow_tf32}, cudnn allow_tf32 '
+          f'{torch.backends.cudnn.allow_tf32} (the fp32 conv stacks turn it off themselves)')
     device = torch.device('cuda')
     start = time.perf_counter()
     mark = lambda: print(f'-- {time.perf_counter() - start:.1f} s since the start', flush=True)

@@ -15,11 +15,16 @@ import torch
 
 import jax.numpy as jnp
 
+import jax
+
+from audiocraft_tpu.nn.transformer import StreamingMultiheadAttention as JaxAttention
 from audiocraft_tpu.ops import attention_pallas
 from audiocraft_tpu.ops.attention_pallas import _xla_attention
 from audiocraft_tpu.ops.attention_pallas import fused_attention as jax_fused_attention
-from audiocraft_tpu_torch.ops.attention import (fused_attention, fused_attention_reference,
-                                                kernel_route, plain_attention)
+from audiocraft_tpu_torch.nn import transformer
+from audiocraft_tpu_torch.ops.attention import (MAX_HEAD_DIM, fused_attention,
+                                                fused_attention_reference, kernel_route,
+                                                plain_attention)
 
 
 @pytest.fixture
@@ -84,6 +89,41 @@ def test_plain_attention_takes_an_additive_mask():
 def test_routing_flag():
     assert kernel_route('auto') and kernel_route('auto_local') and kernel_route(True)
     assert not kernel_route(False)
+
+
+def test_route_is_decided_by_head_dim():
+    assert MAX_HEAD_DIM == 128
+    assert kernel_route('auto', 128) and kernel_route(True, 64)
+    assert not kernel_route('auto', 256) and not kernel_route(True, 129)
+
+
+@pytest.mark.parametrize('causal', [False, True])
+def test_wide_heads_take_the_plain_path_and_match_jax(monkeypatch, causal):
+    """Head dim 256 with attn_kernel='auto': the layer never calls the kernel
+    wrapper (it would raise on the card), and its output equals the JAX
+    layer's at the same weights (fp32, 2e-5 as above)."""
+    E, heads, B, T = 512, 2, 2, 9
+    jax_layer = JaxAttention(E, heads, causal=causal, attn_kernel='auto')
+    params = jax_layer.init(jax.random.PRNGKey(3))
+    rng = np.random.RandomState(4)
+    params['in_proj_bias'] = jnp.asarray(rng.randn(3 * E).astype(np.float32) * 0.1)
+    x = rng.randn(B, T, E).astype(np.float32)
+    ref, _ = jax_layer(params, jnp.asarray(x))
+
+    layer = transformer.StreamingMultiheadAttention(E, heads, causal=causal, attn_kernel='auto')
+    layer.load_state_dict({
+        'in_proj_weight': torch.from_numpy(np.array(params['in_proj_weight'])),
+        'in_proj_bias': torch.from_numpy(np.array(params['in_proj_bias'])),
+        'out_proj.weight': torch.from_numpy(np.array(params['out_proj']['weight'])),
+        'out_proj.bias': torch.from_numpy(np.array(params['out_proj']['bias']))})
+
+    def refuse(*args, **kwargs):
+        raise AssertionError('a head of 256 reached the kernel wrapper')
+
+    monkeypatch.setattr(transformer, 'fused_attention', refuse)
+    with torch.no_grad():
+        out = layer(torch.from_numpy(x))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
 
 
 def test_wrapper_refuses_other_devices():

@@ -194,3 +194,28 @@ def test_full_width_bf16_latent_matches_jax_kernel_numerics(full_pair):
     assert emb.shape == ref.shape == (8, 128, 10)
     rel = np.abs(emb - ref).max() / np.abs(ref).max()
     assert rel < 5e-2, rel
+
+
+@pytest.mark.parametrize("compute_dtype,inside", [(None, False), ("bfloat16", True)])
+def test_fp32_codec_turns_cudnn_tf32_off_and_restores_it(compute_dtype, inside):
+    """torch runs fp32 convolutions in TF32 on the card by default: the fp32
+    codec turns cuDNN's TF32 off around its conv stacks, leaves a bf16 codec
+    alone, and gives the caller's flag back."""
+    model = get_debug_compression_model(32000, device='cpu')
+    model.compute_dtype = compute_dtype
+    seen = []
+    hooks = [stack.model[0].register_forward_pre_hook(
+        lambda *_: seen.append(torch.backends.cudnn.allow_tf32))
+        for stack in (model.encoder, model.decoder)]
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        wav = torch.from_numpy(np.random.RandomState(0).randn(1, 1, 1280).astype(np.float32))
+        codes, _ = model.encode(wav)
+        model.decode(codes)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+        for hook in hooks:
+            hook.remove()
+    assert seen == [inside, inside]

@@ -56,6 +56,18 @@ def test_rvq_plain_codes_equal_jax(route, n, d, k, ties):
         assert (codes[0, ::5] == 3).all() and (codes[0, 1::5] == 0).all()
 
 
+@pytest.mark.parametrize("d", [512, 1024])
+def test_rvq_plain_codes_equal_pallas_at_wide_rows(d):
+    """The style conditioner's widths, above the first kernel's 128: the
+    Pallas kernel pads D to a multiple of 128 and must agree code for code."""
+    x, embeds = _rvq_inputs(70, d, 64, 4, True, seed=d)
+    ref = rvq_encode_fused(jnp.asarray(x), jnp.asarray(embeds), force_pallas=True,
+                           interpret=True)
+    codes = rvq_encode_reference(torch.from_numpy(x), torch.from_numpy(embeds))
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(ref))
+    assert (codes[0, ::5] == 3).all() and (codes[0, 1::5] == 0).all()
+
+
 def _lstm_params(H, seed):
     p = JaxLSTM(H, num_layers=1).init(jax.random.PRNGKey(seed))['l0']
     return {k: np.asarray(v) for k, v in p.items()}

@@ -61,7 +61,7 @@ def test_each_ported_kernel_has_a_cuda_source_and_entry_point():
     assert {"rvq.cu", "lstm.cu", "attention.cu", "attention_bwd.cu", "seanet.cu",
             "probe.cu"} <= set(sources)
     assert 'extern "C" int acx_rvq_encode(' in sources["rvq.cu"]
-    assert 'extern "C" int acx_lstm_step(' in sources["lstm.cu"]
+    assert 'extern "C" int acx_lstm_layer(' in sources["lstm.cu"]
     assert 'extern "C" int acx_attention_fwd(' in sources["attention.cu"]
     assert 'extern "C" int acx_attention_bwd_dkv(' in sources["attention_bwd.cu"]
     assert 'extern "C" int acx_attention_bwd_dq(' in sources["attention_bwd.cu"]
@@ -78,7 +78,7 @@ def test_each_ported_kernel_has_a_cuda_source_and_entry_point():
                       "_mono_conv_kernel"):
         assert pallas_fn in sources["seanet.cu"]
     assert "probe_mosaic_ops.py:try_kernel" in sources["probe.cu"]
-    for name in ('acx_rvq_encode', 'acx_lstm_step', 'acx_attention_fwd',
+    for name in ('acx_rvq_encode', 'acx_lstm_layer', 'acx_attention_fwd',
                  'acx_attention_bwd_dkv', 'acx_attention_bwd_dq', 'acx_seanet_stage',
                  'acx_mono_conv', 'acx_probe_gather', 'acx_probe_contract'):
         assert name in _build._SIGNATURES
