@@ -3,10 +3,10 @@
 Each ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a`` (one process per
 source, all started together), and the objects link into one shared library
 with a plain C interface.  The library goes into ``_build/`` beside the
-package, named by a hash of the sources and flags, so a changed source builds
-anew and an unchanged one is loaded as it is.  Nothing is built or loaded at
-import time: the first kernel launch does it, so the package imports on hosts
-without ``nvcc``.
+package, named by a hash of the sources, the headers (``csrc/*.cuh``) and the
+flags, so a changed source or header builds anew and an unchanged one is
+loaded as it is.  Nothing is built or loaded at import time: the first kernel
+launch does it, so the package imports on hosts without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ _SIGNATURES = {
     'acx_lstm_info': ([_I, _I, _I, ctypes.POINTER(_I)], _I),
     'acx_attention_fwd': ([_P, _P, _P, _P, _P, _I, _I, _I, _I, *[_L] * 9, _F, _I, _I, _P],
                           _I),
+    'acx_attention_fwd_info': ([_I, _I, ctypes.POINTER(_I)], _I),
     'acx_attention_bwd_dkv': ([*[_P] * 8, _I, _I, _I, _I, *[_L] * 12, _F, _I, _I, _P], _I),
     'acx_attention_bwd_dq': ([*[_P] * 7, _I, _I, _I, _I, *[_L] * 12, _F, _I, _I, _P], _I),
     'acx_attention_bwd_info': ([_I, _I, _I, ctypes.POINTER(_I)], _I),
@@ -64,15 +65,22 @@ def _nvcc() -> str:
     return nvcc
 
 
-@functools.cache
-def build() -> BuildResult:
-    """Compile ``csrc/*.cu`` unless a library for these sources exists."""
-    sources = sorted(SOURCE_DIR.glob('*.cu'))
+def source_tag() -> str:
+    """The hash that names a build: the flags, ``csrc/*.cu`` and the headers
+    they include, ``csrc/*.cuh``."""
     digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(SOURCE_DIR.glob('*.cu')) + sorted(SOURCE_DIR.glob('*.cuh')):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    tag = digest.hexdigest()[:16]
+    return digest.hexdigest()[:16]
+
+
+@functools.cache
+def build() -> BuildResult:
+    """Compile ``csrc/*.cu`` unless a library for these sources and headers
+    exists."""
+    sources = sorted(SOURCE_DIR.glob('*.cu'))
+    tag = source_tag()
     lib = BUILD_DIR / f'libacx_kernels_{tag}.so'
     if lib.is_file():
         return BuildResult(lib, 0.0, '')

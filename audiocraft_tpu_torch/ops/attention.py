@@ -4,14 +4,16 @@
 Replaces the Pallas flash attention that
 ``audiocraft_tpu/ops/attention_pallas.py:fused_attention`` runs on the TPU,
 forward and custom VJP.  ``csrc/attention.cu`` (K3f) streams key tiles
-through shared memory with an fp32 online softmax, so the ``[B, H, T, T]``
-scores never reach device memory, and writes each row's fp32 log-sum-exp
-when asked; ``csrc/attention_bwd.cu`` (K3b) recomputes P from it in two
-kernels, one for dK and dV and one for dQ, on the tensor cores in bf16.
-q, k, v and dO are read in the JAX package's ``[B, T, H, D]`` layout by
-strides (a slice of a fused qkv projection needs no copy); the ragged tail
-of T and the causal mask are masked inside the kernels, so nothing is
-padded.  Bounds on an H100 and designs: see the notes at the top of the two
+through a ring in shared memory with an fp32 online softmax, so the
+``[B, H, T, T]`` scores never reach device memory, and writes each row's
+fp32 log-sum-exp when asked; ``csrc/attention_bwd.cu`` (K3b) recomputes P
+from it in two kernels, one for dK and dV and one for dQ.  In bf16 all three
+run on the tensor cores and copy rows in 16-byte pieces
+(:func:`_rows_on_16_bytes`).  q, k, v and dO are read in the JAX package's
+``[B, T, H, D]`` layout by strides (a slice of a fused qkv projection needs
+no copy); the ragged tail of T and the causal mask are masked inside the
+kernels, so nothing is padded but a head width that is not a multiple of 8
+in bf16.  Bounds on an H100 and designs: see the notes at the top of the two
 sources.
 
 :func:`plain_attention` is the plain PyTorch version, the twin of the JAX
@@ -219,12 +221,12 @@ def _check_stats(q: torch.Tensor, *stats: torch.Tensor) -> None:
 
 
 def _rows_on_16_bytes(*xs: torch.Tensor) -> tp.List[torch.Tensor]:
-    """The bf16 backward kernels copy rows in 16-byte pieces.  Views whose
+    """The bf16 kernels copy rows in 16-byte pieces.  Views whose
     rows all start on 16 bytes (D a multiple of 8, strides multiples of 8
     elements, an aligned start) pass as they are, the fused qkv projection's
     slices among them; any other is copied to a fresh contiguous tensor, with
     D zero-padded to a multiple of 8 (zero features add nothing to s or dP,
-    and the gradients of the padding are dropped)."""
+    and the outputs and gradients of the padding are dropped)."""
     pad = -xs[0].shape[-1] % 8
     out = []
     for x in xs:
@@ -286,20 +288,34 @@ def fused_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
 
 
 def _forward_kernel(q, k, v, causal: bool, sm_scale: float, with_lse: bool):
+    """Launch K3f: (o [B, T, H, D] in q's dtype, lse fp32 [B, H, T] or None)."""
     _check_cuda('the attention kernel', q, k, v)
     B, T, H, D = q.shape
-    out = torch.empty(B, T, H, D, dtype=q.dtype, device=q.device)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        q, k, v = _rows_on_16_bytes(q, k, v)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device) if with_lse else None
     if T == 0 or B == 0 or H == 0:
-        return out, lse
+        return out[..., :D], lse
     err = _launch(
         _build.library().acx_attention_fwd, q,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), B, T, H, D, *_strides(q, k, v),
-        sm_scale, int(causal), int(q.dtype == torch.bfloat16))
+        None if lse is None else lse.data_ptr(), B, T, H, q.shape[-1], *_strides(q, k, v),
+        sm_scale, int(causal), int(bf16))
     _build.check(err, 'acx_attention_fwd')
     fused_attention.launches += 1
-    return out, lse
+    return out[..., :D], lse
+
+
+def attention_fwd_kernel_info(dim: int, dtype: torch.dtype) -> tp.Dict[str, int]:
+    """What the forward kernel for head width ``dim`` and ``dtype`` uses on
+    the current card, as :func:`attention_bwd_kernel_info` reports it."""
+    out = (ctypes.c_int * 5)()
+    _build.check(_build.library().acx_attention_fwd_info(
+        dim, int(dtype == torch.bfloat16), out), 'acx_attention_fwd_info')
+    return dict(zip(('registers', 'shared_bytes', 'blocks_per_sm', 'threads', 'spill_bytes'),
+                    out))
 
 
 def attention_bwd_dkv(q, k, v, do, lse, di, *, causal: bool,

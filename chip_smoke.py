@@ -9,11 +9,14 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
 2. Kernels against their plain PyTorch versions, on the card, at the main
    paths' shapes: RVQ encode (codes equal, near-ties excluded and counted,
    D from 32 to 1024), one LSTM layer (fp32 and bf16; one cooperative
-   launch a layer, timed at B = 128 and B = 4 beside cuDNN) and flash
-   attention (fp32 and bf16, causal and not, at MAGNeT-small's
-   [8, 1500, 16, 64] and off the tiles; heads of 256 take the plain path),
-   each timed beside its bound, its plain version and, where one exists, one
-   PyTorch call computing the same thing.
+   launch a layer, timed at B = 128 and B = 4 beside cuDNN) and the flash
+   attention forward K3f (fp32 and bf16, causal and not, at MAGNeT-small's
+   [8, 1500, 16, 64], causal at the training shape [4, 1501, 16, 64], off
+   the tiles, on peaked rows, on views the bf16 wrapper copies or pads and
+   on the fused qkv slices it must pass uncopied; heads of 256 take the
+   plain path), each timed beside
+   its bound, its plain version and, where one exists, one PyTorch call
+   computing the same thing.
 3. The codec path: ``get_encodec_32khz()`` (bf16, random weights from a
    seed) tokenizes and reconstructs 128 clips of 10 s; both codec kernels'
    launch counts must rise during that run.
@@ -34,8 +37,10 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    fp32 masters, each step encoding 4 clips of 30 s with
    ``get_encodec_32khz()``; every self-attention must run the flash forward
    and both backward kernels, the loss must fall, and every parameter must
-   get a finite, non-zero gradient.  Then the training CLI takes two debug
-   steps on the card.
+   get a finite, non-zero gradient.  A profiled step prints the device's
+   busy time and the host's: operators by self time, dtype copies and
+   optimizer calls.  Then the training CLI takes two debug steps on the
+   card.
 8. Training parity in fp32 (TF32 off): loss and every gradient of the
    kernel route against the plain route, then three AdamW steps on each;
    and the bf16-compute gradients of both routes on the same batch.
@@ -422,36 +427,99 @@ def phase_kernels(device) -> dict:
 def _attn_err(q, k, v, causal: bool) -> float:
     out = fused_attention(q, k, v, causal=causal)
     ref = fused_attention_reference(q, k, v, causal=causal)
+    check(out.shape == ref.shape and out.dtype == ref.dtype,
+          f'attention {tuple(q.shape)}: output {tuple(out.shape)} {out.dtype}')
     check(bool(torch.isfinite(out).all()), f'attention {tuple(q.shape)}: non-finite output')
     return float((out.float() - ref.float()).abs().max())
 
 
+def _attn_case(shape, how: str, gen, device) -> tp.Callable[[torch.dtype], tp.List[torch.Tensor]]:
+    """Seeded q, k, v [B, T, H, D] on the card in a given dtype.  ``how``:
+    'plain' (randn); 'peaked' (q times 6, so one key takes most of a row's
+    weight, and v uniform in [-4, 4]); 'offset' (views that start one element
+    past a 16-byte boundary, which the bf16 wrapper copies); 'fused' (strided
+    slices of one [B, T, 3 H D] projection, cast before the split, as the
+    transformer passes them)."""
+    B, T, H, D = shape
+    if how == 'fused':
+        qkv = torch.randn(B, T, 3 * H * D, generator=gen).to(device)
+        return lambda dtype: [x.unflatten(-1, (H, D)) for x in qkv.to(dtype).split(H * D, -1)]
+    q, k, v = (torch.randn(shape, generator=gen).to(device) for _ in range(3))
+    if how == 'peaked':
+        q, v = 6 * q, 8 * torch.rand(shape, generator=gen).to(device) - 4
+    if how == 'offset':
+        def views(dtype):
+            flat = [torch.empty(x.numel() + 1, dtype=dtype, device=device) for x in (q, k, v)]
+            return [f[1:].view(shape).copy_(x) for f, x in zip(flat, (q, k, v))]
+        return views
+    return lambda dtype: [x.to(dtype) for x in (q, k, v)]
+
+
+def print_attention_fwd_resources() -> None:
+    """Registers per thread, shared memory per block and blocks per SM of
+    K3f's instances (cudaFuncGetAttributes and the occupancy API)."""
+    for dtype, dim in ((torch.bfloat16, 32), (torch.bfloat16, 64), (torch.bfloat16, 128),
+                       (torch.float32, 64)):
+        i = attention.attention_fwd_kernel_info(dim, dtype)
+        what = 'tensor cores' if dtype == torch.bfloat16 else 'FMA'
+        print(f"attention forward kernel {dtype} D={dim} {what}: {i['registers']} registers x "
+              f"{i['threads']} threads, {i['shared_bytes']} B shared, {i['blocks_per_sm']} "
+              f"blocks/SM, {i['spill_bytes']} B spilled", flush=True)
+
+
 def check_attention(device) -> dict:
-    """K3 against its plain version (the plain one computed from the same
+    """K3f against its plain version (the plain one computed from the same
     inputs in the same dtype), fp32 at 1e-5 (TF32 off; only the order of the
     fp32 sums differs) and bf16 at 2e-2 (the online rescaling, P carried as
     two bf16 parts into the tensor-core product and the bf16 rounding of the
-    output), causal and not, at the main path's shape and off the 64-row
-    tiles; D = 256 must raise when the kernel is called, and a transformer
-    layer with heads of 256 and attn_kernel='auto' must take the plain path
-    by shape, launch nothing and equal the plain route (fp32, 1e-5).  Then
-    times at S = 1500 and 500 in bf16."""
+    output), causal and not, at MAGNeT's shape, off the 64-row tiles, and
+    on peaked rows (bf16; one key takes most of the weight, |v| up to 4); causal
+    at the training shape; on views the bf16 wrapper copies (a start off 16
+    bytes) or pads (D = 36 to 40), and on the fused qkv slices, which it
+    must pass uncopied.  D = 256 must raise when the kernel is called, and a
+    transformer layer with heads of 256 and attn_kernel='auto' must take the
+    plain path by shape, launch nothing and equal the plain route (fp32,
+    1e-5).  Then times in bf16: K3f at S = 1500 and 500 (not causal) and at the
+    training shape (causal) beside SDPA and the bound."""
+    print_attention_fwd_resources()
     gen = torch.Generator().manual_seed(10)
+    both = (False, True)
+    cases = [('main', tuple(ATTN_SHAPE.values()), 'plain', both),
+             ('training', TRAIN_ATTN_SHAPE, 'plain', (True,)),
+             ('off-tile', (1, 130, 3, 32), 'plain', both),
+             ('peaked', (2, ATTN_SHAPE['t'], 16, 64), 'peaked', both),
+             ('copied', (2, 130, 3, 64), 'offset', both),
+             ('padded', (2, 130, 3, 36), 'plain', both),
+             ('fused qkv', (2, 257, 4, 64), 'fused', both)]
     errs = {}
-    shapes = {'main': tuple(ATTN_SHAPE.values()), 'off-tile': (1, 130, 3, 32)}
-    for name, shape in shapes.items():
-        qkv = [torch.randn(shape, generator=gen).to(device) for _ in range(3)]
-        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-            for causal in (False, True):
-                err = _attn_err(*(x.to(dtype) for x in qkv), causal)
+    for name, shape, how, masks in cases:
+        inputs = _attn_case(shape, how, gen, device)
+        # the peaked rows test what carries P into the bf16 products
+        dtypes = ((torch.float32, 1e-5),) * (how != 'peaked') + ((torch.bfloat16, 2e-2),)
+        for dtype, tol in dtypes:
+            for causal in masks:
+                err = _attn_err(*inputs(dtype), causal)
                 errs[(name, dtype, causal)] = err
-                check(err <= tol, f'attention {shape} {dtype} causal={causal}: max-abs '
+                check(err <= tol, f'attention {name} {shape} {dtype} causal={causal}: max-abs '
                                   f'{err:.3g} > {tol}')
-        print(f'attention {name} {shape}: max-abs fp32 {errs[(name, torch.float32, False)]:.3g}'
-              f' / causal {errs[(name, torch.float32, True)]:.3g} (<= 1e-5), bf16 '
-              f'{errs[(name, torch.bfloat16, False)]:.3g} / causal '
-              f'{errs[(name, torch.bfloat16, True)]:.3g} (<= 2e-2)', flush=True)
-        del qkv
+        print(f'attention {name} {shape}: max-abs ' + ', '.join(
+            f'{"fp32" if dtype == torch.float32 else "bf16"}{" causal" if causal else ""} '
+            f'{errs[(name, dtype, causal)]:.3g}'
+            for dtype, _ in dtypes for causal in masks)
+              + ' (<= 1e-5 fp32, 2e-2 bf16)', flush=True)
+        del inputs
+    offset = _attn_case((2, 130, 3, 64), 'offset', gen, device)(torch.bfloat16)
+    check(offset[0].data_ptr() % 16 != 0 and all(
+        a is not b for a, b in zip(attention._rows_on_16_bytes(*offset), offset)),
+        'the wrapper passed a view off 16 bytes uncopied')
+    B, T, H, D = TRAIN_ATTN_SHAPE
+    fused = _attn_case(TRAIN_ATTN_SHAPE, 'fused', gen, device)(torch.bfloat16)
+    check(fused[0].stride(1) == 3 * H * D and all(
+        a is b for a, b in zip(attention._rows_on_16_bytes(*fused), fused)),
+        'the fused qkv slices of the model did not pass the 16-byte rule uncopied')
+    print('16-byte rows: the fused qkv slices pass uncopied; a view 2 bytes off 16 is copied; '
+          'D = 36 is padded to 40 and sliced back', flush=True)
+
     try:
         x = torch.zeros(1, 8, 1, 256, device=device)
         fused_attention(x, x, x, causal=False)
@@ -477,26 +545,37 @@ def check_attention(device) -> dict:
           f'{wide[1]:.3g} (<= 1e-5)', flush=True)
 
     times = {}
-    B, H, D = ATTN_SHAPE['b'], ATTN_SHAPE['h'], ATTN_SHAPE['d']
-    for T in (ATTN_SHAPE['t'], 500):   # bf16, non-causal: MAGNeT stage 0 at 30 s and 10 s
-        q, k, v = (torch.randn(B, T, H, D, generator=gen).to(device, torch.bfloat16)
+    magnet = tuple(ATTN_SHAPE.values())   # MAGNeT stage 0 at 30 s and at 10 s, then training
+    for shape, causal in ((magnet, False), (magnet[:1] + (500,) + magnet[2:], False),
+                          (TRAIN_ATTN_SHAPE, True)):
+        B, T, H, D = shape
+        q, k, v = (torch.randn(shape, generator=gen).to(device, torch.bfloat16)
                    for _ in range(3))
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
-        b_ms, b_by = bound_ms(4.0 * B * H * T * T * D, PEAK_BF16, 2.0 * 4 * B * T * H * D)
-        times[T] = dict(ms=time_ms(lambda: fused_attention(q, k, v, causal=False), 10),
-                        plain_ms=time_ms(lambda: fused_attention_reference(q, k, v,
-                                                                           causal=False), 5),
-                        library_ms=time_ms(sdpa, 10), bound_ms=b_ms, bound_by=b_by)
-        t = times[T]
-        print(f'attention bf16 B={B} T={T} H={H} D={D}: kernel {t["ms"]:.3f} ms, plain '
-              f'{t["plain_ms"]:.3f} ms, SDPA {t["library_ms"]:.3f} ms, bound {b_ms:.4f} ms '
-              f'({b_by})', flush=True)
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal)
+        pairs = T * (T + 1) / 2 if causal else T * T
+        b_ms, b_by = bound_ms(4.0 * B * H * pairs * D, PEAK_BF16,
+                              2.0 * 4 * B * T * H * D + (4.0 * B * H * T if causal else 0))
+        fn = (lambda: fused_attention_with_lse(q, k, v, causal=True)) if causal else \
+            (lambda: fused_attention(q, k, v, causal=False))
+        t = times[(T, causal)] = dict(
+            ms=time_ms(fn, 20),
+            plain_ms=time_ms(lambda: fused_attention_reference(q, k, v, causal=causal), 3),
+            library_ms=time_ms(sdpa, 20), bound_ms=b_ms, bound_by=b_by)
+        print(f'attention bf16 {shape} causal={causal}{" with lse" if causal else ""}: kernel '
+              f'{t["ms"]:.4f} ms, plain {t["plain_ms"]:.3f} ms, SDPA {t["library_ms"]:.4f} ms, '
+              f'bound {b_ms:.4f} ms ({b_by}); kernel / SDPA {t["ms"] / t["library_ms"]:.2f}, '
+              f'{4.0 * B * H * pairs * D / t["ms"] / 1e9:.0f} TFLOP/s', flush=True)
         del q, k, v
+    fq, fk, fv = fused
+    fused_ms = time_ms(lambda: fused_attention_with_lse(fq, fk, fv, causal=True), 20)
+    print(f'attention bf16 {TRAIN_ATTN_SHAPE} causal on the fused qkv slices (the model\'s '
+          f'layout): kernel {fused_ms:.4f} ms (information)', flush=True)
     return dict(name='flash_attention', route='cuda',
                 source='audiocraft_tpu_torch/csrc/attention.cu',
                 replaces='audiocraft_tpu/ops/attention_pallas.py:117',
-                max_abs_err=errs[('main', torch.bfloat16, False)], **times[ATTN_SHAPE['t']])
+                max_abs_err=errs[('main', torch.bfloat16, False)],
+                **times[(ATTN_SHAPE['t'], False)])
 
 
 def _attn_bwd_errs(q, k, v, do, causal: bool) -> tp.Tuple[float, float, float]:
@@ -1120,7 +1199,10 @@ def print_train_breakdown(lm, optimizer, state, codec, wav, codes, cond) -> None
 
 def print_train_profile(step, state, codes, cond) -> None:
     """torch.profiler over one LM step: device busy time against the step's
-    wall time (both under the profiler), and the kernels that take most."""
+    wall time (both under the profiler), and the kernels that take most; then
+    the host side: the operators that take most host time by self time, and
+    the step's count of dtype copies (``aten::_to_copy``, ``aten::copy_``)
+    and of the optimizer's ``torch._foreach`` calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1134,10 +1216,22 @@ def print_train_profile(step, state, codes, cond) -> None:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms == 0:
         print('profiler: no device time seen', flush=True)
-        return
-    print(f'profiled LM step: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall, idle share '
-          f'{1 - busy_ms / wall_ms:.3f} (under the profiler); top kernels (ms, calls): ' + '; '.join(
-              f'{e.key[:70]} {e.self_device_time_total / 1e3:.2f} {e.count}' for e in kernels[:8]),
+    else:
+        print(f'profiled LM step: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall, idle '
+              f'share {1 - busy_ms / wall_ms:.3f} (under the profiler); top kernels (ms, calls): '
+              + '; '.join(f'{e.key[:70]} {e.self_device_time_total / 1e3:.2f} {e.count}'
+                          for e in kernels[:8]), flush=True)
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    host_ms = sum(e.self_cpu_time_total for e in ops) / 1e3
+    calls = {name: sum(e.count for e in ops if e.key == name)
+             for name in ('aten::_to_copy', 'aten::copy_')}
+    foreach = sum(e.count for e in ops if e.key.startswith('aten::_foreach_'))
+    ops.sort(key=lambda e: e.self_cpu_time_total, reverse=True)
+    print(f'profiled LM step, host: operators\' self time {host_ms:.2f} ms of {wall_ms:.2f} ms '
+          f'wall, {sum(e.count for e in ops)} operator calls; {calls["aten::_to_copy"]} '
+          f'aten::_to_copy and {calls["aten::copy_"]} aten::copy_ calls, {foreach} optimizer '
+          f'torch._foreach calls; top operators by host self time (ms, calls): ' + '; '.join(
+              f'{e.key[:50]} {e.self_cpu_time_total / 1e3:.2f} {e.count}' for e in ops[:10]),
           flush=True)
 
 

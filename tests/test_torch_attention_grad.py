@@ -61,9 +61,11 @@ def _jax_lse(q, k, v, causal):
         ids = jnp.broadcast_to((jnp.arange(Tp) >= t).astype(jnp.int32), (b, Tp))
         seg = pallas_flash.SegmentIds(q=ids, kv=ids)
     sizes = pallas_flash.BlockSizes(block_q=128, block_k_major=128, block_k=128, block_b=1)
+    # one jitted call, as in test_backward_reference_matches_pallas_vjp
+    forward = jax.jit(lambda q, k, v: pallas_flash._flash_attention(
+        q, k, v, None, seg, True, causal, float(1.0 / np.sqrt(d)), sizes, False))
     with pltpu.force_tpu_interpret_mode():
-        _, l, m = pallas_flash._flash_attention(prep(q), prep(k), prep(v), None, seg, True,
-                                                causal, float(1.0 / np.sqrt(d)), sizes, False)
+        _, l, m = forward(prep(q), prep(k), prep(v))
     return np.asarray(m + jnp.log(l))[:, :, :t]
 
 
@@ -86,10 +88,18 @@ def test_backward_reference_matches_pallas_vjp(interpret_kernel, causal, shape, 
     same values at the same points and agree all but bit for bit; a twin
     that rounds P or dS elsewhere, or not at all, is half a step or more off."""
     q, k, v, do = (jnp.asarray(x).astype(dtype) for x in _inputs(3 + causal, shape))
-    with pltpu.force_tpu_interpret_mode():
+
+    # one jitted call: the TPU interpreter's callbacks run their own jax
+    # operations, and an eager caller dispatching the next operation while
+    # they run can deadlock (ROADMAP Queue 3)
+    @jax.jit
+    def forward_and_vjp(q, k, v, do):
         jo, pullback = jax.vjp(lambda q, k, v: jax_fused_attention(q, k, v, causal=causal),
                                q, k, v)
-        grads = pullback(do)
+        return jo, pullback(do)
+
+    with pltpu.force_tpu_interpret_mode():
+        jo, grads = forward_and_vjp(q, k, v, do)
     tq, tk, tv, tdo, o = (torch.tensor(np.asarray(x.astype(jnp.float32))).to(getattr(torch, dtype))
                           for x in (q, k, v, do, jo))
     lse = fused_attention_with_lse(tq, tk, tv, causal=causal)[1]

@@ -79,10 +79,32 @@ def test_each_ported_kernel_has_a_cuda_source_and_entry_point():
         assert pallas_fn in sources["seanet.cu"]
     assert "probe_mosaic_ops.py:try_kernel" in sources["probe.cu"]
     for name in ('acx_rvq_encode', 'acx_lstm_layer', 'acx_attention_fwd',
-                 'acx_attention_bwd_dkv', 'acx_attention_bwd_dq', 'acx_seanet_stage',
-                 'acx_mono_conv', 'acx_probe_gather', 'acx_probe_contract'):
+                 'acx_attention_fwd_info', 'acx_attention_bwd_dkv', 'acx_attention_bwd_dq',
+                 'acx_seanet_stage', 'acx_mono_conv', 'acx_probe_gather', 'acx_probe_contract'):
         assert name in _build._SIGNATURES
+    assert 'extern "C" int acx_attention_fwd_info(' in sources["attention.cu"]
+    # K3f's bf16 kernel streams K and V through a cp.async ring and takes its
+    # operands by ldmatrix, as K3b does, from the header both include
+    for name in ("attention.cu", "attention_bwd.cu"):
+        assert '#include "attention_common.cuh"' in sources[name]
+    for call in ("load_tile<DP, kRows, THREADS>(k_at(s)", "ldsm(qa[kk]", "ldsm(f, kt",
+                 "ldsm_t(f, vt", "exp2_ftz("):
+        assert call in sources["attention.cu"]
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+def test_build_is_named_by_the_sources_and_the_headers(tmp_path, monkeypatch):
+    """An edited header builds a new library, as an edited source does."""
+    assert (PORT / "csrc" / "attention_common.cuh").is_file()
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "SOURCE_DIR", tmp_path)
+    tags = [_build.source_tag()]
+    (tmp_path / "h.cuh").write_text("// two\n")
+    tags.append(_build.source_tag())
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n// changed\n')
+    tags.append(_build.source_tag())
+    assert len(set(tags)) == 3
 
 
 def test_musicgen_melody_and_style_are_not_ported_yet():

@@ -14,6 +14,7 @@ flash VJP.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import optax
@@ -271,10 +272,13 @@ def test_flash_route_loss_and_grads_match_jax_at_musicgen_head_width(monkeypatch
     mask[1, 3:] = 0
     cond *= mask[..., None]
 
+    # jitted, as the training step runs it: one compiled graph instead of
+    # the interpreter's eager dispatch of every operation
+    loss_and_grads = jax.jit(jax.value_and_grad(functools.partial(jax_train.lm_loss, jlm),
+                                                has_aux=True))
     with pltpu.force_tpu_interpret_mode():
-        (ref_loss, _), ref_grads = jax.value_and_grad(jax_train.lm_loss, argnums=1,
-                                                      has_aux=True)(
-            jlm, jax.tree.map(jnp.asarray, params), jnp.asarray(codes),
+        (ref_loss, _), ref_grads = loss_and_grads(
+            jax.tree.map(jnp.asarray, params), jnp.asarray(codes),
             {'description': (jnp.asarray(cond), jnp.asarray(mask))})
     loss, grads = lm_loss_and_grads(
         tlm, torch.from_numpy(codes),
