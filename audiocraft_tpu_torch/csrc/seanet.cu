@@ -226,13 +226,42 @@ struct Stage {
   int bias_offset;   // byte offset of the fp32 biases
 };
 
+constexpr int kPhases = 8;   // slots of the per-phase cycle counter
+
+// The per-phase cycle counter: with kClocks, thread 0 of each block adds the
+// %clock64 cycles since the last lap to clocks[phase], after the phase's
+// barrier; without it (the production instances) it compiles to nothing.
+__device__ __forceinline__ unsigned long long cycles() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%clock64;\n" : "=l"(t));
+  return t;
+}
+
+template <bool kClocks>
+struct PhaseClock {
+  unsigned long long* clocks;
+  unsigned long long mark;
+  __device__ explicit PhaseClock(unsigned long long* c) : clocks(c), mark(kClocks ? cycles() : 0) {}
+  __device__ void lap(int phase) {
+    if constexpr (kClocks) {
+      if (threadIdx.x == 0) {
+        const unsigned long long now = cycles();
+        atomicAdd(clocks + phase, now - mark);
+        mark = now;
+      }
+    }
+  }
+};
+
 // One fused encoder stage (K4).  grid (tiles of frames, batch).
-template <typename T, bool kMma, int kTile>
+template <typename T, bool kMma, int kTile, bool kClocks>
 __global__ void __launch_bounds__(kThreads)
 stage_kernel(const T* __restrict__ x, const void* __restrict__ w1v, const T* __restrict__ b1,
              const void* __restrict__ w2v, const T* __restrict__ b2,
-             const void* __restrict__ wdv, const T* __restrict__ bd, T* __restrict__ y, Stage g) {
+             const void* __restrict__ wdv, const T* __restrict__ bd, T* __restrict__ y, Stage g,
+             unsigned long long* clocks) {
   extern __shared__ __align__(16) unsigned char smem[];
+  PhaseClock<kClocks> laps(clocks);
   T* sa = reinterpret_cast<T*>(smem);      // a rows r0-1 .. ; later the output tile
   T* se = sa + g.stage_elems;              // ELU(a) rows; later ELU(r), r row q at row q+1
   T* sz = se + (size_t)g.na * max(g.rs_a, g.rs_e);   // z rows
@@ -302,6 +331,7 @@ stage_kernel(const T* __restrict__ x, const void* __restrict__ w1v, const T* __r
     }
   }
   __syncthreads();
+  laps.lap(0);
 
   // z = ELU(conv3(ELU(a)) + b1) for r rows 0 .. nr-1 (r row q reads a rows q-1 .. q+1)
   auto z_out = [&](int m, int n, float v) {
@@ -318,6 +348,7 @@ stage_kernel(const T* __restrict__ x, const void* __restrict__ w1v, const T* __r
     simt_product(g.nr, g.h, conv3, static_cast<const T*>(w1v), z_out);
   }
   __syncthreads();
+  laps.lap(1);
 
   // ELU(r), r = a + conv1(z) + b2, in place of the ELU(a) rows (no longer
   // read), r row q at row q + 1 with row stride rs_e
@@ -336,6 +367,7 @@ stage_kernel(const T* __restrict__ x, const void* __restrict__ w1v, const T* __r
     simt_product(g.nr, g.c, conv1, static_cast<const T*>(w2v), e_out);
   }
   __syncthreads();
+  laps.lap(2);
 
   // the downsample's reflect pad at the sequence edges: ELU(r) row -i := row i,
   // row L+i := row L-2-i (sources and destinations never overlap)
@@ -352,6 +384,7 @@ stage_kernel(const T* __restrict__ x, const void* __restrict__ w1v, const T* __r
     }
   }
   __syncthreads();
+  laps.lap(3);
 
   // downsample: frame m reads ELU(r) rows s*m .. s*m + 2s - 1; the output
   // tile goes through shared memory so that the stores run along T
@@ -367,10 +400,15 @@ stage_kernel(const T* __restrict__ x, const void* __restrict__ w1v, const T* __r
     simt_product(frames, g.c_out, down, static_cast<const T*>(wdv), y_out);
   }
   __syncthreads();
+  laps.lap(4);
   T* yb = y + (size_t)b * g.c_out * g.frames + u0;
   for (int e = threadIdx.x; e < g.c_out * tile; e += kThreads) {
     const int n = e / tile, m = e - n * tile;
     if (m < frames) yb[(size_t)n * g.frames + m] = sa[n * g.out_rs + m];
+  }
+  if constexpr (kClocks) {
+    __syncthreads();
+    laps.lap(5);
   }
 }
 
@@ -424,18 +462,32 @@ int choose_tile(int c, int h, int c_out, int stride, int is_bf16, int use_mma) {
   return 0;
 }
 
-template <typename T, bool kMma, int kTile>
+// Launches the instance, or with info != nullptr only describes it: info[0..5]
+// = registers per thread, shared bytes per block, blocks per SM, threads per
+// block, local (spilled) bytes per thread, frames per tile.
+template <typename T, bool kMma, int kTile, bool kClocks>
 int launch_stage(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
                  const void* wd, const void* bd, void* y, Stage g, size_t smem,
-                 cudaStream_t stream) {
-  auto kernel = stage_kernel<T, kMma, kTile>;
+                 cudaStream_t stream, unsigned long long* clocks, int* info) {
+  auto kernel = stage_kernel<T, kMma, kTile, kClocks>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
+  if (info) {
+    cudaFuncAttributes attr;
+    int blocks = 0;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    info[0] = attr.numRegs, info[1] = (int)(attr.sharedSizeBytes + smem), info[2] = blocks;
+    info[3] = kThreads, info[4] = (int)attr.localSizeBytes, info[5] = g.tile;
+    return 0;
+  }
   const dim3 grid((g.frames + g.tile - 1) / g.tile, g.batch);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), w1, static_cast<const T*>(b1), w2, static_cast<const T*>(b2), wd,
-      static_cast<const T*>(bd), static_cast<T*>(y), g);
+      static_cast<const T*>(bd), static_cast<T*>(y), g, clocks);
   return (int)cudaGetLastError();
 }
 
@@ -511,10 +563,13 @@ int launch_mono(const void* x, const void* w, const float* bias, void* y, int ba
 // Returns cudaErrorInvalidValue when no tile of these widths fits shared
 // memory (the frames per block: the largest of 64, 32, 16, 8 that fits; the
 // tensor-core variant takes 64 or 32).
-extern "C" int acx_seanet_stage(const void* x, const void* w1, const void* b1, const void* w2,
-                                const void* b2, const void* wd, const void* bd, void* y,
-                                int batch, int c, int h, int c_out, int len, int stride,
-                                int is_bf16, int use_mma, void* stream) {
+namespace {
+
+template <bool kClocks>
+int run_stage(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
+              const void* wd, const void* bd, void* y, int batch, int c, int h, int c_out,
+              int len, int stride, int is_bf16, int use_mma, void* stream,
+              unsigned long long* clocks, int* info) {
   if (batch <= 0 || c <= 0 || h <= 0 || c_out <= 0 || stride <= 0 || len < 2 ||
       len % stride != 0)
     return (int)cudaErrorInvalidValue;
@@ -529,12 +584,43 @@ extern "C" int acx_seanet_stage(const void* x, const void* w1, const void* b1, c
   const size_t smem = stage_geometry(g, tile, is_bf16 ? 2 : 4, use_mma ? kPadMma : 0);
   if (smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (use_mma) {
-    return tile == 64 ? launch_stage<bf16, true, 64>(x, w1, b1, w2, b2, wd, bd, y, g, smem, s)
-                      : launch_stage<bf16, true, 32>(x, w1, b1, w2, b2, wd, bd, y, g, smem, s);
-  }
-  return is_bf16 ? launch_stage<bf16, false, 0>(x, w1, b1, w2, b2, wd, bd, y, g, smem, s)
-                 : launch_stage<float, false, 0>(x, w1, b1, w2, b2, wd, bd, y, g, smem, s);
+#define ACX_STAGE(T, MMA, TILE) \
+  launch_stage<T, MMA, TILE, kClocks>(x, w1, b1, w2, b2, wd, bd, y, g, smem, s, clocks, info)
+  if (use_mma) return tile == 64 ? ACX_STAGE(bf16, true, 64) : ACX_STAGE(bf16, true, 32);
+  return is_bf16 ? ACX_STAGE(bf16, false, 0) : ACX_STAGE(float, false, 0);
+#undef ACX_STAGE
+}
+
+}  // namespace
+
+extern "C" int acx_seanet_stage(const void* x, const void* w1, const void* b1, const void* w2,
+                                const void* b2, const void* wd, const void* bd, void* y,
+                                int batch, int c, int h, int c_out, int len, int stride,
+                                int is_bf16, int use_mma, void* stream) {
+  return run_stage<false>(x, w1, b1, w2, b2, wd, bd, y, batch, c, h, c_out, len, stride,
+                          is_bf16, use_mma, stream, nullptr, nullptr);
+}
+
+// The same launch with the per-phase cycle counter on: clocks[kPhases]
+// (zeroed by the caller) collects each phase's cycles summed over blocks.  A
+// measurement: no model path calls it.
+extern "C" int acx_seanet_stage_clocks(const void* x, const void* w1, const void* b1,
+                                       const void* w2, const void* b2, const void* wd,
+                                       const void* bd, void* y, int batch, int c, int h,
+                                       int c_out, int len, int stride, int is_bf16, int use_mma,
+                                       void* clocks, void* stream) {
+  return run_stage<true>(x, w1, b1, w2, b2, wd, bd, y, batch, c, h, c_out, len, stride,
+                         is_bf16, use_mma, stream, static_cast<unsigned long long*>(clocks),
+                         nullptr);
+}
+
+// What the production instance for these widths uses, into out[6] (see
+// launch_stage); nothing is launched.
+extern "C" int acx_seanet_stage_info(int c, int h, int c_out, int len, int stride, int is_bf16,
+                                     int use_mma, int* out) {
+  return run_stage<false>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                          nullptr, 1, c, h, c_out, len, stride, is_bf16, use_mma, nullptr,
+                          nullptr, out);
 }
 
 // The mono input conv: K5 (half < 0: x [B, 1, t_out + taps - 1] already

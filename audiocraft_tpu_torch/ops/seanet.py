@@ -22,6 +22,7 @@ tensor it launches its kernel, or raises.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import typing as tp
 
@@ -163,19 +164,17 @@ def _mma_widths(spec: StageSpec) -> bool:
     return spec.c_in % 16 == 0 and spec.res_hidden % 16 == 0 and spec.c_out % 8 == 0
 
 
-def fused_stage(x: torch.Tensor, params: tp.Dict[str, torch.Tensor],
-                spec: StageSpec) -> torch.Tensor:
-    """One fused encoder stage (K4): x [B, C, L] (fp32 or bf16, L % s == 0)
-    and :func:`stage_params` weights in x's dtype -> [B, C_out, L / s].
-
-    bf16 at widths of whole mma tiles runs the tensor-core variant; any other
-    width, and fp32, the fp32-FMA variant of the same kernel."""
-    cpu = _on_cpu(x, 'fused_stage')
+def _check_stage(x: torch.Tensor, params: tp.Dict[str, torch.Tensor], spec: StageSpec,
+                 what: str) -> bool:
+    """Check a stage's input and weights; True for a CPU tensor (run the
+    plain version), and on a CUDA tensor raise on what the kernel cannot
+    take."""
+    cpu = _on_cpu(x, what)
     C, H, s, C_out = spec.c_in, spec.res_hidden, spec.stride, spec.c_out
     if x.dim() != 3 or x.shape[1] != C:
-        raise ValueError(f"fused_stage takes [B, {C}, L], not {tuple(x.shape)}")
+        raise ValueError(f"{what} takes [B, {C}, L], not {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
-        raise ValueError(f"fused_stage takes fp32 or bf16, not {x.dtype}")
+        raise ValueError(f"{what} takes fp32 or bf16, not {x.dtype}")
     B, _, L = x.shape
     if L % s or L < 2:
         raise ValueError(f"length {L} is not a positive multiple of the stride {s}")
@@ -186,32 +185,84 @@ def fused_stage(x: torch.Tensor, params: tp.Dict[str, torch.Tensor],
         if tuple(p.shape) != shape or p.dtype != x.dtype or p.device != x.device:
             raise ValueError(f"{name} must be {shape} in {x.dtype} on {x.device}")
     if cpu:
-        return fused_stage_reference(x, params, spec)
+        return True
     if not (x.is_contiguous() and all(p.is_contiguous() for p in params.values())):
-        raise ValueError("fused_stage takes contiguous inputs and weights")
+        raise ValueError(f"{what} takes contiguous inputs and weights")
+    if B > 65535:
+        raise ValueError(f"batch {B} is larger than the kernel's grid")
+    return False
+
+
+def _launch_stage(x: torch.Tensor, params: tp.Dict[str, torch.Tensor], spec: StageSpec,
+                  clocks: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+    C, H, s, C_out = spec.c_in, spec.res_hidden, spec.stride, spec.c_out
+    B, _, L = x.shape
     lib = _build.library()
     is_bf16 = x.dtype == torch.bfloat16
     use_mma = is_bf16 and _mma_widths(spec)
-    if B > 65535:
-        raise ValueError(f"batch {B} is larger than the kernel's grid")
     y = torch.empty(B, C_out, L // s, dtype=x.dtype, device=x.device)
     if B == 0:
         return y
     w1, w2, wd = params['w1'], params['w2'], params['wd']
     if use_mma:
         w1, w2, wd = (pack_mma_fragments(w) for w in (w1, w2, wd))
+    args = (x.data_ptr(), w1.data_ptr(), params['b1'].data_ptr(), w2.data_ptr(),
+            params['b2'].data_ptr(), wd.data_ptr(), params['bd'].data_ptr(), y.data_ptr(), B, C,
+            H, C_out, L, s, int(is_bf16), int(use_mma))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.acx_seanet_stage(x.data_ptr(), w1.data_ptr(), params['b1'].data_ptr(),
-                                   w2.data_ptr(), params['b2'].data_ptr(), wd.data_ptr(),
-                                   params['bd'].data_ptr(), y.data_ptr(), B, C, H, C_out, L,
-                                   s, int(is_bf16), int(use_mma), stream)
-    _build.check(err, 'acx_seanet_stage')
+        if clocks is None:
+            _build.check(lib.acx_seanet_stage(*args, stream), 'acx_seanet_stage')
+        else:
+            _build.check(lib.acx_seanet_stage_clocks(*args, clocks.data_ptr(), stream),
+                         'acx_seanet_stage_clocks')
+    return y
+
+
+def fused_stage(x: torch.Tensor, params: tp.Dict[str, torch.Tensor],
+                spec: StageSpec) -> torch.Tensor:
+    """One fused encoder stage (K4): x [B, C, L] (fp32 or bf16, L % s == 0)
+    and :func:`stage_params` weights in x's dtype -> [B, C_out, L / s].
+
+    bf16 at widths of whole mma tiles runs the tensor-core variant; any other
+    width, and fp32, the fp32-FMA variant of the same kernel."""
+    if _check_stage(x, params, spec, 'fused_stage'):
+        return fused_stage_reference(x, params, spec)
+    y = _launch_stage(x, params, spec)
     fused_stage.launches += 1
     return y
 
 
 fused_stage.launches = 0  # kernel launches since the last reset
+
+STAGE_PHASES = ('input', 'conv3', 'conv1', 'reflect', 'downsample', 'output')
+_CLOCK_SLOTS = 8   # csrc/seanet.cu:kPhases
+
+
+def fused_stage_clocks(x: torch.Tensor, params: tp.Dict[str, torch.Tensor],
+                       spec: StageSpec) -> tp.Tuple[torch.Tensor, tp.Dict[str, int]]:
+    """A measurement, not a route: one K4 launch built with its per-phase
+    cycle counter, on a CUDA tensor.  Returns the output and, for each phase
+    of :data:`STAGE_PHASES`, the clock64() cycles thread 0 of every block
+    spent in it, summed over the blocks.  Not counted in the launches."""
+    if _check_stage(x, params, spec, 'fused_stage_clocks'):
+        raise ValueError("fused_stage_clocks measures the kernel: it takes a CUDA tensor")
+    clocks = torch.zeros(_CLOCK_SLOTS, dtype=torch.int64, device=x.device)
+    y = _launch_stage(x, params, spec, clocks)
+    return y, dict(zip(STAGE_PHASES, clocks.tolist()))
+
+
+def stage_kernel_info(spec: StageSpec, length: int, dtype: torch.dtype) -> tp.Dict[str, int]:
+    """Registers, shared bytes, blocks per SM, threads, spilled bytes and
+    frames per tile of the K4 instance that :func:`fused_stage` launches for
+    this stage, length and dtype on the current card."""
+    out = (ctypes.c_int * 6)()
+    is_bf16 = dtype == torch.bfloat16
+    _build.check(_build.library().acx_seanet_stage_info(
+        spec.c_in, spec.res_hidden, spec.c_out, length, spec.stride, int(is_bf16),
+        int(is_bf16 and _mma_widths(spec)), out), 'acx_seanet_stage_info')
+    return dict(zip(('registers', 'shared_bytes', 'blocks_per_sm', 'threads', 'spill_bytes',
+                     'tile'), out))
 
 
 def fused_encoder_apply(enc, x: torch.Tensor, n_stages: int

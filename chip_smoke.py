@@ -92,7 +92,8 @@ from audiocraft_tpu_torch.ops.probe import gather, split_contract, split_contrac
 from audiocraft_tpu_torch.ops.rvq import rvq_encode, rvq_encode_reference
 from audiocraft_tpu_torch.ops.seanet import (
     StageSpec, banded_mono_conv, banded_mono_conv_reference, fused_encoder_apply, fused_stage,
-    fused_stage_reference, mono_input_conv, mono_input_conv_reference)
+    fused_stage_clocks, fused_stage_reference, mono_input_conv, mono_input_conv_reference,
+    stage_kernel_info)
 from audiocraft_tpu_torch.optim import make_optimizer
 from audiocraft_tpu_torch.quant.codebook import compute_distances, quantize
 
@@ -740,6 +741,28 @@ def _stage_errs(x, params, spec, chunk: int) -> tp.Tuple[tp.Tuple[float, ...], f
     return tuple(w / max(t, 1e-30) for w, t in zip(worst, top)), worst[0]
 
 
+def print_stage_profile(si: int, spec: StageSpec, x: torch.Tensor,
+                        params: tp.Dict[str, torch.Tensor]) -> None:
+    """K4's resources (cudaFuncGetAttributes and the occupancy API), its
+    per-phase split from one launch with the cycle counter on (thread 0 of
+    each block, summed over blocks), and the weight bytes the design reads
+    from L2: every block reads each weight once."""
+    B, C, L = x.shape
+    info = stage_kernel_info(spec, L, x.dtype)
+    y, clocks = fused_stage_clocks(x, params, spec)
+    check(torch.equal(y, fused_stage(x, params, spec)), f'stage {si}: counter changes the output')
+    total = sum(clocks.values())
+    blocks = B * -(-(L // spec.stride) // info['tile'])
+    weights = 2 * sum(params[k].numel() for k in ('w1', 'w2', 'wd'))
+    print(f"fused_stage {si} resources: {info['registers']} registers x {info['threads']} "
+          f"threads, {info['shared_bytes']} B shared, {info['blocks_per_sm']} blocks/SM, "
+          f"{info['spill_bytes']} B spilled, tile {info['tile']} frames, {blocks} blocks; "
+          f"weight bytes from L2 {blocks * weights / 1e9:.2f} GB ({weights} B a block)",
+          flush=True)
+    print(f'fused_stage {si} per-phase split ({total / 1e9:.3f} G block-cycles): '
+          + ', '.join(f'{k} {v / total:.3f}' for k, v in clocks.items()), flush=True)
+
+
 def check_fused_stage(device) -> dict:
     """K4 against its plain version on the same inputs: fp32 (TF32 off; only
     the order of fp32 sums differs) within 1e-5 of the max at B = 16, bf16
@@ -794,6 +817,7 @@ def check_fused_stage(device) -> dict:
         x = (torch.randn(BATCH, C, L, generator=gen, device=device) * 0.5).to(torch.bfloat16)
         stack = torch.nn.Sequential(*encoder.model[1 + 3 * si:4 + 3 * si])
         ms = time_ms(lambda: fused_stage(x, params, spec), 5)
+        print_stage_profile(si, spec, x, params)
         plain = time_ms(lambda: [fused_stage_reference(x[i:i + 16], params, spec)
                                  for i in range(0, BATCH, 16)], 1)
         with torch.no_grad():
