@@ -2,7 +2,7 @@
 // conv (K5 on a padded signal, K6 with the reflect pad built in).
 //
 // K4 replaces audiocraft_tpu/ops/seanet_pallas.py:_stage_kernel.  For one
-// batch row and a tile of `tile` output frames, a block computes
+// batch row and a tile of `tile` output frames it computes
 //     z = ELU(conv3(ELU(a)) + b1)             conv3: k = 3, reflect pad 1
 //     r = a + conv1(z) + b2                   conv1: k = 1
 //     y = conv_down(ELU(r)) + bd              k = 2s, stride s, reflect pad
@@ -18,31 +18,40 @@
 // Bound on an H100 at 32 kHz, b128 x 10 s, bf16: stage 0 ([128, 64, 320000]
 // -> [128, 128, 80000]) moves 7.9 GB (2.35 ms at 3.35 TB/s) for 2.0 TFLOP;
 // stage 1 ([128, 128, 80000] -> [128, 256, 20000]) does 2.0 TFLOP (2.04 ms at
-// the bf16 tensor-core rate) on 3.9 GB.  So bf16 runs the three products on
-// tensor cores (mma.sync m16n8k16, fp32 accumulation: the variant for widths
-// of whole 16 x 8 tiles).  Each product reads its A operand straight from
-// the shared-memory rows: for conv3 row q the depth index d*C + c is row
-// q + d, channel c; for the downsample frame m it is row s*m + k, channel c,
-// so no im2col copy is made.  The weights (the stage-1 downsample alone is
-// 0.5 MB in bf16, more than an SM's shared memory) are read from L2 in the
-// order the B fragments take them (ops/seanet.py:pack_mma_fragments), a
-// warp's fragment being 256 contiguous bytes, kDepthB chunks ahead of their
-// products; each warp owns a group of output columns of a product, so each
-// weight fragment is read once per block.  fp32 (the parity path) and
-// widths off the tiles run the same phases with fp32 FMA outside the tensor
-// cores.  Offsets into the activations are 64-bit: stage 0 at b128 holds
-// 2.6e9 elements.
+// the bf16 tensor-core rate) on 3.9 GB.
 //
-// What the first version measured, and what the design does about it (per
-// phase clock counts on the card): the kernel was bound by issued
-// instructions and memory requests, not by the tensor cores.  So interior
-// tiles load the input with 16-byte loads, the lanes of a warp on
-// consecutive channels (their transposing stores hit distinct banks); the
-// biases sit in shared memory as fp32; the k-loop advances its tap and
-// channel without a division; bf16 epilogues store packed pairs; ELU(r) takes
-// a row stride of its own, chosen so that the downsample's rows, `stride`
-// apart, fall on distinct banks; and the tile is the largest that lets two
-// blocks share an SM (64 frames at stage 0, 32 at stage 1).
+// The bf16 variant (stage_mma_kernel, for the widths it is instantiated at)
+// runs the three products on tensor cores: mma.sync m16n8k16, fp32 sums, A
+// fragments by ldmatrix straight from the shared rows (conv3 row q reads
+// ELU(a) rows q .. q + 2; downsample frame m reads ELU(r) rows s*m .. s*m +
+// 2s - 1, so no im2col copy is made), B fragments from weights held in
+// shared memory in fragment order (ops/seanet.py:pack_mma_fragments), two
+// n-tiles in one 16-byte load.  What the first version's committed per-phase
+// counter showed on the card (PERF.md, PR 8): every block read all its
+// weights from L2 (24 GB at stage 0, 47 GB at stage 1), each phase waited for
+// the one before it, the input load (a quarter of stage 0) was synchronous,
+// and conv1's 17 m-tiles left seven warps idle at the barrier.  So:
+// - one persistent block per SM walks over (batch row, frame tile) items;
+//   w1 and w2 stay resident, and so does wd where it fits (stage 0: 144 KiB);
+// - where it does not (stage 1: 512 KiB), wd streams through a ring of
+//   k-chunks filled by bulk async copies, each chunk read from L2 once for a
+//   cluster of blocks on neighbouring tiles (multicast), with an mbarrier a
+//   slot for "landed" and one for "read by every warp of the cluster";
+// - the input tile is copied with 16-byte cp.async ahead of its products,
+//   into a second buffer where shared memory allows (stage 0), else into the
+//   one buffer as soon as conv1 has read it, under the downsample; ELU(a)
+//   is built from it in one pass with packed stores;
+// - a tile of s * (tile + 1) = 128 r rows (31 frames at s = 4) is 8 whole
+//   m-tiles, one a warp in conv3 and conv1; the downsample gives each warp
+//   all of the tile's frames and a group of output columns;
+// - ELU(r) is stored by phase (row s*j + p at p*pb + j), so the rows s
+//   apart that one ldmatrix reads are consecutive and fall on distinct banks;
+// - the output tile is transposed through shared memory and stored along T.
+// fp32 (the parity path) and widths off the instantiations run stage_kernel,
+// the same phases with fp32 FMA outside the tensor cores, one block a tile.
+// Offsets into the activations are 64-bit: stage 0 at b128 holds 2.6e9
+// elements.  Both kernels take a compile-time flag that adds each phase's
+// cycles to a counter (acx_seanet_stage_clocks); production compiles it out.
 //
 // K5 and K6 replace _banded_conv_kernel and _mono_conv_kernel of the same
 // file: y[b, c, t] = sum_d w[c, d] x[b, t + d] + bias[c] for C_in = 1, a
@@ -56,16 +65,20 @@
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "attention_common.cuh"
 
-typedef __nv_bfloat16 bf16;
+namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSmemLimit = 232448;  // the dynamic shared memory a block may use
-constexpr int kPadMma = 8;          // row padding: fragment reads hit distinct banks
 constexpr int kVecBatch = 4;        // 16-byte input loads a thread keeps in flight
-constexpr int kDepthB = 4;          // k-chunks of B fragments loaded ahead
+constexpr int kPhases = 8;          // slots of the per-phase cycle counter
+constexpr int kMaxRing = 8;         // k-chunks of wd a streaming ring holds at most
+constexpr int kMaxCluster = 4;      // blocks that share a streamed chunk
+// cycles (about 11 s) a wait on an mbarrier may spin before it traps, so that
+// a fault ends the launch with an error instead of hanging the card
+constexpr unsigned long long kSpinLimit = 20000000000ull;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
@@ -90,21 +103,32 @@ template <> __device__ __forceinline__ bf16 element<bf16>(const uint4& q, int i)
   return __ushort_as_bfloat16((unsigned short)((i & 1) ? w >> 16 : w & 0xffffu));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+__device__ __forceinline__ unsigned long long cycles() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%clock64;\n" : "=l"(t));
+  return t;
 }
-__device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
 
-// d += a . b for a 16x16 bf16 A (row), a 16x8 bf16 B (col), fp32 16x8 D
-__device__ __forceinline__ void mma(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// The per-phase cycle counter: with kClocks, thread 0 of each block adds the
+// %clock64 cycles since the last lap to clocks[phase], after the phase's
+// barrier; without it (the production instances) it compiles to nothing.
+template <bool kClocks>
+struct PhaseClock {
+  unsigned long long* clocks;
+  unsigned long long mark;
+  __device__ explicit PhaseClock(unsigned long long* c) : clocks(c), mark(kClocks ? cycles() : 0) {}
+  __device__ void lap(int phase) {
+    if constexpr (kClocks) {
+      if (threadIdx.x == 0) {
+        const unsigned long long now = cycles();
+        atomicAdd(clocks + phase, now - mark);
+        mark = now;
+      }
+    }
+  }
+};
+
+// ------------------------------------------------------- K4, fp32 FMA variant
 
 // The A operand of one product, read in place from shared memory:
 // A[m][tap * width + c] = buf[(m * rowstep + tap + rowoff) * rs + c].
@@ -130,92 +154,6 @@ __device__ void simt_product(int M, int N, RowView<T> av, const T* __restrict__ 
   }
 }
 
-// Lane `lane`'s B fragment (k-chunk kc, n-tile nt) of the packed weights;
-// zeros past the last chunk or tile.
-__device__ __forceinline__ uint2 b_fragment(const uint2* __restrict__ wf, int kc, int nt,
-                                            int kchunks, int ntiles, int lane) {
-  if (kc >= kchunks || nt >= ntiles) return make_uint2(0u, 0u);
-  return __ldg(wf + ((size_t)kc * ntiles + nt) * 32 + lane);
-}
-
-// Tensor-core product over the view: warps take items of MT 16-row tiles by
-// NG 8-column tiles; wf holds the B fragments (k-chunk, n-tile, lane, 4).
-// Rows past M are read clamped and dropped.  epi(m, n, v[n], v[n + 1]).
-template <int MT, int NG, class Epi>
-__device__ void mma_product(int M, int ntiles, RowView<bf16> av, const uint2* __restrict__ wf,
-                            Epi epi) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
-  const int kchunks = av.taps * av.width / 16;
-  const int mtiles = (M + 15) / 16;
-  const int mblocks = (mtiles + MT - 1) / MT, ngroups = (ntiles + NG - 1) / NG;
-  for (int item = warp; item < mblocks * ngroups; item += kWarps) {
-    const int mb = item / ngroups, ng = item % ngroups;
-    float acc[MT][NG][4];
-    int rows[MT][2];   // element offsets of this lane's two A rows of each m-tile
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-#pragma unroll
-      for (int j = 0; j < NG; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = min((mb * MT + i) * 16 + gq + 8 * h, M - 1);
-        rows[i][h] = (m * av.rowstep + av.rowoff) * av.rs + 2 * tq;
-      }
-    }
-    int tap_ofs = 0, ch = 0;   // the chunk's tap (as a row offset) and first channel
-    // B fragments come from L2 kDepthB chunks ahead of their products, in a
-    // ring of registers, so that the products do not wait on each load
-    uint2 ring[kDepthB][NG];
-#pragma unroll
-    for (int d = 0; d < kDepthB; ++d)
-#pragma unroll
-      for (int j = 0; j < NG; ++j) ring[d][j] = b_fragment(wf, d, ng * NG + j, kchunks, ntiles, lane);
-    for (int kc0 = 0; kc0 < kchunks; kc0 += kDepthB) {
-#pragma unroll
-      for (int d = 0; d < kDepthB; ++d) {
-        const int kc = kc0 + d;
-        if (kc >= kchunks) break;
-        uint32_t a[MT][4];
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          const bf16* p0 = av.buf + rows[i][0] + tap_ofs + ch;
-          const bf16* p1 = av.buf + rows[i][1] + tap_ofs + ch;
-          a[i][0] = *reinterpret_cast<const uint32_t*>(p0);
-          a[i][1] = *reinterpret_cast<const uint32_t*>(p1);
-          a[i][2] = *reinterpret_cast<const uint32_t*>(p0 + 8);
-          a[i][3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
-        }
-#pragma unroll
-        for (int j = 0; j < NG; ++j) {
-          if (ng * NG + j < ntiles) {
-#pragma unroll
-            for (int i = 0; i < MT; ++i) mma(acc[i][j], a[i], ring[d][j].x, ring[d][j].y);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < NG; ++j)
-          ring[d][j] = b_fragment(wf, kc + kDepthB, ng * NG + j, kchunks, ntiles, lane);
-        ch += 16;
-        if (ch == av.width) ch = 0, tap_ofs += av.rs;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NG; ++j) {
-        const int nt = ng * NG + j;
-        if (nt >= ntiles) continue;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int m = (mb * MT + i) * 16 + gq + 8 * h;
-          if (m < M) epi(m, nt * 8 + 2 * tq, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-        }
-      }
-  }
-}
-
 struct Stage {
   int batch, c, h, c_out, len, stride, frames, tile, left, right;
   int na, nr;        // a rows and r rows of a tile
@@ -226,39 +164,12 @@ struct Stage {
   int bias_offset;   // byte offset of the fp32 biases
 };
 
-constexpr int kPhases = 8;   // slots of the per-phase cycle counter
-
-// The per-phase cycle counter: with kClocks, thread 0 of each block adds the
-// %clock64 cycles since the last lap to clocks[phase], after the phase's
-// barrier; without it (the production instances) it compiles to nothing.
-__device__ __forceinline__ unsigned long long cycles() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%clock64;\n" : "=l"(t));
-  return t;
-}
-
-template <bool kClocks>
-struct PhaseClock {
-  unsigned long long* clocks;
-  unsigned long long mark;
-  __device__ explicit PhaseClock(unsigned long long* c) : clocks(c), mark(kClocks ? cycles() : 0) {}
-  __device__ void lap(int phase) {
-    if constexpr (kClocks) {
-      if (threadIdx.x == 0) {
-        const unsigned long long now = cycles();
-        atomicAdd(clocks + phase, now - mark);
-        mark = now;
-      }
-    }
-  }
-};
-
-// One fused encoder stage (K4).  grid (tiles of frames, batch).
-template <typename T, bool kMma, int kTile, bool kClocks>
+// One fused encoder stage (K4) on fp32 FMA.  grid (tiles of frames, batch).
+template <typename T, bool kClocks>
 __global__ void __launch_bounds__(kThreads)
-stage_kernel(const T* __restrict__ x, const void* __restrict__ w1v, const T* __restrict__ b1,
-             const void* __restrict__ w2v, const T* __restrict__ b2,
-             const void* __restrict__ wdv, const T* __restrict__ bd, T* __restrict__ y, Stage g,
+stage_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict__ b1,
+             const T* __restrict__ w2, const T* __restrict__ b2,
+             const T* __restrict__ wd, const T* __restrict__ bd, T* __restrict__ y, Stage g,
              unsigned long long* clocks) {
   extern __shared__ __align__(16) unsigned char smem[];
   PhaseClock<kClocks> laps(clocks);
@@ -269,7 +180,7 @@ stage_kernel(const T* __restrict__ x, const void* __restrict__ w1v, const T* __r
   float* sb2 = sb1 + g.h;
   float* sbd = sb2 + g.c;
   constexpr int kVec = 16 / sizeof(T);   // elements of one 16-byte load
-  const int tile = kMma ? kTile : g.tile;
+  const int tile = g.tile;
   const int b = blockIdx.y;
   const int u0 = blockIdx.x * tile;
   const int r0 = u0 * g.stride - g.left;   // global r row of local row 0
@@ -334,38 +245,17 @@ stage_kernel(const T* __restrict__ x, const void* __restrict__ w1v, const T* __r
   laps.lap(0);
 
   // z = ELU(conv3(ELU(a)) + b1) for r rows 0 .. nr-1 (r row q reads a rows q-1 .. q+1)
-  auto z_out = [&](int m, int n, float v) {
+  simt_product(g.nr, g.h, RowView<T>{se, g.rs_a, 1, 0, 3, g.c}, w1, [&](int m, int n, float v) {
     sz[m * g.rs_z + n] = from_f32<T>(elu(v + sb1[n]));
-  };
-  const RowView<T> conv3{se, g.rs_a, 1, 0, 3, g.c};
-  if constexpr (kMma) {
-    mma_product<2, 4>(g.nr, g.h / 8, conv3, static_cast<const uint2*>(w1v),
-                      [&](int m, int n, float v0, float v1) {
-      *reinterpret_cast<uint32_t*>(sz + m * g.rs_z + n) =
-          pack_bf16(elu(v0 + sb1[n]), elu(v1 + sb1[n + 1]));
-    });
-  } else {
-    simt_product(g.nr, g.h, conv3, static_cast<const T*>(w1v), z_out);
-  }
+  });
   __syncthreads();
   laps.lap(1);
 
   // ELU(r), r = a + conv1(z) + b2, in place of the ELU(a) rows (no longer
   // read), r row q at row q + 1 with row stride rs_e
-  auto e_out = [&](int m, int n, float v) {
+  simt_product(g.nr, g.c, RowView<T>{sz, g.rs_z, 1, 0, 1, g.h}, w2, [&](int m, int n, float v) {
     se[(m + 1) * g.rs_e + n] = from_f32<T>(elu(to_f32(sa[(m + 1) * g.rs_a + n]) + v + sb2[n]));
-  };
-  const RowView<T> conv1{sz, g.rs_z, 1, 0, 1, g.h};
-  if constexpr (kMma) {
-    mma_product<2, 4>(g.nr, g.c / 8, conv1, static_cast<const uint2*>(w2v),
-                      [&](int m, int n, float v0, float v1) {
-      const uint32_t a2 = *reinterpret_cast<const uint32_t*>(sa + (m + 1) * g.rs_a + n);
-      *reinterpret_cast<uint32_t*>(se + (m + 1) * g.rs_e + n) =
-          pack_bf16(elu(bf16_lo(a2) + v0 + sb2[n]), elu(bf16_hi(a2) + v1 + sb2[n + 1]));
-    });
-  } else {
-    simt_product(g.nr, g.c, conv1, static_cast<const T*>(w2v), e_out);
-  }
+  });
   __syncthreads();
   laps.lap(2);
 
@@ -389,16 +279,8 @@ stage_kernel(const T* __restrict__ x, const void* __restrict__ w1v, const T* __r
   // downsample: frame m reads ELU(r) rows s*m .. s*m + 2s - 1; the output
   // tile goes through shared memory so that the stores run along T
   const int frames = min(tile, g.frames - u0);
-  auto y_out = [&](int m, int n, float v) {
-    sa[n * g.out_rs + m] = from_f32<T>(v + sbd[n]);
-  };
-  const RowView<T> down{se, g.rs_e, g.stride, 1, 2 * g.stride, g.c};
-  if constexpr (kMma) {
-    mma_product<kTile / 16, 2>(frames, g.c_out / 8, down, static_cast<const uint2*>(wdv),
-                               [&](int m, int n, float v0, float v1) { y_out(m, n, v0); y_out(m, n + 1, v1); });
-  } else {
-    simt_product(frames, g.c_out, down, static_cast<const T*>(wdv), y_out);
-  }
+  simt_product(frames, g.c_out, RowView<T>{se, g.rs_e, g.stride, 1, 2 * g.stride, g.c}, wd,
+               [&](int m, int n, float v) { sa[n * g.out_rs + m] = from_f32<T>(v + sbd[n]); });
   __syncthreads();
   laps.lap(4);
   T* yb = y + (size_t)b * g.c_out * g.frames + u0;
@@ -413,82 +295,552 @@ stage_kernel(const T* __restrict__ x, const void* __restrict__ w1v, const T* __r
 }
 
 // The geometry of a tile of `tile` frames, and its shared-memory bytes.
-size_t stage_geometry(Stage& g, int tile, int elem, int pad) {
+size_t stage_geometry(Stage& g, int tile, int elem) {
   g.tile = tile;
   g.nr = g.stride * (tile + 1);   // r rows s*u0 - left .. s*(u0 + tile) + s - left - 1
   g.na = g.nr + 2;
-  g.rs_a = g.c + pad;
-  g.rs_z = g.h + pad;
-  g.rs_e = g.c + pad;
-  if (pad) {
-    // the downsample reads rows `stride` apart: take the row stride whose 8
-    // rows x 4 words of a fragment load fall on the fewest shared banks
-    int best = 1 << 30;
-    for (int rs = g.c; rs <= g.c + 32; rs += 2) {
-      int count[32] = {0}, worst = 0;
-      for (int r = 0; r < 8; ++r)
-        for (int t = 0; t < 4; ++t) {
-          const int bank = (r * g.stride * (rs / 2) + t) % 32;
-          worst = max(worst, ++count[bank]);
-        }
-      if (worst < best) best = worst, g.rs_e = rs;
-    }
-  }
-  g.out_rs = tile + pad;
+  g.rs_a = g.c;
+  g.rs_z = g.h;
+  g.rs_e = g.c;
+  g.out_rs = tile;
   int stage = g.na * g.rs_a;
   if (g.c_out * g.out_rs > stage) stage = g.c_out * g.out_rs;
   g.stage_elems = (stage + 7) / 8 * 8;
-  const int rs_se = max(g.rs_a, g.rs_e);
-  const size_t elems = (size_t)g.stage_elems + (size_t)g.na * rs_se + (size_t)g.nr * g.rs_z;
+  const size_t elems = (size_t)g.stage_elems + (size_t)g.na * g.rs_e + (size_t)g.nr * g.rs_z;
   g.bias_offset = (int)((elems * elem + 15) / 16 * 16);
   return g.bias_offset + sizeof(float) * ((size_t)g.h + g.c + g.c_out);
 }
 
-int choose_tile(int c, int h, int c_out, int stride, int is_bf16, int use_mma) {
+int choose_tile(int c, int h, int c_out, int stride, int is_bf16) {
   Stage g{};
   g.c = c, g.h = h, g.c_out = c_out, g.stride = stride;
   const int elem = is_bf16 ? 2 : 4;
-  const int pad = use_mma ? kPadMma : 0;
   const int tiles[] = {64, 32, 16, 8};
   // two blocks per SM where a tile of 32 frames or more allows it (measured
   // faster than one block of a larger tile), else the largest that fits
   const int blocks_per_sm[] = {2, 1};
   for (int blocks : blocks_per_sm) {
     for (int tile : tiles) {
-      if ((use_mma || blocks == 2) && tile < 32) break;
-      if (stage_geometry(g, tile, elem, pad) * blocks <= (size_t)kSmemLimit) return tile;
+      if (blocks == 2 && tile < 32) break;
+      if (stage_geometry(g, tile, elem) * blocks <= (size_t)kSmemLimit) return tile;
     }
   }
   return 0;
 }
 
-// Launches the instance, or with info != nullptr only describes it: info[0..5]
+// ------------------------------------------------- K4, bf16 on tensor cores
+
+// mbarriers, cluster ranks and bulk copies (sm_90)
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  return done != 0;
+}
+// Wait until the phase of `parity` has completed; trap after kSpinLimit cycles
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const unsigned long long start = cycles();
+  while (!mbar_try_wait(bar, parity))
+    if (cycles() - start > kSpinLimit) __trap();
+}
+// Arrive on the barrier at the same offset in the cluster's block `rank`
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote)
+               : "r"(smem_addr(bar)), "r"(rank));
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" :: "r"(remote)
+               : "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// Every thread of every block of the cluster arrives, then waits for the rest
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n"
+               ::: "memory");
+}
+// `bytes` from global memory to `dst` in this block (mask 0) or at the same
+// offset in every block of `mask`; completion counts on `bar` at the same
+// offset in each destination block
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar, uint16_t mask) {
+  if (mask) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
+        " [%0], [%1], %2, [%3], %4;\n"
+        :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)), "h"(mask) : "memory");
+  } else {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+        :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+  }
+}
+
+// The launch plan (ops/seanet.py:stage_plan) and the geometry it implies
+struct MmaStage {
+  int batch, len, stride, frames, left, right;
+  int tile;       // frames an item
+  int rows, na;   // r rows of an item, s * (tile + 1), and a rows, rows + 2
+  int tiles;      // items along T a batch row
+  int items;      // batch * tiles
+  int in_bufs;    // input tiles in shared memory: 2 lets the next copy start an item early
+  int ring;       // 0: wd resident; else k-chunks of wd in the streaming ring
+  int cluster;    // blocks that share each streamed chunk
+  int vec;        // len % 8 == 0 and x on 16 bytes: interior tiles copy by cp.async
+  int raw_rs;     // row stride of an input tile [C][raw_rs]
+  int pb;         // rows of one phase block of ELU(r)
+  int e_rows, out_rs;
+  int off_w2, off_wd, off_raw, off_e, off_z, off_bias, off_bar;   // shared byte offsets
+};
+
+// Rows of one phase block of ELU(r): at least nj, and, where s divides 8,
+// such that 8 consecutive r rows (one mma row group) fall on distinct banks
+__host__ __device__ inline int phase_block(int nj, int s) {
+  if (8 % s) return nj;
+  int pb = nj;
+  while (pb % 8 != (8 / s) % 8) ++pb;
+  return pb;
+}
+
+int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+// Shared bytes of the plan (ops/seanet.py:_mma_smem_bytes computes the same):
+// w1, w2, wd or its ring, the input tiles, ELU(a) / ELU(r), z / the output
+// tile, the fp32 biases, two mbarriers a ring slot.
+int mma_geometry(MmaStage& g, int c, int h, int c_out) {
+  g.rows = g.stride * (g.tile + 1);
+  g.na = g.rows + 2;
+  int chunks = (g.na + 14) / 8;   // an aligned copy starts up to 7 rows early
+  if (chunks % 2 == 0) ++chunks;  // an odd number of 16-byte units a row
+  g.raw_rs = 8 * chunks;
+  g.pb = phase_block(g.tile + 1, g.stride);
+  g.e_rows = max(g.na, g.stride * g.pb);
+  g.out_rs = round_up(g.tile + 1, 8) + 8;
+  int off = 2 * 3 * c * h;
+  g.off_w2 = off;
+  off += 2 * h * c;
+  g.off_wd = off;
+  off += g.ring ? g.ring * 16 * c_out * 2 : 2 * 2 * g.stride * c * c_out;
+  g.off_raw = off;
+  off += g.in_bufs * c * g.raw_rs * 2;
+  g.off_e = off;
+  off += g.e_rows * (c + 8) * 2;
+  g.off_z = off;
+  off += max(g.rows * (h + 8), c_out * g.out_rs) * 2;
+  g.off_bias = off;
+  off += round_up(4 * (h + c + c_out), 16);
+  g.off_bar = off;
+  return off + 16 * g.ring;
+}
+
+// One fused encoder stage (K4) in bf16 on the tensor cores, persistent: block
+// `rank` of cluster `cid` takes items (n * clusters + cid) * cluster + rank.
+// MTW m-tiles and NPW pairs of n-tiles a warp in the downsample.
+template <int C, int H, int CO, int MTW, int NPW, bool kClocks>
+__global__ void __launch_bounds__(kThreads, 1)
+stage_mma_kernel(const bf16* __restrict__ x, const uint4* __restrict__ w1g,
+                 const bf16* __restrict__ b1, const uint4* __restrict__ w2g,
+                 const bf16* __restrict__ b2, const uint4* __restrict__ wdg,
+                 const bf16* __restrict__ bd, bf16* __restrict__ y, MmaStage g,
+                 unsigned long long* clocks) {
+  constexpr int RS = C + 8, ZS = H + 8;   // row strides of ELU(a) / ELU(r) and of z
+  constexpr int WN = CO / 16 / NPW;       // warps across the downsample's columns
+  constexpr int SLOT = 16 * CO * 2;       // bytes of one k-chunk of wd
+  static_assert(kWarps % WN == 0 && C % 16 == 0 && H % 16 == 0 && CO % 16 == 0, "widths");
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint4* w1s = reinterpret_cast<const uint4*>(smem);
+  const uint4* w2s = reinterpret_cast<const uint4*>(smem + g.off_w2);
+  uint4* wds = reinterpret_cast<uint4*>(smem + g.off_wd);
+  bf16* raw0 = reinterpret_cast<bf16*>(smem + g.off_raw);
+  bf16* se = reinterpret_cast<bf16*>(smem + g.off_e);
+  bf16* sz = reinterpret_cast<bf16*>(smem + g.off_z);
+  float* sb1 = reinterpret_cast<float*>(smem + g.off_bias);
+  float* sb2 = sb1 + H;
+  float* sbd = sb2 + C;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + g.off_bar);
+  uint64_t* empty = full + g.ring;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const Lanes ln(lane);
+  PhaseClock<kClocks> laps(clocks);
+
+  const int cl = g.cluster;
+  const int rank = cl > 1 ? (int)cluster_rank() : 0;
+  const int cid = blockIdx.x / cl, clusters = gridDim.x / cl;
+  const int groups = (g.items + cl - 1) / cl;
+  const int iters = cid < groups ? (groups - cid + clusters - 1) / clusters : 0;
+  auto item_of = [&](int n) { return (n * clusters + cid) * cl + rank; };
+  // an item past the last (a cluster's padding) runs its phases on whatever
+  // the buffers hold, so that the cluster's chunks stay in step; it stores nothing
+  auto first_row = [&](int item) {   // the global a row of local row 0
+    return (item < g.items ? (item % g.tiles) * g.tile : 0) * g.stride - g.left - 1;
+  };
+  auto vec_tile = [&](int t_lo) { return g.vec && t_lo >= 0 && t_lo + g.na <= g.len; };
+
+  // the input tile of an item: rows t_lo .. t_lo + na - 1 of every channel,
+  // [C][raw_rs]; interior tiles by 16-byte cp.async from the aligned row
+  // t_lo & ~7, edge tiles through reflected indices from row t_lo
+  auto load_input = [&](bf16* raw, int item) {
+    if (item < g.items) {
+      const int t_lo = first_row(item);
+      const bf16* xb = x + (size_t)(item / g.tiles) * C * g.len;
+      if (vec_tile(t_lo)) {
+        const int a0 = t_lo & ~7, nch = (t_lo + g.na - a0 + 7) / 8;
+        for (int e = tid; e < C * nch; e += kThreads) {
+          const int c = e / nch, v = e - c * nch;
+          cp_async16(raw + c * g.raw_rs + 8 * v, xb + (size_t)c * g.len + a0 + 8 * v, true);
+        }
+      } else {
+        for (int e = tid; e < C * g.na; e += kThreads) {
+          const int c = e / g.na, p = e - c * g.na;
+          int t = t_lo + p;
+          t = t < 0 ? -t : t;
+          t = t >= g.len ? 2 * g.len - 2 - t : t;
+          raw[c * g.raw_rs + p] = xb[(size_t)c * g.len + min(max(t, 0), g.len - 1)];
+        }
+      }
+    }
+    cp_commit();
+  };
+
+  // the weights (wd too where it is resident) and the biases, once a block
+  for (int i = tid; i < 3 * C * H / 8; i += kThreads) cp_async16((void*)(w1s + i), w1g + i, true);
+  for (int i = tid; i < H * C / 8; i += kThreads) cp_async16((void*)(w2s + i), w2g + i, true);
+  if (!g.ring)
+    for (int i = tid; i < 2 * g.stride * C * CO / 8; i += kThreads) cp_async16(wds + i, wdg + i, true);
+  for (int i = tid; i < H; i += kThreads) sb1[i] = to_f32(b1[i]);
+  for (int i = tid; i < C; i += kThreads) sb2[i] = to_f32(b2[i]);
+  for (int i = tid; i < CO; i += kThreads) sbd[i] = to_f32(bd[i]);
+
+  // the streaming ring: chunk q (counted over the block's items) goes to
+  // slot q % ring; each block of the cluster copies its share of it to all
+  const int kch = 2 * g.stride * C / 16;   // k-chunks of wd
+  const int total = iters * kch;
+  auto produce = [&](int q) {   // thread 0 only
+    const int slot = q % g.ring;
+    const uint32_t part = SLOT / cl;
+    mbar_expect_tx(full + slot, SLOT);
+    bulk_copy(reinterpret_cast<unsigned char*>(wds) + slot * SLOT + rank * part,
+              reinterpret_cast<const unsigned char*>(wdg) + (size_t)(q % kch) * SLOT + rank * part,
+              part, full + slot, cl > 1 ? (uint16_t)((1u << cl) - 1) : (uint16_t)0);
+  };
+  if (g.ring) {
+    if (tid == 0) {
+      for (int j = 0; j < g.ring; ++j) {
+        mbar_init(full + j, 1);
+        mbar_init(empty + j, cl * kWarps);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    cluster_sync();   // every block's barriers are set before any copy or remote arrive
+    if (tid == 0)
+      for (int q = 0; q < min(total, g.ring - 1); ++q) produce(q);
+  }
+
+  if (iters > 0) load_input(raw0, item_of(0));
+  int chunk = 0;   // ring chunks consumed so far
+  for (int n = 0; n < iters; ++n) {
+    const int item = item_of(n);
+    bf16* raw = raw0 + (n % g.in_bufs) * C * g.raw_rs;
+    cp_wait<0>();
+    __syncthreads();
+    laps.lap(0);
+    if (g.in_bufs == 2 && n + 1 < iters) load_input(raw0 + ((n + 1) % 2) * C * g.raw_rs, item_of(n + 1));
+    const int t_lo = first_row(item);
+    const int r0 = t_lo + 1, u0 = (r0 + g.left) / g.stride;
+    const int roff = vec_tile(t_lo) ? t_lo & 7 : 0;   // local row p is raw column p + roff
+
+    // ELU(a) rows [na][RS] from the input tile, two channels a thread, packed stores
+    const int nch = (roff + g.na + 7) / 8;
+    for (int e = tid; e < (C / 2) * nch; e += kThreads) {
+      const int c = 2 * (e % (C / 2)), v = e / (C / 2);
+      const uint4 lo = *reinterpret_cast<const uint4*>(raw + c * g.raw_rs + 8 * v);
+      const uint4 hi = *reinterpret_cast<const uint4*>(raw + (c + 1) * g.raw_rs + 8 * v);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int p = 8 * v + i - roff;
+        if (p >= 0 && p < g.na)
+          *reinterpret_cast<uint32_t*>(se + p * RS + c) =
+              pack(elu(to_f32(element<bf16>(lo, i))), elu(to_f32(element<bf16>(hi, i))));
+      }
+    }
+    __syncthreads();
+    laps.lap(1);
+
+    // z = ELU(conv3(ELU(a)) + b1): warp w takes m-tiles w, w + 8, ..
+    for (int mt = warp; mt < g.rows / 16; mt += kWarps) {
+      float acc[H / 8][4] = {};
+      const bf16* arow = se + (16 * mt + ln.ra) * RS + ln.ca;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+#pragma unroll
+        for (int cc = 0; cc < C / 16; ++cc) {
+          uint32_t a[4];
+          ldsm(a, arow + d * RS + 16 * cc);
+          const uint4* wb = w1s + (d * (C / 16) + cc) * (H / 16) * 32 + lane;
+#pragma unroll
+          for (int np = 0; np < H / 16; ++np) {
+            const uint4 bb = wb[np * 32];
+            mma(acc[2 * np], a, bb.x, bb.y);
+            mma(acc[2 * np + 1], a, bb.z, bb.w);
+          }
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < H / 8; ++nt) {
+        const int n = 8 * nt + 2 * tq;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int q = 16 * mt + gq + 8 * hh;
+          *reinterpret_cast<uint32_t*>(sz + q * ZS + n) =
+              pack(elu(acc[nt][2 * hh] + sb1[n]), elu(acc[nt][2 * hh + 1] + sb1[n + 1]));
+        }
+      }
+    }
+    __syncthreads();
+    laps.lap(2);
+
+    // ELU(r), r = a + conv1(z) + b2, over the ELU(a) rows (no longer read),
+    // by phase: r row q = s*j + p at row p*pb + j
+    for (int mt = warp; mt < g.rows / 16; mt += kWarps) {
+      float acc[C / 8][4] = {};
+      const bf16* arow = sz + (16 * mt + ln.ra) * ZS + ln.ca;
+#pragma unroll
+      for (int kc = 0; kc < H / 16; ++kc) {
+        uint32_t a[4];
+        ldsm(a, arow + 16 * kc);
+        const uint4* wb = w2s + kc * (C / 16) * 32 + lane;
+#pragma unroll
+        for (int np = 0; np < C / 16; ++np) {
+          const uint4 bb = wb[np * 32];
+          mma(acc[2 * np], a, bb.x, bb.y);
+          mma(acc[2 * np + 1], a, bb.z, bb.w);
+        }
+      }
+      int erow[2], col[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int q = 16 * mt + gq + 8 * hh;
+        erow[hh] = ((q % g.stride) * g.pb + q / g.stride) * RS;
+        col[hh] = q + 1 + roff;   // a row q + 1 in the input tile
+      }
+#pragma unroll
+      for (int nt = 0; nt < C / 8; ++nt) {
+        const int n = 8 * nt + 2 * tq;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float a0 = to_f32(raw[n * g.raw_rs + col[hh]]);
+          const float a1 = to_f32(raw[(n + 1) * g.raw_rs + col[hh]]);
+          *reinterpret_cast<uint32_t*>(se + erow[hh] + n) =
+              pack(elu(a0 + acc[nt][2 * hh] + sb2[n]), elu(a1 + acc[nt][2 * hh + 1] + sb2[n + 1]));
+        }
+      }
+    }
+    __syncthreads();
+    laps.lap(3);
+    // the one input buffer is free: the next item's copy runs under the downsample
+    if (g.in_bufs == 1 && n + 1 < iters) load_input(raw0, item_of(n + 1));
+
+    // the downsample's reflect pad at the sequence edges: ELU(r) row -i :=
+    // row i, row L+i := row L-2-i (sources and destinations never overlap)
+    if (r0 < 0 || u0 + g.tile >= g.frames) {
+      auto at = [&](int q) { return ((q % g.stride) * g.pb + q / g.stride) * RS; };
+      if (r0 < 0) {
+        for (int e = tid; e < g.left * C; e += kThreads) {
+          const int i = e / C + 1, ch = e % C;
+          se[at(-i - r0) + ch] = se[at(i - r0) + ch];
+        }
+      }
+      if (u0 + g.tile >= g.frames) {
+        for (int e = tid; e < g.right * C; e += kThreads) {
+          const int i = e / C, ch = e % C;
+          se[at(g.len + i - r0) + ch] = se[at(g.len - 2 - i - r0) + ch];
+        }
+      }
+      __syncthreads();
+    }
+    laps.lap(4);
+
+    // downsample: frame m, tap k reads r row s*m + k, that is ELU(r) row
+    // (k % s) * pb + m + k / s; warp (wm, wn) takes m-tiles wm*MTW .. and
+    // n-tile pairs wn*NPW ..; the output tile [CO][out_rs] goes over z
+    {
+      const int wn = warp % WN, wm = warp / WN;
+      float acc[MTW][2 * NPW][4] = {};
+      int abase[MTW];
+#pragma unroll
+      for (int i = 0; i < MTW; ++i)
+        abase[i] = min(16 * (wm * MTW + i) + ln.ra, g.tile - 1) * RS + ln.ca;
+      int kk = 0;
+      for (int k = 0; k < 2 * g.stride; ++k) {
+        const bf16* tap = se + ((k % g.stride) * g.pb + k / g.stride) * RS;
+#pragma unroll
+        for (int cc = 0; cc < C / 16; ++cc, ++kk) {
+          const uint4* wb;
+          int slot = 0;
+          if (g.ring) {
+            slot = chunk % g.ring;
+            mbar_wait(full + slot, (chunk / g.ring) & 1);
+            wb = wds + slot * (SLOT / 16);
+          } else {
+            wb = wds + kk * (SLOT / 16);
+          }
+          wb += wn * NPW * 32 + lane;
+          uint4 bb[NPW];
+#pragma unroll
+          for (int j = 0; j < NPW; ++j) bb[j] = wb[j * 32];
+          uint32_t a[MTW][4];
+#pragma unroll
+          for (int i = 0; i < MTW; ++i) ldsm(a[i], tap + abase[i] + 16 * cc);
+#pragma unroll
+          for (int i = 0; i < MTW; ++i)
+#pragma unroll
+            for (int j = 0; j < NPW; ++j) {
+              mma(acc[i][2 * j], a[i], bb[j].x, bb[j].y);
+              mma(acc[i][2 * j + 1], a[i], bb[j].z, bb[j].w);
+            }
+          if (g.ring) {
+            // this warp is done with the slot: tell every block of the cluster;
+            // thread 0 refills the slot freed one chunk earlier
+            __syncwarp();
+            if (lane < cl) mbar_arrive_remote(empty + slot, lane);
+            if (tid == 0 && chunk + g.ring - 1 < total) {
+              if (chunk >= 1) mbar_wait(empty + (chunk - 1) % g.ring, ((chunk - 1) / g.ring) & 1);
+              produce(chunk + g.ring - 1);
+            }
+            __syncwarp();
+            ++chunk;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < MTW; ++i)
+#pragma unroll
+        for (int j = 0; j < 2 * NPW; ++j) {
+          const int n = 8 * (wn * 2 * NPW + j) + 2 * tq;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int m = 16 * (wm * MTW + i) + gq + 8 * hh;
+            if (m < g.tile) {
+              sz[n * g.out_rs + m] = __float2bfloat16_rn(acc[i][j][2 * hh] + sbd[n]);
+              sz[(n + 1) * g.out_rs + m] = __float2bfloat16_rn(acc[i][j][2 * hh + 1] + sbd[n + 1]);
+            }
+          }
+        }
+    }
+    __syncthreads();
+    laps.lap(5);
+
+    if (item < g.items) {
+      const int fr = min(g.tile, g.frames - u0);
+      bf16* yb = y + (size_t)(item / g.tiles) * CO * g.frames + u0;
+      for (int e = tid; e < CO * fr; e += kThreads) {
+        const int n = e / fr, m = e - n * fr;
+        yb[(size_t)n * g.frames + m] = sz[n * g.out_rs + m];
+      }
+    }
+    if constexpr (kClocks) {
+      __syncthreads();
+      laps.lap(6);
+    }
+  }
+  // no block leaves while a block of its cluster may still arrive on its barriers
+  if (g.ring) cluster_sync();
+}
+
+// Launches the instance, or with info != nullptr only describes it: info[0..7]
 // = registers per thread, shared bytes per block, blocks per SM, threads per
-// block, local (spilled) bytes per thread, frames per tile.
-template <typename T, bool kMma, int kTile, bool kClocks>
-int launch_stage(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
-                 const void* wd, const void* bd, void* y, Stage g, size_t smem,
-                 cudaStream_t stream, unsigned long long* clocks, int* info) {
-  auto kernel = stage_kernel<T, kMma, kTile, kClocks>;
+// block, local (spilled) bytes per thread, frames per tile, blocks launched,
+// blocks a cluster.
+template <typename K, typename... Args>
+int launch_or_describe(K kernel, dim3 grid, size_t smem, int tile, int cluster,
+                       cudaStream_t stream, int* info, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster, attr[0].val.clusterDim.y = 1, attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = grid, cfg.blockDim = dim3(kThreads), cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream, cfg.attrs = attr, cfg.numAttrs = cluster > 1 ? 1 : 0;
   if (info) {
-    cudaFuncAttributes attr;
+    cudaFuncAttributes fa;
     int blocks = 0;
-    err = cudaFuncGetAttributes(&attr, kernel);
+    err = cudaFuncGetAttributes(&fa, kernel);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
     if (err != cudaSuccess) return (int)err;
-    info[0] = attr.numRegs, info[1] = (int)(attr.sharedSizeBytes + smem), info[2] = blocks;
-    info[3] = kThreads, info[4] = (int)attr.localSizeBytes, info[5] = g.tile;
+    info[0] = fa.numRegs, info[1] = (int)(fa.sharedSizeBytes + smem), info[2] = blocks;
+    info[3] = kThreads, info[4] = (int)fa.localSizeBytes, info[5] = tile;
+    info[6] = (int)(grid.x * grid.y), info[7] = cluster;
     return 0;
   }
+  return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+template <int C, int H, int CO, int MTW, int NPW, bool kClocks>
+int launch_mma(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
+               const void* wd, const void* bd, void* y, MmaStage g, int smem,
+               cudaStream_t stream, unsigned long long* clocks, int* info) {
+  constexpr int WM = kWarps / (CO / 16 / NPW);
+  if (g.tile > 16 * WM * MTW) return (int)cudaErrorInvalidValue;
+  auto kernel = stage_mma_kernel<C, H, CO, MTW, NPW, kClocks>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  // the persistent grid: as many blocks (whole clusters) as are resident at once
+  int dev = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  int resident = per_sm * sms;
+  if (g.cluster > 1) {
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = g.cluster, attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(g.cluster * sms), cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem, cfg.attrs = attr, cfg.numAttrs = 1;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    resident = clusters * g.cluster;
+  }
+  if (resident < g.cluster) return (int)cudaErrorInvalidConfiguration;
+  const int groups = (g.items + g.cluster - 1) / g.cluster;
+  const dim3 grid(min(groups, resident / g.cluster) * g.cluster);
+  return launch_or_describe(kernel, grid, smem, g.tile, g.cluster, stream, info,
+                            static_cast<const bf16*>(x), static_cast<const uint4*>(w1),
+                            static_cast<const bf16*>(b1), static_cast<const uint4*>(w2),
+                            static_cast<const bf16*>(b2), static_cast<const uint4*>(wd),
+                            static_cast<const bf16*>(bd), static_cast<bf16*>(y), g, clocks);
+}
+
+template <typename T, bool kClocks>
+int launch_stage(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
+                 const void* wd, const void* bd, void* y, Stage g, size_t smem,
+                 cudaStream_t stream, unsigned long long* clocks, int* info) {
   const dim3 grid((g.frames + g.tile - 1) / g.tile, g.batch);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), w1, static_cast<const T*>(b1), w2, static_cast<const T*>(b2), wd,
-      static_cast<const T*>(bd), static_cast<T*>(y), g, clocks);
-  return (int)cudaGetLastError();
+  return launch_or_describe(stage_kernel<T, kClocks>, grid, smem, g.tile, 1, stream, info,
+                            static_cast<const T*>(x), static_cast<const T*>(w1),
+                            static_cast<const T*>(b1), static_cast<const T*>(w2),
+                            static_cast<const T*>(b2), static_cast<const T*>(wd),
+                            static_cast<const T*>(bd), static_cast<T*>(y), g, clocks);
 }
 
 // ----------------------------------------------------------------- K5, K6
@@ -554,51 +906,71 @@ int launch_mono(const void* x, const void* w, const float* bias, void* y, int ba
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// One fused encoder stage (K4): x [B, C, L] -> y [B, C_out, L / stride], all
-// in one dtype (bf16 when is_bf16, else fp32).  Weights are K-major: w1
-// [3C, H], w2 [H, C], wd [2 stride C, C_out]; with use_mma (bf16, C and H
-// multiples of 16, C_out of 8) they come in B-fragment order instead.
-// Returns cudaErrorInvalidValue when no tile of these widths fits shared
-// memory (the frames per block: the largest of 64, 32, 16, 8 that fits; the
-// tensor-core variant takes 64 or 32).
-namespace {
-
+// K4 by plan: plan == nullptr runs the fp32-FMA variant (its tile chosen
+// here); else plan = {tile, in_bufs, ring, cluster, shared bytes} of the
+// tensor-core variant, whose shared bytes are recomputed and must agree.
 template <bool kClocks>
 int run_stage(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
               const void* wd, const void* bd, void* y, int batch, int c, int h, int c_out,
-              int len, int stride, int is_bf16, int use_mma, void* stream,
+              int len, int stride, int is_bf16, const int* plan, void* stream,
               unsigned long long* clocks, int* info) {
   if (batch <= 0 || c <= 0 || h <= 0 || c_out <= 0 || stride <= 0 || len < 2 ||
       len % stride != 0)
     return (int)cudaErrorInvalidValue;
-  if (use_mma && (!is_bf16 || c % 16 || h % 16 || c_out % 8)) return (int)cudaErrorInvalidValue;
-  const int tile = choose_tile(c, h, c_out, stride, is_bf16, use_mma);
-  if (tile == 0 || (use_mma && tile != 64 && tile != 32)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int right = stride / 2, left = stride - right, frames = len / stride;
+  if (plan) {
+    MmaStage g{};
+    g.batch = batch, g.len = len, g.stride = stride, g.frames = frames;
+    g.left = left, g.right = right;
+    g.tile = plan[0], g.in_bufs = plan[1], g.ring = plan[2], g.cluster = plan[3];
+    if (!is_bf16 || g.tile < 1 || g.in_bufs < 1 || g.in_bufs > 2 || g.ring < 0 ||
+        g.ring == 1 || g.ring > kMaxRing || g.cluster < 1 || g.cluster > kMaxCluster ||
+        (g.cluster > 1 && !g.ring) || (stride * (g.tile + 1)) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    g.tiles = (frames + g.tile - 1) / g.tile;
+    if ((long long)batch * g.tiles > (1 << 30)) return (int)cudaErrorInvalidValue;
+    g.items = batch * g.tiles;
+    g.vec = len % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    const int smem = mma_geometry(g, c, h, c_out);
+    if (smem != plan[4] || smem > kSmemLimit || (16 * c_out * 2) % (16 * g.cluster) != 0)
+      return (int)cudaErrorInvalidValue;
+#define ACX_MMA(C, H, CO, MTW, NPW)                                                          \
+  if (c == C && h == H && c_out == CO)                                                       \
+    return launch_mma<C, H, CO, MTW, NPW, kClocks>(x, w1, b1, w2, b2, wd, bd, y, g, smem, s, \
+                                                   clocks, info);
+    ACX_MMA(32, 16, 64, 2, 1)
+    ACX_MMA(64, 32, 128, 2, 1)
+    ACX_MMA(128, 64, 256, 2, 2)
+#undef ACX_MMA
+    return (int)cudaErrorInvalidValue;
+  }
+  const int tile = choose_tile(c, h, c_out, stride, is_bf16);
+  if (tile == 0) return (int)cudaErrorInvalidValue;
   Stage g{};
   g.batch = batch, g.c = c, g.h = h, g.c_out = c_out, g.len = len, g.stride = stride;
-  g.frames = len / stride;
-  g.right = stride / 2;
-  g.left = stride - g.right;
-  const size_t smem = stage_geometry(g, tile, is_bf16 ? 2 : 4, use_mma ? kPadMma : 0);
+  g.frames = frames, g.right = right, g.left = left;
+  const size_t smem = stage_geometry(g, tile, is_bf16 ? 2 : 4);
   if (smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-#define ACX_STAGE(T, MMA, TILE) \
-  launch_stage<T, MMA, TILE, kClocks>(x, w1, b1, w2, b2, wd, bd, y, g, smem, s, clocks, info)
-  if (use_mma) return tile == 64 ? ACX_STAGE(bf16, true, 64) : ACX_STAGE(bf16, true, 32);
-  return is_bf16 ? ACX_STAGE(bf16, false, 0) : ACX_STAGE(float, false, 0);
-#undef ACX_STAGE
+  return is_bf16 ? launch_stage<bf16, kClocks>(x, w1, b1, w2, b2, wd, bd, y, g, smem, s, clocks, info)
+                 : launch_stage<float, kClocks>(x, w1, b1, w2, b2, wd, bd, y, g, smem, s, clocks,
+                                                info);
 }
 
 }  // namespace
 
+// One fused encoder stage (K4): x [B, C, L] -> y [B, C_out, L / stride], all
+// in one dtype (bf16 when is_bf16, else fp32).  Weights are K-major: w1
+// [3C, H], w2 [H, C], wd [2 stride C, C_out]; with a plan (bf16 on the tensor
+// cores, at the widths instantiated above) they come in the order of
+// ops/seanet.py:pack_mma_fragments instead.  Returns cudaErrorInvalidValue
+// for widths, lengths or plans the kernels do not take.
 extern "C" int acx_seanet_stage(const void* x, const void* w1, const void* b1, const void* w2,
                                 const void* b2, const void* wd, const void* bd, void* y,
                                 int batch, int c, int h, int c_out, int len, int stride,
-                                int is_bf16, int use_mma, void* stream) {
+                                int is_bf16, const int* plan, void* stream) {
   return run_stage<false>(x, w1, b1, w2, b2, wd, bd, y, batch, c, h, c_out, len, stride,
-                          is_bf16, use_mma, stream, nullptr, nullptr);
+                          is_bf16, plan, stream, nullptr, nullptr);
 }
 
 // The same launch with the per-phase cycle counter on: clocks[kPhases]
@@ -607,19 +979,19 @@ extern "C" int acx_seanet_stage(const void* x, const void* w1, const void* b1, c
 extern "C" int acx_seanet_stage_clocks(const void* x, const void* w1, const void* b1,
                                        const void* w2, const void* b2, const void* wd,
                                        const void* bd, void* y, int batch, int c, int h,
-                                       int c_out, int len, int stride, int is_bf16, int use_mma,
-                                       void* clocks, void* stream) {
+                                       int c_out, int len, int stride, int is_bf16,
+                                       const int* plan, void* clocks, void* stream) {
   return run_stage<true>(x, w1, b1, w2, b2, wd, bd, y, batch, c, h, c_out, len, stride,
-                         is_bf16, use_mma, stream, static_cast<unsigned long long*>(clocks),
+                         is_bf16, plan, stream, static_cast<unsigned long long*>(clocks),
                          nullptr);
 }
 
-// What the production instance for these widths uses, into out[6] (see
-// launch_stage); nothing is launched.
-extern "C" int acx_seanet_stage_info(int c, int h, int c_out, int len, int stride, int is_bf16,
-                                     int use_mma, int* out) {
+// What the production instance for this launch uses, into out[8] (see
+// launch_or_describe); nothing is launched.
+extern "C" int acx_seanet_stage_info(int batch, int c, int h, int c_out, int len, int stride,
+                                     int is_bf16, const int* plan, int* out) {
   return run_stage<false>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                          nullptr, 1, c, h, c_out, len, stride, is_bf16, use_mma, nullptr,
+                          nullptr, batch, c, h, c_out, len, stride, is_bf16, plan, nullptr,
                           nullptr, out);
 }
 

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 import typing as tp
 
 import torch
@@ -110,6 +111,35 @@ def stage_params(enc, spec: StageSpec, layer_ids: tp.Sequence[int],
         bd=cast(convd['bias']))
 
 
+def _stage_sources(enc, layer_ids: tp.Sequence[int]) -> tp.List[torch.Tensor]:
+    res, down = enc.model[layer_ids[0]], enc.model[layer_ids[1]]
+    return [conv[k] for conv in (res.block[1].conv['conv'], res.block[3].conv['conv'],
+                                 down.conv['conv']) for k in ('weight', 'bias')]
+
+
+def encoder_stage_weights(enc, spec: StageSpec, layer_ids: tp.Sequence[int],
+                          dtype: torch.dtype) -> tp.Dict[str, torch.Tensor]:
+    """:func:`stage_params`, with ``w1_mma``, ``w2_mma`` and ``wd_mma`` in
+    :func:`pack_mma_fragments` order where the tensor-core variant runs the
+    stage, made once per encoder, stage and dtype and kept on the encoder.
+    The cache holds the source parameters and their version counters, so an
+    in-place update (an optimizer step, ``load_state_dict``) or a parameter
+    put in another's place packs anew."""
+    sources = _stage_sources(enc, layer_ids)
+    versions = [t._version for t in sources]
+    key = (tuple(layer_ids), dtype)
+    cache = enc.__dict__.setdefault('_stage_weight_cache', {})
+    hit = cache.get(key)
+    if (hit is not None and all(a is b for a, b in zip(hit[0], sources))
+            and hit[1] == versions):
+        return hit[2]
+    params = stage_params(enc, spec, layer_ids, dtype)
+    if stage_plan(spec, dtype) is not None:
+        params.update({f'{k}_mma': pack_mma_fragments(params[k]) for k in ('w1', 'w2', 'wd')})
+    cache[key] = (sources, versions, params)
+    return params
+
+
 def _elu(x: torch.Tensor) -> torch.Tensor:
     """ELU(alpha = 1) as the TPU kernel writes it, exp(min(x, 0)) - 1."""
     return torch.where(x > 0, x, torch.exp(torch.clamp(x, max=0.0)) - 1.0)
@@ -146,22 +176,120 @@ def _on_cpu(x: torch.Tensor, what: str) -> bool:
 
 
 def pack_mma_fragments(w: torch.Tensor) -> torch.Tensor:
-    """A bf16 [K, N] matrix (K % 16 == 0, N % 8 == 0) in the order the
-    m16n8k16 B fragments are read: for k-chunk kc, n-tile nt and lane l
-    (g = l // 4, t = l % 4), four values B[16 kc + 2t + {0, 1, 8, 9}, 8 nt + g],
-    so one warp reads a fragment as 256 contiguous bytes."""
+    """A bf16 [K, N] matrix (K % 16 == 0, N % 16 == 0) in the order the
+    tensor-core K4 reads its m16n8k16 B fragments, two n-tiles at a time:
+    for k-chunk kc, pair of n-tiles np and lane l (g = l // 4, t = l % 4),
+    eight values B[16 kc + 2t + {0, 1, 8, 9}, 16 np + g] then the same rows
+    at column 16 np + 8 + g, so one warp reads two fragments as 512
+    contiguous bytes, one 16-byte load a lane."""
     K, N = w.shape
-    if K % 16 or N % 8:
-        raise ValueError(f"[{K}, {N}] is not a whole number of 16 x 8 fragments")
-    # k = 16 kc + 8 h + 2 t + p, n = 8 nt + g  ->  [kc, nt, g, t, h, p]
-    return w.reshape(K // 16, 2, 4, 2, N // 8, 8).permute(0, 4, 5, 2, 1, 3).contiguous()
+    if K % 16 or N % 16:
+        raise ValueError(f"[{K}, {N}] is not a whole number of 16 x 16 fragment pairs")
+    # k = 16 kc + 8 h + 2 t + p, n = 16 np + 8 j + g  ->  [kc, np, g, t, j, h, p]
+    return (w.reshape(K // 16, 2, 4, 2, N // 16, 2, 8).permute(0, 4, 6, 2, 5, 1, 3)
+            .contiguous())
+
+
+# The widths (C, H, C_out) the tensor-core K4 is built for, each with the
+# m-tiles and n-tile pairs a warp takes in the downsample (csrc/seanet.cu:
+# run_stage instantiates the same); other widths run the fp32-FMA variant.
+_MMA_SHAPES = {(32, 16, 64): (2, 1), (64, 32, 128): (2, 1), (128, 64, 256): (2, 2)}
+SMEM_LIMIT = 232448   # shared bytes an H100 block may take (csrc/seanet.cu:kSmemLimit)
+MAX_RING = 8          # k-chunks of wd in a streaming ring, at most
+CLUSTER = 4           # blocks that share each streamed chunk of wd
+_ITEM_ROWS = 128      # r rows an item aims at: 8 whole m-tiles, one a warp
+
+
+@dataclasses.dataclass(frozen=True)
+class StagePlan:
+    """How the tensor-core K4 lays one stage over the card: frames per item
+    (``tile``, with s * (tile + 1) r rows, a whole number of 16-row m-tiles),
+    input tiles in shared memory (2: the next item's copy starts as this one
+    starts; 1: once conv1 has read it), and wd either resident (``ring`` 0)
+    or streamed through a ring of ``ring`` k-chunks, each read from L2 once
+    for a cluster of ``cluster`` blocks.  ``smem_bytes`` the kernel
+    recomputes and must find equal."""
+    tile: int
+    in_bufs: int
+    ring: int
+    cluster: int
+    smem_bytes: int
+
+    def args(self) -> ctypes.Array:
+        return (ctypes.c_int * 5)(self.tile, self.in_bufs, self.ring, self.cluster,
+                                  self.smem_bytes)
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _mma_smem_bytes(spec: StageSpec, tile: int, in_bufs: int, ring: int) -> int:
+    """The tensor-core K4's shared bytes (csrc/seanet.cu:mma_geometry): w1,
+    w2, wd or its ring, the input tiles [C][raw_rs], ELU(a) / ELU(r) rows,
+    z / the output tile, the fp32 biases, two mbarriers a ring slot."""
+    C, H, s, CO = spec.c_in, spec.res_hidden, spec.stride, spec.c_out
+    rows = s * (tile + 1)
+    na = rows + 2
+    chunks = (na + 14) // 8            # an aligned copy starts up to 7 rows early
+    chunks += 1 - chunks % 2           # an odd number of 16-byte units a row
+    pb = tile + 1                      # csrc/seanet.cu:phase_block
+    if 8 % s == 0:
+        while pb % 8 != (8 // s) % 8:
+            pb += 1
+    out_rs = _round_up(tile + 1, 8) + 8
+    weights = 2 * (3 * C * H + H * C) + (ring * 16 * CO * 2 if ring else 2 * 2 * s * C * CO)
+    return (weights + in_bufs * C * 8 * chunks * 2 + max(na, s * pb) * (C + 8) * 2
+            + max(rows * (H + 8), CO * out_rs) * 2 + _round_up(4 * (H + C + CO), 16)
+            + 16 * ring)
+
+
+def stage_plan(spec: StageSpec, dtype: torch.dtype) -> tp.Optional[StagePlan]:
+    """The tensor-core K4's plan for this stage, or None where the fp32-FMA
+    variant runs it (fp32, widths not built, a stride of no whole tile).
+
+    The tile: s * (tile + 1) up to 128 r rows in whole m-tiles, within the
+    frames the downsample's warps cover.  Then the first that fits shared
+    memory: everything resident with two input tiles, resident with one,
+    else wd streamed through the deepest ring that fits, by a cluster."""
+    shape = (spec.c_in, spec.res_hidden, spec.c_out)
+    if dtype != torch.bfloat16 or shape not in _MMA_SHAPES:
+        return None
+    mtw, npw = _MMA_SHAPES[shape]
+    s = spec.stride
+    most = 16 * mtw * (8 // (spec.c_out // 16 // npw))   # frames the warps cover
+    step = 16 // math.gcd(s, 16)                          # tile + 1 in steps of whole m-tiles
+    span = min(_ITEM_ROWS // s, most + 1) // step * step
+    if span < 2:
+        return None
+    tile = span - 1
+    for in_bufs in (2, 1):
+        smem = _mma_smem_bytes(spec, tile, in_bufs, 0)
+        if smem <= SMEM_LIMIT:
+            return StagePlan(tile, in_bufs, 0, 1, smem)
+    for ring in range(MAX_RING, 1, -1):
+        smem = _mma_smem_bytes(spec, tile, 1, ring)
+        if smem <= SMEM_LIMIT:
+            return StagePlan(tile, 1, ring, CLUSTER, smem)
+    return None
+
+
+def stage_weight_l2_bytes(spec: StageSpec, plan: StagePlan, batch: int, length: int,
+                          blocks: int) -> int:
+    """Weight bytes the tensor-core K4 reads from L2 in one launch of
+    ``blocks`` persistent blocks: w1 and w2 once a block, wd once a block
+    where resident, else once a cluster's item group (each streamed chunk is
+    read once for the cluster)."""
+    C, H, s, CO = spec.c_in, spec.res_hidden, spec.stride, spec.c_out
+    items = batch * -(-(length // s) // plan.tile)
+    wd = 2 * 2 * s * C * CO
+    per_block = 2 * (3 * C * H + H * C) + (0 if plan.ring else wd)
+    return blocks * per_block + (-(-items // plan.cluster) * wd if plan.ring else 0)
 
 
 def _mma_widths(spec: StageSpec) -> bool:
-    """Whether the tensor-core variant takes these widths: each product's
-    depth a whole number of 16-wide chunks within one tap, and its width of
-    8-wide tiles."""
-    return spec.c_in % 16 == 0 and spec.res_hidden % 16 == 0 and spec.c_out % 8 == 0
+    """Whether bf16 at these widths runs the tensor-core variant."""
+    return stage_plan(spec, torch.bfloat16) is not None
 
 
 def _check_stage(x: torch.Tensor, params: tp.Dict[str, torch.Tensor], spec: StageSpec,
@@ -194,21 +322,24 @@ def _check_stage(x: torch.Tensor, params: tp.Dict[str, torch.Tensor], spec: Stag
 
 
 def _launch_stage(x: torch.Tensor, params: tp.Dict[str, torch.Tensor], spec: StageSpec,
-                  clocks: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+                  clocks: tp.Optional[torch.Tensor] = None,
+                  plan: tp.Optional[StagePlan] = None) -> torch.Tensor:
+    """Launch K4 (the counter's instance with ``clocks``); ``plan`` replaces
+    :func:`stage_plan`'s only where a measurement compares plans."""
     C, H, s, C_out = spec.c_in, spec.res_hidden, spec.stride, spec.c_out
     B, _, L = x.shape
     lib = _build.library()
-    is_bf16 = x.dtype == torch.bfloat16
-    use_mma = is_bf16 and _mma_widths(spec)
+    plan = plan or stage_plan(spec, x.dtype)
     y = torch.empty(B, C_out, L // s, dtype=x.dtype, device=x.device)
     if B == 0:
         return y
     w1, w2, wd = params['w1'], params['w2'], params['wd']
-    if use_mma:
-        w1, w2, wd = (pack_mma_fragments(w) for w in (w1, w2, wd))
+    if plan is not None:
+        w1, w2, wd = (params[f'{k}_mma'] if f'{k}_mma' in params else pack_mma_fragments(w)
+                      for k, w in (('w1', w1), ('w2', w2), ('wd', wd)))
     args = (x.data_ptr(), w1.data_ptr(), params['b1'].data_ptr(), w2.data_ptr(),
             params['b2'].data_ptr(), wd.data_ptr(), params['bd'].data_ptr(), y.data_ptr(), B, C,
-            H, C_out, L, s, int(is_bf16), int(use_mma))
+            H, C_out, L, s, int(x.dtype == torch.bfloat16), plan.args() if plan else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if clocks is None:
@@ -224,8 +355,12 @@ def fused_stage(x: torch.Tensor, params: tp.Dict[str, torch.Tensor],
     """One fused encoder stage (K4): x [B, C, L] (fp32 or bf16, L % s == 0)
     and :func:`stage_params` weights in x's dtype -> [B, C_out, L / s].
 
-    bf16 at widths of whole mma tiles runs the tensor-core variant; any other
-    width, and fp32, the fp32-FMA variant of the same kernel."""
+    bf16 at the widths the tensor-core variant is built for runs it (by
+    :func:`stage_plan`); any other width, and fp32, the fp32-FMA variant.
+    ``params`` may also hold ``w1_mma``, ``w2_mma`` and ``wd_mma``, the
+    weights already in :func:`pack_mma_fragments` order
+    (:func:`encoder_stage_weights` packs them once); else they are packed
+    here."""
     if _check_stage(x, params, spec, 'fused_stage'):
         return fused_stage_reference(x, params, spec)
     y = _launch_stage(x, params, spec)
@@ -235,7 +370,8 @@ def fused_stage(x: torch.Tensor, params: tp.Dict[str, torch.Tensor],
 
 fused_stage.launches = 0  # kernel launches since the last reset
 
-STAGE_PHASES = ('input', 'conv3', 'conv1', 'reflect', 'downsample', 'output')
+FMA_PHASES = ('input', 'conv3', 'conv1', 'reflect', 'downsample', 'output')
+MMA_PHASES = ('input wait', 'ELU(a)', 'conv3', 'conv1', 'reflect', 'downsample', 'output')
 _CLOCK_SLOTS = 8   # csrc/seanet.cu:kPhases
 
 
@@ -243,26 +379,30 @@ def fused_stage_clocks(x: torch.Tensor, params: tp.Dict[str, torch.Tensor],
                        spec: StageSpec) -> tp.Tuple[torch.Tensor, tp.Dict[str, int]]:
     """A measurement, not a route: one K4 launch built with its per-phase
     cycle counter, on a CUDA tensor.  Returns the output and, for each phase
-    of :data:`STAGE_PHASES`, the clock64() cycles thread 0 of every block
-    spent in it, summed over the blocks.  Not counted in the launches."""
+    of the variant that ran (:data:`MMA_PHASES` or :data:`FMA_PHASES`), the
+    %clock64 cycles thread 0 of every block spent in it, summed over the
+    blocks.  Not counted in the launches."""
     if _check_stage(x, params, spec, 'fused_stage_clocks'):
         raise ValueError("fused_stage_clocks measures the kernel: it takes a CUDA tensor")
     clocks = torch.zeros(_CLOCK_SLOTS, dtype=torch.int64, device=x.device)
     y = _launch_stage(x, params, spec, clocks)
-    return y, dict(zip(STAGE_PHASES, clocks.tolist()))
+    phases = MMA_PHASES if stage_plan(spec, x.dtype) else FMA_PHASES
+    return y, dict(zip(phases, clocks.tolist()))
 
 
-def stage_kernel_info(spec: StageSpec, length: int, dtype: torch.dtype) -> tp.Dict[str, int]:
-    """Registers, shared bytes, blocks per SM, threads, spilled bytes and
-    frames per tile of the K4 instance that :func:`fused_stage` launches for
-    this stage, length and dtype on the current card."""
-    out = (ctypes.c_int * 6)()
-    is_bf16 = dtype == torch.bfloat16
+def stage_kernel_info(spec: StageSpec, batch: int, length: int,
+                      dtype: torch.dtype) -> tp.Dict[str, int]:
+    """Registers, shared bytes, blocks per SM, threads, spilled bytes, frames
+    per tile, blocks launched and blocks a cluster of the K4 instance that
+    :func:`fused_stage` launches for this input on the current card."""
+    out = (ctypes.c_int * 8)()
+    plan = stage_plan(spec, dtype)
     _build.check(_build.library().acx_seanet_stage_info(
-        spec.c_in, spec.res_hidden, spec.c_out, length, spec.stride, int(is_bf16),
-        int(is_bf16 and _mma_widths(spec)), out), 'acx_seanet_stage_info')
+        batch, spec.c_in, spec.res_hidden, spec.c_out, length, spec.stride,
+        int(dtype == torch.bfloat16), plan.args() if plan else None, out),
+        'acx_seanet_stage_info')
     return dict(zip(('registers', 'shared_bytes', 'blocks_per_sm', 'threads', 'spill_bytes',
-                     'tile'), out))
+                     'tile', 'blocks', 'cluster'), out))
 
 
 def fused_encoder_apply(enc, x: torch.Tensor, n_stages: int
@@ -278,7 +418,7 @@ def fused_encoder_apply(enc, x: torch.Tensor, n_stages: int
     for spec, ids in plan:
         if y.shape[-1] % spec.stride:
             break
-        y = fused_stage(y, stage_params(enc, spec, ids, y.dtype), spec)
+        y = fused_stage(y, encoder_stage_weights(enc, spec, ids, y.dtype), spec)
         next_layer = ids[-1] + 1
     return y, next_layer
 

@@ -64,6 +64,7 @@ does a host without a CUDA card.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import subprocess
@@ -82,6 +83,7 @@ from audiocraft_tpu_torch.dist.train import lm_loss, lm_loss_and_grads, make_lm_
 from audiocraft_tpu_torch.gen.magnet import get_debug_magnet
 from audiocraft_tpu_torch.nn.transformer import StreamingMultiheadAttention
 from audiocraft_tpu_torch.ops import _build, attention
+from audiocraft_tpu_torch.ops import seanet as seanet_ops
 from audiocraft_tpu_torch.ops import lstm as lstm_ops
 from audiocraft_tpu_torch.ops.attention import (
     attention_bwd_dkv, attention_bwd_dkv_reference, attention_bwd_dq, attention_bwd_dq_reference,
@@ -93,7 +95,7 @@ from audiocraft_tpu_torch.ops.rvq import rvq_encode, rvq_encode_reference
 from audiocraft_tpu_torch.ops.seanet import (
     StageSpec, banded_mono_conv, banded_mono_conv_reference, fused_encoder_apply, fused_stage,
     fused_stage_clocks, fused_stage_reference, mono_input_conv, mono_input_conv_reference,
-    stage_kernel_info)
+    pack_mma_fragments, stage_kernel_info, stage_plan, stage_weight_l2_bytes)
 from audiocraft_tpu_torch.optim import make_optimizer
 from audiocraft_tpu_torch.quant.codebook import compute_distances, quantize
 
@@ -745,22 +747,34 @@ def print_stage_profile(si: int, spec: StageSpec, x: torch.Tensor,
                         params: tp.Dict[str, torch.Tensor]) -> None:
     """K4's resources (cudaFuncGetAttributes and the occupancy API), its
     per-phase split from one launch with the cycle counter on (thread 0 of
-    each block, summed over blocks), and the weight bytes the design reads
-    from L2: every block reads each weight once."""
+    each block, summed over blocks), the weight bytes its design reads from
+    L2, and, where wd streams through a cluster's ring, the same plan timed
+    with clusters of one block (information: what the multicast gives)."""
     B, C, L = x.shape
-    info = stage_kernel_info(spec, L, x.dtype)
+    info = stage_kernel_info(spec, B, L, x.dtype)
     y, clocks = fused_stage_clocks(x, params, spec)
     check(torch.equal(y, fused_stage(x, params, spec)), f'stage {si}: counter changes the output')
     total = sum(clocks.values())
-    blocks = B * -(-(L // spec.stride) // info['tile'])
+    plan = stage_plan(spec, x.dtype)
     weights = 2 * sum(params[k].numel() for k in ('w1', 'w2', 'wd'))
+    l2 = (stage_weight_l2_bytes(spec, plan, B, L, info['blocks']) if plan
+          else info['blocks'] * weights)
     print(f"fused_stage {si} resources: {info['registers']} registers x {info['threads']} "
           f"threads, {info['shared_bytes']} B shared, {info['blocks_per_sm']} blocks/SM, "
-          f"{info['spill_bytes']} B spilled, tile {info['tile']} frames, {blocks} blocks; "
-          f"weight bytes from L2 {blocks * weights / 1e9:.2f} GB ({weights} B a block)",
-          flush=True)
+          f"{info['spill_bytes']} B spilled; plan {plan}; {info['blocks']} blocks in clusters "
+          f"of {info['cluster']}; weight bytes from L2 {l2 / 1e9:.3f} GB", flush=True)
     print(f'fused_stage {si} per-phase split ({total / 1e9:.3f} G block-cycles): '
           + ', '.join(f'{k} {v / total:.3f}' for k, v in clocks.items()), flush=True)
+    if plan and plan.cluster > 1:
+        alone = dataclasses.replace(plan, cluster=1)
+        out = seanet_ops._launch_stage(x, params, spec, plan=alone)
+        check(torch.equal(out, y), f'stage {si}: clusters of one give another output')
+        ms = [time_ms(lambda: seanet_ops._launch_stage(x, params, spec, plan=p), 5)
+              for p in (plan, alone, alone, plan)]
+        print(f'fused_stage {si} clusters of {plan.cluster} / of 1 / of 1 / of {plan.cluster}: '
+              + ', '.join(f'{t:.3f}' for t in ms) + ' ms (information; weight bytes from L2 '
+              f'with clusters of 1: {stage_weight_l2_bytes(spec, alone, B, L, info["blocks"]) / 1e9:.3f} GB)',
+              flush=True)
 
 
 def check_fused_stage(device) -> dict:
@@ -789,15 +803,25 @@ def check_fused_stage(device) -> dict:
                          f'frames {errs[1]:.3g}, last 4 {errs[2]:.3g} (<= {tol})')
             check(max(errs) <= tol, f'fused_stage {si} {dtype}: {errs} > {tol}')
     debug = StageSpec(c_in=4, c_out=8, stride=16)
-    for spec, L in ((STAGES[0][0], 4 * 67), (STAGES[1][0], 4 * 97), (STAGES[0][0], 4),
-                    (STAGES[1][0], 4), (debug, 16 * 37)):
+    cases = [(spec, L, 1) for spec, L in ((STAGES[0][0], 4 * 67), (STAGES[1][0], 4 * 97),
+                                           (STAGES[0][0], 4), (STAGES[1][0], 4),
+                                           (debug, 16 * 37))]
+    # the tensor-core plan's ragged edges: frames of one tile, one more and
+    # one fewer; and fewer items than SMs (and than a cluster) for the
+    # persistent grid
+    for spec, _ in STAGES:
+        tile = stage_plan(spec, torch.bfloat16).tile
+        cases += [(spec, spec.stride * f, 3) for f in (tile, tile + 1, tile - 1)]
+        cases.append((spec, spec.stride * (2 * tile + 5), 2))
+    for spec, L, batch in cases:
         for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
             params = _stage_params(spec, device, dtype, seed=65)
-            x = (torch.randn(1, spec.c_in, L, generator=gen, device=device) * 0.5).to(dtype)
-            errs, _ = _stage_errs(x, params, spec, chunk=1)
-            check(max(errs) <= tol, f'fused_stage {spec} L={L} {dtype}: {errs} > {tol}')
-    lines.append('off the tiles (B = 1; frames 67, 97, 1; C = 4, s = 16): fp32 <= 1e-5, '
-                 'bf16 <= 1e-2, edges included')
+            x = (torch.randn(batch, spec.c_in, L, generator=gen, device=device) * 0.5).to(dtype)
+            errs, _ = _stage_errs(x, params, spec, chunk=batch)
+            check(max(errs) <= tol, f'fused_stage {spec} B={batch} L={L} {dtype}: {errs} > {tol}')
+    lines.append('off the tiles (B = 1; frames 67, 97, 1; C = 4, s = 16) and at the plan\'s '
+                 'ragged edges (B = 3, frames tile, tile + 1, tile - 1; B = 2, 2 tile + 5 frames): '
+                 'fp32 <= 1e-5, bf16 <= 1e-2, edges included')
     try:
         x = torch.zeros(1, 64, 6, device=device)
         fused_stage(x, _stage_params(STAGES[0][0], device, torch.float32, seed=66), STAGES[0][0])
@@ -814,6 +838,8 @@ def check_fused_stage(device) -> dict:
     for si, (spec, L) in enumerate(STAGES):
         C, H, s, C_out = spec.c_in, spec.res_hidden, spec.stride, spec.c_out
         params = _stage_params(spec, device, torch.bfloat16, seed=61 + si)
+        # packed once, as encoder_stage_weights packs them for the fused encode
+        params.update({f'{k}_mma': pack_mma_fragments(params[k]) for k in ('w1', 'w2', 'wd')})
         x = (torch.randn(BATCH, C, L, generator=gen, device=device) * 0.5).to(torch.bfloat16)
         stack = torch.nn.Sequential(*encoder.model[1 + 3 * si:4 + 3 * si])
         ms = time_ms(lambda: fused_stage(x, params, spec), 5)

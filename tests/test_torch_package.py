@@ -66,6 +66,8 @@ def test_each_ported_kernel_has_a_cuda_source_and_entry_point():
     assert 'extern "C" int acx_attention_bwd_dkv(' in sources["attention_bwd.cu"]
     assert 'extern "C" int acx_attention_bwd_dq(' in sources["attention_bwd.cu"]
     assert 'extern "C" int acx_seanet_stage(' in sources["seanet.cu"]
+    assert 'extern "C" int acx_seanet_stage_clocks(' in sources["seanet.cu"]
+    assert 'extern "C" int acx_seanet_stage_info(' in sources["seanet.cu"]
     assert 'extern "C" int acx_mono_conv(' in sources["seanet.cu"]
     assert 'extern "C" int acx_probe_gather(' in sources["probe.cu"]
     assert 'extern "C" int acx_probe_contract(' in sources["probe.cu"]
@@ -80,7 +82,8 @@ def test_each_ported_kernel_has_a_cuda_source_and_entry_point():
     assert "probe_mosaic_ops.py:try_kernel" in sources["probe.cu"]
     for name in ('acx_rvq_encode', 'acx_lstm_layer', 'acx_attention_fwd',
                  'acx_attention_fwd_info', 'acx_attention_bwd_dkv', 'acx_attention_bwd_dq',
-                 'acx_seanet_stage', 'acx_mono_conv', 'acx_probe_gather', 'acx_probe_contract'):
+                 'acx_seanet_stage', 'acx_seanet_stage_clocks', 'acx_seanet_stage_info',
+                 'acx_mono_conv', 'acx_probe_gather', 'acx_probe_contract'):
         assert name in _build._SIGNATURES
     assert 'extern "C" int acx_attention_fwd_info(' in sources["attention.cu"]
     # K3f's bf16 kernel streams K and V through a cp.async ring and takes its
@@ -90,6 +93,15 @@ def test_each_ported_kernel_has_a_cuda_source_and_entry_point():
     for call in ("load_tile<DP, kRows, THREADS>(k_at(s)", "ldsm(qa[kk]", "ldsm(f, kt",
                  "ldsm_t(f, vt", "exp2_ftz("):
         assert call in sources["attention.cu"]
+    # K4's tensor-core variant: A by ldmatrix, weights from shared memory (no
+    # __ldg of weight fragments), the input tile by cp.async ahead of its
+    # products, wd streamed by bulk copies multicast to a cluster
+    seanet = sources["seanet.cu"]
+    assert '#include "attention_common.cuh"' in seanet
+    for call in ("ldsm(a, arow", "ldsm(a[i], tap", "cp_async16(raw +", "multicast::cluster",
+                 "mbar_wait(full + slot"):
+        assert call in seanet
+    assert "__ldg" not in seanet
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
 
 

@@ -401,14 +401,17 @@ def test_wrappers_raise_on_meta_tensors_and_bad_shapes():
 
 def test_mma_fragment_packing_is_the_b_fragment_order():
     """Lane l of the warp reads B[16 kc + 2t + {0, 1, 8, 9}, 8 nt + g]
-    (g = l // 4, t = l % 4) as its two bf16 pairs of fragment (kc, nt)."""
-    w = torch.arange(64 * 24, dtype=torch.float32).reshape(64, 24)
-    packed = tsp.pack_mma_fragments(w).reshape(4, 3, 32, 4)
+    (g = l // 4, t = l % 4) as its two bf16 pairs of fragment (kc, nt), the
+    fragments of n-tiles 2 np and 2 np + 1 side by side in one 16-byte load."""
+    w = torch.arange(64 * 48, dtype=torch.float32).reshape(64, 48)
+    packed = tsp.pack_mma_fragments(w).reshape(4, 3, 32, 8)
     for kc in range(4):
-        for nt in range(3):
+        for np_ in range(3):
             for lane in range(32):
                 g, t = divmod(lane, 4)
-                want = [w[16 * kc + 2 * t + o, 8 * nt + g] for o in (0, 1, 8, 9)]
-                assert packed[kc, nt, lane].tolist() == [float(v) for v in want]
-    with pytest.raises(ValueError):
-        tsp.pack_mma_fragments(torch.zeros(24, 8))
+                want = [w[16 * kc + 2 * t + o, 8 * nt + g] for nt in (2 * np_, 2 * np_ + 1)
+                        for o in (0, 1, 8, 9)]
+                assert packed[kc, np_, lane].tolist() == [float(v) for v in want]
+    for shape in ((24, 16), (32, 8)):
+        with pytest.raises(ValueError):
+            tsp.pack_mma_fragments(torch.zeros(shape))
