@@ -25,7 +25,7 @@
 // fragments by ldmatrix straight from the shared rows (conv3 row q reads
 // ELU(a) rows q .. q + 2; downsample frame m reads ELU(r) rows s*m .. s*m +
 // 2s - 1, so no im2col copy is made), B fragments from weights held in
-// shared memory in fragment order (ops/seanet.py:pack_mma_fragments), two
+// shared memory in fragment order (ops/seanet.py:pack_b_tiles), two
 // n-tiles in one 16-byte load.  What the first version's committed per-phase
 // counter showed on the card (PERF.md, PR 8): every block read all its
 // weights from L2 (24 GB at stage 0, 47 GB at stage 1), each phase waited for
@@ -60,6 +60,7 @@
 // and writes all C_out channels of the tile, each warp's stores consecutive
 // along T; the sums are fp32.  K6 reads its input through reflected indices
 // instead of a padded copy.
+#include <cuda.h>   // CUtensorMap; the encoder comes from the driver entry point at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -73,12 +74,9 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSmemLimit = 232448;  // the dynamic shared memory a block may use
 constexpr int kVecBatch = 4;        // 16-byte input loads a thread keeps in flight
-constexpr int kPhases = 8;          // slots of the per-phase cycle counter
-constexpr int kMaxRing = 8;         // k-chunks of wd a streaming ring holds at most
-constexpr int kMaxCluster = 4;      // blocks that share a streamed chunk
-// cycles (about 11 s) a wait on an mbarrier may spin before it traps, so that
-// a fault ends the launch with an error instead of hanging the card
-constexpr unsigned long long kSpinLimit = 20000000000ull;
+constexpr int kPhases = 8;          // phases the cycle counter can hold (2 slots each)
+constexpr int kRing = 8;            // k-chunks of wd in a warpgroup's streaming ring
+constexpr int kBatch = kRing / 2;   // chunks a warpgroup multiplies between two refills
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
@@ -86,9 +84,14 @@ template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat16_rn(v); }
 
-// ELU(alpha = 1) as the TPU kernel writes it; __expf's relative error (a few
-// fp32 steps) is far below both dtypes' checks
-__device__ __forceinline__ float elu(float v) { return v > 0.f ? v : __expf(fminf(v, 0.f)) - 1.f; }
+// ELU(alpha = 1) as the TPU kernel writes it, exp(min(v, 0)) - 1 with the
+// exponential as ex2.approx (a few fp32 steps of relative error, far below
+// both dtypes' checks; results under 2^-126 flush to 0 and vanish in the - 1)
+__device__ __forceinline__ float elu(float v) {
+  float e;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(fminf(v, 0.f) * kLog2e));
+  return v > 0.f ? v : e - 1.f;
+}
 
 // element i of a 16-byte load, as T
 __device__ __forceinline__ uint32_t word(const uint4& q, int w) {
@@ -109,20 +112,40 @@ __device__ __forceinline__ unsigned long long cycles() {
   return t;
 }
 
-// The per-phase cycle counter: with kClocks, thread 0 of each block adds the
-// %clock64 cycles since the last lap to clocks[phase], after the phase's
-// barrier; without it (the production instances) it compiles to nothing.
+// The per-phase cycle counter: with kClocks, thread 0 of each block sums the
+// %clock64 cycles of each phase, barrier included, and lane 0 of each warp
+// the cycles it spent on the phase's own work, up to the barrier; flush()
+// adds the sums to clocks[phase] and clocks[kPhases + phase] once, at the
+// block's end, so that the counter's own memory traffic stays out of the
+// phases.  Without kClocks (the production instances) it compiles to nothing.
 template <bool kClocks>
 struct PhaseClock {
   unsigned long long* clocks;
-  unsigned long long mark;
-  __device__ explicit PhaseClock(unsigned long long* c) : clocks(c), mark(kClocks ? cycles() : 0) {}
-  __device__ void lap(int phase) {
+  unsigned long long mark, lapped[kPhases], worked[kPhases];
+  __device__ explicit PhaseClock(unsigned long long* c) : clocks(c), mark(kClocks ? cycles() : 0) {
     if constexpr (kClocks) {
-      if (threadIdx.x == 0) {
-        const unsigned long long now = cycles();
-        atomicAdd(clocks + phase, now - mark);
-        mark = now;
+#pragma unroll
+      for (int i = 0; i < kPhases; ++i) lapped[i] = worked[i] = 0;
+    }
+  }
+  __device__ void work(int phase) {   // before the phase's barrier
+    if constexpr (kClocks) worked[phase] += cycles() - mark;
+  }
+  __device__ void lap(int phase) {    // after it
+    if constexpr (kClocks) {
+      const unsigned long long now = cycles();
+      lapped[phase] += now - mark;
+      mark = now;
+    }
+  }
+  __device__ void flush() {
+    if constexpr (kClocks) {
+      if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+        for (int i = 0; i < kPhases; ++i) {
+          if (threadIdx.x == 0) atomicAdd(clocks + i, lapped[i]);
+          atomicAdd(clocks + kPhases + i, worked[i]);
+        }
       }
     }
   }
@@ -292,6 +315,7 @@ stage_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restr
     __syncthreads();
     laps.lap(5);
   }
+  laps.flush();
 }
 
 // The geometry of a tile of `tile` frames, and its shared-memory bytes.
@@ -330,11 +354,18 @@ int choose_tile(int c, int h, int c_out, int stride, int is_bf16) {
 
 // ------------------------------------------------- K4, bf16 on tensor cores
 
-// mbarriers, cluster ranks and bulk copies (sm_90)
+constexpr int kMmaThreads = 512;   // 16 warps: one block an SM, and enough warps to hide latency
+constexpr int kMmaWarps = kMmaThreads / 32;
+// cycles (about 10 s) a wait on an mbarrier may spin before it traps, so that
+// a fault ends the launch with an error instead of hanging the card
+constexpr unsigned long long kSpinLimit = 20000000000ull;
+
+// mbarriers and bulk copies (sm_90)
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count)
                : "memory");
 }
+// Arrive, and expect `bytes` of copies to complete on the barrier's phase
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
@@ -347,488 +378,692 @@ __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
       : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
   return done != 0;
 }
-// Wait until the phase of `parity` has completed; trap after kSpinLimit cycles
+// Wait until the barrier's phase of `parity` has completed; trap after kSpinLimit cycles
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   if (mbar_try_wait(bar, parity)) return;
   const unsigned long long start = cycles();
   while (!mbar_try_wait(bar, parity))
     if (cycles() - start > kSpinLimit) __trap();
 }
-// Arrive on the barrier at the same offset in the cluster's block `rank`
-__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, uint32_t rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote)
-               : "r"(smem_addr(bar)), "r"(rank));
-  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" :: "r"(remote)
-               : "memory");
+// `bytes` (a multiple of 16, both ends on 16 bytes) from global to shared
+// memory by the copy engine, completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
 }
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-// Every thread of every block of the cluster arrives, then waits for the rest
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n"
-               ::: "memory");
-}
-// `bytes` from global memory to `dst` in this block (mask 0) or at the same
-// offset in every block of `mask`; completion counts on `bar` at the same
-// offset in each destination block
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar, uint16_t mask) {
-  if (mask) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
-        " [%0], [%1], %2, [%3], %4;\n"
-        :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)), "h"(mask) : "memory");
-  } else {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-        :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
-  }
+
+// A box of a 2D tensor map (coordinates: column, row) to shared memory by the
+// copy engine, completing on `bar`; columns past the tensor arrive as zeros
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int col, int row,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
+         "r"(smem_addr(bar))
+      : "memory");
 }
 
 // The launch plan (ops/seanet.py:stage_plan) and the geometry it implies
 struct MmaStage {
-  int batch, len, stride, frames, left, right;
-  int tile;       // frames an item
-  int rows, na;   // r rows of an item, s * (tile + 1), and a rows, rows + 2
+  int batch, len, frames, left, right;
   int tiles;      // items along T a batch row
   int items;      // batch * tiles
   int in_bufs;    // input tiles in shared memory: 2 lets the next copy start an item early
-  int ring;       // 0: wd resident; else k-chunks of wd in the streaming ring
-  int cluster;    // blocks that share each streamed chunk
-  int vec;        // len % 8 == 0 and x on 16 bytes: interior tiles copy by cp.async
-  int raw_rs;     // row stride of an input tile [C][raw_rs]
-  int pb;         // rows of one phase block of ELU(r)
-  int e_rows, out_rs;
+  int ring;       // 0: wd resident; else kRing, the k-chunks of wd in each warpgroup's ring
+  int vec;        // len % 8 == 0 and x on 16 bytes: interior tiles copy in bulk
   int off_w2, off_wd, off_raw, off_e, off_z, off_bias, off_bar;   // shared byte offsets
 };
 
-// Rows of one phase block of ELU(r): at least nj, and, where s divides 8,
-// such that 8 consecutive r rows (one mma row group) fall on distinct banks
-__host__ __device__ inline int phase_block(int nj, int s) {
-  if (8 % s) return nj;
-  int pb = nj;
-  while (pb % 8 != (8 / s) % 8) ++pb;
-  return pb;
-}
-
 int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
+// The item geometry of an instance: stride S, tile frames an item, 128 r
+// rows (two m64 blocks), an input tile [C][raw_rs] (an aligned copy starts
+// up to 7 rows early; an odd number of 16-byte units a row), ELU(r) by
+// phase in wgmma's canonical layout (phase_bytes apart, padded so that the
+// 8 r rows of one mma row group fall on distinct banks), the output tile
+// [C_out][out_rs].
+template <int C, int H, int CO, int S>
+struct Geometry {
+  static constexpr int kTile = 128 / S - 1, kFrames = kTile + 1, kRows = 128, kNa = kRows + 2;
+  static constexpr int kChunks = ((kNa + 14) / 8) | 1;
+  static constexpr int kRawRs = 8 * kChunks;
+  static constexpr int kPhaseBytes = kFrames / 8 * C * 16 + 128 / S;
+  // ELU(a) takes kNa rows and a spare one that out-of-range stores go to
+  static constexpr int kEBytes =
+      (kNa + 1) * (C + 8) * 2 > S * kPhaseBytes ? (kNa + 1) * (C + 8) * 2 : S * kPhaseBytes;
+  static constexpr int kOutRs = kFrames + 8;
+  static constexpr int kZBytes = 2 * (kRows * (H + 8) > CO * kOutRs ? kRows * (H + 8) : CO * kOutRs);
+};
+
 // Shared bytes of the plan (ops/seanet.py:_mma_smem_bytes computes the same):
-// w1, w2, wd or its ring, the input tiles, ELU(a) / ELU(r), z / the output
-// tile, the fp32 biases, two mbarriers a ring slot.
-int mma_geometry(MmaStage& g, int c, int h, int c_out) {
-  g.rows = g.stride * (g.tile + 1);
-  g.na = g.rows + 2;
-  int chunks = (g.na + 14) / 8;   // an aligned copy starts up to 7 rows early
-  if (chunks % 2 == 0) ++chunks;  // an odd number of 16-byte units a row
-  g.raw_rs = 8 * chunks;
-  g.pb = phase_block(g.tile + 1, g.stride);
-  g.e_rows = max(g.na, g.stride * g.pb);
-  g.out_rs = round_up(g.tile + 1, 8) + 8;
-  int off = 2 * 3 * c * h;
+// w1, w2, wd or the warpgroups' rings, the input tiles, ELU(a) / ELU(r),
+// z / the output tile, the fp32 biases, the mbarriers (one an input tile,
+// one a ring slot of each of the 4 warpgroups).
+template <int C, int H, int CO, int S>
+int mma_geometry(MmaStage& g) {
+  using G = Geometry<C, H, CO, S>;
+  int off = 2 * 3 * C * H;
   g.off_w2 = off;
-  off += 2 * h * c;
+  off += 2 * H * C;
   g.off_wd = off;
-  off += g.ring ? g.ring * 16 * c_out * 2 : 2 * 2 * g.stride * c * c_out;
+  off += g.ring ? g.ring * 16 * CO * 2 : 2 * 2 * S * C * CO;
   g.off_raw = off;
-  off += g.in_bufs * c * g.raw_rs * 2;
+  off += g.in_bufs * C * G::kRawRs * 2;
   g.off_e = off;
-  off += g.e_rows * (c + 8) * 2;
+  off += G::kEBytes;
   g.off_z = off;
-  off += max(g.rows * (h + 8), c_out * g.out_rs) * 2;
+  off += G::kZBytes;
   g.off_bias = off;
-  off += round_up(4 * (h + c + c_out), 16);
+  off += round_up(4 * (H + C + CO), 16);
   g.off_bar = off;
-  return off + 16 * g.ring;
+  return off + 8 * (2 + 4 * g.ring);
+}
+
+// wgmma (sm_90a): D[64 x N] (+)= A[64 x 16] . B[16 x N] for one warpgroup, A in
+// registers (warp w of the group holds rows 16w .. 16w + 15 as mma.m16n8k16's
+// A fragment), B in shared memory by descriptor, D in registers (warp w's
+// rows, each 8-column group as mma.m16n8k16's D fragment), fp32 sums.
+template <int N> struct Wgmma;
+template <> struct Wgmma<8> {
+  static __device__ __forceinline__ void run(float (&d)[4], const uint32_t (&a)[4], uint64_t desc,
+                                             int accumulate) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %9, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate)
+        : "memory");
+  }
+};
+
+template <> struct Wgmma<16> {
+  static __device__ __forceinline__ void run(float (&d)[8], const uint32_t (&a)[4], uint64_t desc,
+                                             int accumulate) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate)
+        : "memory");
+  }
+};
+
+template <> struct Wgmma<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4], uint64_t desc,
+                                             int accumulate) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate)
+        : "memory");
+  }
+};
+
+template <> struct Wgmma<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                             int accumulate) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate)
+        : "memory");
+  }
+};
+
+// B by descriptor: no swizzle, K-major core matrices of 8 columns x 16 bytes
+// (ops/seanet.py:pack_wgmma_b): the two halves of a 16-deep chunk 128 bytes
+// apart, 8-column groups 256 bytes apart
+__device__ __forceinline__ uint64_t b_desc(const void* p) {
+  const uint64_t a = smem_addr(p);
+  return ((a & 0x3ffff) >> 4) | ((uint64_t)(128 >> 4) << 16) | ((uint64_t)(256 >> 4) << 32);
+}
+__device__ __forceinline__ void shared_to_async() {   // generic writes before wgmma reads them
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// Keep the compiler from moving or reusing registers a wgmma still reads or writes
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+__device__ __forceinline__ void pin(uint32_t (&r)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+// The 128 threads of warpgroup `wg` meet (named barrier 1 + wg)
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(wg + 1) : "memory");
+}
+
+// wgmma with A in shared memory too, by descriptor
+template <int N> struct WgmmaSS;
+template <> struct WgmmaSS<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], uint64_t a_desc, uint64_t b_desc,
+                                             int accumulate) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a_desc), "l"(b_desc), "r"(accumulate)
+        : "memory");
+  }
+};
+
+template <> struct WgmmaSS<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t a_desc, uint64_t b_desc,
+                                             int accumulate) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a_desc), "l"(b_desc), "r"(accumulate)
+        : "memory");
+  }
+};
+
+// A descriptor of a K-major operand with 8-row groups `sbo` bytes apart
+__device__ __forceinline__ uint64_t kmajor_desc(const void* p, uint32_t sbo) {
+  const uint64_t a = smem_addr(p);
+  return ((a & 0x3ffff) >> 4) | ((uint64_t)(128 >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
+}
+
+// A chain of K wgmma over one warpgroup: acc = sum_k A_k . B_k, A_k by
+// ldmatrix from a_at(k) (this lane's row address), B_k at b_at(k); four A
+// buffers, so the loads of A_k overlap the products of A_{k-3} .. A_{k-1}.
+template <int N, class AAt, class BAt>
+__device__ __forceinline__ void wg_chain(float (&acc)[N / 2], int K, AAt a_at, BAt b_at) {
+  uint32_t a[4][4];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  pin(acc);
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    if (k >= 4) {
+      wg_wait<3>();   // the product that read this A buffer is done
+      pin(a[k & 3]);
+    }
+    ldsm(a[k & 3], a_at(k));
+    wg_fence();
+    Wgmma<N>::run(acc, a[k & 3], b_desc(b_at(k)), k > 0);
+    wg_commit();
+  }
+  wg_wait<0>();
+  pin(acc);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) pin(a[i]);
 }
 
 // One fused encoder stage (K4) in bf16 on the tensor cores, persistent: block
-// `rank` of cluster `cid` takes items (n * clusters + cid) * cluster + rank.
-// MTW m-tiles and NPW pairs of n-tiles a warp in the downsample.
-template <int C, int H, int CO, int MTW, int NPW, bool kClocks>
-__global__ void __launch_bounds__(kThreads, 1)
-stage_mma_kernel(const bf16* __restrict__ x, const uint4* __restrict__ w1g,
-                 const bf16* __restrict__ b1, const uint4* __restrict__ w2g,
-                 const bf16* __restrict__ b2, const uint4* __restrict__ wdg,
+// b takes items b, b + grid, ...  Its 16 warps are 4 warpgroups.  conv3 and
+// conv1 take A (ELU(a) rows q .. q + 2, z rows) by ldmatrix into registers
+// and B (w1, w2) from shared memory: warpgroup g the 64 r rows 64 (g % 2) ..
+// and half the columns.  The downsample runs as y^T = wd^T . ELU(r)^T with
+// both operands in shared memory: warpgroup g the output channels 64 g ..,
+// all the frames; taps s .. 2s - 1 read each phase of ELU(r) one frame
+// later, so they sum into a second accumulator that is added one column
+// over (by lane shuffles) in the epilogue.  Where wd streams, each
+// warpgroup copies its rows of wd^T into its own ring, refilling a slot
+// once the product that read it has completed.
+template <int C, int H, int CO, int S, bool kClocks>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+stage_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1g,
+                 const bf16* __restrict__ b1, const bf16* __restrict__ w2g,
+                 const bf16* __restrict__ b2, const bf16* __restrict__ wdg,
                  const bf16* __restrict__ bd, bf16* __restrict__ y, MmaStage g,
-                 unsigned long long* clocks) {
-  constexpr int RS = C + 8, ZS = H + 8;   // row strides of ELU(a) / ELU(r) and of z
-  constexpr int WN = CO / 16 / NPW;       // warps across the downsample's columns
-  constexpr int SLOT = 16 * CO * 2;       // bytes of one k-chunk of wd
-  static_assert(kWarps % WN == 0 && C % 16 == 0 && H % 16 == 0 && CO % 16 == 0, "widths");
+                 unsigned long long* clocks, const __grid_constant__ CUtensorMap xmap) {
+  using G = Geometry<C, H, CO, S>;
+  constexpr int TILE = G::kTile, NF = G::kFrames, ROWS = G::kRows, NA = G::kNa;
+  constexpr int RS = C + 8, ZS = H + 8;   // row strides of ELU(a) and of z
+  constexpr int N3 = H / 2, N1 = C / 2;   // columns a warpgroup takes in conv3, conv1
+  constexpr int MB = CO / 64;             // warpgroups in the downsample
+  constexpr int SLOT = 64 * 32;           // bytes of a warpgroup's rows of one wd k-chunk
+  constexpr int KCH = 2 * S * C / 16, KHALF = S * C / 16;   // k-chunks; those of taps < S
+  static_assert(C % 16 == 0 && H % 16 == 0 && CO % 64 == 0 && MB <= 4 && NF % 8 == 0, "widths");
+  static_assert(KCH % kBatch == 0, "whole batches of ring chunks");
+  // where two warpgroup pairs split the downsample, d1 passes through an input tile
+  static_assert(MB != 2 || CO * (NF + 4) * 4 <= C * G::kRawRs * 2, "the hand-over fits");
   extern __shared__ __align__(128) unsigned char smem[];
-  const uint4* w1s = reinterpret_cast<const uint4*>(smem);
-  const uint4* w2s = reinterpret_cast<const uint4*>(smem + g.off_w2);
-  uint4* wds = reinterpret_cast<uint4*>(smem + g.off_wd);
+  const unsigned char* w1s = smem;
+  const unsigned char* w2s = smem + g.off_w2;
+  unsigned char* wds = smem + g.off_wd;
   bf16* raw0 = reinterpret_cast<bf16*>(smem + g.off_raw);
-  bf16* se = reinterpret_cast<bf16*>(smem + g.off_e);
+  unsigned char* eb = smem + g.off_e;     // ELU(a) rows, then ELU(r) by phase
+  bf16* se = reinterpret_cast<bf16*>(eb);
   bf16* sz = reinterpret_cast<bf16*>(smem + g.off_z);
   float* sb1 = reinterpret_cast<float*>(smem + g.off_bias);
   float* sb2 = sb1 + H;
   float* sbd = sb2 + C;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + g.off_bar);
-  uint64_t* empty = full + g.ring;
+  uint64_t* in_full = reinterpret_cast<uint64_t*>(smem + g.off_bar);   // an input tile landed
+  uint64_t* ring_full = in_full + 2;   // [warpgroup][slot]: a ring chunk landed
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const int wg = warp >> 2, wl = warp & 3;   // warpgroup, warp within it
   const Lanes ln(lane);
   PhaseClock<kClocks> laps(clocks);
-
-  const int cl = g.cluster;
-  const int rank = cl > 1 ? (int)cluster_rank() : 0;
-  const int cid = blockIdx.x / cl, clusters = gridDim.x / cl;
-  const int groups = (g.items + cl - 1) / cl;
-  const int iters = cid < groups ? (groups - cid + clusters - 1) / clusters : 0;
-  auto item_of = [&](int n) { return (n * clusters + cid) * cl + rank; };
-  // an item past the last (a cluster's padding) runs its phases on whatever
-  // the buffers hold, so that the cluster's chunks stay in step; it stores nothing
+  const int iters = blockIdx.x < g.items ? (g.items - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
+  auto item_of = [&](int n) { return n * (int)gridDim.x + (int)blockIdx.x; };
   auto first_row = [&](int item) {   // the global a row of local row 0
-    return (item < g.items ? (item % g.tiles) * g.tile : 0) * g.stride - g.left - 1;
+    return (item % g.tiles) * TILE * S - g.left - 1;
   };
-  auto vec_tile = [&](int t_lo) { return g.vec && t_lo >= 0 && t_lo + g.na <= g.len; };
+  auto vec_tile = [&](int t_lo) { return g.vec && t_lo >= 0 && t_lo + NA <= g.len; };
+  // ELU(r) row q = S j + p, channel c: phase p, 8-frame group j / 8, channel
+  // group c / 8, one 16-byte row of an 8 x 8 core matrix (bytes)
+  auto e_at = [&](int q, int c) {
+    const int j = q / S;
+    return (q % S) * G::kPhaseBytes + (j / 8) * C * 16 + (c / 8) * 128 + (j % 8) * 16 + (c % 8) * 2;
+  };
 
-  // the input tile of an item: rows t_lo .. t_lo + na - 1 of every channel,
-  // [C][raw_rs]; interior tiles by 16-byte cp.async from the aligned row
-  // t_lo & ~7, edge tiles through reflected indices from row t_lo
-  auto load_input = [&](bf16* raw, int item) {
-    if (item < g.items) {
-      const int t_lo = first_row(item);
-      const bf16* xb = x + (size_t)(item / g.tiles) * C * g.len;
-      if (vec_tile(t_lo)) {
-        const int a0 = t_lo & ~7, nch = (t_lo + g.na - a0 + 7) / 8;
-        for (int e = tid; e < C * nch; e += kThreads) {
-          const int c = e / nch, v = e - c * nch;
-          cp_async16(raw + c * g.raw_rs + 8 * v, xb + (size_t)c * g.len + a0 + 8 * v, true);
-        }
-      } else {
-        for (int e = tid; e < C * g.na; e += kThreads) {
-          const int c = e / g.na, p = e - c * g.na;
+  // the input tile of an item into buffer `buf`: rows t_lo .. t_lo + NA - 1
+  // of every channel, [C][raw_rs]; interior tiles by one tensor copy (x as
+  // [B C, L], a box of C rows by raw_rs columns from column t_lo & ~7),
+  // completing on in_full[buf]; edge tiles through reflected indices from
+  // row t_lo, by the threads themselves
+  auto load_input = [&](int buf, int item) {
+    bf16* raw = raw0 + buf * C * G::kRawRs;
+    const int t_lo = first_row(item);
+    const bf16* xb = x + (size_t)(item / g.tiles) * C * g.len;
+    if (vec_tile(t_lo)) {
+      if (tid == 0) {
+        mbar_expect_tx(in_full + buf, C * G::kRawRs * 2);
+        tma_load_2d(raw, &xmap, t_lo & ~7, (item / g.tiles) * C, in_full + buf);
+      }
+    } else {
+      for (int c = warp; c < C; c += kMmaWarps) {
+        for (int p = lane; p < NA; p += 32) {
           int t = t_lo + p;
           t = t < 0 ? -t : t;
           t = t >= g.len ? 2 * g.len - 2 - t : t;
-          raw[c * g.raw_rs + p] = xb[(size_t)c * g.len + min(max(t, 0), g.len - 1)];
+          raw[c * G::kRawRs + p] = xb[(size_t)c * g.len + min(max(t, 0), g.len - 1)];
         }
       }
+      // these generic writes come before the bulk copies that later reuse the buffer
+      shared_to_async();
+      if (tid == 0) mbar_expect_tx(in_full + buf, 0);
     }
-    cp_commit();
+  };
+
+  // where wd streams, this warpgroup's ring: chunk q (counted over the
+  // block's items) in slot q % kRing, one bulk copy of the warpgroup's rows
+  // of wd^T by its first thread, completing on the slot's barrier
+  const int total = g.ring ? iters * KCH : 0;
+  unsigned char* ring = wds + wg * kRing * SLOT;
+  uint64_t* full = ring_full + wg * kRing;
+  auto fetch = [&](int q) {
+    if (wl == 0 && lane == 0 && q < total) {
+      mbar_expect_tx(full + q % kRing, SLOT);
+      bulk_copy(ring + (q % kRing) * SLOT,
+                reinterpret_cast<const unsigned char*>(wdg) + (size_t)(q % KCH) * CO * 32 + wg * SLOT,
+                SLOT, full + q % kRing);
+    }
   };
 
   // the weights (wd too where it is resident) and the biases, once a block
-  for (int i = tid; i < 3 * C * H / 8; i += kThreads) cp_async16((void*)(w1s + i), w1g + i, true);
-  for (int i = tid; i < H * C / 8; i += kThreads) cp_async16((void*)(w2s + i), w2g + i, true);
+  for (int i = tid; i < 3 * C * H / 8; i += kMmaThreads) cp_async16((void*)(w1s + 16 * i), w1g + 8 * i, true);
+  for (int i = tid; i < H * C / 8; i += kMmaThreads) cp_async16((void*)(w2s + 16 * i), w2g + 8 * i, true);
   if (!g.ring)
-    for (int i = tid; i < 2 * g.stride * C * CO / 8; i += kThreads) cp_async16(wds + i, wdg + i, true);
-  for (int i = tid; i < H; i += kThreads) sb1[i] = to_f32(b1[i]);
-  for (int i = tid; i < C; i += kThreads) sb2[i] = to_f32(b2[i]);
-  for (int i = tid; i < CO; i += kThreads) sbd[i] = to_f32(bd[i]);
-
-  // the streaming ring: chunk q (counted over the block's items) goes to
-  // slot q % ring; each block of the cluster copies its share of it to all
-  const int kch = 2 * g.stride * C / 16;   // k-chunks of wd
-  const int total = iters * kch;
-  auto produce = [&](int q) {   // thread 0 only
-    const int slot = q % g.ring;
-    const uint32_t part = SLOT / cl;
-    mbar_expect_tx(full + slot, SLOT);
-    bulk_copy(reinterpret_cast<unsigned char*>(wds) + slot * SLOT + rank * part,
-              reinterpret_cast<const unsigned char*>(wdg) + (size_t)(q % kch) * SLOT + rank * part,
-              part, full + slot, cl > 1 ? (uint16_t)((1u << cl) - 1) : (uint16_t)0);
-  };
-  if (g.ring) {
-    if (tid == 0) {
-      for (int j = 0; j < g.ring; ++j) {
-        mbar_init(full + j, 1);
-        mbar_init(empty + j, cl * kWarps);
-      }
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
-    cluster_sync();   // every block's barriers are set before any copy or remote arrive
-    if (tid == 0)
-      for (int q = 0; q < min(total, g.ring - 1); ++q) produce(q);
+    for (int i = tid; i < 2 * S * C * CO / 8; i += kMmaThreads) cp_async16(wds + 16 * i, wdg + 8 * i, true);
+  cp_commit();
+  for (int i = tid; i < H; i += kMmaThreads) sb1[i] = to_f32(b1[i]);
+  for (int i = tid; i < C; i += kMmaThreads) sb2[i] = to_f32(b2[i]);
+  for (int i = tid; i < CO; i += kMmaThreads) sbd[i] = to_f32(bd[i]);
+  if (tid == 0) {
+    for (int i = 0; i < 2 + 4 * g.ring; ++i) mbar_init(in_full + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  cp_wait<0>();
+  shared_to_async();   // the weights, copied by the threads, are read by the tensor cores
+  __syncthreads();
+  if (iters > 0) load_input(0, item_of(0));
+  if (wg < MB && g.ring)
+    for (int q = 0; q < kRing; ++q) fetch(q);
 
-  if (iters > 0) load_input(raw0, item_of(0));
-  int chunk = 0;   // ring chunks consumed so far
+  int chunk = 0;   // ring chunks this warpgroup has consumed
   for (int n = 0; n < iters; ++n) {
     const int item = item_of(n);
-    bf16* raw = raw0 + (n % g.in_bufs) * C * g.raw_rs;
-    cp_wait<0>();
+    bf16* raw = raw0 + (n % g.in_bufs) * C * G::kRawRs;
+    mbar_wait(in_full + n % g.in_bufs, (n / g.in_bufs) & 1);   // this item's input has landed
+    laps.work(0);
     __syncthreads();
     laps.lap(0);
-    if (g.in_bufs == 2 && n + 1 < iters) load_input(raw0 + ((n + 1) % 2) * C * g.raw_rs, item_of(n + 1));
     const int t_lo = first_row(item);
-    const int r0 = t_lo + 1, u0 = (r0 + g.left) / g.stride;
+    const int r0 = t_lo + 1, u0 = (r0 + g.left) / S;
     const int roff = vec_tile(t_lo) ? t_lo & 7 : 0;   // local row p is raw column p + roff
 
-    // ELU(a) rows [na][RS] from the input tile, two channels a thread, packed stores
-    const int nch = (roff + g.na + 7) / 8;
-    for (int e = tid; e < (C / 2) * nch; e += kThreads) {
+    // ELU(a) rows [NA][RS] from the input tile, two channels a thread, packed stores
+    const int nch = (roff + NA + 7) / 8;
+    for (int e = tid; e < (C / 2) * nch; e += kMmaThreads) {
       const int c = 2 * (e % (C / 2)), v = e / (C / 2);
-      const uint4 lo = *reinterpret_cast<const uint4*>(raw + c * g.raw_rs + 8 * v);
-      const uint4 hi = *reinterpret_cast<const uint4*>(raw + (c + 1) * g.raw_rs + 8 * v);
+      const uint4 lo = *reinterpret_cast<const uint4*>(raw + c * G::kRawRs + 8 * v);
+      const uint4 hi = *reinterpret_cast<const uint4*>(raw + (c + 1) * G::kRawRs + 8 * v);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int p = 8 * v + i - roff;
-        if (p >= 0 && p < g.na)
-          *reinterpret_cast<uint32_t*>(se + p * RS + c) =
-              pack(elu(to_f32(element<bf16>(lo, i))), elu(to_f32(element<bf16>(hi, i))));
+        const int row = (unsigned)p < (unsigned)NA ? p : NA;   // rows outside go to the spare row
+        *reinterpret_cast<uint32_t*>(se + row * RS + c) =
+            pack(elu(to_f32(element<bf16>(lo, i))), elu(to_f32(element<bf16>(hi, i))));
       }
     }
+    laps.work(1);
     __syncthreads();
     laps.lap(1);
 
-    // z = ELU(conv3(ELU(a)) + b1): warp w takes m-tiles w, w + 8, ..
-    for (int mt = warp; mt < g.rows / 16; mt += kWarps) {
-      float acc[H / 8][4] = {};
-      const bf16* arow = se + (16 * mt + ln.ra) * RS + ln.ca;
+    // this warp's rows of the resnet products: r rows 64 (wg % 2) + 16 wl ..
+    const int q_warp = 64 * (wg & 1) + 16 * wl;
+    const int q_lane = q_warp + ln.ra;
+
+    // z = ELU(conv3(ELU(a)) + b1): r row q reads ELU(a) rows q .. q + 2
+    {
+      float acc[N3 / 2];
+      const int n0 = (wg >> 1) * N3;
+      wg_chain<N3>(acc, 3 * C / 16,
+                   [&](int k) { return se + (q_lane + k / (C / 16)) * RS + 16 * (k % (C / 16)) + ln.ca; },
+                   [&](int k) { return w1s + k * H * 32 + (n0 / 8) * 256; });
 #pragma unroll
-      for (int d = 0; d < 3; ++d) {
-#pragma unroll
-        for (int cc = 0; cc < C / 16; ++cc) {
-          uint32_t a[4];
-          ldsm(a, arow + d * RS + 16 * cc);
-          const uint4* wb = w1s + (d * (C / 16) + cc) * (H / 16) * 32 + lane;
-#pragma unroll
-          for (int np = 0; np < H / 16; ++np) {
-            const uint4 bb = wb[np * 32];
-            mma(acc[2 * np], a, bb.x, bb.y);
-            mma(acc[2 * np + 1], a, bb.z, bb.w);
-          }
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < H / 8; ++nt) {
-        const int n = 8 * nt + 2 * tq;
+      for (int j = 0; j < N3 / 8; ++j) {
+        const int nn = n0 + 8 * j + 2 * tq;
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
-          const int q = 16 * mt + gq + 8 * hh;
-          *reinterpret_cast<uint32_t*>(sz + q * ZS + n) =
-              pack(elu(acc[nt][2 * hh] + sb1[n]), elu(acc[nt][2 * hh + 1] + sb1[n + 1]));
+          const int q = q_warp + gq + 8 * hh;
+          *reinterpret_cast<uint32_t*>(sz + q * ZS + nn) =
+              pack(elu(acc[4 * j + 2 * hh] + sb1[nn]), elu(acc[4 * j + 2 * hh + 1] + sb1[nn + 1]));
         }
       }
     }
+    laps.work(2);
     __syncthreads();
     laps.lap(2);
+    // the other input buffer was last read by the item before: the next item's copy starts here
+    if (g.in_bufs == 2 && n + 1 < iters) load_input((n + 1) % 2, item_of(n + 1));
 
     // ELU(r), r = a + conv1(z) + b2, over the ELU(a) rows (no longer read),
-    // by phase: r row q = s*j + p at row p*pb + j
-    for (int mt = warp; mt < g.rows / 16; mt += kWarps) {
-      float acc[C / 8][4] = {};
-      const bf16* arow = sz + (16 * mt + ln.ra) * ZS + ln.ca;
-#pragma unroll
-      for (int kc = 0; kc < H / 16; ++kc) {
-        uint32_t a[4];
-        ldsm(a, arow + 16 * kc);
-        const uint4* wb = w2s + kc * (C / 16) * 32 + lane;
-#pragma unroll
-        for (int np = 0; np < C / 16; ++np) {
-          const uint4 bb = wb[np * 32];
-          mma(acc[2 * np], a, bb.x, bb.y);
-          mma(acc[2 * np + 1], a, bb.z, bb.w);
-        }
-      }
-      int erow[2], col[2];
+    // by phase in the canonical layout the downsample's products read
+    {
+      float acc[N1 / 2];
+      const int n0 = (wg >> 1) * N1;
+      wg_chain<N1>(acc, H / 16, [&](int k) { return sz + q_lane * ZS + 16 * k + ln.ca; },
+                   [&](int k) { return w2s + k * C * 32 + (n0 / 8) * 256; });
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        const int q = 16 * mt + gq + 8 * hh;
-        erow[hh] = ((q % g.stride) * g.pb + q / g.stride) * RS;
-        col[hh] = q + 1 + roff;   // a row q + 1 in the input tile
-      }
+        const int q = q_warp + gq + 8 * hh;
+        const int col = q + 1 + roff;   // a row q + 1 in the input tile
+        const int erow = e_at(q, 0);
 #pragma unroll
-      for (int nt = 0; nt < C / 8; ++nt) {
-        const int n = 8 * nt + 2 * tq;
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const float a0 = to_f32(raw[n * g.raw_rs + col[hh]]);
-          const float a1 = to_f32(raw[(n + 1) * g.raw_rs + col[hh]]);
-          *reinterpret_cast<uint32_t*>(se + erow[hh] + n) =
-              pack(elu(a0 + acc[nt][2 * hh] + sb2[n]), elu(a1 + acc[nt][2 * hh + 1] + sb2[n + 1]));
+        for (int j = 0; j < N1 / 8; ++j) {
+          const int nn = n0 + 8 * j + 2 * tq;
+          const float a0 = to_f32(raw[nn * G::kRawRs + col]);
+          const float a1 = to_f32(raw[(nn + 1) * G::kRawRs + col]);
+          *reinterpret_cast<uint32_t*>(eb + erow + (nn / 8) * 128 + (nn % 8) * 2) =
+              pack(elu(a0 + acc[4 * j + 2 * hh] + sb2[nn]), elu(a1 + acc[4 * j + 2 * hh + 1] + sb2[nn + 1]));
         }
       }
     }
+    laps.work(3);
     __syncthreads();
     laps.lap(3);
     // the one input buffer is free: the next item's copy runs under the downsample
-    if (g.in_bufs == 1 && n + 1 < iters) load_input(raw0, item_of(n + 1));
+    if (g.in_bufs == 1 && n + 1 < iters) load_input(0, item_of(n + 1));
 
     // the downsample's reflect pad at the sequence edges: ELU(r) row -i :=
     // row i, row L+i := row L-2-i (sources and destinations never overlap)
-    if (r0 < 0 || u0 + g.tile >= g.frames) {
-      auto at = [&](int q) { return ((q % g.stride) * g.pb + q / g.stride) * RS; };
-      if (r0 < 0) {
-        for (int e = tid; e < g.left * C; e += kThreads) {
-          const int i = e / C + 1, ch = e % C;
-          se[at(-i - r0) + ch] = se[at(i - r0) + ch];
-        }
-      }
-      if (u0 + g.tile >= g.frames) {
-        for (int e = tid; e < g.right * C; e += kThreads) {
-          const int i = e / C, ch = e % C;
-          se[at(g.len + i - r0) + ch] = se[at(g.len - 2 - i - r0) + ch];
-        }
-      }
+    if (r0 < 0 || u0 + TILE >= g.frames) {
+      auto copy = [&](int dst, int src, int ch) {
+        *reinterpret_cast<bf16*>(eb + e_at(dst, ch)) = *reinterpret_cast<const bf16*>(eb + e_at(src, ch));
+      };
+      if (r0 < 0)
+        for (int e = tid; e < g.left * C; e += kMmaThreads) copy(-(e / C + 1) - r0, e / C + 1 - r0, e % C);
+      if (u0 + TILE >= g.frames)
+        for (int e = tid; e < g.right * C; e += kMmaThreads)
+          copy(g.len + e / C - r0, g.len - 2 - e / C - r0, e % C);
       __syncthreads();
     }
+    shared_to_async();   // ELU(r), written by the threads, is read by the tensor cores
+    laps.work(4);
+    __syncthreads();
     laps.lap(4);
 
-    // downsample: frame m, tap k reads r row s*m + k, that is ELU(r) row
-    // (k % s) * pb + m + k / s; warp (wm, wn) takes m-tiles wm*MTW .. and
-    // n-tile pairs wn*NPW ..; the output tile [CO][out_rs] goes over z
-    {
-      const int wn = warp % WN, wm = warp / WN;
-      float acc[MTW][2 * NPW][4] = {};
-      int abase[MTW];
+    // downsample: out^T[co][m] = sum over taps k < S of wd_k^T ELU(r)_{phase k}[m]
+    // plus, one frame later, taps S + p on phase p; chunk kk = tap * C/16 + cc
+    auto product = [&](float (&d)[NF / 2], int kk, const unsigned char* a, int first) {
+      const int k = kk / (C / 16), cc = kk % (C / 16);
+      WgmmaSS<NF>::run(d, b_desc(a), kmajor_desc(eb + (k % S) * G::kPhaseBytes + cc * 256, C * 16),
+                       kk != first);
+    };
+    if (MB == 2) {
+      // two blocks of output channels: warpgroup g % 2's block, taps < S in
+      // warpgroups 0 and 1 (d0), taps S .. 2S - 1 in 2 and 3 (d1, handed
+      // over in fp32 through this item's input buffer, no longer read)
+      float d[NF / 2];
+      const int mb = wg & 1, first = wg < 2 ? 0 : KHALF;
+      float* d1s = reinterpret_cast<float*>(raw);   // [128 channels][NF + 4]
 #pragma unroll
-      for (int i = 0; i < MTW; ++i)
-        abase[i] = min(16 * (wm * MTW + i) + ln.ra, g.tile - 1) * RS + ln.ca;
-      int kk = 0;
-      for (int k = 0; k < 2 * g.stride; ++k) {
-        const bf16* tap = se + ((k % g.stride) * g.pb + k / g.stride) * RS;
+      for (int i = 0; i < NF / 2; ++i) d[i] = 0.f;
+      pin(d);
+      wg_fence();
+      for (int kk = first; kk < first + KHALF; ++kk) product(d, kk, wds + kk * CO * 32 + mb * SLOT, first);
+      wg_commit();
+      wg_wait<0>();
+      pin(d);
+      if (wg >= 2) {
 #pragma unroll
-        for (int cc = 0; cc < C / 16; ++cc, ++kk) {
-          const uint4* wb;
-          int slot = 0;
-          if (g.ring) {
-            slot = chunk % g.ring;
-            mbar_wait(full + slot, (chunk / g.ring) & 1);
-            wb = wds + slot * (SLOT / 16);
-          } else {
-            wb = wds + kk * (SLOT / 16);
-          }
-          wb += wn * NPW * 32 + lane;
-          uint4 bb[NPW];
+        for (int hh = 0; hh < 2; ++hh) {
+          const int co = 64 * mb + 16 * wl + gq + 8 * hh;
 #pragma unroll
-          for (int j = 0; j < NPW; ++j) bb[j] = wb[j * 32];
-          uint32_t a[MTW][4];
+          for (int jb = 0; jb < NF / 8; ++jb)
+            *reinterpret_cast<float2*>(d1s + co * (NF + 4) + 8 * jb + 2 * tq) =
+                make_float2(d[4 * jb + 2 * hh], d[4 * jb + 2 * hh + 1]);
+        }
+        shared_to_async();   // the buffer's next writer is a bulk copy
+      }
+      __syncthreads();
+      if (wg < 2) {
 #pragma unroll
-          for (int i = 0; i < MTW; ++i) ldsm(a[i], tap + abase[i] + 16 * cc);
+        for (int hh = 0; hh < 2; ++hh) {
+          const int co = 64 * mb + 16 * wl + gq + 8 * hh;
 #pragma unroll
-          for (int i = 0; i < MTW; ++i)
-#pragma unroll
-            for (int j = 0; j < NPW; ++j) {
-              mma(acc[i][2 * j], a[i], bb[j].x, bb[j].y);
-              mma(acc[i][2 * j + 1], a[i], bb[j].z, bb[j].w);
-            }
-          if (g.ring) {
-            // this warp is done with the slot: tell every block of the cluster;
-            // thread 0 refills the slot freed one chunk earlier
-            __syncwarp();
-            if (lane < cl) mbar_arrive_remote(empty + slot, lane);
-            if (tid == 0 && chunk + g.ring - 1 < total) {
-              if (chunk >= 1) mbar_wait(empty + (chunk - 1) % g.ring, ((chunk - 1) / g.ring) & 1);
-              produce(chunk + g.ring - 1);
-            }
-            __syncwarp();
-            ++chunk;
+          for (int jb = 0; jb < NF / 8; ++jb) {
+            const int m = 8 * jb + 2 * tq;
+            const float* next = d1s + co * (NF + 4) + m + 1;
+            const float v0 = d[4 * jb + 2 * hh] + next[0] + sbd[co];
+            const float v1 = d[4 * jb + 2 * hh + 1] + (m + 2 < NF ? next[1] : 0.f) + sbd[co];
+            if (m + 1 < TILE)
+              *reinterpret_cast<uint32_t*>(sz + co * G::kOutRs + m) = pack(v0, v1);
+            else if (m < TILE)
+              sz[co * G::kOutRs + m] = __float2bfloat16_rn(v0);
           }
         }
       }
+    } else if (wg < MB) {
+      float d0[NF / 2], d1[NF / 2];
 #pragma unroll
-      for (int i = 0; i < MTW; ++i)
+      for (int i = 0; i < NF / 2; ++i) d0[i] = d1[i] = 0.f;
+      pin(d0);
+      pin(d1);
+      wg_fence();
+      auto both = [&](int kk, const unsigned char* a) {
+        if (kk < KHALF) product(d0, kk, a, 0); else product(d1, kk, a, KHALF);
+      };
+      if (g.ring) {
+        // a batch of chunks at a time: wait for them, multiply, and once the
+        // batch before has completed in all four warps, refill its slots
+        for (int kb = 0; kb < KCH; kb += kBatch) {
 #pragma unroll
-        for (int j = 0; j < 2 * NPW; ++j) {
-          const int n = 8 * (wn * 2 * NPW + j) + 2 * tq;
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const int m = 16 * (wm * MTW + i) + gq + 8 * hh;
-            if (m < g.tile) {
-              sz[n * g.out_rs + m] = __float2bfloat16_rn(acc[i][j][2 * hh] + sbd[n]);
-              sz[(n + 1) * g.out_rs + m] = __float2bfloat16_rn(acc[i][j][2 * hh + 1] + sbd[n + 1]);
-            }
+          for (int i = 0; i < kBatch; ++i) {
+            const int q = chunk + i;
+            mbar_wait(full + q % kRing, (q / kRing) & 1);
+            both(kb + i, ring + (q % kRing) * SLOT);
           }
+          wg_commit();
+          if (kb > 0) {
+            wg_wait<1>();
+            wg_sync(wg);
+            for (int i = 0; i < kBatch; ++i) fetch(chunk - kBatch + i + kRing);
+          }
+          chunk += kBatch;
         }
+        wg_wait<0>();
+        wg_sync(wg);
+        for (int i = 0; i < kBatch; ++i) fetch(chunk - kBatch + i + kRing);
+      } else {
+        for (int kk = 0; kk < KCH; ++kk) both(kk, wds + kk * CO * 32 + wg * SLOT);
+        wg_commit();
+        wg_wait<0>();
+      }
+      pin(d0);
+      pin(d1);
+      // out[co][m] = d0[m] + d1[m + 1] + bd: column m + 1 of d1 is this lane's
+      // second value, column m + 2 the next lane's first (the next group's for tq = 3)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int co = 64 * wg + 16 * wl + gq + 8 * hh;
+#pragma unroll
+        for (int jb = 0; jb < NF / 8; ++jb) {
+          const float next_in = __shfl_sync(0xffffffffu, d1[4 * jb + 2 * hh], (lane & ~3) | ((tq + 1) & 3));
+          const float next_grp = __shfl_sync(0xffffffffu, jb + 1 < NF / 8 ? d1[4 * (jb + 1) + 2 * hh] : 0.f,
+                                             lane & ~3);
+          const int m = 8 * jb + 2 * tq;
+          const float v0 = d0[4 * jb + 2 * hh] + d1[4 * jb + 2 * hh + 1] + sbd[co];
+          const float v1 = d0[4 * jb + 2 * hh + 1] + (tq < 3 ? next_in : next_grp) + sbd[co];
+          if (m + 1 < TILE)
+            *reinterpret_cast<uint32_t*>(sz + co * G::kOutRs + m) = pack(v0, v1);
+          else if (m < TILE)
+            sz[co * G::kOutRs + m] = __float2bfloat16_rn(v0);
+        }
+      }
     }
+    laps.work(5);
     __syncthreads();
     laps.lap(5);
 
-    if (item < g.items) {
-      const int fr = min(g.tile, g.frames - u0);
-      bf16* yb = y + (size_t)(item / g.tiles) * CO * g.frames + u0;
-      for (int e = tid; e < CO * fr; e += kThreads) {
-        const int n = e / fr, m = e - n * fr;
-        yb[(size_t)n * g.frames + m] = sz[n * g.out_rs + m];
+    // the output tile, half a warp a channel row, the lanes along T storing
+    // pairs of frames on 4-byte boundaries (a leading odd frame alone)
+    const int fr = min(TILE, g.frames - u0);
+    const size_t y0 = (size_t)(item / g.tiles) * CO * g.frames + u0;
+    for (int nn = 2 * warp + (lane >> 4); nn < CO; nn += 2 * kMmaWarps) {
+      const size_t at = y0 + (size_t)nn * g.frames;   // element index of frame 0
+      const bf16* src = sz + nn * G::kOutRs;
+      const int odd = (int)(at & 1);
+      for (int m = odd + 2 * (lane & 15); m < fr; m += 32) {
+        if (m + 1 < fr) {
+          const __nv_bfloat162 v = __halves2bfloat162(src[m], src[m + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(y + at + m) = v;
+        } else {
+          y[at + m] = src[m];
+        }
       }
+      if (odd && (lane & 15) == 0) y[at] = src[0];
     }
     if constexpr (kClocks) {
+      laps.work(6);
       __syncthreads();
       laps.lap(6);
     }
   }
-  // no block leaves while a block of its cluster may still arrive on its barriers
-  if (g.ring) cluster_sync();
+  laps.flush();
 }
 
-// Launches the instance, or with info != nullptr only describes it: info[0..7]
+// Launches the instance, or with info != nullptr only describes it: info[0..6]
 // = registers per thread, shared bytes per block, blocks per SM, threads per
-// block, local (spilled) bytes per thread, frames per tile, blocks launched,
-// blocks a cluster.
+// block, local (spilled) bytes per thread, frames per tile, blocks launched.
 template <typename K, typename... Args>
-int launch_or_describe(K kernel, dim3 grid, size_t smem, int tile, int cluster,
+int launch_or_describe(K kernel, dim3 grid, int threads, size_t smem, int tile,
                        cudaStream_t stream, int* info, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster, attr[0].val.clusterDim.y = 1, attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = grid, cfg.blockDim = dim3(kThreads), cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream, cfg.attrs = attr, cfg.numAttrs = cluster > 1 ? 1 : 0;
   if (info) {
     cudaFuncAttributes fa;
     int blocks = 0;
     err = cudaFuncGetAttributes(&fa, kernel);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
     if (err != cudaSuccess) return (int)err;
     info[0] = fa.numRegs, info[1] = (int)(fa.sharedSizeBytes + smem), info[2] = blocks;
-    info[3] = kThreads, info[4] = (int)fa.localSizeBytes, info[5] = tile;
-    info[6] = (int)(grid.x * grid.y), info[7] = cluster;
+    info[3] = threads, info[4] = (int)fa.localSizeBytes, info[5] = tile;
+    info[6] = (int)(grid.x * grid.y);
     return 0;
   }
-  return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+  kernel<<<grid, threads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
-template <int C, int H, int CO, int MTW, int NPW, bool kClocks>
+// x as a 2D bf16 tensor [rows, len] with boxes of `box_rows` rows by
+// `box_cols` columns, no swizzle, zeros past the edges; the encoder is the
+// driver's cuTensorMapEncodeTiled, looked up once through the runtime
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+cudaError_t input_map(CUtensorMap* map, const void* x, unsigned long long rows, int len,
+                      int box_rows, int box_cols) {
+  static EncodeTiled encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || !fn) return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)len, rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)len * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), dims,
+                            strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int C, int H, int CO, int S, bool kClocks>
 int launch_mma(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
-               const void* wd, const void* bd, void* y, MmaStage g, int smem,
-               cudaStream_t stream, unsigned long long* clocks, int* info) {
-  constexpr int WM = kWarps / (CO / 16 / NPW);
-  if (g.tile > 16 * WM * MTW) return (int)cudaErrorInvalidValue;
-  auto kernel = stage_mma_kernel<C, H, CO, MTW, NPW, kClocks>;
+               const void* wd, const void* bd, void* y, MmaStage g, int smem, cudaStream_t stream,
+               unsigned long long* clocks, int* info) {
+  auto kernel = stage_mma_kernel<C, H, CO, S, kClocks>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  // the persistent grid: as many blocks (whole clusters) as are resident at once
+  // the persistent grid: as many blocks as are resident at once
   int dev = 0, sms = 0, per_sm = 0;
   err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kMmaThreads, smem);
   if (err != cudaSuccess) return (int)err;
-  int resident = per_sm * sms;
-  if (g.cluster > 1) {
-    cudaLaunchConfig_t cfg = {};
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = g.cluster, attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.gridDim = dim3(g.cluster * sms), cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = smem, cfg.attrs = attr, cfg.numAttrs = 1;
-    int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid(min(g.items, per_sm * sms));
+  CUtensorMap xmap{};
+  if (g.vec && !info) {
+    err = input_map(&xmap, x, (unsigned long long)g.batch * C, g.len, C, Geometry<C, H, CO, S>::kRawRs);
     if (err != cudaSuccess) return (int)err;
-    resident = clusters * g.cluster;
   }
-  if (resident < g.cluster) return (int)cudaErrorInvalidConfiguration;
-  const int groups = (g.items + g.cluster - 1) / g.cluster;
-  const dim3 grid(min(groups, resident / g.cluster) * g.cluster);
-  return launch_or_describe(kernel, grid, smem, g.tile, g.cluster, stream, info,
-                            static_cast<const bf16*>(x), static_cast<const uint4*>(w1),
-                            static_cast<const bf16*>(b1), static_cast<const uint4*>(w2),
-                            static_cast<const bf16*>(b2), static_cast<const uint4*>(wd),
-                            static_cast<const bf16*>(bd), static_cast<bf16*>(y), g, clocks);
+  return launch_or_describe(kernel, grid, kMmaThreads, smem, Geometry<C, H, CO, S>::kTile, stream,
+                            info, static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
+                            static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
+                            static_cast<const bf16*>(b2), static_cast<const bf16*>(wd),
+                            static_cast<const bf16*>(bd), static_cast<bf16*>(y), g, clocks, xmap);
 }
 
 template <typename T, bool kClocks>
@@ -836,7 +1071,7 @@ int launch_stage(const void* x, const void* w1, const void* b1, const void* w2, 
                  const void* wd, const void* bd, void* y, Stage g, size_t smem,
                  cudaStream_t stream, unsigned long long* clocks, int* info) {
   const dim3 grid((g.frames + g.tile - 1) / g.tile, g.batch);
-  return launch_or_describe(stage_kernel<T, kClocks>, grid, smem, g.tile, 1, stream, info,
+  return launch_or_describe(stage_kernel<T, kClocks>, grid, kThreads, smem, g.tile, stream, info,
                             static_cast<const T*>(x), static_cast<const T*>(w1),
                             static_cast<const T*>(b1), static_cast<const T*>(w2),
                             static_cast<const T*>(b2), static_cast<const T*>(wd),
@@ -907,8 +1142,8 @@ int launch_mono(const void* x, const void* w, const float* bias, void* y, int ba
 }
 
 // K4 by plan: plan == nullptr runs the fp32-FMA variant (its tile chosen
-// here); else plan = {tile, in_bufs, ring, cluster, shared bytes} of the
-// tensor-core variant, whose shared bytes are recomputed and must agree.
+// here); else plan = {tile, in_bufs, ring, shared bytes} of the tensor-core
+// variant, whose shared bytes are recomputed and must agree.
 template <bool kClocks>
 int run_stage(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
               const void* wd, const void* bd, void* y, int batch, int c, int h, int c_out,
@@ -921,27 +1156,28 @@ int run_stage(const void* x, const void* w1, const void* b1, const void* w2, con
   const int right = stride / 2, left = stride - right, frames = len / stride;
   if (plan) {
     MmaStage g{};
-    g.batch = batch, g.len = len, g.stride = stride, g.frames = frames;
-    g.left = left, g.right = right;
-    g.tile = plan[0], g.in_bufs = plan[1], g.ring = plan[2], g.cluster = plan[3];
-    if (!is_bf16 || g.tile < 1 || g.in_bufs < 1 || g.in_bufs > 2 || g.ring < 0 ||
-        g.ring == 1 || g.ring > kMaxRing || g.cluster < 1 || g.cluster > kMaxCluster ||
-        (g.cluster > 1 && !g.ring) || (stride * (g.tile + 1)) % 16 != 0)
+    g.batch = batch, g.len = len, g.frames = frames, g.left = left, g.right = right;
+    g.in_bufs = plan[1], g.ring = plan[2];
+    if (!is_bf16 || g.in_bufs < 1 || g.in_bufs > 2 || (g.ring != 0 && g.ring != kRing))
       return (int)cudaErrorInvalidValue;
-    g.tiles = (frames + g.tile - 1) / g.tile;
-    if ((long long)batch * g.tiles > (1 << 30)) return (int)cudaErrorInvalidValue;
-    g.items = batch * g.tiles;
     g.vec = len % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-    const int smem = mma_geometry(g, c, h, c_out);
-    if (smem != plan[4] || smem > kSmemLimit || (16 * c_out * 2) % (16 * g.cluster) != 0)
-      return (int)cudaErrorInvalidValue;
-#define ACX_MMA(C, H, CO, MTW, NPW)                                                          \
-  if (c == C && h == H && c_out == CO)                                                       \
-    return launch_mma<C, H, CO, MTW, NPW, kClocks>(x, w1, b1, w2, b2, wd, bd, y, g, smem, s, \
-                                                   clocks, info);
-    ACX_MMA(32, 16, 64, 2, 1)
-    ACX_MMA(64, 32, 128, 2, 1)
-    ACX_MMA(128, 64, 256, 2, 2)
+#define ACX_MMA(C, H, CO, S)                                                                 \
+  if (c == C && h == H && c_out == CO && stride == S) {                                      \
+    using G = Geometry<C, H, CO, S>;                                                         \
+    if (plan[0] != G::kTile || (g.ring && CO != 256) || (CO == 128 && g.in_bufs != 2))      \
+      return (int)cudaErrorInvalidValue;                                                     \
+    g.tiles = (frames + G::kTile - 1) / G::kTile;                                            \
+    if ((long long)batch * g.tiles > (1 << 30)) return (int)cudaErrorInvalidValue;           \
+    g.items = batch * g.tiles;                                                               \
+    const int smem = mma_geometry<C, H, CO, S>(g);                                           \
+    if (smem != plan[3] || smem > kSmemLimit || g.off_raw % 128 ||                           \
+        (C * G::kRawRs * 2) % 128)                                                           \
+      return (int)cudaErrorInvalidValue;                                                     \
+    return launch_mma<C, H, CO, S, kClocks>(x, w1, b1, w2, b2, wd, bd, y, g, smem, s, clocks, info); \
+  }
+    ACX_MMA(32, 16, 64, 2)
+    ACX_MMA(64, 32, 128, 4)
+    ACX_MMA(128, 64, 256, 4)
 #undef ACX_MMA
     return (int)cudaErrorInvalidValue;
   }
@@ -973,9 +1209,10 @@ extern "C" int acx_seanet_stage(const void* x, const void* w1, const void* b1, c
                           is_bf16, plan, stream, nullptr, nullptr);
 }
 
-// The same launch with the per-phase cycle counter on: clocks[kPhases]
-// (zeroed by the caller) collects each phase's cycles summed over blocks.  A
-// measurement: no model path calls it.
+// The same launch with the per-phase cycle counter on: clocks[2 * kPhases]
+// (zeroed by the caller) collects each phase's cycles summed over blocks, then
+// each phase's work cycles summed over the warps.  A measurement: no model
+// path calls it.
 extern "C" int acx_seanet_stage_clocks(const void* x, const void* w1, const void* b1,
                                        const void* w2, const void* b2, const void* wd,
                                        const void* bd, void* y, int batch, int c, int h,
@@ -986,7 +1223,7 @@ extern "C" int acx_seanet_stage_clocks(const void* x, const void* w1, const void
                          nullptr);
 }
 
-// What the production instance for this launch uses, into out[8] (see
+// What the production instance for this launch uses, into out[7] (see
 // launch_or_describe); nothing is launched.
 extern "C" int acx_seanet_stage_info(int batch, int c, int h, int c_out, int len, int stride,
                                      int is_bf16, const int* plan, int* out) {

@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import math
 import typing as tp
 
 import torch
@@ -120,7 +119,7 @@ def _stage_sources(enc, layer_ids: tp.Sequence[int]) -> tp.List[torch.Tensor]:
 def encoder_stage_weights(enc, spec: StageSpec, layer_ids: tp.Sequence[int],
                           dtype: torch.dtype) -> tp.Dict[str, torch.Tensor]:
     """:func:`stage_params`, with ``w1_mma``, ``w2_mma`` and ``wd_mma`` in
-    :func:`pack_mma_fragments` order where the tensor-core variant runs the
+    :func:`pack_b_tiles` order where the tensor-core variant runs the
     stage, made once per encoder, stage and dtype and kept on the encoder.
     The cache holds the source parameters and their version counters, so an
     in-place update (an optimizer step, ``load_state_dict``) or a parameter
@@ -135,7 +134,7 @@ def encoder_stage_weights(enc, spec: StageSpec, layer_ids: tp.Sequence[int],
         return hit[2]
     params = stage_params(enc, spec, layer_ids, dtype)
     if stage_plan(spec, dtype) is not None:
-        params.update({f'{k}_mma': pack_mma_fragments(params[k]) for k in ('w1', 'w2', 'wd')})
+        params.update({f'{k}_mma': pack_b_tiles(params[k]) for k in ('w1', 'w2', 'wd')})
     cache[key] = (sources, versions, params)
     return params
 
@@ -175,29 +174,26 @@ def _on_cpu(x: torch.Tensor, what: str) -> bool:
     return x.device.type == 'cpu'
 
 
-def pack_mma_fragments(w: torch.Tensor) -> torch.Tensor:
-    """A bf16 [K, N] matrix (K % 16 == 0, N % 16 == 0) in the order the
-    tensor-core K4 reads its m16n8k16 B fragments, two n-tiles at a time:
-    for k-chunk kc, pair of n-tiles np and lane l (g = l // 4, t = l % 4),
-    eight values B[16 kc + 2t + {0, 1, 8, 9}, 16 np + g] then the same rows
-    at column 16 np + 8 + g, so one warp reads two fragments as 512
-    contiguous bytes, one 16-byte load a lane."""
+def pack_b_tiles(w: torch.Tensor) -> torch.Tensor:
+    """A bf16 [K, N] matrix (K % 16 == 0, N % 8 == 0) in the shared-memory
+    layout the tensor-core K4 gives wgmma as its B operand: no swizzle,
+    K-major core matrices of 8 columns x 8 depths (16 bytes a column), for
+    each 16-deep chunk kc the 8-column groups ng one after another (256
+    bytes each), the chunk's two 8-deep halves in each (128 bytes apart):
+    element (k, n) at [kc, ng, k // 8 % 2, n % 8, k % 8]."""
     K, N = w.shape
-    if K % 16 or N % 16:
-        raise ValueError(f"[{K}, {N}] is not a whole number of 16 x 16 fragment pairs")
-    # k = 16 kc + 8 h + 2 t + p, n = 16 np + 8 j + g  ->  [kc, np, g, t, j, h, p]
-    return (w.reshape(K // 16, 2, 4, 2, N // 16, 2, 8).permute(0, 4, 6, 2, 5, 1, 3)
-            .contiguous())
+    if K % 16 or N % 8:
+        raise ValueError(f"[{K}, {N}] is not a whole number of 16 x 8 tiles")
+    # k = 16 kc + 8 h + i, n = 8 ng + j  ->  [kc, ng, h, j, i]
+    return w.reshape(K // 16, 2, 8, N // 8, 8).permute(0, 3, 1, 4, 2).contiguous()
 
 
-# The widths (C, H, C_out) the tensor-core K4 is built for, each with the
-# m-tiles and n-tile pairs a warp takes in the downsample (csrc/seanet.cu:
-# run_stage instantiates the same); other widths run the fp32-FMA variant.
-_MMA_SHAPES = {(32, 16, 64): (2, 1), (64, 32, 128): (2, 1), (128, 64, 256): (2, 2)}
+# The stages the tensor-core K4 is built for, (C, H, C_out, stride): the
+# fused stages of the 32 kHz and 24 kHz codecs (csrc/seanet.cu:run_stage
+# instantiates the same); other stages run the fp32-FMA variant.
+_MMA_STAGES = ((32, 16, 64, 2), (64, 32, 128, 4), (128, 64, 256, 4))
 SMEM_LIMIT = 232448   # shared bytes an H100 block may take (csrc/seanet.cu:kSmemLimit)
-MAX_RING = 8          # k-chunks of wd in a streaming ring, at most
-CLUSTER = 4           # blocks that share each streamed chunk of wd
-_ITEM_ROWS = 128      # r rows an item aims at: 8 whole m-tiles, one a warp
+RING = 8              # k-chunks of wd in a warpgroup's streaming ring (csrc/seanet.cu:kRing)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,71 +202,55 @@ class StagePlan:
     (``tile``, with s * (tile + 1) r rows, a whole number of 16-row m-tiles),
     input tiles in shared memory (2: the next item's copy starts as this one
     starts; 1: once conv1 has read it), and wd either resident (``ring`` 0)
-    or streamed through a ring of ``ring`` k-chunks, each read from L2 once
-    for a cluster of ``cluster`` blocks.  ``smem_bytes`` the kernel
-    recomputes and must find equal."""
+    or streamed through each warpgroup's ring of ``ring`` k-chunks.
+    ``smem_bytes`` the kernel recomputes and must find equal."""
     tile: int
     in_bufs: int
     ring: int
-    cluster: int
     smem_bytes: int
 
     def args(self) -> ctypes.Array:
-        return (ctypes.c_int * 5)(self.tile, self.in_bufs, self.ring, self.cluster,
-                                  self.smem_bytes)
+        return (ctypes.c_int * 4)(self.tile, self.in_bufs, self.ring, self.smem_bytes)
 
 
 def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-def _mma_smem_bytes(spec: StageSpec, tile: int, in_bufs: int, ring: int) -> int:
-    """The tensor-core K4's shared bytes (csrc/seanet.cu:mma_geometry): w1,
-    w2, wd or its ring, the input tiles [C][raw_rs], ELU(a) / ELU(r) rows,
-    z / the output tile, the fp32 biases, two mbarriers a ring slot."""
+def _mma_smem_bytes(spec: StageSpec, in_bufs: int, ring: int) -> int:
+    """The tensor-core K4's shared bytes (csrc/seanet.cu:Geometry and
+    mma_geometry): w1, w2, wd or the warpgroups' rings, the input tiles
+    [C][raw_rs], ELU(a) rows or ELU(r) by phase, z or the output tile, the
+    fp32 biases, the mbarriers (one an input tile, one a ring slot of each
+    of the 4 warpgroups)."""
     C, H, s, CO = spec.c_in, spec.res_hidden, spec.stride, spec.c_out
-    rows = s * (tile + 1)
+    tile = 128 // s - 1
+    frames, rows = tile + 1, 128
     na = rows + 2
-    chunks = (na + 14) // 8            # an aligned copy starts up to 7 rows early
-    chunks += 1 - chunks % 2           # an odd number of 16-byte units a row
-    pb = tile + 1                      # csrc/seanet.cu:phase_block
-    if 8 % s == 0:
-        while pb % 8 != (8 // s) % 8:
-            pb += 1
-    out_rs = _round_up(tile + 1, 8) + 8
-    weights = 2 * (3 * C * H + H * C) + (ring * 16 * CO * 2 if ring else 2 * 2 * s * C * CO)
-    return (weights + in_bufs * C * 8 * chunks * 2 + max(na, s * pb) * (C + 8) * 2
-            + max(rows * (H + 8), CO * out_rs) * 2 + _round_up(4 * (H + C + CO), 16)
-            + 16 * ring)
+    raw_rs = 8 * (((na + 14) // 8) | 1)   # an odd number of 16-byte units a row
+    phase_bytes = frames // 8 * C * 16 + 128 // s
+    elu = max((na + 1) * (C + 8) * 2, s * phase_bytes)   # ELU(a) has a spare row
+    z = 2 * max(rows * (H + 8), CO * (frames + 8))
+    wd = ring * 16 * CO * 2 if ring else 2 * 2 * s * C * CO
+    return (2 * (3 * C * H + H * C) + wd + in_bufs * C * raw_rs * 2 + elu + z
+            + _round_up(4 * (H + C + CO), 16) + 8 * (2 + 4 * ring))
 
 
 def stage_plan(spec: StageSpec, dtype: torch.dtype) -> tp.Optional[StagePlan]:
     """The tensor-core K4's plan for this stage, or None where the fp32-FMA
-    variant runs it (fp32, widths not built, a stride of no whole tile).
+    variant runs it (fp32, or a stage it is not built for).
 
-    The tile: s * (tile + 1) up to 128 r rows in whole m-tiles, within the
-    frames the downsample's warps cover.  Then the first that fits shared
-    memory: everything resident with two input tiles, resident with one,
-    else wd streamed through the deepest ring that fits, by a cluster."""
-    shape = (spec.c_in, spec.res_hidden, spec.c_out)
-    if dtype != torch.bfloat16 or shape not in _MMA_SHAPES:
+    The tile is fixed by the stride: s * (tile + 1) = 128 r rows, two m64
+    blocks of the products.  Then the first that fits shared memory:
+    everything resident with two input tiles, resident with one, else wd
+    streamed through the warpgroups' rings with one input tile."""
+    key = (spec.c_in, spec.res_hidden, spec.c_out, spec.stride)
+    if dtype != torch.bfloat16 or key not in _MMA_STAGES:
         return None
-    mtw, npw = _MMA_SHAPES[shape]
-    s = spec.stride
-    most = 16 * mtw * (8 // (spec.c_out // 16 // npw))   # frames the warps cover
-    step = 16 // math.gcd(s, 16)                          # tile + 1 in steps of whole m-tiles
-    span = min(_ITEM_ROWS // s, most + 1) // step * step
-    if span < 2:
-        return None
-    tile = span - 1
-    for in_bufs in (2, 1):
-        smem = _mma_smem_bytes(spec, tile, in_bufs, 0)
+    for in_bufs, ring in ((2, 0), (1, 0), (1, RING)):
+        smem = _mma_smem_bytes(spec, in_bufs, ring)
         if smem <= SMEM_LIMIT:
-            return StagePlan(tile, in_bufs, 0, 1, smem)
-    for ring in range(MAX_RING, 1, -1):
-        smem = _mma_smem_bytes(spec, tile, 1, ring)
-        if smem <= SMEM_LIMIT:
-            return StagePlan(tile, 1, ring, CLUSTER, smem)
+            return StagePlan(128 // spec.stride - 1, in_bufs, ring, smem)
     return None
 
 
@@ -278,18 +258,13 @@ def stage_weight_l2_bytes(spec: StageSpec, plan: StagePlan, batch: int, length: 
                           blocks: int) -> int:
     """Weight bytes the tensor-core K4 reads from L2 in one launch of
     ``blocks`` persistent blocks: w1 and w2 once a block, wd once a block
-    where resident, else once a cluster's item group (each streamed chunk is
-    read once for the cluster)."""
+    where resident, else once an item (each warpgroup copies its columns)."""
     C, H, s, CO = spec.c_in, spec.res_hidden, spec.stride, spec.c_out
     items = batch * -(-(length // s) // plan.tile)
     wd = 2 * 2 * s * C * CO
-    per_block = 2 * (3 * C * H + H * C) + (0 if plan.ring else wd)
-    return blocks * per_block + (-(-items // plan.cluster) * wd if plan.ring else 0)
-
-
-def _mma_widths(spec: StageSpec) -> bool:
-    """Whether bf16 at these widths runs the tensor-core variant."""
-    return stage_plan(spec, torch.bfloat16) is not None
+    if plan.ring:
+        return blocks * 2 * (3 * C * H + H * C) + items * wd
+    return blocks * (2 * (3 * C * H + H * C) + wd)
 
 
 def _check_stage(x: torch.Tensor, params: tp.Dict[str, torch.Tensor], spec: StageSpec,
@@ -335,7 +310,7 @@ def _launch_stage(x: torch.Tensor, params: tp.Dict[str, torch.Tensor], spec: Sta
         return y
     w1, w2, wd = params['w1'], params['w2'], params['wd']
     if plan is not None:
-        w1, w2, wd = (params[f'{k}_mma'] if f'{k}_mma' in params else pack_mma_fragments(w)
+        w1, w2, wd = (params[f'{k}_mma'] if f'{k}_mma' in params else pack_b_tiles(w)
                       for k, w in (('w1', w1), ('w2', w2), ('wd', wd)))
     args = (x.data_ptr(), w1.data_ptr(), params['b1'].data_ptr(), w2.data_ptr(),
             params['b2'].data_ptr(), wd.data_ptr(), params['bd'].data_ptr(), y.data_ptr(), B, C,
@@ -358,7 +333,7 @@ def fused_stage(x: torch.Tensor, params: tp.Dict[str, torch.Tensor],
     bf16 at the widths the tensor-core variant is built for runs it (by
     :func:`stage_plan`); any other width, and fp32, the fp32-FMA variant.
     ``params`` may also hold ``w1_mma``, ``w2_mma`` and ``wd_mma``, the
-    weights already in :func:`pack_mma_fragments` order
+    weights already in :func:`pack_b_tiles` layout
     (:func:`encoder_stage_weights` packs them once); else they are packed
     here."""
     if _check_stage(x, params, spec, 'fused_stage'):
@@ -372,37 +347,41 @@ fused_stage.launches = 0  # kernel launches since the last reset
 
 FMA_PHASES = ('input', 'conv3', 'conv1', 'reflect', 'downsample', 'output')
 MMA_PHASES = ('input wait', 'ELU(a)', 'conv3', 'conv1', 'reflect', 'downsample', 'output')
-_CLOCK_SLOTS = 8   # csrc/seanet.cu:kPhases
+_CLOCK_PHASES = 8   # csrc/seanet.cu:kPhases
 
 
-def fused_stage_clocks(x: torch.Tensor, params: tp.Dict[str, torch.Tensor],
-                       spec: StageSpec) -> tp.Tuple[torch.Tensor, tp.Dict[str, int]]:
+def fused_stage_clocks(x: torch.Tensor, params: tp.Dict[str, torch.Tensor], spec: StageSpec
+                       ) -> tp.Tuple[torch.Tensor, tp.Dict[str, int], tp.Dict[str, int]]:
     """A measurement, not a route: one K4 launch built with its per-phase
     cycle counter, on a CUDA tensor.  Returns the output and, for each phase
     of the variant that ran (:data:`MMA_PHASES` or :data:`FMA_PHASES`), the
-    %clock64 cycles thread 0 of every block spent in it, summed over the
-    blocks.  Not counted in the launches."""
+    %clock64 cycles thread 0 of every block spent in it, barrier included,
+    summed over the blocks; and (tensor-core variant) the cycles each warp
+    spent on the phase's own work before the barrier, summed over the warps
+    of every block.  Not counted in the launches."""
     if _check_stage(x, params, spec, 'fused_stage_clocks'):
         raise ValueError("fused_stage_clocks measures the kernel: it takes a CUDA tensor")
-    clocks = torch.zeros(_CLOCK_SLOTS, dtype=torch.int64, device=x.device)
+    clocks = torch.zeros(2 * _CLOCK_PHASES, dtype=torch.int64, device=x.device)
     y = _launch_stage(x, params, spec, clocks)
     phases = MMA_PHASES if stage_plan(spec, x.dtype) else FMA_PHASES
-    return y, dict(zip(phases, clocks.tolist()))
+    counts = clocks.tolist()
+    return (y, dict(zip(phases, counts)),
+            dict(zip(phases, counts[_CLOCK_PHASES:])) if phases is MMA_PHASES else {})
 
 
 def stage_kernel_info(spec: StageSpec, batch: int, length: int,
                       dtype: torch.dtype) -> tp.Dict[str, int]:
     """Registers, shared bytes, blocks per SM, threads, spilled bytes, frames
-    per tile, blocks launched and blocks a cluster of the K4 instance that
+    per tile and blocks launched of the K4 instance that
     :func:`fused_stage` launches for this input on the current card."""
-    out = (ctypes.c_int * 8)()
+    out = (ctypes.c_int * 7)()
     plan = stage_plan(spec, dtype)
     _build.check(_build.library().acx_seanet_stage_info(
         batch, spec.c_in, spec.res_hidden, spec.c_out, length, spec.stride,
         int(dtype == torch.bfloat16), plan.args() if plan else None, out),
         'acx_seanet_stage_info')
     return dict(zip(('registers', 'shared_bytes', 'blocks_per_sm', 'threads', 'spill_bytes',
-                     'tile', 'blocks', 'cluster'), out))
+                     'tile', 'blocks'), out))
 
 
 def fused_encoder_apply(enc, x: torch.Tensor, n_stages: int

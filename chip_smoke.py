@@ -64,7 +64,6 @@ does a host without a CUDA card.
 from __future__ import annotations
 
 import copy
-import dataclasses
 import json
 import math
 import subprocess
@@ -83,7 +82,6 @@ from audiocraft_tpu_torch.dist.train import lm_loss, lm_loss_and_grads, make_lm_
 from audiocraft_tpu_torch.gen.magnet import get_debug_magnet
 from audiocraft_tpu_torch.nn.transformer import StreamingMultiheadAttention
 from audiocraft_tpu_torch.ops import _build, attention
-from audiocraft_tpu_torch.ops import seanet as seanet_ops
 from audiocraft_tpu_torch.ops import lstm as lstm_ops
 from audiocraft_tpu_torch.ops.attention import (
     attention_bwd_dkv, attention_bwd_dkv_reference, attention_bwd_dq, attention_bwd_dq_reference,
@@ -95,7 +93,7 @@ from audiocraft_tpu_torch.ops.rvq import rvq_encode, rvq_encode_reference
 from audiocraft_tpu_torch.ops.seanet import (
     StageSpec, banded_mono_conv, banded_mono_conv_reference, fused_encoder_apply, fused_stage,
     fused_stage_clocks, fused_stage_reference, mono_input_conv, mono_input_conv_reference,
-    pack_mma_fragments, stage_kernel_info, stage_plan, stage_weight_l2_bytes)
+    pack_b_tiles, stage_kernel_info, stage_plan, stage_weight_l2_bytes)
 from audiocraft_tpu_torch.optim import make_optimizer
 from audiocraft_tpu_torch.quant.codebook import compute_distances, quantize
 
@@ -747,12 +745,11 @@ def print_stage_profile(si: int, spec: StageSpec, x: torch.Tensor,
                         params: tp.Dict[str, torch.Tensor]) -> None:
     """K4's resources (cudaFuncGetAttributes and the occupancy API), its
     per-phase split from one launch with the cycle counter on (thread 0 of
-    each block, summed over blocks), the weight bytes its design reads from
-    L2, and, where wd streams through a cluster's ring, the same plan timed
-    with clusters of one block (information: what the multicast gives)."""
+    each block, summed over blocks) and the weight bytes its design reads
+    from L2."""
     B, C, L = x.shape
     info = stage_kernel_info(spec, B, L, x.dtype)
-    y, clocks = fused_stage_clocks(x, params, spec)
+    y, clocks, work = fused_stage_clocks(x, params, spec)
     check(torch.equal(y, fused_stage(x, params, spec)), f'stage {si}: counter changes the output')
     total = sum(clocks.values())
     plan = stage_plan(spec, x.dtype)
@@ -761,19 +758,15 @@ def print_stage_profile(si: int, spec: StageSpec, x: torch.Tensor,
           else info['blocks'] * weights)
     print(f"fused_stage {si} resources: {info['registers']} registers x {info['threads']} "
           f"threads, {info['shared_bytes']} B shared, {info['blocks_per_sm']} blocks/SM, "
-          f"{info['spill_bytes']} B spilled; plan {plan}; {info['blocks']} blocks in clusters "
-          f"of {info['cluster']}; weight bytes from L2 {l2 / 1e9:.3f} GB", flush=True)
+          f"{info['spill_bytes']} B spilled; plan {plan}; {info['blocks']} blocks; weight "
+          f"bytes from L2 {l2 / 1e9:.3f} GB", flush=True)
     print(f'fused_stage {si} per-phase split ({total / 1e9:.3f} G block-cycles): '
           + ', '.join(f'{k} {v / total:.3f}' for k, v in clocks.items()), flush=True)
-    if plan and plan.cluster > 1:
-        alone = dataclasses.replace(plan, cluster=1)
-        out = seanet_ops._launch_stage(x, params, spec, plan=alone)
-        check(torch.equal(out, y), f'stage {si}: clusters of one give another output')
-        ms = [time_ms(lambda: seanet_ops._launch_stage(x, params, spec, plan=p), 5)
-              for p in (plan, alone, alone, plan)]
-        print(f'fused_stage {si} clusters of {plan.cluster} / of 1 / of 1 / of {plan.cluster}: '
-              + ', '.join(f'{t:.3f}' for t in ms) + ' ms (information; weight bytes from L2 '
-              f'with clusters of 1: {stage_weight_l2_bytes(spec, alone, B, L, info["blocks"]) / 1e9:.3f} GB)',
+    if work:
+        # a warp's own work in a phase against the phase's time at its barrier
+        warps = info['threads'] // 32
+        print(f'fused_stage {si} warp work / phase time: '
+              + ', '.join(f'{k} {work[k] / warps / max(v, 1):.3f}' for k, v in clocks.items()),
               flush=True)
 
 
@@ -839,7 +832,7 @@ def check_fused_stage(device) -> dict:
         C, H, s, C_out = spec.c_in, spec.res_hidden, spec.stride, spec.c_out
         params = _stage_params(spec, device, torch.bfloat16, seed=61 + si)
         # packed once, as encoder_stage_weights packs them for the fused encode
-        params.update({f'{k}_mma': pack_mma_fragments(params[k]) for k in ('w1', 'w2', 'wd')})
+        params.update({f'{k}_mma': pack_b_tiles(params[k]) for k in ('w1', 'w2', 'wd')})
         x = (torch.randn(BATCH, C, L, generator=gen, device=device) * 0.5).to(torch.bfloat16)
         stack = torch.nn.Sequential(*encoder.model[1 + 3 * si:4 + 3 * si])
         ms = time_ms(lambda: fused_stage(x, params, spec), 5)

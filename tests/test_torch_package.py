@@ -93,13 +93,15 @@ def test_each_ported_kernel_has_a_cuda_source_and_entry_point():
     for call in ("load_tile<DP, kRows, THREADS>(k_at(s)", "ldsm(qa[kk]", "ldsm(f, kt",
                  "ldsm_t(f, vt", "exp2_ftz("):
         assert call in sources["attention.cu"]
-    # K4's tensor-core variant: A by ldmatrix, weights from shared memory (no
-    # __ldg of weight fragments), the input tile by cp.async ahead of its
-    # products, wd streamed by bulk copies multicast to a cluster
+    # K4's tensor-core variant: A of conv3 and conv1 by ldmatrix, the weights
+    # (B, and wd^T as the downsample's A) from shared memory by descriptor,
+    # never by __ldg; the input tile and streamed wd by bulk copies on
+    # mbarriers, ahead of the products that read them
     seanet = sources["seanet.cu"]
     assert '#include "attention_common.cuh"' in seanet
-    for call in ("ldsm(a, arow", "ldsm(a[i], tap", "cp_async16(raw +", "multicast::cluster",
-                 "mbar_wait(full + slot"):
+    for call in ("ldsm(a[k & 3], a_at(k))", "wgmma.mma_async.sync.aligned", "b_desc(",
+                 "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes",
+                 "mbar_wait(in_full", "mbar_wait(full"):
         assert call in seanet
     assert "__ldg" not in seanet
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)

@@ -400,18 +400,18 @@ def test_wrappers_raise_on_meta_tensors_and_bad_shapes():
 
 
 def test_mma_fragment_packing_is_the_b_fragment_order():
-    """Lane l of the warp reads B[16 kc + 2t + {0, 1, 8, 9}, 8 nt + g]
-    (g = l // 4, t = l % 4) as its two bf16 pairs of fragment (kc, nt), the
-    fragments of n-tiles 2 np and 2 np + 1 side by side in one 16-byte load."""
-    w = torch.arange(64 * 48, dtype=torch.float32).reshape(64, 48)
-    packed = tsp.pack_mma_fragments(w).reshape(4, 3, 32, 8)
-    for kc in range(4):
-        for np_ in range(3):
-            for lane in range(32):
-                g, t = divmod(lane, 4)
-                want = [w[16 * kc + 2 * t + o, 8 * nt + g] for nt in (2 * np_, 2 * np_ + 1)
-                        for o in (0, 1, 8, 9)]
-                assert packed[kc, np_, lane].tolist() == [float(v) for v in want]
-    for shape in ((24, 16), (32, 8)):
+    """The tensor cores read B[k, n] of 16-deep chunk kc at byte (ng * 2 +
+    h) * 128 + j * 16 + i * 2 of the chunk (n = 8 ng + j, k = 16 kc + 8 h +
+    i): 8-column core matrices, K-major, the two 8-deep halves 128 bytes
+    apart, the column groups 256 bytes apart (the descriptor's strides)."""
+    w = torch.arange(64 * 24, dtype=torch.float32).reshape(64, 24)
+    flat = tsp.pack_b_tiles(w).reshape(-1)
+    for k in range(64):
+        for n in range(24):
+            kc, h, i = k // 16, k // 8 % 2, k % 8
+            ng, j = divmod(n, 8)
+            byte = kc * 24 * 32 + (ng * 2 + h) * 128 + j * 16 + i * 2
+            assert flat[byte // 2] == w[k, n]
+    for shape in ((24, 16), (32, 12)):
         with pytest.raises(ValueError):
-            tsp.pack_mma_fragments(torch.zeros(shape))
+            tsp.pack_b_tiles(torch.zeros(shape))

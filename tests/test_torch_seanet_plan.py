@@ -2,7 +2,7 @@
 
 ``ops/seanet.py:stage_plan`` decides how one encoder stage is laid over the
 card: frames per item, input tiles in shared memory, wd resident or
-streamed through a ring shared by a cluster, and the shared bytes, which
+streamed through each warp's ring, and the shared bytes, which
 ``csrc/seanet.cu:mma_geometry`` computes again and must find equal (only
 the card can show that; change both copies together).  Here the plan is
 held to the shapes the repository runs, and the weights' packing and its
@@ -25,100 +25,106 @@ STAGE24 = StageSpec(c_in=32, c_out=64, stride=2)     # 24 kHz, stage 0
 
 def test_stage0_keeps_every_weight_resident_with_two_input_tiles():
     """144 KiB of weights beside two input tiles of 31 frames (128 r rows)."""
-    assert stage_plan(STAGE0, torch.bfloat16) == StagePlan(31, 2, 0, 1, 217088)
+    assert stage_plan(STAGE0, torch.bfloat16) == StagePlan(31, 2, 0, 216384)
 
 
-def test_stage1_streams_wd_through_a_ring_shared_by_a_cluster_of_4():
-    """wd is 512 KiB: it streams in 8 KiB k-chunks through 8 slots."""
-    assert stage_plan(STAGE1, torch.bfloat16) == StagePlan(31, 1, 8, 4, 229376)
+def test_stage1_streams_wd_through_the_warpgroups_rings():
+    """wd is 512 KiB: each of 4 warpgroups streams its 64 rows of wd^T, 2 KiB
+    a k-chunk, through a ring of 8 chunks (64 KiB in all)."""
+    assert stage_plan(STAGE1, torch.bfloat16) == StagePlan(31, 1, 8, 228160)
+    # the rings and their 8 x 4 mbarriers in place of the resident wd
+    assert tsp._mma_smem_bytes(STAGE1, 1, 8) - tsp._mma_smem_bytes(STAGE1, 1, 0) \
+        == 8 * 16 * 256 * 2 + 8 * 4 * 8 - 2 * 8 * 128 * 256
 
 
 def test_24khz_stage0_takes_63_frames_at_stride_2():
     plan = stage_plan(STAGE24, torch.bfloat16)
-    assert (plan.tile, plan.in_bufs, plan.ring, plan.cluster) == (63, 2, 0, 1)
+    assert (plan.tile, plan.in_bufs, plan.ring) == (63, 2, 0)
 
 
 @pytest.mark.parametrize("spec,dtype", [
     (STAGE0, torch.float32), (STAGE1, torch.float32),          # fp32: the parity path
     (StageSpec(c_in=4, c_out=8, stride=16), torch.bfloat16),   # the debug codec's widths
     (StageSpec(c_in=48, c_out=96, stride=4), torch.bfloat16),  # widths not built
-    (StageSpec(c_in=64, c_out=128, stride=256), torch.bfloat16),   # no whole tile of rows
+    (StageSpec(c_in=64, c_out=128, stride=8), torch.bfloat16),     # a stride not built
+    (StageSpec(c_in=128, c_out=256, stride=5), torch.bfloat16),
 ])
-def test_fp32_and_widths_off_the_instantiations_take_the_fma_variant(spec, dtype):
+def test_fp32_and_stages_off_the_instantiations_take_the_fma_variant(spec, dtype):
     assert stage_plan(spec, dtype) is None
-    assert tsp._mma_widths(spec) == (stage_plan(spec, torch.bfloat16) is not None)
 
 
-@pytest.mark.parametrize("c,stride", [(32, 2), (64, 2), (64, 3), (64, 4), (64, 5), (64, 8),
-                                      (128, 4), (128, 5), (128, 8)])
-def test_every_plan_fills_whole_m_tiles_within_shared_memory(c, stride):
-    spec = StageSpec(c_in=c, c_out=2 * c, stride=stride)
+@pytest.mark.parametrize("spec", [STAGE0, STAGE1, STAGE24])
+def test_every_plan_fills_two_m64_blocks_within_shared_memory(spec):
     plan = stage_plan(spec, torch.bfloat16)
-    rows = stride * (plan.tile + 1)
-    assert rows % 16 == 0 and rows <= 128 and plan.tile >= 1
-    assert plan.smem_bytes == tsp._mma_smem_bytes(spec, plan.tile, plan.in_bufs, plan.ring)
+    assert spec.stride * (plan.tile + 1) == 128 and (plan.tile + 1) % 8 == 0
+    assert plan.tile + 1 in (32, 64)   # the downsample's N: a wgmma width it is built for
+    assert plan.smem_bytes == tsp._mma_smem_bytes(spec, plan.in_bufs, plan.ring)
     assert plan.smem_bytes <= tsp.SMEM_LIMIT
-    assert (plan.ring == 0) == (plan.cluster == 1)
-    assert plan.ring == 0 or 2 <= plan.ring <= tsp.MAX_RING
-    # each block's share of a streamed chunk is whole 16-byte pieces
-    assert (16 * spec.c_out * 2) % (16 * plan.cluster) == 0
+    assert plan.ring in (0, tsp.RING) and (plan.ring == 0 or spec.c_out == 256)
 
 
 def test_stage0_shared_bytes_by_part():
     """The parts csrc/seanet.cu:mma_geometry lays out, one by one."""
-    C, H, CO, s, tile = 64, 32, 128, 4, 31
-    rows, na = s * (tile + 1), s * (tile + 1) + 2
+    C, H, CO, s = 64, 32, 128, 4
     weights = 2 * (3 * C * H + H * C + 2 * s * C * CO)
     raw = 2 * C * 152 * 2               # two input tiles, 19 16-byte units a row
-    elu = max(na, s * 34) * (C + 8) * 2  # phase blocks of 34 rows
-    z = max(rows * (H + 8), CO * 40) * 2
+    elu = max(131 * (C + 8) * 2,        # ELU(a): 130 rows and a spare one
+              s * (32 // 8 * C * 16 + 32))   # ELU(r): 4 phases of 4 core-matrix rows, padded
+    z = 2 * max(128 * (H + 8), CO * 40)
     bias = 4 * (H + C + CO)
-    assert weights == 147456
-    assert tsp._mma_smem_bytes(STAGE0, tile, 2, 0) == weights + raw + elu + z + bias == 217088
+    barriers = 2 * 8                    # one mbarrier an input tile
+    assert weights == 147456 and elu == 18864
+    assert tsp._mma_smem_bytes(STAGE0, 2, 0) == weights + raw + elu + z + bias + barriers \
+        == 216384
 
 
-def _bank_words(c: int, stride: int, pb: int, rows):
-    """32-bit words a lane group touches at (row, column word tq) of ELU(r)
-    stored by phase: r row q at row (q % s) * pb + q // s, rows C + 8 wide."""
-    return [(((q % stride) * pb + q // stride) * (c + 8) // 2 + tq) % 32
-            for q in rows for tq in range(4)]
+def _elu_r_byte(q: int, c: int, C: int, s: int) -> int:
+    """csrc/seanet.cu:stage_mma_kernel e_at: ELU(r) row q = s j + p, channel
+    c, in phase p's 8 x 8 core matrices (16-byte rows)."""
+    phase_bytes = (128 // s) // 8 * C * 16 + 128 // s
+    j = q // s
+    return (q % s) * phase_bytes + (j // 8) * C * 16 + (c // 8) * 128 + (j % 8) * 16 + (c % 8) * 2
 
 
-@pytest.mark.parametrize("c", [32, 64, 128])
-@pytest.mark.parametrize("stride", [1, 2, 4, 8])
-def test_elu_r_rows_by_phase_fall_on_distinct_banks(c, stride):
+@pytest.mark.parametrize("C,s", [(32, 2), (64, 4), (128, 4)])
+def test_elu_r_stores_of_one_row_group_fall_on_distinct_banks(C, s):
     """conv1's epilogue stores 8 consecutive r rows x 4 words at once; the
-    phase blocks' length makes them 32 distinct banks."""
-    tile = 128 // stride - 1
-    pb = tile + 1
-    while 8 % stride == 0 and pb % 8 != (8 // stride) % 8:
-        pb += 1
+    padding of each phase makes them 32 distinct banks."""
     for q0 in range(0, 128, 8):
-        assert len(set(_bank_words(c, stride, pb, range(q0, q0 + 8)))) == 32
+        for c0 in range(0, C, 8):
+            banks = {_elu_r_byte(q, c0 + 2 * t, C, s) // 4 % 32
+                     for q in range(q0, q0 + 8) for t in range(4)}
+            assert len(banks) == 32
 
 
-def test_downsample_rows_stay_inside_the_phase_blocks():
-    """Frame m, tap k reads row (k % s) * pb + m + k // s, with m clamped to
-    tile - 1: inside the buffer for every tap."""
-    for spec in (STAGE0, STAGE1, STAGE24):
-        plan = stage_plan(spec, torch.bfloat16)
-        s, tile = spec.stride, plan.tile
-        pb = tile + 1
-        while pb % 8 != (8 // s) % 8:
-            pb += 1
-        reads = {(k % s) * pb + m + k // s for m in range(tile) for k in range(2 * s)}
-        assert max(reads) < s * pb and all(r % pb <= tile for r in reads)
+@pytest.mark.parametrize("C,s", [(32, 2), (64, 4), (128, 4)])
+def test_elu_r_layout_is_the_descriptors_canonical_layout(C, s):
+    """The downsample's B operand of phase p and channels 16 cc .. is read
+    through a descriptor: 16-byte rows of 8 frames x 8 channels, the two
+    channel halves 128 bytes apart (LBO), 8-frame groups C * 16 apart (SBO);
+    every row the products read lies inside the buffer."""
+    frames = 128 // s
+    base = lambda p, cc: _elu_r_byte(p, 16 * cc, C, s)
+    for p in range(s):
+        for cc in range(C // 16):
+            for j in range(frames):
+                for ci in range(16):
+                    want = base(p, cc) + (ci // 8) * 128 + (j // 8) * C * 16 + (j % 8) * 16 \
+                        + (ci % 8) * 2
+                    assert _elu_r_byte(s * j + p, 16 * cc + ci, C, s) == want
+    top = max(_elu_r_byte(q, c, C, s) for q in range(128) for c in range(C))
+    spec = StageSpec(c_in=C, c_out=2 * C, stride=s)
+    assert top + 2 <= s * ((128 // s) // 8 * C * 16 + 128 // s)
+    assert tsp._mma_smem_bytes(spec, 1, 0) > 0
 
 
-def test_weight_bytes_from_l2_fall_by_the_cluster():
-    """Stage 1 at b128 x 10 s: wd once a cluster's item group, w1 and w2
-    once a block."""
+def test_weight_bytes_from_l2():
+    """Stage 1 at b128 x 10 s: wd once an item (each warpgroup its columns),
+    w1 and w2 once a block; stage 0: everything once a block."""
     plan = stage_plan(STAGE1, torch.bfloat16)
     items = 128 * math.ceil(20000 / 31)
     wd, w12 = 2 * 1024 * 256, 2 * (384 * 64 + 64 * 128)
-    got = tsp.stage_weight_l2_bytes(STAGE1, plan, 128, 80000, 132)
-    assert got == 132 * w12 + math.ceil(items / 4) * wd
-    assert got < 47.19e9 / 4
+    assert tsp.stage_weight_l2_bytes(STAGE1, plan, 128, 80000, 132) == 132 * w12 + items * wd
     resident = stage_plan(STAGE0, torch.bfloat16)
     assert tsp.stage_weight_l2_bytes(STAGE0, resident, 128, 320000, 132) == 132 * 147456
 
@@ -133,13 +139,13 @@ def test_encoder_stage_weights_pack_once_and_again_after_a_change():
     for k in plain:
         assert torch.equal(first[k], plain[k])
     for k in ('w1', 'w2', 'wd'):
-        assert torch.equal(first[f'{k}_mma'], tsp.pack_mma_fragments(plain[k]))
+        assert torch.equal(first[f'{k}_mma'], tsp.pack_b_tiles(plain[k]))
     # an in-place update (as an optimizer step or load_state_dict makes)
     with torch.no_grad():
         enc.model[ids[1]].conv['conv']['weight'].mul_(2.0)
     second = tsp.encoder_stage_weights(enc, spec, ids, torch.bfloat16)
     assert second is not first
-    assert torch.equal(second['wd_mma'], tsp.pack_mma_fragments(2 * first['wd']))
+    assert torch.equal(second['wd_mma'], tsp.pack_b_tiles(2 * first['wd']))
     # a parameter put in another's place
     conv = enc.model[ids[0]].block[1].conv['conv']
     conv['bias'] = torch.nn.Parameter(conv['bias'].detach() + 1.0)
@@ -156,4 +162,4 @@ def test_counter_and_info_take_the_card_only():
     with pytest.raises(ValueError, match="CUDA"):
         tsp.fused_stage_clocks(x, params, STAGE0)
     assert len(tsp.MMA_PHASES) == 7 and len(tsp.FMA_PHASES) == 6
-    assert tsp._CLOCK_SLOTS >= len(tsp.MMA_PHASES)
+    assert tsp._CLOCK_PHASES >= len(tsp.MMA_PHASES)
