@@ -20,38 +20,47 @@
 // stage 1 ([128, 128, 80000] -> [128, 256, 20000]) does 2.0 TFLOP (2.04 ms at
 // the bf16 tensor-core rate) on 3.9 GB.
 //
-// The bf16 variant (stage_mma_kernel, for the widths it is instantiated at)
-// runs the three products on tensor cores: mma.sync m16n8k16, fp32 sums, A
-// fragments by ldmatrix straight from the shared rows (conv3 row q reads
-// ELU(a) rows q .. q + 2; downsample frame m reads ELU(r) rows s*m .. s*m +
-// 2s - 1, so no im2col copy is made), B fragments from weights held in
-// shared memory in fragment order (ops/seanet.py:pack_b_tiles), two
-// n-tiles in one 16-byte load.  What the first version's committed per-phase
-// counter showed on the card (PERF.md, PR 8): every block read all its
-// weights from L2 (24 GB at stage 0, 47 GB at stage 1), each phase waited for
-// the one before it, the input load (a quarter of stage 0) was synchronous,
-// and conv1's 17 m-tiles left seven warps idle at the barrier.  So:
-// - one persistent block per SM walks over (batch row, frame tile) items;
-//   w1 and w2 stay resident, and so does wd where it fits (stage 0: 144 KiB);
-// - where it does not (stage 1: 512 KiB), wd streams through a ring of
-//   k-chunks filled by bulk async copies, each chunk read from L2 once for a
-//   cluster of blocks on neighbouring tiles (multicast), with an mbarrier a
-//   slot for "landed" and one for "read by every warp of the cluster";
-// - the input tile is copied with 16-byte cp.async ahead of its products,
-//   into a second buffer where shared memory allows (stage 0), else into the
-//   one buffer as soon as conv1 has read it, under the downsample; ELU(a)
-//   is built from it in one pass with packed stores;
-// - a tile of s * (tile + 1) = 128 r rows (31 frames at s = 4) is 8 whole
-//   m-tiles, one a warp in conv3 and conv1; the downsample gives each warp
-//   all of the tile's frames and a group of output columns;
-// - ELU(r) is stored by phase (row s*j + p at p*pb + j), so the rows s
-//   apart that one ldmatrix reads are consecutive and fall on distinct banks;
-// - the output tile is transposed through shared memory and stored along T.
-// fp32 (the parity path) and widths off the instantiations run stage_kernel,
-// the same phases with fp32 FMA outside the tensor cores, one block a tile.
-// Offsets into the activations are 64-bit: stage 0 at b128 holds 2.6e9
-// elements.  Both kernels take a compile-time flag that adds each phase's
-// cycles to a counter (acx_seanet_stage_clocks); production compiles it out.
+// The bf16 variant, stage_mma_kernel, is built for the fused stages of the
+// 32 kHz and 24 kHz codecs (C, H, C_out, s = 64, 32, 128, 4; 128, 64, 256, 4;
+// 32, 16, 64, 2).  What the per-phase cycle counter (acx_seanet_stage_clocks)
+// showed on the first version, one mma.sync block per 64 or 32 frames, two
+// blocks an SM (NVIDIA H100 80GB HBM3 at 700 W, b128 x 10 s, PERF.md): stage
+// 0 24.8 ms = input 26 %, conv3 27 %, conv1 21 %, downsample 20 %, output 6 %;
+// stage 1 19.7 ms = input 17 %, conv3 30 %, conv1 15 %, downsample 34 %.  Each
+// block read all its weights from L2 (24 and 47 GB a launch), loaded its
+// input synchronously and left warps idle on ragged m-tiles; and mma.sync fed
+// by 1 KB of shared loads per two products ran at about 110 TFLOP/s.  So:
+// - one persistent block of 16 warps per SM walks over items of 128 r rows
+//   (s * (tile + 1): 31 frames at s = 4), two m64 blocks of the products;
+// - conv3 and conv1 run on wgmma with A (ELU(a) rows q .. q + 2, z rows) by
+//   ldmatrix into registers, four loads in flight, and B (w1, w2) from
+//   shared memory by descriptor (ops/seanet.py:pack_b_tiles, packed once per
+//   encoder);
+// - the downsample runs as y^T = wd^T . ELU(r)^T with both operands in shared
+//   memory: ELU(r) is stored by phase (r row s*j + p in phase p, frame j) in
+//   wgmma's canonical 8 x 8 core matrices, so taps k < s read phase k and
+//   taps s + p read phase p one frame later; those sum into a second
+//   accumulator that is added one column over (through shared memory where
+//   two warpgroup pairs split the taps, by lane shuffles where one warpgroup
+//   takes both), and no im2col copy is made;
+// - wd stays resident where it fits (stage 0: 144 KiB with w1 and w2); where
+//   it does not (stage 1: 512 KiB) each warpgroup streams its rows of wd^T
+//   through a ring of 8 k-chunks by bulk copies on mbarriers, refilled a
+//   batch of 4 behind the products;
+// - the input tile arrives by one tensor-map copy an item, into a second
+//   buffer where shared memory allows (stage 0), else into the one buffer as
+//   soon as conv1 has read it; ELU(a) is built from it in one branch-free
+//   pass with packed stores;
+// - the output tile goes through shared memory and out as bf16 pairs.
+// After (the same counter): stage 0 12.6 ms = input wait 5 %, ELU(a) 16 %,
+// conv3 18 %, conv1 17 %, downsample 26 %, output 15 %; stage 1 17.0 ms, its
+// downsample 73 %.  Both scale with the SMs a launch is given, so neither is
+// bound by L2; stage 1's ring waits, batch by batch, for the products that
+// read a slot before it refills it (a deeper ring, w1 streamed beside wd,
+// ran slower).
+// fp32 (the parity path) and other stages run stage_kernel, the first
+// version's phases on fp32 FMA, one block a tile.  Offsets into the
+// activations are 64-bit: stage 0 at b128 holds 2.6e9 elements.
 //
 // K5 and K6 replace _banded_conv_kernel and _mono_conv_kernel of the same
 // file: y[b, c, t] = sum_d w[c, d] x[b, t + d] + bias[c] for C_in = 1, a
@@ -1041,7 +1050,7 @@ cudaError_t input_map(CUtensorMap* map, const void* x, unsigned long long rows, 
 template <int C, int H, int CO, int S, bool kClocks>
 int launch_mma(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
                const void* wd, const void* bd, void* y, MmaStage g, int smem, cudaStream_t stream,
-               unsigned long long* clocks, int* info) {
+               unsigned long long* clocks, int* info, int max_blocks) {
   auto kernel = stage_mma_kernel<C, H, CO, S, kClocks>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1053,7 +1062,8 @@ int launch_mma(const void* x, const void* w1, const void* b1, const void* w2, co
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kMmaThreads, smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid(min(g.items, per_sm * sms));
+  const int resident = max_blocks > 0 ? min(max_blocks, per_sm * sms) : per_sm * sms;
+  const dim3 grid(min(g.items, resident));
   CUtensorMap xmap{};
   if (g.vec && !info) {
     err = input_map(&xmap, x, (unsigned long long)g.batch * C, g.len, C, Geometry<C, H, CO, S>::kRawRs);
@@ -1148,7 +1158,7 @@ template <bool kClocks>
 int run_stage(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
               const void* wd, const void* bd, void* y, int batch, int c, int h, int c_out,
               int len, int stride, int is_bf16, const int* plan, void* stream,
-              unsigned long long* clocks, int* info) {
+              unsigned long long* clocks, int* info, int max_blocks = 0) {
   if (batch <= 0 || c <= 0 || h <= 0 || c_out <= 0 || stride <= 0 || len < 2 ||
       len % stride != 0)
     return (int)cudaErrorInvalidValue;
@@ -1173,7 +1183,8 @@ int run_stage(const void* x, const void* w1, const void* b1, const void* w2, con
     if (smem != plan[3] || smem > kSmemLimit || g.off_raw % 128 ||                           \
         (C * G::kRawRs * 2) % 128)                                                           \
       return (int)cudaErrorInvalidValue;                                                     \
-    return launch_mma<C, H, CO, S, kClocks>(x, w1, b1, w2, b2, wd, bd, y, g, smem, s, clocks, info); \
+    return launch_mma<C, H, CO, S, kClocks>(x, w1, b1, w2, b2, wd, bd, y, g, smem, s, clocks, info, \
+                                            max_blocks);                                     \
   }
     ACX_MMA(32, 16, 64, 2)
     ACX_MMA(64, 32, 128, 4)
@@ -1211,16 +1222,19 @@ extern "C" int acx_seanet_stage(const void* x, const void* w1, const void* b1, c
 
 // The same launch with the per-phase cycle counter on: clocks[2 * kPhases]
 // (zeroed by the caller) collects each phase's cycles summed over blocks, then
-// each phase's work cycles summed over the warps.  A measurement: no model
-// path calls it.
+// each phase's work cycles summed over the warps; with max_blocks > 0 the
+// tensor-core variant's persistent grid takes at most that many blocks (how
+// its time scales with the SMs it is given).  A measurement: no model path
+// calls it.
 extern "C" int acx_seanet_stage_clocks(const void* x, const void* w1, const void* b1,
                                        const void* w2, const void* b2, const void* wd,
                                        const void* bd, void* y, int batch, int c, int h,
                                        int c_out, int len, int stride, int is_bf16,
-                                       const int* plan, void* clocks, void* stream) {
+                                       const int* plan, void* clocks, int max_blocks,
+                                       void* stream) {
   return run_stage<true>(x, w1, b1, w2, b2, wd, bd, y, batch, c, h, c_out, len, stride,
                          is_bf16, plan, stream, static_cast<unsigned long long*>(clocks),
-                         nullptr);
+                         nullptr, max_blocks);
 }
 
 // What the production instance for this launch uses, into out[7] (see

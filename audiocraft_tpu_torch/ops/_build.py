@@ -43,7 +43,7 @@ _SIGNATURES = {
     'acx_attention_bwd_info': ([_I, _I, _I, ctypes.POINTER(_I)], _I),
     'acx_attention_max_dim': ([], _I),
     'acx_seanet_stage': ([*[_P] * 8, *[_I] * 7, ctypes.POINTER(_I), _P], _I),
-    'acx_seanet_stage_clocks': ([*[_P] * 8, *[_I] * 7, ctypes.POINTER(_I), _P, _P], _I),
+    'acx_seanet_stage_clocks': ([*[_P] * 8, *[_I] * 7, ctypes.POINTER(_I), _P, _I, _P], _I),
     'acx_seanet_stage_info': ([*[_I] * 7, ctypes.POINTER(_I), ctypes.POINTER(_I)], _I),
     'acx_mono_conv': ([_P, _P, _P, _P, *[_I] * 7, _P], _I),
     'acx_probe_gather': ([_P, _P, _I, _I, _L, _L, _P], _I),

@@ -133,8 +133,7 @@ def encoder_stage_weights(enc, spec: StageSpec, layer_ids: tp.Sequence[int],
             and hit[1] == versions):
         return hit[2]
     params = stage_params(enc, spec, layer_ids, dtype)
-    if stage_plan(spec, dtype) is not None:
-        params.update({f'{k}_mma': pack_b_tiles(params[k]) for k in ('w1', 'w2', 'wd')})
+    params.update(packed_stage_weights(params, spec))
     cache[key] = (sources, versions, params)
     return params
 
@@ -296,15 +295,24 @@ def _check_stage(x: torch.Tensor, params: tp.Dict[str, torch.Tensor], spec: Stag
     return False
 
 
+def packed_stage_weights(params: tp.Dict[str, torch.Tensor], spec: StageSpec
+                         ) -> tp.Dict[str, torch.Tensor]:
+    """``w1_mma``, ``w2_mma``, ``wd_mma``: the stage's K-major weights in the
+    layouts the tensor-core K4 reads (:func:`stage_plan` for their dtype);
+    empty where the fp32-FMA variant runs the stage."""
+    if stage_plan(spec, params['w1'].dtype) is None:
+        return {}
+    return {f'{k}_mma': pack_b_tiles(params[k]) for k in ('w1', 'w2', 'wd')}
+
+
 def _launch_stage(x: torch.Tensor, params: tp.Dict[str, torch.Tensor], spec: StageSpec,
-                  clocks: tp.Optional[torch.Tensor] = None,
-                  plan: tp.Optional[StagePlan] = None) -> torch.Tensor:
-    """Launch K4 (the counter's instance with ``clocks``); ``plan`` replaces
-    :func:`stage_plan`'s only where a measurement compares plans."""
+                  clocks: tp.Optional[torch.Tensor] = None, max_blocks: int = 0) -> torch.Tensor:
+    """Launch K4 (the counter's instance with ``clocks``, its grid capped at
+    ``max_blocks`` where that is positive)."""
     C, H, s, C_out = spec.c_in, spec.res_hidden, spec.stride, spec.c_out
     B, _, L = x.shape
     lib = _build.library()
-    plan = plan or stage_plan(spec, x.dtype)
+    plan = stage_plan(spec, x.dtype)
     y = torch.empty(B, C_out, L // s, dtype=x.dtype, device=x.device)
     if B == 0:
         return y
@@ -320,8 +328,8 @@ def _launch_stage(x: torch.Tensor, params: tp.Dict[str, torch.Tensor], spec: Sta
         if clocks is None:
             _build.check(lib.acx_seanet_stage(*args, stream), 'acx_seanet_stage')
         else:
-            _build.check(lib.acx_seanet_stage_clocks(*args, clocks.data_ptr(), stream),
-                         'acx_seanet_stage_clocks')
+            _build.check(lib.acx_seanet_stage_clocks(*args, clocks.data_ptr(), max_blocks,
+                                                     stream), 'acx_seanet_stage_clocks')
     return y
 
 
@@ -334,6 +342,7 @@ def fused_stage(x: torch.Tensor, params: tp.Dict[str, torch.Tensor],
     :func:`stage_plan`); any other width, and fp32, the fp32-FMA variant.
     ``params`` may also hold ``w1_mma``, ``w2_mma`` and ``wd_mma``, the
     weights already in :func:`pack_b_tiles` layout
+    (:func:`packed_stage_weights`)
     (:func:`encoder_stage_weights` packs them once); else they are packed
     here."""
     if _check_stage(x, params, spec, 'fused_stage'):
@@ -350,7 +359,8 @@ MMA_PHASES = ('input wait', 'ELU(a)', 'conv3', 'conv1', 'reflect', 'downsample',
 _CLOCK_PHASES = 8   # csrc/seanet.cu:kPhases
 
 
-def fused_stage_clocks(x: torch.Tensor, params: tp.Dict[str, torch.Tensor], spec: StageSpec
+def fused_stage_clocks(x: torch.Tensor, params: tp.Dict[str, torch.Tensor], spec: StageSpec,
+                       max_blocks: int = 0
                        ) -> tp.Tuple[torch.Tensor, tp.Dict[str, int], tp.Dict[str, int]]:
     """A measurement, not a route: one K4 launch built with its per-phase
     cycle counter, on a CUDA tensor.  Returns the output and, for each phase
@@ -358,11 +368,12 @@ def fused_stage_clocks(x: torch.Tensor, params: tp.Dict[str, torch.Tensor], spec
     %clock64 cycles thread 0 of every block spent in it, barrier included,
     summed over the blocks; and (tensor-core variant) the cycles each warp
     spent on the phase's own work before the barrier, summed over the warps
-    of every block.  Not counted in the launches."""
+    of every block.  ``max_blocks`` > 0 caps the tensor-core variant's
+    persistent grid.  Not counted in the launches."""
     if _check_stage(x, params, spec, 'fused_stage_clocks'):
         raise ValueError("fused_stage_clocks measures the kernel: it takes a CUDA tensor")
     clocks = torch.zeros(2 * _CLOCK_PHASES, dtype=torch.int64, device=x.device)
-    y = _launch_stage(x, params, spec, clocks)
+    y = _launch_stage(x, params, spec, clocks, max_blocks)
     phases = MMA_PHASES if stage_plan(spec, x.dtype) else FMA_PHASES
     counts = clocks.tolist()
     return (y, dict(zip(phases, counts)),

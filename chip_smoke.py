@@ -54,8 +54,9 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
 10. The data-movement probe (P1): ``apps/probe_ops`` runs its seven bf16
    operations on the card, each of which must equal torch's result.
 Phase 2 also holds K3b (the attention backward, both dtypes, at the model
-shapes and the tiles' edges), K4
-(both 32 kHz stage shapes), K5 and K6 against their plain versions.  Then
+shapes and the tiles' edges), K4 (both 32 kHz stage shapes and the edges
+of its tiles; its resources, per-phase cycle split and weight bytes from L2
+printed), K5 and K6 against their plain versions.  Then
 one JSON line on the kernels and, last, one JSON line with the result.
 Any failed check ends the run with a non-zero exit and no result line, as
 does a host without a CUDA card.
@@ -93,7 +94,7 @@ from audiocraft_tpu_torch.ops.rvq import rvq_encode, rvq_encode_reference
 from audiocraft_tpu_torch.ops.seanet import (
     StageSpec, banded_mono_conv, banded_mono_conv_reference, fused_encoder_apply, fused_stage,
     fused_stage_clocks, fused_stage_reference, mono_input_conv, mono_input_conv_reference,
-    pack_b_tiles, stage_kernel_info, stage_plan, stage_weight_l2_bytes)
+    packed_stage_weights, stage_kernel_info, stage_plan, stage_weight_l2_bytes)
 from audiocraft_tpu_torch.optim import make_optimizer
 from audiocraft_tpu_torch.quant.codebook import compute_distances, quantize
 
@@ -762,6 +763,14 @@ def print_stage_profile(si: int, spec: StageSpec, x: torch.Tensor,
           f"bytes from L2 {l2 / 1e9:.3f} GB", flush=True)
     print(f'fused_stage {si} per-phase split ({total / 1e9:.3f} G block-cycles): '
           + ', '.join(f'{k} {v / total:.3f}' for k, v in clocks.items()), flush=True)
+    if plan:
+        # what bounds it: a shared resource (L2, DRAM) lets the time grow less
+        # than the block count shrinks; a per-SM limit makes it grow as much
+        ms = {b: time_ms(lambda: fused_stage_clocks(x, params, spec, b), 3)
+              for b in (info['blocks'], info['blocks'] // 2)}
+        print(f"fused_stage {si} with the counter on {info['blocks']} / {info['blocks'] // 2} "
+              f"blocks: {ms[info['blocks']]:.3f} / {ms[info['blocks'] // 2]:.3f} ms (ratio "
+              f"{ms[info['blocks'] // 2] / ms[info['blocks']]:.3f})", flush=True)
     if work:
         # a warp's own work in a phase against the phase's time at its barrier
         warps = info['threads'] // 32
@@ -777,10 +786,13 @@ def check_fused_stage(device) -> dict:
     bf16-stored z or ELU(r) by one step) at b128, the first and last 4 frames
     checked on their own, at both stage shapes of the fused encode; then
     shapes off the tiles: B = 1, a length whose frames fill no whole tile,
-    the shortest length the route takes (one frame), and the debug codec's
-    widths (C = 4, s = 16, the fp32-FMA variant in bf16).  Then each stage
-    timed in bf16 at b128 beside its bound, its plain version and the
-    module stack it replaces (resnet block, ELU, downsample conv: cuDNN)."""
+    the shortest length the route takes (one frame), the debug codec's
+    widths (C = 4, s = 16, the fp32-FMA variant in bf16), and the
+    tensor-core plan's ragged edges (frames of one tile, one more, one
+    fewer; fewer items than SMs).  Then each stage timed in bf16 at b128
+    beside its bound, its plain version and the module stack it replaces
+    (resnet block, ELU, downsample conv: cuDNN), with its resources, its
+    per-phase split from the cycle counter and its weight bytes from L2."""
     gen = torch.Generator(device=device).manual_seed(60)   # b128 inputs are drawn on the card
     lines = []
     bf16_abs = 0.0
@@ -832,7 +844,7 @@ def check_fused_stage(device) -> dict:
         C, H, s, C_out = spec.c_in, spec.res_hidden, spec.stride, spec.c_out
         params = _stage_params(spec, device, torch.bfloat16, seed=61 + si)
         # packed once, as encoder_stage_weights packs them for the fused encode
-        params.update({f'{k}_mma': pack_b_tiles(params[k]) for k in ('w1', 'w2', 'wd')})
+        params.update(packed_stage_weights(params, spec))
         x = (torch.randn(BATCH, C, L, generator=gen, device=device) * 0.5).to(torch.bfloat16)
         stack = torch.nn.Sequential(*encoder.model[1 + 3 * si:4 + 3 * si])
         ms = time_ms(lambda: fused_stage(x, params, spec), 5)

@@ -138,7 +138,7 @@ def test_encoder_stage_weights_pack_once_and_again_after_a_change():
     plain = tsp.stage_params(enc, spec, ids, torch.bfloat16)
     for k in plain:
         assert torch.equal(first[k], plain[k])
-    for k in ('w1', 'w2', 'wd'):
+    for k in ('w1', 'w2', 'wd'):   # stage 0 keeps w1 resident
         assert torch.equal(first[f'{k}_mma'], tsp.pack_b_tiles(plain[k]))
     # an in-place update (as an optimizer step or load_state_dict makes)
     with torch.no_grad():
