@@ -240,13 +240,13 @@ def stage_plan(spec: StageSpec, dtype: torch.dtype) -> tp.Optional[StagePlan]:
     variant runs it (fp32, or a stage it is not built for).
 
     The tile is fixed by the stride: s * (tile + 1) = 128 r rows, two m64
-    blocks of the products.  Then the first that fits shared memory:
-    everything resident with two input tiles, resident with one, else wd
-    streamed through the warpgroups' rings with one input tile."""
+    blocks of the products.  Everything resident with two input tiles where
+    that fits shared memory, else wd streamed through the warpgroups' rings
+    with one input tile."""
     key = (spec.c_in, spec.res_hidden, spec.c_out, spec.stride)
     if dtype != torch.bfloat16 or key not in _MMA_STAGES:
         return None
-    for in_bufs, ring in ((2, 0), (1, 0), (1, RING)):
+    for in_bufs, ring in ((2, 0), (1, RING)):
         smem = _mma_smem_bytes(spec, in_bufs, ring)
         if smem <= SMEM_LIMIT:
             return StagePlan(128 // spec.stride - 1, in_bufs, ring, smem)

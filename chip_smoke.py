@@ -814,7 +814,8 @@ def check_fused_stage(device) -> dict:
     # the tensor-core plan's ragged edges: frames of one tile, one more and
     # one fewer; and fewer items than SMs (and than a cluster) for the
     # persistent grid
-    for spec, _ in STAGES:
+    # and the 24 kHz codec's fused stage, the kernel's third instance
+    for spec in (STAGES[0][0], STAGES[1][0], StageSpec(c_in=32, c_out=64, stride=2)):
         tile = stage_plan(spec, torch.bfloat16).tile
         cases += [(spec, spec.stride * f, 3) for f in (tile, tile + 1, tile - 1)]
         cases.append((spec, spec.stride * (2 * tile + 5), 2))
@@ -825,8 +826,9 @@ def check_fused_stage(device) -> dict:
             errs, _ = _stage_errs(x, params, spec, chunk=batch)
             check(max(errs) <= tol, f'fused_stage {spec} B={batch} L={L} {dtype}: {errs} > {tol}')
     lines.append('off the tiles (B = 1; frames 67, 97, 1; C = 4, s = 16) and at the plan\'s '
-                 'ragged edges (B = 3, frames tile, tile + 1, tile - 1; B = 2, 2 tile + 5 frames): '
-                 'fp32 <= 1e-5, bf16 <= 1e-2, edges included')
+                 'ragged edges (B = 3, frames tile, tile + 1, tile - 1; B = 2, 2 tile + 5 frames; '
+                 'both 32 kHz stages and the 24 kHz stage): fp32 <= 1e-5, bf16 <= 1e-2, edges '
+                 'included')
     try:
         x = torch.zeros(1, 64, 6, device=device)
         fused_stage(x, _stage_params(STAGES[0][0], device, torch.float32, seed=66), STAGES[0][0])
