@@ -29,6 +29,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "phase_clock.cuh"
+
 namespace {
 
 constexpr int kMaxRows = 64;   // residual rows owned by one block, at most
@@ -40,11 +42,14 @@ constexpr int kThreads = 256;  // thread (tr, tc): rows tr + 16 i, codes tc + 16
 // Features of the residual tile: D rounded up to kChunk
 __host__ __device__ constexpr int res_features(int d) { return (d + kChunk - 1) / kChunk * kChunk; }
 
-template <int ROWS>
+// Phases of the cycle counter (acx_rvq_encode_clocks)
+enum Phase { kLoad, kNorm, kWait, kProducts, kEpilogue, kReduce, kUpdate };
+
+template <int ROWS, bool kClocks>
 __global__ void __launch_bounds__(kThreads)
 rvq_encode_kernel(const float* __restrict__ x, const float* __restrict__ embed,
                   const float* __restrict__ esq, int* __restrict__ codes,
-                  int n, int d, int k, int n_q) {
+                  int n, int d, int k, int n_q, unsigned long long* clocks) {
   constexpr int RI = ROWS / 16;    // rows per thread
   constexpr int LD = ROWS + 1;     // floats per feature of the residual tile
   extern __shared__ float res[];   // [res_features(d)][LD]: res[c * LD + r]
@@ -56,6 +61,7 @@ rvq_encode_kernel(const float* __restrict__ x, const float* __restrict__ embed,
   const int tc = tid % 16;
   const int tr = tid / 16;
   const int row0 = blockIdx.x * ROWS;
+  PhaseClock<kClocks> laps(clocks);
 
   for (int e = tid; e < ROWS * d; e += kThreads) {
     const int r = e / d, c = e % d;
@@ -65,13 +71,16 @@ rvq_encode_kernel(const float* __restrict__ x, const float* __restrict__ embed,
   for (int q = 0; q < n_q; ++q) {
     const float* eq = embed + (size_t)q * k * d;
     const float* esq_q = esq + (size_t)q * k;
+    laps.work(q == 0 ? kLoad : kUpdate);
     __syncthreads();  // residual of the previous codebook is complete
+    laps.lap(q == 0 ? kLoad : kUpdate);
     if (tid < ROWS) {
       float s = 0.f;
       for (int c = 0; c < d; ++c)
         s = __fadd_rn(s, __fmul_rn(res[c * LD + tid], res[c * LD + tid]));
       xsq[tid] = s;
     }
+    laps.lap(kNorm);
 
     float best[RI];
     int best_idx[RI];
@@ -95,7 +104,9 @@ rvq_encode_kernel(const float* __restrict__ x, const float* __restrict__ embed,
           const int gk = k0 + code, gc = d0 + c;
           tile[c][code] = (gk < k && gc < d) ? eq[(size_t)gk * d + gc] : 0.f;
         }
+        laps.work(kWait);
         __syncthreads();
+        laps.lap(kWait);
         const int width = min(kChunk, d - d0);
         for (int c = 0; c < width; ++c) {
           float a[RI], b[4];
@@ -108,6 +119,7 @@ rvq_encode_kernel(const float* __restrict__ x, const float* __restrict__ embed,
 #pragma unroll
             for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
         }
+        laps.lap(kProducts);
       }
 
 #pragma unroll
@@ -125,6 +137,7 @@ rvq_encode_kernel(const float* __restrict__ x, const float* __restrict__ embed,
           }
         }
       }
+      laps.lap(kEpilogue);
     }
 
 #pragma unroll
@@ -142,7 +155,9 @@ rvq_encode_kernel(const float* __restrict__ x, const float* __restrict__ embed,
       }
       if (tc == 0) best_code[tr + 16 * i] = idx;
     }
+    laps.work(kReduce);
     __syncthreads();
+    laps.lap(kReduce);
 
     for (int r = tid; r < ROWS; r += kThreads)
       if (row0 + r < n) codes[(size_t)q * n + row0 + r] = best_code[r];
@@ -151,17 +166,57 @@ rvq_encode_kernel(const float* __restrict__ x, const float* __restrict__ embed,
       res[c * LD + r] = __fsub_rn(res[c * LD + r], eq[(size_t)best_code[r] * d + c]);
     }
   }
+  if constexpr (kClocks) {
+    laps.work(kUpdate);
+    __syncthreads();
+    laps.lap(kUpdate);
+  }
+  laps.flush();
 }
 
-template <int ROWS>
+template <int ROWS, bool kClocks>
 int launch(const float* x, const float* embed, const float* esq, int* codes, int n, int d,
-           int k, int n_q, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(rvq_encode_kernel<ROWS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+           int k, int n_q, size_t smem, cudaStream_t stream, unsigned long long* clocks,
+           int* info) {
+  auto kernel = rvq_encode_kernel<ROWS, kClocks>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n + ROWS - 1) / ROWS);
-  rvq_encode_kernel<ROWS><<<grid, kThreads, smem, stream>>>(x, embed, esq, codes, n, d, k, n_q);
+  if (info) {
+    cudaFuncAttributes fa;
+    int blocks = 0;
+    err = cudaFuncGetAttributes(&fa, kernel);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    info[0] = fa.numRegs, info[1] = (int)(fa.sharedSizeBytes + smem), info[2] = blocks;
+    info[3] = kThreads, info[4] = (int)fa.localSizeBytes, info[5] = ROWS, info[6] = (int)grid.x;
+    return 0;
+  }
+  kernel<<<grid, kThreads, smem, stream>>>(x, embed, esq, codes, n, d, k, n_q, clocks);
   return (int)cudaGetLastError();
+}
+
+template <bool kClocks>
+int run(const float* x, const float* embed, const float* esq, int* codes, int n, int d, int k,
+        int n_q, void* stream, unsigned long long* clocks, int* info) {
+  if (n <= 0 || d <= 0 || d > kMaxDim || k <= 0 || n_q <= 0) return (int)cudaErrorInvalidValue;
+  int device = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  cudaFuncAttributes a;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, rvq_encode_kernel<kMaxRows, kClocks>);
+  if (err != cudaSuccess) return (int)err;
+  const size_t features = res_features(d);
+  const size_t bytes64 = features * (kMaxRows + 1) * sizeof(float);
+  const size_t bytes32 = features * (kMaxRows / 2 + 1) * sizeof(float);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bytes64 + a.sharedSizeBytes <= (size_t)optin)
+    return launch<kMaxRows, kClocks>(x, embed, esq, codes, n, d, k, n_q, bytes64, s, clocks, info);
+  return launch<kMaxRows / 2, kClocks>(x, embed, esq, codes, n, d, k, n_q, bytes32, s, clocks,
+                                       info);
 }
 
 }  // namespace
@@ -171,21 +226,25 @@ extern "C" int acx_rvq_max_dim() { return kMaxDim; }
 // x [n, d], embed [n_q, k, d], esq [n_q, k] fp32; codes [n_q, n] int32.
 extern "C" int acx_rvq_encode(const float* x, const float* embed, const float* esq,
                               int* codes, int n, int d, int k, int n_q, void* stream) {
-  if (n <= 0 || d <= 0 || d > kMaxDim || k <= 0 || n_q <= 0) return (int)cudaErrorInvalidValue;
-  int device = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  cudaFuncAttributes a;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, rvq_encode_kernel<kMaxRows>);
-  if (err != cudaSuccess) return (int)err;
-  const size_t features = res_features(d);
-  const size_t bytes64 = features * (kMaxRows + 1) * sizeof(float);
-  const size_t bytes32 = features * (kMaxRows / 2 + 1) * sizeof(float);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (bytes64 + a.sharedSizeBytes <= (size_t)optin)
-    return launch<kMaxRows>(x, embed, esq, codes, n, d, k, n_q, bytes64, s);
-  return launch<kMaxRows / 2>(x, embed, esq, codes, n, d, k, n_q, bytes32, s);
+  return run<false>(x, embed, esq, codes, n, d, k, n_q, stream, nullptr, nullptr);
+}
+
+// The same launch with the per-phase cycle counter on: clocks[2 * kPhases]
+// (zeroed by the caller) collects each phase's cycles of thread 0, summed over
+// the blocks, then each warp's own work up to the phase's barrier, summed over
+// the warps.  A measurement: no model path calls it.
+extern "C" int acx_rvq_encode_clocks(const float* x, const float* embed, const float* esq,
+                                     int* codes, int n, int d, int k, int n_q, void* clocks,
+                                     void* stream) {
+  return run<true>(x, embed, esq, codes, n, d, k, n_q, stream,
+                   static_cast<unsigned long long*>(clocks), nullptr);
+}
+
+// What the production instance for this launch uses, into out[7]: registers,
+// shared bytes, blocks per SM, threads, spilled bytes, rows a block, blocks
+// launched; nothing is launched.
+extern "C" int acx_rvq_info(int n, int d, int k, int n_q, int* out) {
+  return run<false>(nullptr, nullptr, nullptr, nullptr, n, d, k, n_q, nullptr, nullptr, out);
 }
 
 extern "C" const char* acx_error_string(int err) {

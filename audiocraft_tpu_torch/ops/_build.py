@@ -31,6 +31,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # every stride a long long; each launch returns cudaGetLastError() as an int.
 _SIGNATURES = {
     'acx_rvq_encode': ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    'acx_rvq_encode_clocks': ([_P, _P, _P, _P, _I, _I, _I, _I, _P, _P], _I),
+    'acx_rvq_info': ([_I, _I, _I, _I, ctypes.POINTER(_I)], _I),
     'acx_rvq_max_dim': ([], _I),
     'acx_lstm_layer': ([_P, _P, _P, _P, *[_I] * 11, _L, _P], _I),
     'acx_lstm_device': ([ctypes.POINTER(_I)], _I),

@@ -15,6 +15,9 @@ tensor it launches the kernel, or raises.
 
 from __future__ import annotations
 
+import ctypes
+import typing as tp
+
 import torch
 
 from ..quant.codebook import dequantize, quantize
@@ -32,11 +35,8 @@ def rvq_encode_reference(x: torch.Tensor, embeds: torch.Tensor) -> torch.Tensor:
     return torch.stack(codes)
 
 
-def rvq_encode(x: torch.Tensor, embeds: torch.Tensor) -> torch.Tensor:
-    """Residual VQ encode: x [N, D] fp32, embeds [n_q, K, D] fp32 -> codes
-    [n_q, N] int32, both inputs contiguous on one device."""
-    if x.device.type == 'cpu':
-        return rvq_encode_reference(x, embeds)
+def _check(x: torch.Tensor, embeds: torch.Tensor) -> None:
+    """Raise on what the kernel does not take (a CUDA tensor's checks)."""
     if x.device.type != 'cuda':
         raise ValueError(f"rvq_encode runs on CUDA or CPU tensors, not {x.device}")
     if x.dim() != 2 or embeds.dim() != 3 or embeds.shape[2] != x.shape[1]:
@@ -50,22 +50,76 @@ def rvq_encode(x: torch.Tensor, embeds: torch.Tensor) -> torch.Tensor:
         raise ValueError("the RVQ kernel takes contiguous inputs")
     n, d = x.shape
     n_q, k, _ = embeds.shape
-    lib = _build.library()
-    if d > lib.acx_rvq_max_dim():
-        raise ValueError(f"D={d} is wider than the RVQ kernel's {lib.acx_rvq_max_dim()}")
+    max_dim = _build.library().acx_rvq_max_dim()
+    if d > max_dim:
+        raise ValueError(f"D={d} is wider than the RVQ kernel's {max_dim}")
     if max(n * d, n_q * k * d, n_q * n) >= 2 ** 31:
         raise ValueError("input too large for the RVQ kernel's int sizes")
+
+
+def _launch(x: torch.Tensor, embeds: torch.Tensor,
+            clocks: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K1 (the counter's instance with ``clocks``)."""
+    n, d = x.shape
+    n_q, k, _ = embeds.shape
     codes = torch.empty(n_q, n, dtype=torch.int32, device=x.device)
     if n == 0 or n_q == 0:
         return codes
     esq = embeds.square().sum(-1).contiguous()  # |E|^2 in plain torch, as the JAX wrapper
+    lib = _build.library()
+    args = (x.data_ptr(), embeds.data_ptr(), esq.data_ptr(), codes.data_ptr(), n, d, k, n_q)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.acx_rvq_encode(x.data_ptr(), embeds.data_ptr(), esq.data_ptr(),
-                                 codes.data_ptr(), n, d, k, n_q, stream)
-    _build.check(err, 'acx_rvq_encode')
-    rvq_encode.launches += 1
+        if clocks is None:
+            _build.check(lib.acx_rvq_encode(*args, stream), 'acx_rvq_encode')
+        else:
+            _build.check(lib.acx_rvq_encode_clocks(*args, clocks.data_ptr(), stream),
+                         'acx_rvq_encode_clocks')
+    return codes
+
+
+def rvq_encode(x: torch.Tensor, embeds: torch.Tensor) -> torch.Tensor:
+    """Residual VQ encode: x [N, D] fp32, embeds [n_q, K, D] fp32 -> codes
+    [n_q, N] int32, both inputs contiguous on one device."""
+    if x.device.type == 'cpu':
+        return rvq_encode_reference(x, embeds)
+    _check(x, embeds)
+    codes = _launch(x, embeds)
+    if codes.numel():
+        rvq_encode.launches += 1
     return codes
 
 
 rvq_encode.launches = 0  # kernel launches since the last reset
+
+PHASES = ('residual load', '|r|^2', 'codebook wait', 'products', 'argmax epilogue',
+          'cross-lane reduction', 'residual update')
+_CLOCK_PHASES = 8   # csrc/phase_clock.cuh:kPhases
+
+
+def rvq_encode_clocks(x: torch.Tensor, embeds: torch.Tensor
+                      ) -> tp.Tuple[torch.Tensor, tp.Dict[str, int], tp.Dict[str, int]]:
+    """A measurement, not a route: one K1 launch built with its per-phase
+    cycle counter.  Returns the codes, each phase's cycles of one thread a
+    block summed over the blocks, and each warp's own work in the phases that
+    end at a barrier, summed over the warps.  Not counted in ``launches``."""
+    if x.device.type == 'cpu':
+        raise ValueError("rvq_encode_clocks measures the kernel: it takes a CUDA tensor")
+    _check(x, embeds)
+    clocks = torch.zeros(2 * _CLOCK_PHASES, dtype=torch.int64, device=x.device)
+    codes = _launch(x, embeds, clocks)
+    counts = clocks.tolist()
+    return (codes, dict(zip(PHASES, counts)), dict(zip(PHASES, counts[_CLOCK_PHASES:])))
+
+
+_INFO_KEYS = ('registers', 'shared_bytes', 'blocks_per_sm', 'threads', 'spill_bytes',
+              'rows', 'blocks')
+
+
+def rvq_kernel_info(n: int, d: int, k: int, n_q: int) -> tp.Dict[str, int]:
+    """Registers, shared bytes, blocks per SM, threads, spilled bytes, rows a
+    block and blocks launched of the K1 instance that ``rvq_encode`` would
+    launch for these sizes (nothing is launched)."""
+    out = (ctypes.c_int * len(_INFO_KEYS))()
+    _build.check(_build.library().acx_rvq_info(n, d, k, n_q, out), 'acx_rvq_info')
+    return dict(zip(_INFO_KEYS, out))

@@ -90,7 +90,8 @@ from audiocraft_tpu_torch.ops.attention import (
     fused_attention_backward_reference, fused_attention_reference, fused_attention_with_lse)
 from audiocraft_tpu_torch.ops.lstm import lstm_kernel_info, lstm_layer, lstm_layer_reference
 from audiocraft_tpu_torch.ops.probe import gather, split_contract, split_contract_reference
-from audiocraft_tpu_torch.ops.rvq import rvq_encode, rvq_encode_reference
+from audiocraft_tpu_torch.ops.rvq import (rvq_encode, rvq_encode_clocks, rvq_encode_reference,
+                                         rvq_kernel_info)
 from audiocraft_tpu_torch.ops.seanet import (
     StageSpec, banded_mono_conv, banded_mono_conv_reference, fused_encoder_apply, fused_stage,
     fused_stage_clocks, fused_stage_reference, mono_input_conv, mono_input_conv_reference,
@@ -117,6 +118,9 @@ TRAIN_ATTN_SHAPE = (TRAIN_BATCH, TRAIN_SECONDS * 50 + 1, 16, 64)
 STAGES = ((StageSpec(c_in=64, c_out=128, stride=4), SECONDS * SAMPLE_RATE),
           (StageSpec(c_in=128, c_out=256, stride=4), SECONDS * SAMPLE_RATE // 4))
 CONV0_CHANNELS, CONV0_TAPS = 64, 7
+# K1's and K5's times before their redesign (chip_smoke.py phase 2 on the parent
+# design, NVIDIA H100 80GB HBM3, 700.00 W)
+RVQ_OLD_MS, MONO_OLD_MS = 6.303, 5.836
 ENCODES = 3   # timed encodes per route in phase 9
 
 
@@ -254,6 +258,53 @@ def check_off_tile_shapes(device) -> None:
         del x, embeds
     print(f'rvq N=8192 K=1024 n_q=6: kernel D=128 {times[128]:.3f} ms, D=1024 '
           f'{times[1024]:.3f} ms ({times[1024] / times[128]:.2f}x for 8x the width)', flush=True)
+
+
+def check_rvq_main(device) -> dict:
+    """K1 at the main path's shape (N = 64000, D = 128, K = 2048, n_q = 4):
+    codes equal to the plain codes but for near-ties, then its time beside
+    its bound, its plain time and the kernel's time before this design; its
+    per-phase cycle split from the counter's instance (which must give the
+    same codes), its resources, and the four fp32 products alone through
+    torch.matmul with TF32 off, a yardstick of the card's fp32 rate."""
+    s = RVQ_SHAPE
+    x, embeds = _rvq_inputs(device, **s)
+    codes, plain, near = check_rvq(x, embeds)
+    checked = ~near
+    ops = 2.0 * s['n'] * s['d'] * s['k'] * s['n_q']
+    nbytes = 4.0 * (s['n'] * s['d'] + s['n_q'] * s['k'] * s['d'] + s['n_q'] * s['n'])
+    b_ms, b_by = bound_ms(ops, PEAK_FP32, nbytes)
+    rvq = dict(name='rvq_encode', route='cuda', source='audiocraft_tpu_torch/csrc/rvq.cu',
+               replaces='audiocraft_tpu/ops/rvq_pallas.py:46',
+               max_abs_err=float((codes - plain)[:, checked].abs().max()),
+               ms=time_ms(lambda: rvq_encode(x, embeds), 5),
+               plain_ms=time_ms(lambda: rvq_encode_reference(x, embeds), 5),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    print(f"rvq N={s['n']} D={s['d']} K={s['k']} n_q={s['n_q']}: codes equal on "
+          f"{int(checked.sum())} rows, {int(near.sum())} near-tie rows excluded; "
+          f"kernel {rvq['ms']:.3f} ms ({ops / rvq['ms'] / 1e9:.1f} TFLOP/s), plain "
+          f"{rvq['plain_ms']:.3f} ms, bound {b_ms:.3f} ms ({b_by}); "
+          f"before this design {RVQ_OLD_MS} ms", flush=True)
+    counted, lapped, worked = rvq_encode_clocks(x, embeds)
+    check(torch.equal(counted, codes), 'rvq: the counter\'s instance gives other codes')
+    total = sum(lapped.values())
+    print('rvq per-phase split (one thread a block, summed over blocks; '
+          f'{total / 1e9:.3f} G block-cycles): '
+          + ', '.join(f'{k} {v / total:.3f}' for k, v in lapped.items()), flush=True)
+    print('rvq per-warp work before each barrier (G warp-cycles): '
+          + ', '.join(f'{k} {v / 1e9:.3f}' for k, v in worked.items() if v), flush=True)
+    info = rvq_kernel_info(s['n'], s['d'], s['k'], s['n_q'])
+    print('rvq resources: ' + ', '.join(f'{k} {v}' for k, v in info.items()), flush=True)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        et = embeds.transpose(1, 2).contiguous()
+        mm = time_ms(lambda: [x @ et[q] for q in range(s['n_q'])], 5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    print(f"rvq yardstick: the four fp32 products x @ E_q^T alone through torch.matmul, "
+          f"TF32 off, {mm:.3f} ms ({ops / mm / 1e9:.1f} TFLOP/s); card {card()}", flush=True)
+    return rvq
 
 
 def _lstm_args(T: int, B: int, H: int, seed: int) -> tp.List[torch.Tensor]:
@@ -397,26 +448,7 @@ def phase_kernels(device) -> dict:
     results = {}
     check_off_tile_shapes(device)
 
-    s = RVQ_SHAPE
-    x, embeds = _rvq_inputs(device, **s)
-    codes, plain, near = check_rvq(x, embeds)
-    checked = ~near
-    ops = 2.0 * s['n'] * s['d'] * s['k'] * s['n_q']
-    nbytes = 4.0 * (s['n'] * s['d'] + s['n_q'] * s['k'] * s['d'] + s['n_q'] * s['n'])
-    b_ms, b_by = bound_ms(ops, PEAK_FP32, nbytes)
-    rvq = dict(name='rvq_encode', route='cuda', source='audiocraft_tpu_torch/csrc/rvq.cu',
-               replaces='audiocraft_tpu/ops/rvq_pallas.py:46',
-               max_abs_err=float((codes - plain)[:, checked].abs().max()),
-               ms=time_ms(lambda: rvq_encode(x, embeds), 5),
-               plain_ms=time_ms(lambda: rvq_encode_reference(x, embeds), 5),
-               bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    print(f"rvq N={s['n']} D={s['d']} K={s['k']} n_q={s['n_q']}: codes equal on "
-          f"{int(checked.sum())} rows, {int(near.sum())} near-tie rows excluded; "
-          f"kernel {rvq['ms']:.3f} ms, plain {rvq['plain_ms']:.3f} ms, "
-          f"bound {b_ms:.3f} ms ({b_by})", flush=True)
-    results['rvq_encode'] = rvq
-    del x, embeds, codes, plain
-
+    results['rvq_encode'] = check_rvq_main(device)
     results['lstm_step'] = check_lstm(device)
     results['flash_attention'] = check_attention(device)
     dkv, dq = check_attention_backward(device)
@@ -940,9 +972,16 @@ def check_mono_conv(device) -> tp.Dict[str, dict]:
                      plain_ms=time_ms(lambda: ref(xin, w, b), 3),
                      bound_ms=b_ms, bound_by=b_by, library_ms=library)
         results[name] = entry
+        out_bytes = 2.0 * BATCH * CONV0_CHANNELS * T
         print(f'{name} bf16 [{BATCH}, 1, {T}] -> [{BATCH}, {CONV0_CHANNELS}, {T}]: kernel '
-              f'{entry["ms"]:.3f} ms, plain {entry["plain_ms"]:.3f} ms, cuDNN F.conv1d on the '
-              f'padded signal {library:.3f} ms, bound {b_ms:.3f} ms ({b_by})', flush=True)
+              f'{entry["ms"]:.3f} ms ({out_bytes / entry["ms"] / 1e9:.3f} TB/s of output), plain '
+              f'{entry["plain_ms"]:.3f} ms, cuDNN F.conv1d on the padded signal {library:.3f} ms, '
+              f'bound {b_ms:.3f} ms ({b_by}); before this design {MONO_OLD_MS} ms', flush=True)
+    y = torch.empty(BATCH, CONV0_CHANNELS, T, dtype=torch.bfloat16, device=device)
+    fill = time_ms(lambda: y.fill_(0), 10)
+    print(f'write ceiling: y.fill_(0) on the same [{BATCH}, {CONV0_CHANNELS}, {T}] bf16 output '
+          f'{fill:.3f} ms ({2.0 * y.numel() / fill / 1e9:.3f} TB/s); card {card()}', flush=True)
+    del y
     return results
 
 
