@@ -64,11 +64,28 @@
 //
 // K5 and K6 replace _banded_conv_kernel and _mono_conv_kernel of the same
 // file: y[b, c, t] = sum_d w[c, d] x[b, t + d] + bias[c] for C_in = 1, a
-// memory-bound conv (5.3 GB and 37 GFLOP at b128 x 10 s in bf16: 1.59 ms).
-// A block loads a tile of 1024 samples and its halo once into shared memory
-// and writes all C_out channels of the tile, each warp's stores consecutive
-// along T; the sums are fp32.  K6 reads its input through reflected indices
-// instead of a padded copy.
+// memory-bound conv (5.3 GB and 37 GFLOP at b128 x 10 s in bf16: 1.59 ms at
+// 3.35 TB/s; y.fill_(0) on the same output takes 1.598 ms on an NVIDIA H100
+// 80GB HBM3 at 700 W).  The first version (PRs 4-8: a block per 1024
+// outputs of a row, 40,064 blocks, each reloading the weights into shared
+// memory behind a barrier, a runtime channel loop re-reading 7 weights and a
+// bias from shared memory per output, one 2-byte store per output) took
+// 5.797 ms there, 0.90 TB/s of output (PERF.md, PR 9).  Now:
+// - a persistent grid (two blocks of 256 threads an SM) walks over items of
+//   1024 outputs of one row; the next item's input is copied into the
+//   second of two shared buffers by 4-byte cp.async while this one is
+//   computed (element by element where K6 reflects at a row's edges);
+// - warp w takes units (group of 8 channels, 256 outputs) w, w + 8, ...;
+//   at the codec's 64 channels each warp keeps one group, its 56 weights
+//   and 8 biases in registers, loaded once per block;
+// - each lane computes 8 consecutive outputs of each channel from a window
+//   of 8 + 6 samples in registers, sums in fp32 as before (the bias added in
+//   fp32, K6's rounded to x's dtype first; y rounded once), and stores the 8
+//   as one 16-byte vector with the streaming hint (st.global.cs): a warp
+//   writes 512 contiguous bytes per store.  Ragged ends and rows that are
+//   not 16-byte aligned store element by element.
+// Widths other than 7 taps run a generic instance (up to 15 taps, 4
+// channels a thread).  After: see PERF.md, PR 9.
 #include <cuda.h>   // CUtensorMap; the encoder comes from the driver entry point at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1045,65 +1062,202 @@ int launch_stage(const void* x, const void* w1, const void* b1, const void* w2, 
 
 // ----------------------------------------------------------------- K5, K6
 
-constexpr int kMaxTaps = 15;     // taps a thread keeps in registers
-constexpr int kConvTile = 1024;  // outputs per block along T
+constexpr int kMaxTaps = 15;                    // taps of the generic instance
+constexpr int kConvOuts = 8;                    // consecutive outputs a thread stores as 16 bytes
+constexpr int kSegment = 32 * kConvOuts;        // outputs of one warp's segment
+constexpr int kConvTile = 1024;                 // outputs of one item along T
+constexpr int kSegments = kConvTile / kSegment;
 
-// y[b, c, t] = sum_d w[c, d] xin[b, t + d] + bias[c]; with kReflect, xin is x
-// reflect-padded by `half` on each side, read through reflected indices.
-template <typename T, bool kReflect>
-__global__ void __launch_bounds__(kThreads)
-mono_conv_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ bias,
-                 T* __restrict__ y, int t_in, int t_out, int c_out, int taps, int half) {
-  extern __shared__ float fsmem[];
-  float* xs = fsmem;                          // kConvTile + taps - 1 samples
-  float* ws = xs + kConvTile + kMaxTaps;      // [c_out][taps]
-  float* bs = ws + c_out * taps;
-  const int b = blockIdx.y, t0 = blockIdx.x * kConvTile;
-  const T* xb = x + (size_t)b * t_in;
-  for (int i = threadIdx.x; i < kConvTile + taps - 1; i += kThreads) {
-    int t = t0 + i;
-    float v = 0.f;
-    if (kReflect) {
-      t -= half;
+struct Mono {
+  int batch, t_in, t_out, c_out, taps, half;   // half < 0: K5 (x padded); else K6 (reflect)
+  int tiles, items, groups;                     // T-tiles a row, batch * tiles, channel groups
+  int vec_in;                                   // x 4-byte aligned: the interior copies by cp.async
+  int vec_out;                                  // rows of y on 16 bytes: vector stores
+};
+
+// elements of one input buffer: a tile, its taps - 1 halo and a leading
+// half-word shift for bf16 (TAPS >= taps)
+template <typename T, int TAPS>
+__host__ __device__ constexpr int conv_buffer_bytes() {
+  return (int)((kConvTile + TAPS + 1) * sizeof(T) + 15) / 16 * 16;
+}
+
+// Where item `item` reads: batch row b, first output t0, outputs len, input
+// elements [e0, e0 + n) of the (reflected) row; interior items copy the
+// 4-byte words that hold them by cp.async, `shift` elements into the first.
+struct ConvItem {
+  int b, t0, len, e0, n, shift;
+  bool interior;
+};
+
+template <typename T>
+__device__ __forceinline__ ConvItem conv_item(const Mono& g, int item) {
+  ConvItem it;
+  it.b = item / g.tiles;
+  it.t0 = (item - it.b * g.tiles) * kConvTile;
+  it.len = min(kConvTile, g.t_out - it.t0);
+  it.n = it.len + g.taps - 1;
+  it.e0 = it.t0 - (g.half >= 0 ? g.half : 0);
+  const long long gi = (long long)it.b * g.t_in + it.e0;   // element index into x
+  it.shift = sizeof(T) == 2 ? (int)(gi & 1) : 0;
+  // the words must lie inside the row's reach and inside the tensor
+  const int covered = ((it.n + it.shift) * (int)sizeof(T) + 3) / 4 * 4 / (int)sizeof(T);
+  it.interior = g.vec_in && it.e0 >= 0 && it.e0 + it.n <= g.t_in &&
+                gi - it.shift + covered <= (long long)g.batch * g.t_in;
+  if (!it.interior) it.shift = 0;
+  return it;
+}
+
+// The input of `item` into buf: by cp.async where interior, else element by
+// element through reflected (K6) or plain (K5) indices
+template <typename T>
+__device__ __forceinline__ void conv_stage(const T* __restrict__ x, const Mono& g, int item,
+                                           unsigned char* buf) {
+  const ConvItem it = conv_item<T>(g, item);
+  const T* row = x + (size_t)it.b * g.t_in;
+  if (it.interior) {
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(row + it.e0 - it.shift);
+    const int words = (int)(((it.n + it.shift) * sizeof(T) + 3) / 4);
+    for (int w = threadIdx.x; w < words; w += kThreads) cp_async4(buf + 4 * w, src + w, true);
+  } else {
+    T* dst = reinterpret_cast<T*>(buf);
+    for (int i = threadIdx.x; i < it.n; i += kThreads) {
+      int t = it.e0 + i;
       t = t < 0 ? -t : t;
-      t = t >= t_in ? 2 * t_in - 2 - t : t;
-      v = to_f32(xb[min(max(t, 0), t_in - 1)]);
-    } else if (t < t_in) {
-      v = to_f32(xb[t]);
-    }
-    xs[i] = v;
-  }
-  for (int i = threadIdx.x; i < c_out * taps; i += kThreads) ws[i] = to_f32(w[i]);
-  for (int i = threadIdx.x; i < c_out; i += kThreads) bs[i] = bias[i];
-  __syncthreads();
-  for (int j = 0; j < kConvTile / kThreads; ++j) {
-    const int i = threadIdx.x + j * kThreads;
-    const int t = t0 + i;
-    if (t >= t_out) break;
-    float win[kMaxTaps];
-#pragma unroll
-    for (int d = 0; d < kMaxTaps; ++d) win[d] = d < taps ? xs[i + d] : 0.f;
-    T* yt = y + (size_t)b * c_out * t_out + t;
-    for (int c = 0; c < c_out; ++c) {
-      const float* wc = ws + c * taps;
-      float acc = 0.f;
-#pragma unroll
-      for (int d = 0; d < kMaxTaps; ++d)
-        if (d < taps) acc = fmaf(win[d], wc[d], acc);
-      yt[(size_t)c * t_out] = from_f32<T>(acc + bs[c]);
+      t = t >= g.t_in ? 2 * g.t_in - 2 - t : t;
+      dst[i] = row[min(max(t, 0), g.t_in - 1)];
     }
   }
 }
 
-template <typename T, bool kReflect>
-int launch_mono(const void* x, const void* w, const float* bias, void* y, int batch, int t_in,
-                int t_out, int c_out, int taps, int half, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)kConvTile + kMaxTaps + (size_t)c_out * (taps + 1));
-  const dim3 grid((t_out + kConvTile - 1) / kConvTile, batch);
-  mono_conv_kernel<T, kReflect><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), bias, static_cast<T*>(y), t_in, t_out,
-      c_out, taps, half);
+// 8 outputs from 8 = 16 bytes of bf16 or 2 x 16 of fp32, streaming (evict first)
+__device__ __forceinline__ void store8(float* dst, const float (&v)[kConvOuts]) {
+  __stcs(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2], v[3]));
+  __stcs(reinterpret_cast<float4*>(dst) + 1, make_float4(v[4], v[5], v[6], v[7]));
+}
+__device__ __forceinline__ void store8(bf16* dst, const float (&v)[kConvOuts]) {
+  __stcs(reinterpret_cast<uint4*>(dst),
+         make_uint4(pack(v[0], v[1]), pack(v[2], v[3]), pack(v[4], v[5]), pack(v[6], v[7])));
+}
+
+// y[b, c, t] = sum_d w[c, d] xin[b, t + d] + bias[c]; with half >= 0, xin is x
+// reflect-padded by `half` on each side.  A persistent grid of blocks walks
+// over items of kConvTile outputs of one batch row, the next item's input
+// copied in while this one is computed.  In an item, warp w takes units
+// (channel group, segment of 256 outputs) w, w + 8, ...: each lane computes 8
+// consecutive outputs of CPT channels from a window of 8 + TAPS - 1 samples,
+// with the group's weights and biases in registers (loaded when the group
+// changes: never at the codec's 64 channels), and stores each channel's 8 as
+// one 16-byte vector.  TAPS is the instance's; a generic instance takes any
+// taps <= TAPS.
+template <typename T, int TAPS, int CPT, bool kExactTaps>
+__global__ void __launch_bounds__(kThreads, 2)
+mono_conv_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ bias,
+                 T* __restrict__ y, Mono g) {
+  constexpr int BUF = conv_buffer_bytes<T, TAPS>();
+  constexpr int WIN = kConvOuts + TAPS - 1;
+  extern __shared__ __align__(16) unsigned char conv_smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int taps = kExactTaps ? TAPS : g.taps;
+  float wr[CPT][TAPS], br[CPT];
+  int group = -1;
+
+  int item = blockIdx.x;
+  if (item < g.items) conv_stage(x, g, item, conv_smem);
+  cp_commit();
+  for (int i = 0; item < g.items; item += gridDim.x, ++i) {
+    cp_wait<0>();
+    __syncthreads();   // this item's input has landed; the other buffer is free
+    const int next = item + gridDim.x;
+    if (next < g.items) conv_stage(x, g, next, conv_smem + ((i + 1) & 1) * BUF);
+    cp_commit();
+
+    const ConvItem it = conv_item<T>(g, item);
+    const T* xs = reinterpret_cast<const T*>(conv_smem + (i & 1) * BUF) + it.shift;
+    for (int u = warp; u < g.groups * kSegments; u += kWarps) {
+      const int gr = u % g.groups, o0 = (u / g.groups) * kSegment + lane * kConvOuts;
+      if (gr != group) {   // the group's weights and biases into registers
+        group = gr;
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+          const int ch = gr * CPT + c;
+#pragma unroll
+          for (int d = 0; d < TAPS; ++d)
+            wr[c][d] = ch < g.c_out && d < taps ? to_f32(w[ch * taps + d]) : 0.f;
+          br[c] = ch < g.c_out ? bias[ch] : 0.f;
+        }
+      }
+      if (o0 >= it.len) continue;
+      float win[WIN];
+#pragma unroll
+      for (int j = 0; j < WIN; ++j) win[j] = to_f32(xs[o0 + j]);
+      const bool whole = g.vec_out && o0 + kConvOuts <= it.len;
+      T* dst = y + ((size_t)it.b * g.c_out + gr * CPT) * g.t_out + it.t0 + o0;
+#pragma unroll
+      for (int c = 0; c < CPT; ++c, dst += g.t_out) {
+        if (gr * CPT + c >= g.c_out) break;
+        float v[kConvOuts];
+#pragma unroll
+        for (int o = 0; o < kConvOuts; ++o) {
+          float acc = 0.f;
+#pragma unroll
+          for (int d = 0; d < TAPS; ++d)
+            if (kExactTaps || d < taps) acc = fmaf(win[o + d], wr[c][d], acc);
+          v[o] = acc + br[c];
+        }
+        if (whole) {
+          store8(dst, v);
+        } else {
+#pragma unroll
+          for (int o = 0; o < kConvOuts; ++o)
+            if (o0 + o < it.len) dst[o] = from_f32<T>(v[o]);
+        }
+      }
+    }
+  }
+}
+
+// The mono conv's plan for c_out channels of `taps` taps: {taps of the
+// instance, channels a thread, outputs a thread, outputs an item, shared
+// bytes}; ops/seanet.py:mono_conv_plan computes the same.
+template <typename T>
+void mono_plan(int taps, int* plan) {
+  const bool codec = taps == 7;
+  plan[0] = codec ? 7 : kMaxTaps;
+  plan[1] = codec ? 8 : 4;
+  plan[2] = kConvOuts;
+  plan[3] = kConvTile;
+  plan[4] = 2 * (codec ? conv_buffer_bytes<T, 7>() : conv_buffer_bytes<T, kMaxTaps>());
+}
+
+template <typename T, int TAPS, int CPT, bool kExactTaps>
+int launch_mono(const void* x, const void* w, const float* bias, void* y, Mono g, int smem,
+                cudaStream_t stream) {
+  auto kernel = mono_conv_kernel<T, TAPS, CPT, kExactTaps>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  g.groups = (g.c_out + CPT - 1) / CPT;
+  kernel<<<min(g.items, per_sm * sms), kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), bias, static_cast<T*>(y), g);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int run_mono(const void* x, const void* w, const float* bias, void* y, Mono g, const int* plan,
+             cudaStream_t stream) {
+  int own[5];
+  mono_plan<T>(g.taps, own);
+  for (int i = 0; i < 5; ++i)
+    if (own[i] != plan[i]) return (int)cudaErrorInvalidValue;
+  g.vec_in = reinterpret_cast<uintptr_t>(x) % 4 == 0;
+  g.vec_out = reinterpret_cast<uintptr_t>(y) % 16 == 0 && g.t_out * sizeof(T) % 16 == 0;
+  return own[0] == 7 ? launch_mono<T, 7, 8, true>(x, w, bias, y, g, own[4], stream)
+                     : launch_mono<T, kMaxTaps, 4, false>(x, w, bias, y, g, own[4], stream);
 }
 
 // K4 by plan: plan == nullptr runs the fp32-FMA variant (its tile chosen
@@ -1203,19 +1357,20 @@ extern "C" int acx_seanet_stage_info(int batch, int c, int h, int c_out, int len
 
 // The mono input conv: K5 (half < 0: x [B, 1, t_out + taps - 1] already
 // padded) or K6 (half = (taps - 1) / 2: x [B, 1, t_in], t_in = t_out,
-// reflect-padded inside).  w [c_out, taps] in x's dtype, bias fp32 [c_out].
+// reflect-padded inside).  w [c_out, taps] in x's dtype, bias fp32 [c_out];
+// plan[5] as mono_plan gives it, or cudaErrorInvalidValue.
 extern "C" int acx_mono_conv(const void* x, const void* w, const float* bias, void* y, int batch,
                              int t_in, int t_out, int c_out, int taps, int half, int is_bf16,
-                             void* stream) {
-  if (batch <= 0 || t_in <= 0 || t_out <= 0 || c_out <= 0 || taps <= 0 || taps > kMaxTaps)
+                             const int* plan, void* stream) {
+  if (batch <= 0 || t_in <= 0 || t_out <= 0 || c_out <= 0 || taps <= 0 || taps > kMaxTaps ||
+      !plan)
     return (int)cudaErrorInvalidValue;
   if (half >= 0 && (t_in != t_out || t_in <= half)) return (int)cudaErrorInvalidValue;
   if (half < 0 && t_in != t_out + taps - 1) return (int)cudaErrorInvalidValue;
+  const int tiles = (t_out + kConvTile - 1) / kConvTile;
+  if ((long long)batch * tiles >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  Mono g{batch, t_in, t_out, c_out, taps, half, tiles, batch * tiles, 0, 0, 0};
   cudaStream_t s = (cudaStream_t)stream;
-  if (half >= 0) {
-    return is_bf16 ? launch_mono<bf16, true>(x, w, bias, y, batch, t_in, t_out, c_out, taps, half, s)
-                   : launch_mono<float, true>(x, w, bias, y, batch, t_in, t_out, c_out, taps, half, s);
-  }
-  return is_bf16 ? launch_mono<bf16, false>(x, w, bias, y, batch, t_in, t_out, c_out, taps, 0, s)
-                 : launch_mono<float, false>(x, w, bias, y, batch, t_in, t_out, c_out, taps, 0, s);
+  return is_bf16 ? run_mono<bf16>(x, w, bias, y, g, plan, s)
+                 : run_mono<float>(x, w, bias, y, g, plan, s);
 }

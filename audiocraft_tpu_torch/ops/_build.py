@@ -30,9 +30,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # C entry points: every pointer and the stream are void*, every size an int,
 # every stride a long long; each launch returns cudaGetLastError() as an int.
 _SIGNATURES = {
-    'acx_rvq_encode': ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    'acx_rvq_encode_clocks': ([_P, _P, _P, _P, _I, _I, _I, _I, _P, _P], _I),
-    'acx_rvq_info': ([_I, _I, _I, _I, ctypes.POINTER(_I)], _I),
+    'acx_rvq_encode': ([*[_P] * 5, _I, _I, _I, _I, ctypes.POINTER(_I), _P], _I),
+    'acx_rvq_encode_clocks': ([*[_P] * 5, _I, _I, _I, _I, ctypes.POINTER(_I), _P, _P], _I),
+    'acx_rvq_info': ([_I, _I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)], _I),
     'acx_rvq_max_dim': ([], _I),
     'acx_lstm_layer': ([_P, _P, _P, _P, *[_I] * 11, _L, _P], _I),
     'acx_lstm_device': ([ctypes.POINTER(_I)], _I),
@@ -47,7 +47,7 @@ _SIGNATURES = {
     'acx_seanet_stage': ([*[_P] * 8, *[_I] * 7, ctypes.POINTER(_I), _P], _I),
     'acx_seanet_stage_clocks': ([*[_P] * 8, *[_I] * 7, ctypes.POINTER(_I), _P, _I, _P], _I),
     'acx_seanet_stage_info': ([*[_I] * 7, ctypes.POINTER(_I), ctypes.POINTER(_I)], _I),
-    'acx_mono_conv': ([_P, _P, _P, _P, *[_I] * 7, _P], _I),
+    'acx_mono_conv': ([_P, _P, _P, _P, *[_I] * 7, ctypes.POINTER(_I), _P], _I),
     'acx_probe_gather': ([_P, _P, _I, _I, _L, _L, _P], _I),
     'acx_probe_contract': ([_P, _P, _P, _I, _I, _I, _P], _I),
     'acx_error_string': ([_I], ctypes.c_char_p),

@@ -8,6 +8,13 @@ memory across the whole chain, for rows of up to ``acx_rvq_max_dim()`` =
 design: see the note at the top of ``csrc/rvq.cu`` (fp32 FMA bound; TF32 is
 ruled out because it changes tokens).
 
+The launch plan (rows a block, codes a tile, the ring of codebook chunks,
+shared bytes) is decided here by :func:`rvq_plan`; the C entry computes it
+again and refuses a plan that disagrees.  :func:`pack_codebooks` lays the
+codebooks out as the kernel streams them, transposed and padded, on every
+call (4 MiB at the codec's sizes), so a changed codebook always gives codes
+of its own.
+
 On a CPU tensor :func:`rvq_encode` runs :func:`rvq_encode_reference`, the
 plain version with the same distance expression and tie-break; on a CUDA
 tensor it launches the kernel, or raises.
@@ -16,6 +23,7 @@ tensor it launches the kernel, or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import typing as tp
 
 import torch
@@ -57,6 +65,64 @@ def _check(x: torch.Tensor, embeds: torch.Tensor) -> None:
         raise ValueError("input too large for the RVQ kernel's int sizes")
 
 
+THREADS = 256       # csrc/rvq.cu:kRvqThreads
+TILE = 8            # rows and codes of a thread's register tile (csrc/rvq.cu:kTile)
+CHUNK = 16          # features per streamed chunk (csrc/rvq.cu:kChunk)
+STAGES = 3          # chunks in the ring (csrc/rvq.cu:kStages)
+SMEM_LIMIT = 232448  # shared bytes an H100 block may take (csrc/rvq.cu:kRvqSmemLimit)
+
+
+@dataclasses.dataclass(frozen=True)
+class RvqPlan:
+    rows: int        # residual rows a block keeps in shared memory
+    codes: int       # codes a tile: the 256 threads' 8 x 8 tiles cover rows x codes
+    chunk: int       # features per streamed chunk of E^T
+    stages: int      # chunks in the ring
+    smem_bytes: int
+
+    def args(self) -> ctypes.Array:
+        return (ctypes.c_int * 5)(self.rows, self.codes, self.chunk, self.stages,
+                                  self.smem_bytes)
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _smem_bytes(rows: int, d: int) -> int:
+    """Shared bytes of a block (csrc/rvq.cu:smem_bytes): the residual [Dp,
+    rows], the ring [STAGES, CHUNK, codes], the |r|^2 partials [256], |r|^2
+    [rows], the partial bests (value, index) of each warp of a row's threads
+    [partials, rows] and the chosen codes [rows]."""
+    codes = THREADS * TILE * TILE // rows
+    partials = max(1, codes // TILE // 32)
+    return 4 * (_round_up(d, CHUNK) * rows + STAGES * CHUNK * codes + THREADS + rows
+                + 2 * partials * rows + rows)
+
+
+def rvq_plan(d: int) -> RvqPlan:
+    """The plan for rows of ``d`` features: the most rows a block (128, 64
+    or 32) whose shared memory fits."""
+    for rows in (128, 64, 32):
+        smem = _smem_bytes(rows, d)
+        if smem <= SMEM_LIMIT:
+            return RvqPlan(rows, THREADS * TILE * TILE // rows, CHUNK, STAGES, smem)
+    raise ValueError(f"D={d} does not fit the RVQ kernel's shared memory")
+
+
+def pack_codebooks(embeds: torch.Tensor, plan: RvqPlan
+                   ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """The codebooks as the kernel streams them: E^T [n_q, Dp, Kp] (Dp = D
+    rounded up to the chunk, Kp = K to the code tile, zeros past D and K)
+    and |E|^2 [n_q, Kp] summed in plain torch, as the JAX wrapper does."""
+    n_q, k, d = embeds.shape
+    et = embeds.new_zeros(n_q, _round_up(d, plan.chunk), _round_up(k, plan.codes))
+    et[:, :d, :k] = embeds.transpose(1, 2)
+    esq = embeds.new_zeros(n_q, et.shape[2])
+    esq[:, :k] = embeds.square().sum(-1)
+    return et, esq
+
+
 def _launch(x: torch.Tensor, embeds: torch.Tensor,
             clocks: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch K1 (the counter's instance with ``clocks``)."""
@@ -65,9 +131,11 @@ def _launch(x: torch.Tensor, embeds: torch.Tensor,
     codes = torch.empty(n_q, n, dtype=torch.int32, device=x.device)
     if n == 0 or n_q == 0:
         return codes
-    esq = embeds.square().sum(-1).contiguous()  # |E|^2 in plain torch, as the JAX wrapper
+    plan = rvq_plan(d)
+    et, esq = pack_codebooks(embeds, plan)
     lib = _build.library()
-    args = (x.data_ptr(), embeds.data_ptr(), esq.data_ptr(), codes.data_ptr(), n, d, k, n_q)
+    args = (x.data_ptr(), et.data_ptr(), esq.data_ptr(), embeds.data_ptr(), codes.data_ptr(),
+            n, d, k, n_q, plan.args())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if clocks is None:
@@ -121,5 +189,6 @@ def rvq_kernel_info(n: int, d: int, k: int, n_q: int) -> tp.Dict[str, int]:
     block and blocks launched of the K1 instance that ``rvq_encode`` would
     launch for these sizes (nothing is launched)."""
     out = (ctypes.c_int * len(_INFO_KEYS))()
-    _build.check(_build.library().acx_rvq_info(n, d, k, n_q, out), 'acx_rvq_info')
+    _build.check(_build.library().acx_rvq_info(n, d, k, n_q, rvq_plan(d).args(), out),
+                 'acx_rvq_info')
     return dict(zip(_INFO_KEYS, out))

@@ -415,7 +415,38 @@ def fused_encoder_apply(enc, x: torch.Tensor, n_stages: int
 
 # ------------------------------------------------------ mono input conv (K5, K6)
 
-_MAX_TAPS = 15  # the kernel keeps a thread's window of taps in registers
+_MAX_TAPS = 15     # taps of the kernel's generic instance (csrc/seanet.cu:kMaxTaps)
+CONV_OUTS = 8      # consecutive outputs a thread stores as 16 bytes (csrc/seanet.cu:kConvOuts)
+CONV_TILE = 1024   # outputs of one item along T (csrc/seanet.cu:kConvTile)
+
+
+@dataclasses.dataclass(frozen=True)
+class MonoPlan:
+    """How K5 / K6 lay the conv over the card: the instance's taps (7, the
+    codec's, or the generic 15 that takes any fewer), the channels a thread
+    keeps in registers, the outputs a thread stores as one 16-byte vector
+    (two for fp32), the outputs of one item, and the shared bytes of the two
+    input buffers, which the C entry recomputes and must find equal."""
+    taps: int
+    channels: int
+    outputs: int
+    tile: int
+    smem_bytes: int
+
+    def args(self) -> ctypes.Array:
+        return (ctypes.c_int * 5)(self.taps, self.channels, self.outputs, self.tile,
+                                  self.smem_bytes)
+
+
+def mono_conv_plan(taps: int, dtype: torch.dtype) -> MonoPlan:
+    """The plan for a mono conv of ``taps`` taps in ``dtype``: the codec's
+    7 taps take the instance with 8 channels a thread, every other width the
+    generic one with 4; each input buffer holds a tile, its halo and one
+    element of shift, in 16-byte units."""
+    inst, channels = (7, 8) if taps == 7 else (_MAX_TAPS, 4)
+    size = torch.finfo(dtype).bits // 8
+    buffer = _round_up((CONV_TILE + inst + 1) * size, 16)
+    return MonoPlan(inst, channels, CONV_OUTS, CONV_TILE, 2 * buffer)
 
 
 def _mono_conv_ref(xp: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -453,7 +484,8 @@ def _mono_conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, t_out:
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.acx_mono_conv(x.data_ptr(), w.data_ptr(), bias.contiguous().data_ptr(),
                                 y.data_ptr(), B, t_in, t_out, c_out, k, half,
-                                int(x.dtype == torch.bfloat16), stream)
+                                int(x.dtype == torch.bfloat16),
+                                mono_conv_plan(k, x.dtype).args(), stream)
     _build.check(err, what)
     return y
 
@@ -476,13 +508,8 @@ def _check_mono(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         return True
     if not 1 <= weight.shape[-1] <= _MAX_TAPS:
         raise ValueError(f"{what} takes 1 to {_MAX_TAPS} taps, not {weight.shape[-1]}")
-    if weight.shape[0] * (weight.shape[-1] + 1) > 8192:
-        raise ValueError(f"{what}: {weight.shape[0]} output channels do not fit the "
-                         "kernel's shared memory")
     if not x.is_contiguous():
         raise ValueError(f"{what} takes a contiguous input")
-    if x.shape[0] > 65535:
-        raise ValueError(f"batch {x.shape[0]} is larger than the kernel's grid")
     return False
 
 

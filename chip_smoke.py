@@ -91,7 +91,7 @@ from audiocraft_tpu_torch.ops.attention import (
 from audiocraft_tpu_torch.ops.lstm import lstm_kernel_info, lstm_layer, lstm_layer_reference
 from audiocraft_tpu_torch.ops.probe import gather, split_contract, split_contract_reference
 from audiocraft_tpu_torch.ops.rvq import (rvq_encode, rvq_encode_clocks, rvq_encode_reference,
-                                         rvq_kernel_info)
+                                         rvq_kernel_info, rvq_plan)
 from audiocraft_tpu_torch.ops.seanet import (
     StageSpec, banded_mono_conv, banded_mono_conv_reference, fused_encoder_apply, fused_stage,
     fused_stage_clocks, fused_stage_reference, mono_input_conv, mono_input_conv_reference,
@@ -118,9 +118,9 @@ TRAIN_ATTN_SHAPE = (TRAIN_BATCH, TRAIN_SECONDS * 50 + 1, 16, 64)
 STAGES = ((StageSpec(c_in=64, c_out=128, stride=4), SECONDS * SAMPLE_RATE),
           (StageSpec(c_in=128, c_out=256, stride=4), SECONDS * SAMPLE_RATE // 4))
 CONV0_CHANNELS, CONV0_TAPS = 64, 7
-# K1's and K5's times before their redesign (chip_smoke.py phase 2 on the parent
-# design, NVIDIA H100 80GB HBM3, 700.00 W)
-RVQ_OLD_MS, MONO_OLD_MS = 6.303, 5.836
+# K1's (at the main shape and at D = 1024) and K5's times before their redesign
+# (this script's phase 2 on the earlier designs, NVIDIA H100 80GB HBM3, 700.00 W)
+RVQ_OLD_MS, RVQ_OLD_WIDE_MS, MONO_OLD_MS = 6.267, 23.509, 5.797
 ENCODES = 3   # timed encodes per route in phase 9
 
 
@@ -225,12 +225,27 @@ def check_off_tile_shapes(device) -> None:
     style conditioner's widths D = 256, 512 and 1024 (64 residual rows a
     block up to D = 832, 32 above); LSTM with B and H not multiples of 8 or
     of the units a block owns; and a row wider than the RVQ kernel's maximum
-    (1024), which must raise.  Then the RVQ kernel timed at D = 1024 beside
-    D = 128 on the style conditioner's codebooks (K = 1024, n_q = 6)."""
+    (1024), which must raise.  At the RVQ plan's own edges: N of one
+    block's rows, one more and one fewer at each row count (128 at D = 128,
+    64 at D = 512, 32 at D = 1024), K not a multiple of the code tile, and a
+    grid of fewer blocks than the SMs.  Then the RVQ kernel timed at D =
+    1024 beside D = 128 on the style conditioner's codebooks (K = 1024,
+    n_q = 6)."""
     nears = []
     for n, d, k in ((517, 32, 400), (301, 256, 400), (301, 512, 1024), (517, 1024, 1024)):
         x, embeds = _rvq_inputs(device, n=n, d=d, k=k, n_q=4, seed=8 + d)
         nears.append(f'D={d}: {int(check_rvq(x, embeds)[2].sum())}')
+    edges = []
+    for d, k in ((128, 2048), (512, 1000), (1024, 1000)):
+        rows = rvq_plan(d).rows
+        for n in (rows - 1, rows, rows + 1):
+            x, embeds = _rvq_inputs(device, n=n, d=d, k=k, n_q=4, seed=20 + n)
+            edges.append(f'N={n} D={d} K={k}: {int(check_rvq(x, embeds)[2].sum())}')
+    for n, d, k in ((1000, 128, 200), (4000, 128, 1000)):   # 8 and 32 blocks; K off the tile
+        x, embeds = _rvq_inputs(device, n=n, d=d, k=k, n_q=4, seed=30 + k)
+        edges.append(f'N={n} D={d} K={k}: {int(check_rvq(x, embeds)[2].sum())}')
+    print('rvq at the plan\'s edges, codes equal (near-tie rows excluded): ' + ', '.join(edges),
+          flush=True)
     gen = torch.Generator().manual_seed(9)
     T, B, C, H = 7, 3, 48, 40
     args = [torch.randn(shape, generator=gen) * 0.5
@@ -257,7 +272,8 @@ def check_off_tile_shapes(device) -> None:
         times[d] = time_ms(lambda: rvq_encode(x, embeds), 5)
         del x, embeds
     print(f'rvq N=8192 K=1024 n_q=6: kernel D=128 {times[128]:.3f} ms, D=1024 '
-          f'{times[1024]:.3f} ms ({times[1024] / times[128]:.2f}x for 8x the width)', flush=True)
+          f'{times[1024]:.3f} ms ({times[1024] / times[128]:.2f}x for 8x the width; before this '
+          f'design {RVQ_OLD_WIDE_MS} ms at D=1024)', flush=True)
 
 
 def check_rvq_main(device) -> dict:
@@ -927,33 +943,47 @@ def check_mono_conv(device) -> tp.Dict[str, dict]:
     (TF32 off; seven fp32 products summed in another order), bf16 within one
     bf16 step of each output; at b128 x 10 s, at B = 1 off the 1024-sample
     tiles, and at the shortest lengths (K5: one output; K6: T = 4, one more
-    than its pad).  Then both timed in bf16 at b128 beside the bound, the
-    plain version and one cuDNN F.conv1d on the padded signal."""
+    than its pad); at the edges of the 1024-output item (T = 1023, 1024 and
+    1025 at B = 3, whose odd-length rows start off 4 bytes in bf16); and at
+    32 channels x 5 taps, a width that takes the generic instance.  Then
+    both timed in bf16 at b128 beside the bound, the plain version, the
+    kernel's time before this design and one cuDNN F.conv1d on the padded
+    signal, with the output's rate beside y.fill_(0) on the same tensor."""
     gen = torch.Generator().manual_seed(70)
     k, h = CONV0_TAPS, (CONV0_TAPS - 1) // 2
     T = SECONDS * SAMPLE_RATE
     w32 = (torch.rand(CONV0_CHANNELS, 1, k, generator=gen) * 2 - 1) / math.sqrt(k)
     b32 = (torch.rand(CONV0_CHANNELS, generator=gen) * 2 - 1) / math.sqrt(k)
+    w5 = (torch.rand(32, 1, 5, generator=gen) * 2 - 1) / math.sqrt(5)
+    b5 = (torch.rand(32, generator=gen) * 2 - 1) / math.sqrt(5)
     cases = {'banded_mono_conv': (banded_mono_conv, banded_mono_conv_reference, k - 1),
              'mono_input_conv': (mono_input_conv, mono_input_conv_reference, 0)}
     errs: tp.Dict[tuple, float] = {}
     abs_errs: tp.Dict[str, float] = {}
     for name, (fn, ref, extra) in cases.items():
-        for batch, length in ((BATCH, T), (1, 1000 + 3), (1, 1 if extra else h + 1)):
-            x = torch.randn(batch, 1, length + extra, generator=gen) * 0.4
+        shapes = [(BATCH, T, w32, b32), (1, 1000 + 3, w32, b32),
+                  (1, 1 if extra else h + 1, w32, b32), (3, 1023, w32, b32),
+                  (3, 1024, w32, b32), (3, 1025, w32, b32), (2, 1025, w5, b5),
+                  (1, 1 if extra else 3, w5, b5)]
+        for batch, length, w, b in shapes:
+            pad = w.shape[-1] - 1 if extra else 0
+            x = torch.randn(batch, 1, length + pad, generator=gen) * 0.4
             for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, None)):
-                xd, wd, bd = (t.to(device, dtype) for t in (x, w32, b32))
+                xd, wd, bd = (t.to(device, dtype) for t in (x, w, b))
                 err, abs_err = _mono_errs(fn, ref, xd, wd, bd)
-                errs[(name, batch, length, dtype)] = err
+                errs[(name, batch, length, w.shape[0], dtype)] = err
                 if (batch, dtype) == (BATCH, torch.bfloat16):
                     abs_errs[name] = abs_err
                 if tol is not None:
-                    check(err <= tol, f'{name} B={batch} T={length} {dtype}: {err:.3g} > {tol}')
+                    check(err <= tol, f'{name} B={batch} T={length} C={w.shape[0]} {dtype}: '
+                                      f'{err:.3g} > {tol}')
             del x
-        print(f'{name}: max-abs / max fp32 {errs[(name, BATCH, T, torch.float32)]:.3g} at '
-              f'[{BATCH}, 1, {T}] (<= 1e-6), bf16 {errs[(name, BATCH, T, torch.bfloat16)]:.3g} '
-              f'(one bf16 step of each output); B = 1 at T = 1003 and at the shortest length '
-              f'held to the same', flush=True)
+        big = (name, BATCH, T, CONV0_CHANNELS)
+        print(f'{name}: max-abs / max fp32 {errs[big + (torch.float32,)]:.3g} at '
+              f'[{BATCH}, 1, {T}] (<= 1e-6), bf16 {errs[big + (torch.bfloat16,)]:.3g} '
+              f'(one bf16 step of each output); B = 1 at T = 1003 and at the shortest length, '
+              f'B = 3 at T = 1023, 1024, 1025, and 32 channels x 5 taps at B = 2, T = 1025 and '
+              f'at the shortest length held to the same', flush=True)
 
     results = {}
     x = (torch.randn(BATCH, 1, T + k - 1, generator=gen) * 0.4).to(device, torch.bfloat16)

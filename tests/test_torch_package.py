@@ -61,6 +61,8 @@ def test_each_ported_kernel_has_a_cuda_source_and_entry_point():
     assert {"rvq.cu", "lstm.cu", "attention.cu", "attention_bwd.cu", "seanet.cu",
             "probe.cu"} <= set(sources)
     assert 'extern "C" int acx_rvq_encode(' in sources["rvq.cu"]
+    assert 'extern "C" int acx_rvq_encode_clocks(' in sources["rvq.cu"]
+    assert 'extern "C" int acx_rvq_info(' in sources["rvq.cu"]
     assert 'extern "C" int acx_lstm_layer(' in sources["lstm.cu"]
     assert 'extern "C" int acx_attention_fwd(' in sources["attention.cu"]
     assert 'extern "C" int acx_attention_bwd_dkv(' in sources["attention_bwd.cu"]
@@ -80,7 +82,7 @@ def test_each_ported_kernel_has_a_cuda_source_and_entry_point():
                       "_mono_conv_kernel"):
         assert pallas_fn in sources["seanet.cu"]
     assert "probe_mosaic_ops.py:try_kernel" in sources["probe.cu"]
-    for name in ('acx_rvq_encode', 'acx_lstm_layer', 'acx_attention_fwd',
+    for name in ('acx_rvq_encode', 'acx_rvq_encode_clocks', 'acx_rvq_info', 'acx_lstm_layer', 'acx_attention_fwd',
                  'acx_attention_fwd_info', 'acx_attention_bwd_dkv', 'acx_attention_bwd_dq',
                  'acx_seanet_stage', 'acx_seanet_stage_clocks', 'acx_seanet_stage_info',
                  'acx_mono_conv', 'acx_probe_gather', 'acx_probe_contract'):
@@ -104,6 +106,16 @@ def test_each_ported_kernel_has_a_cuda_source_and_entry_point():
                  "mbar_wait(in_full", "mbar_wait(full"):
         assert call in seanet
     assert "__ldg" not in seanet
+    # K1 streams E^T through a cp.async ring into 128-bit shared loads, in
+    # fp32 FMA (no tensor cores); K5 / K6 store 16-byte vectors, streaming
+    rvq_src = sources["rvq.cu"]
+    assert '#include "phase_clock.cuh"' in rvq_src and '#include "phase_clock.cuh"' in seanet
+    for call in ("cp_async16(dst", "cp_wait<kStages - 2>()",
+                 "*reinterpret_cast<const float4*>(bs + f * TC", "fmaf(a[i], b[j], acc[i][j])"):
+        assert call in rvq_src
+    assert not any(op in rvq_src for op in ("mma(", "wgmma", ".tf32"))
+    for call in ("__stcs(reinterpret_cast<uint4*>(dst)", "cp_async4(buf", "wr[c][d]"):
+        assert call in seanet
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
 
 

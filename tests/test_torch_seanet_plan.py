@@ -163,3 +163,41 @@ def test_counter_and_info_take_the_card_only():
         tsp.fused_stage_clocks(x, params, STAGE0)
     assert len(tsp.MMA_PHASES) == 7 and len(tsp.FMA_PHASES) == 6
     assert tsp._CLOCK_PHASES >= len(tsp.MMA_PHASES)
+
+
+# ------------------------------------------------ the mono input conv (K5, K6)
+
+def test_codec_mono_conv_takes_the_7_tap_instance_8_channels_a_thread():
+    """64 channels x 7 taps: each warp keeps one group of 8 channels' 56
+    weights in registers; an item is 1024 outputs, a thread stores 8 at a
+    time; two input buffers of a tile, its 6-sample halo and one element of
+    shift, in 16-byte units."""
+    assert tsp.mono_conv_plan(7, torch.bfloat16) == tsp.MonoPlan(7, 8, 8, 1024, 2 * 2064)
+    assert tsp.mono_conv_plan(7, torch.float32) == tsp.MonoPlan(7, 8, 8, 1024, 2 * 4128)
+
+
+@pytest.mark.parametrize("taps", [1, 3, 5, 9, 15])
+def test_other_widths_take_the_generic_instance(taps):
+    plan = tsp.mono_conv_plan(taps, torch.bfloat16)
+    assert (plan.taps, plan.channels) == (tsp._MAX_TAPS, 4) and taps <= plan.taps
+
+
+@pytest.mark.parametrize("taps", [7, 15])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_an_input_buffer_holds_the_furthest_window_a_lane_reads(taps, dtype):
+    """The last lane of the last segment reads elements shift + 1016 ..
+    shift + 1016 + 8 + taps - 2 of its buffer; the interior copy moves whole
+    4-byte words from one element of shift on."""
+    plan = tsp.mono_conv_plan(taps, dtype)
+    size = torch.finfo(dtype).bits // 8
+    buffer = plan.smem_bytes // 2
+    assert buffer % 16 == 0 and plan.tile % (32 * plan.outputs) == 0
+    furthest = 1 + (plan.tile - plan.outputs) + plan.outputs + plan.taps - 2
+    assert (furthest + 1) * size <= buffer
+    words = -(-((plan.tile + taps - 1 + 1) * size) // 4)
+    assert 4 * words <= buffer
+
+
+def test_mono_plan_args_are_the_five_ints_the_entry_compares():
+    plan = tsp.mono_conv_plan(7, torch.bfloat16)
+    assert list(plan.args()) == [7, 8, 8, 1024, 4128]
