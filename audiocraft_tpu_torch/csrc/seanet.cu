@@ -1075,8 +1075,8 @@ struct Mono {
   int vec_out;                                  // rows of y on 16 bytes: vector stores
 };
 
-// elements of one input buffer: a tile, its taps - 1 halo and a leading
-// half-word shift for bf16 (TAPS >= taps)
+// bytes of one input buffer, in 16-byte units: a tile, its taps - 1 halo
+// and a leading half-word shift for bf16 (TAPS >= taps)
 template <typename T, int TAPS>
 __host__ __device__ constexpr int conv_buffer_bytes() {
   return (int)((kConvTile + TAPS + 1) * sizeof(T) + 15) / 16 * 16;

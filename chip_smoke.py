@@ -221,9 +221,10 @@ def check_rvq(x, embeds) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
 
 def check_off_tile_shapes(device) -> None:
     """Shapes off the kernels' tiles, masked inside the kernels: RVQ at the
-    debug codec's D = 32 and K = 400 with N not a multiple of 64, and at the
-    style conditioner's widths D = 256, 512 and 1024 (64 residual rows a
-    block up to D = 832, 32 above); LSTM with B and H not multiples of 8 or
+    debug codec's D = 32 and K = 400 with N not a multiple of 128, at D = 30
+    (not a multiple of 4: the kernel's scalar loads), and at the style
+    conditioner's widths D = 256, 512 and 1024 (128 residual rows a block
+    up to D = 400, 64 up to D = 800, 32 above); LSTM with B and H not multiples of 8 or
     of the units a block owns; and a row wider than the RVQ kernel's maximum
     (1024), which must raise.  At the RVQ plan's own edges: N of one
     block's rows, one more and one fewer at each row count (128 at D = 128,
@@ -232,7 +233,8 @@ def check_off_tile_shapes(device) -> None:
     1024 beside D = 128 on the style conditioner's codebooks (K = 1024,
     n_q = 6)."""
     nears = []
-    for n, d, k in ((517, 32, 400), (301, 256, 400), (301, 512, 1024), (517, 1024, 1024)):
+    for n, d, k in ((517, 32, 400), (301, 30, 400), (301, 256, 400), (301, 512, 1024),
+                    (517, 1024, 1024)):
         x, embeds = _rvq_inputs(device, n=n, d=d, k=k, n_q=4, seed=8 + d)
         nears.append(f'D={d}: {int(check_rvq(x, embeds)[2].sum())}')
     edges = []
@@ -262,7 +264,8 @@ def check_off_tile_shapes(device) -> None:
         pass
     else:
         raise CheckFailed('rvq: D = 1032 did not raise')
-    print(f'off-tile shapes: rvq N=517 D=32 K=400, N=301 D=256 K=400, N=301 D=512 K=1024, '
+    print(f'off-tile shapes: rvq N=517 D=32 K=400, N=301 D=30 K=400, N=301 D=256 K=400, '
+          f'N=301 D=512 K=1024, '
           f'N=517 D=1024 K=1024 codes equal (near-tie rows excluded: {", ".join(nears)}); '
           f'lstm T={T} B={B} C={C} H={H} max-abs fp32 {errs[0]:.3g} (<= 1e-5), '
           f'bf16 {errs[1]:.3g} (<= 5e-2); D=1032 refused', flush=True)
