@@ -110,24 +110,29 @@ rvq_encode_kernel(const float* __restrict__ x, const float* __restrict__ et,
   const int tid = threadIdx.x, cg = tid % CT, rg = tid / CT;
   const int row0 = blockIdx.x * ROWS;
   const int tiles = g.kp / TC, dchunks = g.dp / kChunk;
-  const int per_q = tiles * dchunks, total = g.n_q * per_q;
 
-  // chunk c of the sequence (codebook, code tile, feature chunk) into slot c % kStages
-  auto issue = [&](int c) {
-    if (c < total) {
-      const int q = c / per_q, rem = c - q * per_q, t = rem / dchunks, dc = rem - t * dchunks;
-      const float* src = et + ((size_t)q * g.dp + dc * kChunk) * g.kp + t * TC;
-      float* dst = ring + (c % kStages) * SLOT;
+  // the next chunk of the sequence (codebook, code tile, feature chunk) into
+  // slot ic % kStages; a cursor, so that no division runs per chunk
+  int iq = 0, itile = 0, idc = 0, ic = 0;
+  auto issue = [&]() {
+    if (iq < g.n_q) {
+      const float* src = et + ((size_t)iq * g.dp + idc * kChunk) * g.kp + itile * TC;
+      float* dst = ring + (ic % kStages) * SLOT;
 #pragma unroll
       for (int i = 0; i < SLOT / 4 / kRvqThreads; ++i) {
         const int e = tid + i * kRvqThreads, f = e / (TC / 4), m = e % (TC / 4);
         cp_async16(dst + f * TC + 4 * m, src + (size_t)f * g.kp + 4 * m, true);
       }
+      if (++idc == dchunks) {
+        idc = 0;
+        if (++itile == tiles) itile = 0, ++iq;
+      }
     }
+    ++ic;
     cp_commit();
   };
 #pragma unroll
-  for (int c = 0; c < kStages - 1; ++c) issue(c);
+  for (int c = 0; c < kStages - 1; ++c) issue();
 
   // the residual tile, feature-major; lanes take consecutive rows so that the
   // stores into a feature's row fall in distinct banks
@@ -185,7 +190,7 @@ rvq_encode_kernel(const float* __restrict__ x, const float* __restrict__ et,
         cp_wait<kStages - 2>();   // this thread's copies of chunk c have landed
         laps.work(kWait);
         __syncthreads();          // everyone's have, and slot (c - 1) % kStages is free
-        issue(c + kStages - 1);
+        issue();
         laps.lap(kWait);
         const float* rs = res + (size_t)dc * kChunk * ROWS;
         const float* bs = ring + (c % kStages) * SLOT;
