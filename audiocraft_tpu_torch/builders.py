@@ -150,6 +150,22 @@ def get_musicgen_lm(size: str = 'small', n_q: int = 4, card: int = 2048, *,
     return _finish(lm, device), _finish(provider, device)
 
 
+def get_musicgen(size: str = 'small', *, stereo: bool = False,
+                 device: tp.Union[str, torch.device, None] = None, seed: int = 0):
+    """The MusicGen facade at a published size: the 32 kHz codec (bf16) and
+    :func:`get_musicgen_lm` with its T5-base conditioning, random weights
+    from ``seed``; 30 s windows.  Mono only: ``stereo=True`` needs the
+    interleaving codec wrapper, which is not ported."""
+    from .gen.musicgen import MusicGen
+
+    if stereo:
+        raise NotImplementedError("stereo MusicGen needs codec/stereo.py, which is not ported")
+    codec = get_encodec_32khz(device=device, seed=seed)
+    lm, provider = get_musicgen_lm(size, n_q=codec.quantizer.max_n_q, device=device,
+                                   seed=seed + 1)
+    return MusicGen(f'musicgen-{size}', codec, lm, provider, max_duration=30.0)
+
+
 def get_magnet_lm(size: str = 'small', n_q: int = 4, card: int = 2048,
                   segment_duration: int = 10, *,
                   device: tp.Union[str, torch.device, None] = None,

@@ -13,6 +13,9 @@ and returns a state dict for the port module's ``load_state_dict``:
   ``[K, ...]`` embeddings and heads, transformer layers ``layer{i}``).
 * :func:`t5_state_from_jax`: the T5 encoder, under HF T5 names.
 * :func:`conditioners_state_from_jax`: a ``ConditioningProvider``.
+* :func:`load_musicgen_from_jax`: a whole ``MusicGen`` facade (codec, LM and
+  conditioners) from the JAX facade's three trees.  Quantized weights are not
+  carried: quantize the carried float weights on each side.
 
 The names produced are the reference audiocraft ones, which the JAX
 package's importers read back.  Nothing of the JAX package is imported.
@@ -166,3 +169,20 @@ def conditioners_state_from_jax(provider: ConditioningProvider,
         if isinstance(cond, T5Conditioner):
             out.update({f'{base}.t5.{k}': v for k, v in t5_state_from_jax(p['t5']).items()})
     return out
+
+
+def load_musicgen_from_jax(musicgen, codec_params: Tree, lm_params: Tree,
+                           cond_params: Tree) -> None:
+    """Load the JAX facade's ``codec_params``, ``lm_params`` and
+    ``cond_params`` (numpy trees; the quantizer state may be the JAX
+    package's dataclass) into the port facade ``musicgen``, strictly."""
+    codec = dict(codec_params)
+    q = codec['quantizer']
+    if not isinstance(q, tp.Mapping):
+        codec['quantizer'] = {name: getattr(q, name)
+                              for name in ('embed', 'cluster_size', 'embed_avg', 'inited')}
+    musicgen.compression_model.load_state_dict(
+        encodec_state_from_jax(musicgen.compression_model, codec))
+    musicgen.lm.load_state_dict(lm_state_from_jax(musicgen.lm, lm_params))
+    musicgen.condition_provider.load_state_dict(
+        conditioners_state_from_jax(musicgen.condition_provider, cond_params))

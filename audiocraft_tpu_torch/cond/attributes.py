@@ -1,6 +1,7 @@
 """Conditioning attribute containers and nullification (CFG null conditions)
 (copied from ``audiocraft_tpu/cond/attributes.py``, which the port may not
-import: the containers, ``dropout_condition`` and the CFG dropout).
+import: the containers, ``dropout_condition``, the attribute and CFG
+dropouts and ``drop_description_condition``).
 
 Host-side metadata mirroring the reference audiocraft
 ``modules/conditioners.py:46-236``: a ``ConditioningAttributes`` carries
@@ -126,6 +127,28 @@ def dropout_condition(sample: ConditioningAttributes, condition_type: str,
     return sample
 
 
+class AttributeDropout:
+    """Independent per-attribute dropout (reference ``conditioners.py``:1380-1424)."""
+
+    def __init__(self, p: tp.Dict[str, tp.Dict[str, float]],
+                 active_on_eval: bool = False, seed: int = 1234):
+        self.active_on_eval = active_on_eval
+        self.p = p
+        self.rng = np.random.RandomState(seed)
+
+    def __call__(self, samples: tp.List[ConditioningAttributes],
+                 training: bool = True) -> tp.List[ConditioningAttributes]:
+        if not training and not self.active_on_eval:
+            return samples
+        samples = [s.copy() for s in samples]
+        for condition_type, probs in self.p.items():
+            for condition, p in probs.items():
+                if self.rng.rand() < p:
+                    for sample in samples:
+                        dropout_condition(sample, condition_type, condition)
+        return samples
+
+
 class ClassifierFreeGuidanceDropout:
     """All-or-nothing condition dropout (reference ``conditioners.py``:1427-1466).
 
@@ -151,3 +174,14 @@ class ClassifierFreeGuidanceDropout:
                 for condition in list(sample.attributes[condition_type]):
                     dropout_condition(sample, condition_type, condition)
         return samples
+
+
+def drop_description_condition(conditions: tp.List[ConditioningAttributes]
+                               ) -> tp.List[ConditioningAttributes]:
+    """Drop the text but keep the wav conditioning: the middle term of double
+    CFG (reference ``conditioners.py``:223-236)."""
+    for condition in conditions:
+        if 'description' not in condition.text or 'self_wav' not in condition.wav:
+            raise ValueError("double CFG needs a description and a self_wav condition")
+    return AttributeDropout(p={'text': {'description': 1.0},
+                               'wav': {'self_wav': 0.0}})(conditions)

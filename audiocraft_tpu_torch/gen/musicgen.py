@@ -1,0 +1,298 @@
+"""MusicGen generation facade: text, unconditional, continuation, and
+lengths past the model's window by stride extension
+(counterpart of ``audiocraft_tpu/gen/musicgen.py``).
+
+Descriptions become conditions with the null conditions of classifier-free
+guidance (1-pass, double or two-step), an audio prompt becomes tokens
+through the codec (in windows above ``decode_chunk_frames``), the LM
+generates tokens (on the card its decode steps replay CUDA graphs, which
+this facade keeps by signature and reuses, like the JAX facade's jit cache:
+at most ``DecodeCache.max_states`` (4) signatures, each holding its KV
+caches at full capacity, the least recently used dropped), and the codec
+decodes them (in windows above ``decode_chunk_frames``).  Beyond ``max_duration`` the stride-extension
+loop generates window after window, each prompted by the last
+``max_duration - extend_stride`` seconds of the one before.
+
+The LM decodes in bf16 on the card (a cast copy kept beside the fp32
+weights, refreshed from them at every generate, so new weights are always
+read) and in fp32 on the CPU, where the JAX facade decodes in bf16 on its
+accelerator and in fp32 elsewhere.  Melody (chroma) and style conditioning
+wait for their conditioners: ``generate_with_chroma`` and
+``set_style_conditioner_params`` raise.
+"""
+
+from __future__ import annotations
+
+import typing as tp
+
+import numpy as np
+import torch
+
+from ..codec.chunked import chunked_decode, chunked_encode
+from ..codec.encodec import EncodecModel
+from ..cond.attributes import (ClassifierFreeGuidanceDropout, ConditioningAttributes,
+                               drop_description_condition)
+from ..cond.conditioners import ConditioningProvider
+from ..io.audio_utils import convert_audio
+from ..lm.decode import DecodeCache
+from ..lm.model import LMModel
+from ..lm.quantize import quantize_lm_params
+
+MelodyList = tp.List[tp.Optional[np.ndarray]]
+
+
+class MusicGen:
+    """Codec, LM and conditioning with the generation settings."""
+
+    def __init__(self, name: str, compression_model: EncodecModel, lm: LMModel,
+                 condition_provider: ConditioningProvider, max_duration: float = 30.0,
+                 duration: float = 15.0):
+        self.name = name
+        self.compression_model = compression_model
+        self.lm = lm
+        self.condition_provider = condition_provider
+        self.max_duration = max_duration
+        self.set_generation_params(duration=duration)
+        # the LM's compute dtype on the card; fp32 on the CPU
+        self.decode_dtype: tp.Optional[str] = 'bfloat16'
+        # token sequences longer than this decode (and audio prompts longer
+        # than this many frames encode) in windows of half of it
+        self.decode_chunk_frames = 3000
+        # 'int8' stores the KV caches quantized; None in the compute dtype
+        self.kv_dtype: tp.Optional[str] = None
+        # 'auto', a list of capacities, or None: the caches grow in segments
+        self.kv_buckets: tp.Union[None, str, tp.Sequence[int]] = None
+        self._progress_callback: tp.Optional[tp.Callable[[float, str], None]] = None
+        # decode states (KV caches, CUDA graphs) by signature and the LM's cast copy
+        self._decode_cache = DecodeCache()
+
+    @property
+    def frame_rate(self) -> float:
+        return self.compression_model.frame_rate
+
+    @property
+    def sample_rate(self) -> int:
+        return self.compression_model.sample_rate
+
+    @property
+    def audio_channels(self) -> int:
+        return self.compression_model.channels
+
+    @property
+    def device(self) -> torch.device:
+        return self.lm.emb[0].weight.device
+
+    def set_generation_params(self, use_sampling: bool = True, top_k: int = 250,
+                              top_p: float = 0.0, temperature: float = 1.0,
+                              duration: float = 30.0, cfg_coef: float = 3.0,
+                              cfg_coef_beta: tp.Optional[float] = None,
+                              two_step_cfg: bool = False, extend_stride: float = 10.0,
+                              rep_penalty: tp.Optional[float] = None) -> None:
+        """The reference's generation parameters (``rep_penalty`` is accepted
+        and unused, as in the JAX package)."""
+        if extend_stride >= self.max_duration:
+            raise ValueError("Cannot stride by more than max generation duration.")
+        self.duration, self.extend_stride = duration, extend_stride
+        self.use_sampling, self.top_k, self.top_p = use_sampling, top_k, top_p
+        self.temperature, self.cfg_coef = temperature, cfg_coef
+        self.cfg_coef_beta, self.two_step_cfg = cfg_coef_beta, two_step_cfg
+
+    def set_custom_progress_callback(self, cb: tp.Optional[tp.Callable[[float, str], None]]
+                                     ) -> None:
+        self._progress_callback = cb
+
+    def quantize_lm_weights(self, mode: str = 'int8', group_size: int = 128) -> None:
+        """Weight-only quantization of the LM ('int8' per output row, or
+        'int4' per input group, packed), in place and one-way; embeddings and
+        norms stay floating point, logits keep fp32 sums."""
+        quantize_lm_params(self.lm, mode=mode, group_size=group_size)
+
+    def optimize_for_serving(self, weight_mode: str = 'int8',
+                             kv_dtype: tp.Optional[str] = 'int8') -> None:
+        """The JAX package's serving recipe in one call: int8 weights, int8
+        KV caches and growing cache segments ('auto'), on top of the bf16
+        decode.  One-way for the weights."""
+        self.quantize_lm_weights(mode=weight_mode)
+        self.kv_dtype = kv_dtype
+        self.kv_buckets = 'auto'
+
+    def set_style_conditioner_params(self, *args, **kwargs) -> None:
+        raise NotImplementedError("the style conditioner is not ported yet")
+
+    # ------------------------------------------------------------- prepare
+    def _prepare_tokens_and_attributes(
+            self, descriptions: tp.Sequence[tp.Optional[str]],
+            prompt: tp.Optional[torch.Tensor], melody_wavs: tp.Optional[MelodyList] = None,
+    ) -> tp.Tuple[tp.List[ConditioningAttributes], tp.Optional[torch.Tensor]]:
+        attributes = [ConditioningAttributes(text={'description': d}) for d in descriptions]
+        if melody_wavs is not None and any(m is not None for m in melody_wavs):
+            raise RuntimeError("This model doesn't support melody conditioning. "
+                               "Use the `melody` model.")
+        if prompt is None:
+            return attributes, None
+        if len(descriptions) != prompt.shape[0]:
+            raise ValueError("Prompt and nb. descriptions doesn't match")
+        hop = int(self.sample_rate / self.frame_rate)
+        if prompt.shape[-1] > self.decode_chunk_frames * hop:
+            tokens, scale = chunked_encode(self.compression_model, prompt,
+                                           chunk_frames=self.decode_chunk_frames // 2)
+        else:
+            tokens, scale = self.compression_model.encode(prompt)
+        if scale is not None:
+            raise ValueError("a codec that renormalizes cannot prompt the LM")
+        return attributes, tokens
+
+    def _cfg_condition_tensors(self, attributes: tp.List[ConditioningAttributes]):
+        """CFG condition groups: 1-pass [conditions; null]; double CFG
+        (``cfg_coef_beta``) [conditions; text dropped; null]; two-step the
+        (conditions, null) pair."""
+        provider = self.condition_provider
+        null_conditions = ClassifierFreeGuidanceDropout(p=1.0)(attributes)
+        if self.cfg_coef_beta is not None:
+            wav_conditions = drop_description_condition([a.copy() for a in attributes])
+            return provider(provider.tokenize(list(attributes) + wav_conditions
+                                              + null_conditions))
+        if self.two_step_cfg:
+            return (provider(provider.tokenize(attributes)),
+                    provider(provider.tokenize(null_conditions)))
+        return provider(provider.tokenize(list(attributes) + null_conditions))
+
+    # ------------------------------------------------------------ generate
+    def generate_unconditional(self, num_samples: int,
+                               generator: tp.Optional[torch.Generator] = None,
+                               progress: bool = False, return_tokens: bool = False):
+        attributes, _ = self._prepare_tokens_and_attributes([None] * num_samples, None)
+        return self._out(self._generate_tokens(attributes, None, generator, progress),
+                         return_tokens)
+
+    def generate(self, descriptions: tp.List[str], generator: tp.Optional[torch.Generator] = None,
+                 progress: bool = False, return_tokens: bool = False):
+        """-> audio [B, C, T] fp32 (and tokens [B, K, T_frames] when asked).
+        ``generator=None`` draws a fresh seed."""
+        attributes, _ = self._prepare_tokens_and_attributes(descriptions, None)
+        return self._out(self._generate_tokens(attributes, None, generator, progress),
+                         return_tokens)
+
+    def generate_with_chroma(self, *args, **kwargs):
+        raise NotImplementedError("melody (chroma) conditioning is not ported yet")
+
+    def generate_continuation(self, prompt: tp.Union[torch.Tensor, np.ndarray],
+                              prompt_sample_rate: int,
+                              descriptions: tp.Optional[tp.List[tp.Optional[str]]] = None,
+                              melody_wavs: tp.Optional[MelodyList] = None,
+                              melody_sample_rate: tp.Optional[int] = None,
+                              generator: tp.Optional[torch.Generator] = None,
+                              progress: bool = False, return_tokens: bool = False):
+        """Continue an audio prompt [B, C, T] (or [C, T]) at
+        ``prompt_sample_rate``, resampled and converted to the codec's."""
+        del melody_sample_rate  # melody conditioning is refused below
+        prompt = torch.as_tensor(prompt, dtype=torch.float32).to(self.device)
+        if prompt.dim() == 2:
+            prompt = prompt[None]
+        if prompt.dim() != 3:
+            raise ValueError("prompt should be [B, C, T]")
+        prompt = convert_audio(prompt, prompt_sample_rate, self.sample_rate,
+                               self.audio_channels)
+        if descriptions is None:
+            descriptions = [None] * prompt.shape[0]
+        attributes, prompt_tokens = self._prepare_tokens_and_attributes(
+            descriptions, prompt, melody_wavs=melody_wavs)
+        return self._out(self._generate_tokens(attributes, prompt_tokens, generator, progress),
+                         return_tokens)
+
+    # the fork's name: melody and prompt continuation in one call
+    generate_with_all = generate_continuation
+
+    def _out(self, tokens: torch.Tensor, return_tokens: bool):
+        audio = self.generate_audio(tokens)
+        return (audio, tokens) if return_tokens else audio
+
+    def generate_audio(self, gen_tokens: torch.Tensor) -> torch.Tensor:
+        """tokens [B, K, T_frames] -> audio [B, C, T], in windows above
+        ``decode_chunk_frames``."""
+        if gen_tokens.dim() != 3:
+            raise ValueError(f"expected tokens [B, K, T], got {tuple(gen_tokens.shape)}")
+        if gen_tokens.shape[-1] > self.decode_chunk_frames:
+            return chunked_decode(self.compression_model, gen_tokens,
+                                  chunk_frames=self.decode_chunk_frames // 2)
+        return self.compression_model.decode(gen_tokens)
+
+    # ------------------------------------------------------- token engine
+    def _lm_generate(self, attributes: tp.List[ConditioningAttributes],
+                     prompt_tokens: tp.Optional[torch.Tensor],
+                     generator: torch.Generator, max_gen_len: int) -> torch.Tensor:
+        """One LM generation, in ``decode_dtype`` on the card; its decode
+        states (and CUDA graphs) are kept in the facade's cache by signature
+        (batch, prompt and generation lengths, sampling and CFG settings,
+        dtypes, buckets) and reused."""
+        return self.lm.generate(
+            generator, prompt=prompt_tokens,
+            condition_tensors=self._cfg_condition_tensors(attributes),
+            num_samples=len(attributes), max_gen_len=max_gen_len,
+            use_sampling=self.use_sampling, temp=self.temperature, top_k=self.top_k,
+            top_p=self.top_p, cfg_coef=self.cfg_coef, cfg_coef_beta=self.cfg_coef_beta,
+            compute_dtype=self.decode_dtype if self.device.type == 'cuda' else None,
+            kv_dtype=self.kv_dtype, kv_buckets=self.kv_buckets, graph_cache=self._decode_cache)
+
+    def _generate_tokens(self, attributes: tp.List[ConditioningAttributes],
+                         prompt_tokens: tp.Optional[torch.Tensor],
+                         generator: tp.Optional[torch.Generator] = None,
+                         progress: bool = False) -> torch.Tensor:
+        if generator is None:
+            generator = torch.Generator()
+            generator.seed()
+        total_gen_len = int(self.duration * self.frame_rate)
+        max_prompt_len = int(min(self.duration, self.max_duration) * self.frame_rate)
+        if prompt_tokens is not None and prompt_tokens.shape[-1] > max_prompt_len:
+            raise ValueError(
+                f"Prompt is longer than audio to generate: prompt covers "
+                f"{prompt_tokens.shape[-1]} frames but only {max_prompt_len} frames fit the "
+                f"requested duration")
+
+        def report(done: float) -> None:
+            if progress:
+                print(f'{done * self.duration: 6.2f} / {self.duration: 6.2f}', end='\r')
+            if self._progress_callback is not None:
+                self._progress_callback(done, f"Generated {done * self.duration: 6.2f}"
+                                              f"/{self.duration: 6.2f} seconds")
+
+        if self.duration <= self.max_duration:
+            tokens = self._lm_generate(attributes, prompt_tokens, generator, total_gen_len)
+            report(1.0)
+            return tokens
+
+        # stride extension: each window is prompted by the end of the last
+        all_tokens = []
+        if prompt_tokens is None:
+            prompt_length = 0
+        else:
+            all_tokens.append(prompt_tokens)
+            prompt_length = prompt_tokens.shape[-1]
+        stride_tokens = int(self.frame_rate * self.extend_stride)
+        current_gen_offset = 0
+        while current_gen_offset + prompt_length < total_gen_len:
+            time_offset = current_gen_offset / self.frame_rate
+            chunk_duration = min(self.duration - time_offset, self.max_duration)
+            max_gen_len = int(chunk_duration * self.frame_rate)
+            gen_tokens = self._lm_generate(attributes, prompt_tokens, generator, max_gen_len)
+            if prompt_tokens is None:
+                all_tokens.append(gen_tokens)
+            else:
+                all_tokens.append(gen_tokens[:, :, prompt_tokens.shape[-1]:])
+            prompt_tokens = gen_tokens[:, :, stride_tokens:]
+            prompt_length = prompt_tokens.shape[-1]
+            current_gen_offset += stride_tokens
+            report(min(1.0, (current_gen_offset + prompt_length) / total_gen_len))
+        return torch.cat(all_tokens, dim=-1)
+
+
+def get_debug_musicgen(*, device: tp.Union[str, torch.device, None] = None,
+                       seed: int = 0) -> MusicGen:
+    """Debug MusicGen: the debug codec, a 2-layer LM of width 16 (card 400,
+    post-norm, ReLU) and a whitespace lookup-table text conditioner, 5 s
+    (the reference's debug models)."""
+    from ..builders import get_debug_compression_model, get_debug_musicgen_lm
+
+    codec = get_debug_compression_model(32000, device=device, seed=seed)
+    lm, provider = get_debug_musicgen_lm(device=device, seed=seed)
+    return MusicGen('debug', codec, lm, provider, max_duration=30.0, duration=5.0)

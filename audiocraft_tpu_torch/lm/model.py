@@ -15,13 +15,26 @@ bf16 values.  Logits, CFG and sampling stay fp32.
 codebook pattern, run through the model, and the logits reverted to the
 codes' frames with NaN where a frame has no prediction.
 
-Not ported yet: ``generate`` (MusicGen's delay-pattern decode) and its
-KV-cache buckets, the quantized heads, RoPE positions, ``kv_repeat > 1``, the
-'uniform' weight init and the depthwise init scaling.
+``generate`` is MusicGen's autoregressive decode over the pattern sequence:
+a prefill over the steps before the first to generate, then one step per
+offset with KV caches (``nn/transformer.KVCache``), classifier-free
+guidance by batch doubling (1-pass), tripling (double CFG) or two forwards
+with two caches (two-step), and the pattern reverted at the end.  The steps
+run on static buffers (``lm/decode.py``): on the card each capacity segment's
+step is captured as a CUDA graph and replayed; on the CPU it runs eagerly.
+``kv_buckets`` runs the steps in segments of growing cache capacity
+(token-exact); ``kv_dtype='int8'`` stores the caches quantized; heads and
+projections may hold the int8 or int4 weights of ``lm/quantize.py``.
+
+Not ported: RoPE positions and ``kv_repeat > 1`` (no factory in
+``builders.py`` uses them), the 'uniform' weight init and the depthwise init
+scaling.
 """
 
 from __future__ import annotations
 
+import copy
+import itertools
 import math
 import typing as tp
 
@@ -30,8 +43,64 @@ import torch.nn.functional as F
 
 from ..cond.fuser import ConditionFuser, ConditionType
 from ..nn import init
-from ..nn.transformer import CrossKV, LayerNorm, StreamingTransformer
+from ..nn.transformer import (CrossKV, KVCache, LayerNorm, QuantizedWeight,
+                              StreamingTransformer)
 from ..patterns import CodebooksPatternProvider
+from .decode import UNKNOWN_TOKEN, DecodeCache, DecodeState
+from .quantize import prepare_for_decode
+
+Conditions = tp.Mapping[str, ConditionType]
+
+
+def _weights_key(lm: torch.nn.Module) -> tp.Tuple[tp.Tuple[int, torch.dtype, torch.Size], ...]:
+    """Where each of ``lm``'s tensors lives: a decode state's graphs read the
+    weights at these addresses, so a state is reused only while they hold
+    (values changed in place are read; tensors replaced are not)."""
+    return tuple((t.data_ptr(), t.dtype, t.shape)
+                 for t in itertools.chain(lm.parameters(), lm.buffers()))
+
+
+def _plan_cache_segments(first: int, S: int, prepend_len: int,
+                         capacities: tp.Sequence[int]) -> tp.List[tp.Tuple[int, int, int]]:
+    """Split the decode offsets ``[first, S)`` into segments of growing KV
+    capacity: ``[(start, end, capacity), ...]``.
+
+    The step at offset ``o`` writes cache position ``prepend_len + o - 1``,
+    so a segment under capacity ``c`` covers offsets ``o <= c - prepend_len``;
+    the first must also hold the prefill (``prepend_len + first`` positions).
+    Capacities are used in ascending order; the full capacity ``S +
+    prepend_len`` is always the last."""
+    full = S + prepend_len
+    caps = sorted({int(c) for c in capacities if int(c) < full}) + [full]
+    caps = [c for c in caps if c >= prepend_len + first] or [full]
+    segs: tp.List[tp.Tuple[int, int, int]] = []
+    start = first
+    for c in caps:
+        if start >= S:
+            break
+        end = S if c >= full else min(S, c - prepend_len + 1)
+        if end > start:
+            segs.append((start, end, c))
+            start = end
+    if not segs:                       # prompt == max_gen_len: prefill only
+        segs = [(first, S, caps[0])]
+    if segs[-1][1] < S:
+        segs.append((segs[-1][1], S, full))
+    return segs
+
+
+def _auto_capacities(full: int, min_bucket: int = 256) -> tp.List[int]:
+    """Doubling bucket ladder below ``full`` (256, 512, 1024, ...), from a
+    full capacity of 1024 up, as in the JAX package (whose threshold is a TPU
+    measurement; no card number moves it yet)."""
+    if full < 1024:
+        return []
+    caps = []
+    c = min_bucket
+    while c < full:
+        caps.append(c)
+        c *= 2
+    return caps
 
 
 class LMOutput(tp.NamedTuple):
@@ -51,6 +120,7 @@ class LMModel(torch.nn.Module):
                  qk_layer_norm_cross: bool = False, activation: str = 'gelu',
                  attn_kernel: tp.Union[bool, str] = False,
                  pattern_provider: tp.Optional[CodebooksPatternProvider] = None,
+                 cfg_coef: float = 3.0,
                  generator: tp.Optional[torch.Generator] = None):
         super().__init__()
         if weight_init not in (None, 'gaussian'):
@@ -59,6 +129,7 @@ class LMModel(torch.nn.Module):
         self.pattern_provider = pattern_provider
         self.n_q, self.card, self.dim = n_q, card, dim
         self.cross_attention = cross_attention
+        self.cfg_coef = cfg_coef
         std = 1.0 / math.sqrt(dim)
         emb = [init.normal((card + 1, dim), std, generator, truncate=3.0)
                if weight_init == 'gaussian' else init.normal((card + 1, dim), 1.0, generator)
@@ -94,14 +165,28 @@ class LMModel(torch.nn.Module):
         return torch.stack([emb(sequence[:, k].long()) for k, emb in enumerate(self.emb)],
                            dim=1).sum(1)
 
+    @property
+    def float_dtype(self) -> torch.dtype:
+        """The dtype of the floating weights (the compute dtype)."""
+        return self.emb[0].weight.dtype
+
     def apply_heads(self, out: torch.Tensor) -> torch.Tensor:
-        """out [B, S, dim] -> fp32 logits [B, K, S, card]."""
-        out = out.float()
+        """out [B, S, dim] -> fp32 logits [B, K, S, card]; quantized heads
+        take the integer values in fp32 sums and scale by row (int8) or
+        group (int4)."""
         logits = []
         for lin in self.linears:
-            y = F.linear(out, lin.weight.float())
+            if isinstance(lin.weight, QuantizedWeight):
+                y = lin.weight.matmul(out)
+            else:
+                y = F.linear(out.float(), lin.weight.float())
             logits.append(y if lin.bias is None else y + lin.bias.float())
         return torch.stack(logits, dim=1)
+
+    def init_cache(self, batch: int, capacity: int, dtype: tp.Optional[torch.dtype] = None,
+                   kv_dtype: tp.Optional[str] = None) -> tp.List[KVCache]:
+        return self.transformer.init_cache(batch, capacity, dtype or self.float_dtype,
+                                           kv_dtype, self.emb[0].weight.device)
 
     def cross_source(self, condition_tensors: tp.Mapping[str, ConditionType],
                      batch: int) -> tp.Optional[torch.Tensor]:
@@ -114,16 +199,21 @@ class LMModel(torch.nn.Module):
     def forward(self, sequence: torch.Tensor,
                 condition_tensors: tp.Mapping[str, ConditionType],
                 cross_kv: tp.Optional[tp.Sequence[CrossKV]] = None,
-                attn_mask: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
-        """sequence [B, K, S] -> logits [B, K, S, card] (no cache)."""
+                attn_mask: tp.Optional[torch.Tensor] = None,
+                caches: tp.Optional[tp.Sequence[KVCache]] = None,
+                first_step: bool = True) -> torch.Tensor:
+        """sequence [B, K, S] -> logits [B, K, S, card].  With ``caches`` the
+        steps continue at their index and are appended to them in place;
+        ``first_step`` False skips the prepended conditions (streaming)."""
         B, K, S = sequence.shape
         if K != self.n_q:
             raise ValueError(f"sequence has {K} codebooks, the model {self.n_q}")
-        x, cross_src = self.fuser(self.embed_sequence(sequence), condition_tensors)
+        x, cross_src = self.fuser(self.embed_sequence(sequence), condition_tensors,
+                                  first_step=first_step)
         if cross_kv is not None:
             cross_src = None
         out = self.transformer(x, cross_attention_src=cross_src, cross_kv=cross_kv,
-                               attn_mask=attn_mask)
+                               attn_mask=attn_mask, caches=caches)
         if self.out_norm is not None:
             out = self.out_norm(out)
         logits = self.apply_heads(out)
@@ -147,3 +237,137 @@ class LMModel(torch.nn.Module):
                                                         keep_only_valid_steps=True)
         mask = torch.as_tensor(mask, device=codes.device)[None].expand(B, K, T)
         return LMOutput(logits.permute(0, 2, 3, 1), mask)
+
+    # -------------------------------------------------------------- generate
+    def _combine_cfg(self, all_logits: torch.Tensor, B: int, has_cfg: bool, cfg_coef: float,
+                     cfg_coef_beta: tp.Optional[float] = None) -> torch.Tensor:
+        if not has_cfg:
+            return all_logits
+        if cfg_coef_beta is not None:
+            # double CFG (MusicGen-Style): groups [text+style, style only, null]
+            cond, wav, uncond = all_logits[:B], all_logits[B:2 * B], all_logits[2 * B:3 * B]
+            return uncond + cfg_coef * (wav + cfg_coef_beta * (cond - wav) - uncond)
+        cond, uncond = all_logits[:B], all_logits[B:2 * B]
+        return uncond + (cond - uncond) * cfg_coef
+
+    def _decode_plan(self, pattern, S: int, B: int, T: int, conditions, two_step: bool,
+                     use_sampling: bool, temp: float, top_k: int, top_p: float,
+                     cfg_coef: float, cfg_coef_beta: tp.Optional[float],
+                     kv_dtype: tp.Optional[str],
+                     kv_buckets: tp.Union[None, str, tp.Sequence[int]]) -> dict:
+        """The shapes, segments and settings of one generate over a pattern
+        sequence of S steps (host only)."""
+        S0 = pattern.get_first_step_with_timesteps(T)
+        if S0 is None or S0 < 1:
+            raise ValueError(f"the pattern has no step to prefill before timestep {T}")
+        main = conditions[0] if two_step else conditions
+        has_cfg = len(main) > 0
+        n_groups = 3 if cfg_coef_beta is not None else 2
+        if not has_cfg or two_step:
+            n_groups = 1
+        prepend_len = 0
+        if self.fuser.has_prepend and has_cfg:
+            prepend_len = sum(main[name][0].shape[1] for name in self.fuser.fuse_list('prepend')
+                              if name in main)
+        capacity = S + prepend_len
+        if kv_buckets is None:
+            segments = [(S0 + 1, S, capacity)]
+        else:
+            caps = _auto_capacities(capacity) if kv_buckets == 'auto' else kv_buckets
+            segments = _plan_cache_segments(S0 + 1, S, prepend_len, caps)
+        return dict(S=S, S0=S0, batch=B, model_batch=n_groups * B, n_groups=n_groups,
+                    has_cfg=has_cfg, two_step=two_step, segments=segments,
+                    device=self.emb[0].weight.device, cache_dtype=self.float_dtype,
+                    kv_dtype=kv_dtype,
+                    use_sampling=use_sampling, temp=temp, top_k=top_k, top_p=top_p,
+                    cfg_coef=cfg_coef, cfg_coef_beta=cfg_coef_beta)
+
+    def _cast_for_decode(self, compute_dtype, graph_cache: tp.Optional[DecodeCache]
+                         ) -> "LMModel":
+        if compute_dtype is None:
+            return self
+        dtype = getattr(torch, compute_dtype) if isinstance(compute_dtype, str) else compute_dtype
+        if dtype == self.float_dtype:
+            return self
+        if graph_cache is None:
+            return copy.deepcopy(self).to(dtype)
+        return graph_cache.cast(self, dtype)
+
+    @torch.no_grad()
+    def generate(self, generator: tp.Optional[torch.Generator] = None,
+                 prompt: tp.Optional[torch.Tensor] = None,
+                 condition_tensors: tp.Union[None, Conditions,
+                                             tp.Tuple[Conditions, Conditions]] = None,
+                 num_samples: int = 1, max_gen_len: int = 256, use_sampling: bool = True,
+                 temp: float = 1.0, top_k: int = 250, top_p: float = 0.0,
+                 cfg_coef: tp.Optional[float] = None,
+                 cfg_coef_beta: tp.Optional[float] = None, remove_prompts: bool = False,
+                 compute_dtype: tp.Union[None, str, torch.dtype] = None,
+                 kv_dtype: tp.Optional[str] = None,
+                 kv_buckets: tp.Union[None, str, tp.Sequence[int]] = None,
+                 graph_cache: tp.Optional[DecodeCache] = None, *,
+                 _eager: bool = False, _state_out: tp.Optional[list] = None) -> torch.Tensor:
+        """Autoregressive generation over the pattern sequence -> codes
+        [B, K, max_gen_len] int64 (the prompt included unless
+        ``remove_prompts``).
+
+        CFG forms: ``condition_tensors`` a dict whose rows are [conditions;
+        null conditions] (1-pass, the model batch doubled), or with
+        ``cfg_coef_beta`` [text+style; style only; null] (double CFG,
+        tripled); a (conditions, null) tuple runs two-step CFG, two forwards a
+        step with two caches.  ``compute_dtype`` runs a copy of the model in
+        that dtype (logits, CFG and sampling stay fp32; with a
+        ``graph_cache`` the copy is kept there and refreshed from this
+        model's weights at each call); ``kv_dtype='int8'`` stores the caches
+        quantized; ``kv_buckets`` ('auto', a list of capacities, or None)
+        grows the caches in segments.  ``generator`` draws the sampling
+        uniforms (up front; none when greedy).  ``graph_cache``: a
+        :class:`DecodeCache` in which the decode states, with their CUDA
+        graphs, are kept by signature and reused.  ``_eager`` runs every step
+        eagerly on the card too (to hold the graphs against), and
+        ``_state_out`` receives the decode state."""
+        cfg_coef = self.cfg_coef if cfg_coef is None else cfg_coef
+        lm = self._cast_for_decode(compute_dtype, graph_cache)
+        prepare_for_decode(lm)
+        device, dtype = lm.emb[0].weight.device, lm.float_dtype
+        two_step = isinstance(condition_tensors, tuple)
+
+        def cast(conds: tp.Optional[Conditions]) -> tp.Dict[str, ConditionType]:
+            return {name: (t.to(device=device, dtype=dtype if t.is_floating_point() else t.dtype),
+                           m.to(device)) for name, (t, m) in (conds or {}).items()}
+
+        conditions = (tuple(cast(c) for c in condition_tensors) if two_step
+                      else cast(condition_tensors))
+        if prompt is None:
+            prompt = torch.zeros(num_samples, self.n_q, 0, dtype=torch.long)
+        prompt = prompt.to(device=device, dtype=torch.long)
+        B, K, T = prompt.shape
+        if self.pattern_provider is None:
+            raise ValueError("generate needs a model built with a pattern_provider")
+        if T > max_gen_len:
+            raise ValueError(f"prompt of {T} frames is longer than max_gen_len {max_gen_len}")
+        pattern = self.pattern_provider.get_pattern(max_gen_len)
+        gen_codes = torch.full((B, K, max_gen_len), UNKNOWN_TOKEN, dtype=torch.long,
+                               device=device)
+        gen_codes[..., :T] = prompt
+        gen_sequence, _, mask = pattern.build_pattern_sequence(gen_codes, self.special_token_id)
+        plan = lm._decode_plan(pattern, gen_sequence.shape[-1], B, T, conditions, two_step,
+                               use_sampling, temp, top_k, top_p, cfg_coef, cfg_coef_beta,
+                               kv_dtype, tuple(kv_buckets) if isinstance(kv_buckets, list)
+                               else kv_buckets)
+        plan['mask'] = mask
+
+        groups = conditions if two_step else (conditions,)
+        key = (id(lm), _eager, _weights_key(lm),
+               tuple(sorted((k, str(v)) for k, v in plan.items() if k != 'mask')),
+               tuple((name, tuple(t.shape), tuple(m.shape)) for c in groups
+                     for name, (t, m) in c.items()))
+        make = lambda: DecodeState(lm, plan, conditions)  # noqa: E731
+        state = make() if graph_cache is None else graph_cache.state(key, make)
+        state.load(gen_sequence, conditions, generator)
+        state.prefill()
+        state.run(_eager)
+        if _state_out is not None:
+            _state_out.append(state)
+        out_codes = pattern.revert_pattern_sequence(state.seq, special_token=UNKNOWN_TOKEN)[0]
+        return out_codes[..., T if remove_prompts else 0:max_gen_len]

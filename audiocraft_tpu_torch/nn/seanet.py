@@ -7,10 +7,16 @@ index too, so parameter names match the reference state dict
 (``encoder.model.{i}.conv.conv.weight``, ``encoder.model.{i}.block.{1,3}...``,
 ``encoder.model.{i}.lstm.weight_ih_l0``).  An fp32 stack runs its cuDNN
 convs without TF32 (``conv.fp32_convs``), whatever the caller's flag.
+
+``split_index``, the corruption radii and the ``start_layer`` /
+``stop_layer`` slices are what ``codec/chunked.py`` windows by: the
+encoder's time-local conv front and the decoder's upsampling tail run per
+window, the LSTM (unbounded receptive field) once on the whole sequence.
 """
 
 from __future__ import annotations
 
+import math
 import typing as tp
 
 import numpy as np
@@ -21,6 +27,37 @@ from .activations import Activation
 from .conv import (StreamableConv1d, StreamableConvTranspose1d, fp32_convs,
                    get_extra_padding_for_conv1d, pad1d)
 from .lstm import StreamableLSTM
+
+
+def corruption_radius(layers: tp.Sequence[torch.nn.Module], lo: int,
+                      hi: int) -> tp.Tuple[int, int]:
+    """(left, right) corruption radius of the layer slice ``[lo, hi)`` run on
+    an interior time chunk: how far the layers' own pads at the chunk edges
+    (standing in for the true neighbouring signal) reach into the slice's
+    output, in its time base.  A conv of stride s with one-sided pads pl, pr
+    turns a corrupt width c into ceil((c + pl) / s); a transposed conv into
+    c * s + pr (mirrored on the right); activations and skips are neutral."""
+    c_l = c_r = 0
+    for layer in layers[lo:hi]:
+        if isinstance(layer, StreamableLSTM):
+            raise ValueError("an LSTM has an unbounded receptive field")
+        if isinstance(layer, StreamableConvTranspose1d):
+            p = layer.kernel_size - layer.stride
+            pr = math.ceil(p * layer.trim_right_ratio) if layer.causal else p // 2
+            c_l, c_r = c_l * layer.stride + pr, c_r * layer.stride + (p - pr)
+            continue
+        convs: tp.List[StreamableConv1d] = []
+        if isinstance(layer, StreamableConv1d):
+            convs = [layer]
+        elif isinstance(layer, SEANetResnetBlock):
+            convs = [m for m in layer.block if isinstance(m, StreamableConv1d)]
+        for conv in convs:
+            p = conv.effective_kernel_size - conv.stride
+            pl = p if conv.causal else p // 2
+            s = conv.stride
+            c_l = max(0, -(-(c_l + pl) // s))
+            c_r = max(0, -(-(c_r + p - pl) // s))
+    return c_l, c_r
 
 
 class SEANetResnetBlock(torch.nn.Module):
@@ -108,15 +145,35 @@ class SEANetEncoder(torch.nn.Module):
     def enc_ratios(self) -> tp.Tuple[int, ...]:
         return tuple(reversed(self.ratios))
 
+    @property
+    def split_index(self) -> int:
+        """The layer that ends the time-local conv front: the LSTM, or the
+        final activation and conv when there is none."""
+        for i, layer in enumerate(self.model):
+            if isinstance(layer, StreamableLSTM):
+                return i
+        return len(self.model) - 2
+
+    def front_corruption_radius(self) -> tp.Tuple[int, int]:
+        """Corruption radius of the front, in front-output frames."""
+        return corruption_radius(self.model, 0, self.split_index)
+
     def forward(self, x: torch.Tensor, fused_stages: int = 0,
-                conv0_kernel: bool = False) -> torch.Tensor:
+                conv0_kernel: bool = False, start_layer: int = 0,
+                stop_layer: tp.Optional[int] = None) -> torch.Tensor:
         """[B, C, T] -> [B, dimension, T / hop_length].
 
         ``conv0_kernel`` runs the mono input conv through K5 and consumes
         layer 0.  ``fused_stages > 0`` then runs the input conv and the first
         N planned stages through K4, but only while layer 0 is still to do;
-        an ineligible config or length runs the module stack instead."""
+        an ineligible config or length runs the module stack instead.
+        ``start_layer`` / ``stop_layer`` run the layer slice
+        ``[start_layer, stop_layer)`` alone, on the module stack."""
         with fp32_convs(x.dtype):
+            if start_layer or stop_layer is not None:
+                for layer in self.model[start_layer:stop_layer]:
+                    x = layer(x)
+                return x
             start = 0
             if conv0_kernel:
                 y = self._conv0_kernel(x)
@@ -191,9 +248,24 @@ class SEANetDecoder(torch.nn.Module):
                                        pad_mode=pad_mode, **conv))
         self.model = torch.nn.ModuleList(layers)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        """[B, dimension, T_frames] -> [B, channels, T_frames * hop_length]."""
+    @property
+    def split_index(self) -> int:
+        """The first layer of the time-local upsampling tail: after the LSTM,
+        or after the input conv when there is none."""
+        for i, layer in enumerate(self.model):
+            if isinstance(layer, StreamableLSTM):
+                return i + 1
+        return 1
+
+    def tail_corruption_radius(self) -> tp.Tuple[int, int]:
+        """Corruption radius of the tail, in output samples."""
+        return corruption_radius(self.model, self.split_index, len(self.model))
+
+    def forward(self, z: torch.Tensor, start_layer: int = 0,
+                stop_layer: tp.Optional[int] = None) -> torch.Tensor:
+        """[B, dimension, T_frames] -> [B, channels, T_frames * hop_length];
+        ``start_layer`` / ``stop_layer`` run the slice ``[start_layer, stop_layer)``."""
         with fp32_convs(z.dtype):
-            for layer in self.model:
+            for layer in self.model[start_layer:stop_layer]:
                 z = layer(z)
         return z

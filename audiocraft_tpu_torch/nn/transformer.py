@@ -1,4 +1,4 @@
-"""Streaming transformer without a cache
+"""Streaming transformer with a KV cache
 (counterpart of ``audiocraft_tpu/nn/transformer.py``).
 
 Modules keep the reference audiocraft state-dict names
@@ -9,28 +9,44 @@ package's ``ckpt/torch_import.import_lm`` unchanged.
 
 Numerics follow the JAX package: projections in the input dtype, layer norms
 in fp32 and cast back, attention with q pre-scaled, fp32 scores, softmax and
-products, cast back.  Full-sequence self-attention with no extra mask and no
-``past_context`` goes to the hand-written kernel (``ops/attention.py``) when
-``attn_kernel`` routes it and the head is at most ``MAX_HEAD_DIM`` wide;
-every other call (MAGNeT's banded stages, cross-attention, ``past_context``
-windows, wider heads) stays on the plain masked path, as in the JAX
-package.  The kernel route is differentiable: on the card its gradient comes
-from the backward kernels (K3b), so training takes it too.
+products, cast back.  Full-sequence self-attention with no extra mask, no
+``past_context`` and no cache goes to the hand-written kernel
+(``ops/attention.py``) when ``attn_kernel`` routes it and the head is at most
+``MAX_HEAD_DIM`` wide; every other call (MAGNeT's banded stages,
+cross-attention, ``past_context`` windows, wider heads, every call with a
+cache) stays on the plain masked path, as in the JAX package.  The kernel
+route is differentiable: on the card its gradient comes from the backward
+kernels (K3b), so training takes it too.
 
-Not ported yet: the KV cache and its growth, int8 KV, RoPE (and the
-positional options beside 'sin'), ``kv_repeat > 1``, scanned and
-checkpointed (rematerialised) layers.
+The KV cache (:class:`KVCache`) is a fixed-capacity buffer per layer,
+written in place at the stack's position ``index``: a 0-d int64 tensor on
+the cache's device, one for the whole stack, which the stack advances after
+its layers.  Nothing reads it back to the host, so a decode step reads and
+writes only device tensors at fixed addresses and can be captured once as a
+CUDA graph and replayed (``lm/model.py``).  Attention over a cache reads the
+whole capacity and masks it by position (``delta >= 0``, and ``delta <=
+past_context`` where set), as the JAX package does; :func:`grow_cache` pads
+the capacity.  ``KVCache.create(quantized=True)`` stores int8 with fp32
+scales per position and head (:func:`_kv_quantize`, attended by
+``_attend_int8``).  Projections read plain weights or the weight-only int8
+and int4 leaves of ``lm/quantize.py`` (:func:`linear_w`).
+
+Not ported: RoPE (and the positional options beside 'sin'), ``kv_repeat >
+1``, scanned and checkpointed (rematerialised) layers; no factory in
+``builders.py`` uses them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import typing as tp
 
 import torch
 import torch.nn.functional as F
 
-from ..ops.attention import causal_mask, fused_attention, kernel_route, plain_attention
+from ..ops.attention import (additive_mask, causal_mask, fused_attention, kernel_route,
+                             plain_attention)
 from . import init
 from .activations import get_activation_fn
 
@@ -74,6 +90,175 @@ class LayerScale(torch.nn.Module):
         return self.scale * x
 
 
+@dataclasses.dataclass
+class KVCache:
+    """Fixed-capacity KV cache of one attention module, written in place.
+
+    ``k``, ``v`` [B, Tmax, H, Dh] in the compute dtype, or int8 with fp32
+    scales ``k_scale``, ``v_scale`` [B, Tmax, H] when quantized.  ``index``
+    is the number of valid positions, a 0-d int64 tensor on the cache's
+    device that every layer of a stack shares (``StreamingTransformer``
+    advances it once per forward)."""
+    k: torch.Tensor
+    v: torch.Tensor
+    index: torch.Tensor
+    k_scale: tp.Optional[torch.Tensor] = None
+    v_scale: tp.Optional[torch.Tensor] = None
+
+    @classmethod
+    def create(cls, batch: int, capacity: int, num_heads: int, head_dim: int,
+               dtype: torch.dtype = torch.float32, quantized: bool = False,
+               device: tp.Union[str, torch.device, None] = None,
+               index: tp.Optional[torch.Tensor] = None) -> "KVCache":
+        if index is None:
+            index = torch.zeros((), dtype=torch.long, device=device)
+        shape = (batch, capacity, num_heads, head_dim)
+        if quantized:
+            return cls(k=torch.zeros(shape, dtype=torch.int8, device=device),
+                       v=torch.zeros(shape, dtype=torch.int8, device=device), index=index,
+                       k_scale=torch.zeros(shape[:3], device=device),
+                       v_scale=torch.zeros(shape[:3], device=device))
+        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device), index=index)
+
+    @property
+    def capacity(self) -> int:
+        return self.k.shape[1]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    def tensors(self) -> tp.List[torch.Tensor]:
+        return [t for t in (self.k, self.v, self.k_scale, self.v_scale) if t is not None]
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.tensors())
+
+
+def grow_cache(caches: tp.Sequence[KVCache], new_capacity: int,
+               out: tp.Optional[tp.Sequence[KVCache]] = None) -> tp.List[KVCache]:
+    """Pad the time axis of every cache to ``new_capacity`` with zeros; the
+    shared ``index`` is kept (the same tensor).  With ``out`` (caches of that
+    capacity) the padded caches are written into it in place, so a decode
+    step captured over ``out`` stays valid.
+
+    Exact: a padded position is never attended (its delta to any query is
+    negative, so its logit is -inf), and on the int8 path its scales are 0,
+    so the softmax and the tokens equal the full-capacity ones."""
+    grown = []
+    for i, c in enumerate(caches):
+        pad = new_capacity - c.capacity
+        if pad < 0:
+            raise ValueError(f"cannot shrink a cache of {c.capacity} to {new_capacity}")
+        if out is None:
+            grown.append(KVCache(
+                k=F.pad(c.k, (0, 0, 0, 0, 0, pad)), v=F.pad(c.v, (0, 0, 0, 0, 0, pad)),
+                index=c.index,
+                k_scale=None if c.k_scale is None else F.pad(c.k_scale, (0, 0, 0, pad)),
+                v_scale=None if c.v_scale is None else F.pad(c.v_scale, (0, 0, 0, pad))))
+            continue
+        dst = out[i]
+        if dst.capacity != new_capacity or dst.index is not c.index:
+            raise ValueError("out must hold caches of the new capacity sharing the index")
+        for src_t, dst_t in zip(c.tensors(), dst.tensors()):
+            dst_t[:, c.capacity:].zero_()
+            dst_t[:, :c.capacity].copy_(src_t)
+        grown.append(dst)
+    return grown
+
+
+def _kv_quantize(x: torch.Tensor) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 per (batch, position, head): x [B, T, H, D] ->
+    (int8 [B, T, H, D], fp32 scale [B, T, H])."""
+    xf = x.float()
+    scale = (xf.abs().amax(dim=-1) / 127.0).clamp_min(1e-20)
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+class QuantizedWeight(torch.nn.Module):
+    """A weight-only quantized [out, in] matrix (see ``lm/quantize.py``), held
+    as buffers: int8 ``q`` [out, in] with a scale ``s`` [out] per output row,
+    or int4 nibbles packed two a byte in ``q4p`` [out, in / 2] with ``s``
+    [out, in / group] per input group.  ``prepare()`` unpacks int4 once per
+    generate, for its decode steps to read (the JAX package's
+    ``prepare_for_decode``)."""
+
+    def __init__(self, leaf: tp.Mapping[str, torch.Tensor]):
+        super().__init__()
+        if set(leaf) not in ({'q', 's'}, {'q4p', 's'}):
+            raise ValueError(f"a quantized leaf holds q and s, or q4p and s, not {sorted(leaf)}")
+        for name, value in leaf.items():
+            self.register_buffer(name, value)
+        self.register_buffer('q4', None, persistent=False)
+
+    @property
+    def mode(self) -> str:
+        return 'int8' if hasattr(self, 'q') else 'int4'
+
+    def prepare(self) -> None:
+        if self.mode != 'int4':
+            return
+        from ..lm.quantize import unpack_int4
+        if self.q4 is None:
+            self.q4 = unpack_int4(self.q4p)
+        else:   # in place: graphs captured over q4 read the packed weights' new values
+            self.q4.copy_(unpack_int4(self.q4p))
+
+    def int4_values(self) -> torch.Tensor:
+        if self.q4 is not None:
+            return self.q4
+        from ..lm.quantize import unpack_int4
+        return unpack_int4(self.q4p)
+
+    def matmul(self, x: torch.Tensor, rows: tp.Optional[slice] = None) -> torch.Tensor:
+        """``x @ W[rows].T`` with fp32 sums: int8 scales the product by row,
+        int4 sums the groups' products scaled by group.  fp32 result."""
+        s = self.s if rows is None else self.s[rows]
+        if self.mode == 'int8':
+            q = self.q if rows is None else self.q[rows]
+            return F.linear(x.float(), q.float()) * s.float()
+        q = self.int4_values()
+        q = q if rows is None else q[rows]
+        o_dim, i_dim = q.shape
+        g = s.shape[-1]
+        xg = x.float().reshape(*x.shape[:-1], g, i_dim // g)
+        t = torch.einsum('...gl,ogl->...og', xg, q.float().reshape(o_dim, g, i_dim // g))
+        return torch.einsum('...og,og->...o', t, s.float())
+
+
+class QuantizedLinear(torch.nn.Module):
+    """An ``nn.Linear`` whose weight is a :class:`QuantizedWeight`; the bias
+    stays floating point."""
+
+    def __init__(self, weight: QuantizedWeight, bias: tp.Optional[torch.Tensor]):
+        super().__init__()
+        self.weight = weight
+        self.bias = bias if bias is None else torch.nn.Parameter(bias, requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear_w(x, self.weight, self.bias)
+
+
+def linear_w(x: torch.Tensor, w: tp.Union[torch.Tensor, QuantizedWeight],
+             bias: tp.Optional[torch.Tensor] = None,
+             rows: tp.Optional[slice] = None) -> torch.Tensor:
+    """``x @ W[rows].T (+ bias)`` where W is a plain matrix or a
+    :class:`QuantizedWeight`, with the JAX package's numerics: int8 runs the
+    product in x's dtype on the integer values and scales the rounded result
+    by row; int4 sums each group's product in fp32 and casts back."""
+    if isinstance(w, QuantizedWeight):
+        if w.mode == 'int8':
+            q, s = (w.q, w.s) if rows is None else (w.q[rows], w.s[rows])
+            y = F.linear(x, q.to(x.dtype))
+            y = y * s.to(y.dtype)
+        else:
+            y = w.matmul(x, rows).to(x.dtype)
+        return y if bias is None else y + bias
+    return F.linear(x, w if rows is None else w[rows], bias)
+
+
 class StreamingMultiheadAttention(torch.nn.Module):
     """Multi-head self- or cross-attention with a fused ``in_proj_weight``
     [3E, E] (rows q, k, v).  ``attn_kernel``: see :func:`ops.attention.kernel_route`."""
@@ -108,7 +293,7 @@ class StreamingMultiheadAttention(torch.nn.Module):
         E = self.embed_dim
         rows = slice(part * E, (part + 1) * E)
         b = self.in_proj_bias[rows] if self.in_proj_bias is not None else None
-        return F.linear(x, self.in_proj_weight[rows], b)
+        return linear_w(x, self.in_proj_weight, b, rows=rows)
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
         return x.unflatten(-1, (self.num_heads, self.head_dim))
@@ -126,13 +311,60 @@ class StreamingMultiheadAttention(torch.nn.Module):
         mask = causal_mask(t, device, self.past_context)
         return mask if attn_mask is None else mask + attn_mask
 
+    def _attend_int8(self, q: torch.Tensor, cache: KVCache,
+                     mask: torch.Tensor) -> torch.Tensor:
+        """Attention over an int8 cache: the integer values enter both
+        products in q's dtype with fp32 sums; the K scales multiply the
+        logits, the V scales fold into the probabilities (rounded to q's
+        dtype before the second product, as in the JAX package)."""
+        dtype = q.dtype
+        scale = 1.0 / math.sqrt(self.head_dim)
+        qs = (q * scale).float().transpose(1, 2)                        # [B, H, Tq, D]
+        logits = torch.matmul(qs, cache.k.float().permute(0, 2, 3, 1))  # [B, H, Tq, Tk]
+        logits = logits * cache.k_scale.transpose(1, 2)[:, :, None, :] + mask
+        w = torch.softmax(logits, dim=-1)
+        wv = (w * cache.v_scale.transpose(1, 2)[:, :, None, :]).to(dtype).float()
+        out = torch.matmul(wv, cache.v.float().transpose(1, 2))        # [B, H, Tq, D]
+        return out.transpose(1, 2).to(dtype)
+
+    def _attend_cache(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache: KVCache,
+                      attn_mask: tp.Optional[torch.Tensor]) -> torch.Tensor:
+        """Write the new k, v at the cache's index, then attend over the
+        whole capacity, masked by position."""
+        Tq = q.shape[1]
+        pos = cache.index + torch.arange(Tq, device=q.device)           # positions written
+        if cache.quantized:
+            kq, ks = _kv_quantize(k)
+            vq, vs = _kv_quantize(v)
+            for dst, src in ((cache.k, kq), (cache.v, vq), (cache.k_scale, ks),
+                             (cache.v_scale, vs)):
+                dst.index_copy_(1, pos, src)
+        else:
+            cache.k.index_copy_(1, pos, k.to(cache.k.dtype))
+            cache.v.index_copy_(1, pos, v.to(cache.v.dtype))
+        delta = pos[:, None] - torch.arange(cache.capacity, device=q.device)[None, :]
+        valid = delta >= 0
+        if self.past_context is not None:
+            valid &= delta <= self.past_context
+        mask = additive_mask(valid)                                     # [1, 1, Tq, Tk]
+        if attn_mask is not None:
+            mask = mask + attn_mask
+        if cache.quantized:
+            return self._attend_int8(q, cache, mask)
+        return plain_attention(q, cache.k, cache.v, mask, 1.0 / math.sqrt(self.head_dim))
+
     def forward(self, query: torch.Tensor, key: tp.Optional[torch.Tensor] = None,
                 value: tp.Optional[torch.Tensor] = None,
                 cross_kv: tp.Optional[CrossKV] = None,
-                attn_mask: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+                attn_mask: tp.Optional[torch.Tensor] = None,
+                cache: tp.Optional[KVCache] = None) -> torch.Tensor:
+        """With a ``cache`` (self-attention only) the new keys and values are
+        written into it at its index, which the caller advances."""
         B, Tq, E = query.shape
         scale = 1.0 / math.sqrt(self.head_dim)
         if self.cross_attention:
+            if cache is not None:
+                raise ValueError("cross-attention takes no cache")
             q = self._proj(query, 0)
             if self.q_layer_norm is not None:
                 q = self.q_layer_norm(q)
@@ -148,11 +380,13 @@ class StreamingMultiheadAttention(torch.nn.Module):
             out = plain_attention(self._heads(q), k, v, attn_mask, scale)
         else:
             # fused qkv projection; q, k, v stay strided views of it
-            q, k, v = F.linear(query, self.in_proj_weight, self.in_proj_bias).split(E, dim=-1)
+            q, k, v = linear_w(query, self.in_proj_weight, self.in_proj_bias).split(E, dim=-1)
             if self.q_layer_norm is not None:
                 q, k = self.q_layer_norm(q), self.k_layer_norm(k)
             q, k, v = self._heads(q), self._heads(k), self._heads(v)
-            if (attn_mask is None and Tq > 1 and self.past_context is None
+            if cache is not None:
+                out = self._attend_cache(q, k, v, cache, attn_mask)
+            elif (attn_mask is None and Tq > 1 and self.past_context is None
                     and kernel_route(self.attn_kernel, self.head_dim)):
                 out = fused_attention(q, k, v, causal=self.causal, sm_scale=scale)
             else:
@@ -199,7 +433,8 @@ class StreamingTransformerLayer(torch.nn.Module):
 
     def forward(self, x: torch.Tensor, cross_attention_src: tp.Optional[torch.Tensor] = None,
                 cross_kv: tp.Optional[CrossKV] = None,
-                attn_mask: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+                attn_mask: tp.Optional[torch.Tensor] = None,
+                cache: tp.Optional[KVCache] = None) -> torch.Tensor:
         has_cross = cross_attention_src is not None or cross_kv is not None
         if has_cross != (self.cross_attention is not None):
             raise ValueError("a condition for cross-attention must be given exactly when the "
@@ -209,13 +444,16 @@ class StreamingTransformerLayer(torch.nn.Module):
             return self.cross_attention(q, key=cross_attention_src, value=cross_attention_src,
                                         cross_kv=cross_kv)
 
+        def self_attn(q):
+            return self.self_attn(q, attn_mask=attn_mask, cache=cache)
+
         if self.norm_first:
-            x = x + self.layer_scale_1(self.self_attn(self.norm1(x), attn_mask=attn_mask))
+            x = x + self.layer_scale_1(self_attn(self.norm1(x)))
             if has_cross:
                 x = x + self.layer_scale_cross(cross(self.norm_cross(x)))
             return x + self.layer_scale_2(self._ff(self.norm2(x)))
         src = x  # post-norm cross-attention queries the layer's input
-        x = self.norm1(x + self.layer_scale_1(self.self_attn(x, attn_mask=attn_mask)))
+        x = self.norm1(x + self.layer_scale_1(self_attn(x)))
         if has_cross:
             x = self.norm_cross(x + self.layer_scale_cross(cross(src)))
         return self.norm2(x + self.layer_scale_2(self._ff(x)))
@@ -243,16 +481,44 @@ class StreamingTransformer(torch.nn.Module):
                 attn_kernel=attn_kernel, generator=generator)
             for _ in range(num_layers))
 
+    @property
+    def num_heads(self) -> int:
+        return self.layers[0].self_attn.num_heads
+
+    @property
+    def head_dim(self) -> int:
+        return self.layers[0].self_attn.head_dim
+
+    def init_cache(self, batch: int, capacity: int, dtype: torch.dtype = torch.float32,
+                   kv_dtype: tp.Optional[str] = None,
+                   device: tp.Union[str, torch.device, None] = None) -> tp.List[KVCache]:
+        """One cache a layer, sharing one index.  ``kv_dtype='int8'`` stores
+        them quantized; None keeps float caches in ``dtype``."""
+        if kv_dtype not in (None, 'int8'):
+            raise ValueError(f"kv_dtype {kv_dtype!r}: None or 'int8'")
+        index = torch.zeros((), dtype=torch.long, device=device)
+        return [KVCache.create(batch, capacity, self.num_heads, self.head_dim, dtype,
+                               quantized=kv_dtype == 'int8', device=device, index=index)
+                for _ in self.layers]
+
     def precompute_cross_kv(self, source: torch.Tensor) -> tp.List[CrossKV]:
         return [layer.cross_attention.precompute_cross_kv(source) for layer in self.layers]
 
     def forward(self, x: torch.Tensor, cross_attention_src: tp.Optional[torch.Tensor] = None,
                 cross_kv: tp.Optional[tp.Sequence[CrossKV]] = None,
-                attn_mask: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+                attn_mask: tp.Optional[torch.Tensor] = None,
+                caches: tp.Optional[tp.Sequence[KVCache]] = None) -> torch.Tensor:
+        """With ``caches`` (from :meth:`init_cache`) positions start at their
+        index, each layer appends to its cache, and the index advances by T."""
         B, T, C = x.shape
         positions = torch.arange(T, device=x.device).view(1, -1, 1)
+        if caches is not None:
+            positions = positions + caches[0].index
         x = x + create_sin_embedding(positions, C).to(x.dtype)
         for i, layer in enumerate(self.layers):
             x = layer(x, cross_attention_src=cross_attention_src,
-                      cross_kv=None if cross_kv is None else cross_kv[i], attn_mask=attn_mask)
+                      cross_kv=None if cross_kv is None else cross_kv[i], attn_mask=attn_mask,
+                      cache=None if caches is None else caches[i])
+        if caches is not None:
+            caches[0].index.add_(T)
         return x

@@ -53,6 +53,22 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    routes against the plain route on the CPU.
 10. The data-movement probe (P1): ``apps/probe_ops`` runs its seven bf16
    operations on the card, each of which must equal torch's result.
+11. The MusicGen path: ``get_musicgen('small')`` (random weights from a
+   seed, the LM decoding in bf16) generates 30 s for 4 seeded descriptions
+   with 1-pass CFG and top-k sampling, its decode steps replayed as CUDA
+   graphs, and the codec decodes them (K2 twice); the capture, generate and
+   decode times, steps/s, tokens/s, audio-s/s, the KV-cache bytes and peak
+   memory are printed, beside the eager loop's whole generate and the
+   step's eager host and device ms, the replayed step's ms, the device's
+   idle share over replays and the attention's and heads' part of a step.
+   Then ``optimize_for_serving()`` on a copy of the LM, stride extension to
+   45 s at B = 1 (two windows; the tokens decoded in windows, K2 in the
+   head once), and the debug facade's public ``generate``,
+   ``generate_unconditional`` and ``generate_continuation`` (decoded in
+   windows).  Parity in fp32 (TF32 off) at 24 layers over 2 s: the graph
+   route's greedy and sampled tokens equal the eager loop's, the cached
+   steps' logits the cache-free forward's within 1e-4 relative, and the
+   card's greedy tokens the CPU's, or differ first at a near-tie.
 Phase 2 also holds K3b (the attention backward, both dtypes, at the model
 shapes and the tiles' edges), K4 (both 32 kHz stage shapes and the edges
 of its tiles; its resources, per-phase cycle split and weight bytes from L2
@@ -73,14 +89,18 @@ import time
 import typing as tp
 import warnings
 
+import numpy as np
 import torch
 
 from audiocraft_tpu_torch.apps import probe_ops, train_lm
-from audiocraft_tpu_torch.builders import get_encodec_32khz, get_magnet_lm, get_musicgen_lm
+from audiocraft_tpu_torch.builders import (get_encodec_32khz, get_magnet_lm, get_musicgen,
+                                           get_musicgen_lm)
 from audiocraft_tpu_torch.cond.attributes import (ClassifierFreeGuidanceDropout,
                                                   ConditioningAttributes)
 from audiocraft_tpu_torch.dist.train import lm_loss, lm_loss_and_grads, make_lm_train_step
 from audiocraft_tpu_torch.gen.magnet import get_debug_magnet
+from audiocraft_tpu_torch.gen.musicgen import MusicGen, get_debug_musicgen
+from audiocraft_tpu_torch.lm.decode import DecodeCache
 from audiocraft_tpu_torch.nn.transformer import StreamingMultiheadAttention
 from audiocraft_tpu_torch.ops import _build, attention
 from audiocraft_tpu_torch.ops import lstm as lstm_ops
@@ -122,6 +142,11 @@ CONV0_CHANNELS, CONV0_TAPS = 64, 7
 # (this script's phase 2 on the earlier designs, NVIDIA H100 80GB HBM3, 700.00 W)
 RVQ_OLD_MS, RVQ_OLD_WIDE_MS, MONO_OLD_MS = 6.267, 23.509, 5.797
 ENCODES = 3   # timed encodes per route in phase 9
+# MusicGen-small generate: 4 descriptions x 30 s with 1-pass CFG (model batch
+# 8, 1503 steps); stride extension to 45 s at B = 1; fp32 parity over 2 s;
+# the step timed over 50 steps from offset 1000
+MG_PROMPTS, MG_SECONDS, MG_STRIDE_SECONDS, MG_PARITY_SECONDS = 4, 30, 45, 2
+MG_TIMED_STEPS, MG_STEP_OFFSET = 50, 1000
 
 
 class CheckFailed(RuntimeError):
@@ -1712,6 +1737,412 @@ def phase_probe(device) -> tp.Tuple[tp.Dict[str, int], tp.Dict[str, dict]]:
               f'{entry["library_ms"]:.4f} ms', flush=True)
     return launches, entries
 
+class SeededT5Ids:
+    """Stands in for the T5 vocabulary, which is not in the repository: each
+    text becomes DESC_LEN ids seeded by its characters, with the HF
+    tokenizer's output keys (T5Conditioner.tokenize nulls empty texts)."""
+
+    def __call__(self, entries, return_tensors='np', padding=True):
+        ids = np.stack([np.random.RandomState(sum(map(ord, e)) + 1).randint(1, 32100, DESC_LEN)
+                        for e in entries])
+        return {'input_ids': ids, 'attention_mask': np.ones_like(ids)}
+
+
+def _musicgen_launches() -> tp.Dict[str, int]:
+    return {'rvq_encode': rvq_encode.launches, 'lstm_step': lstm_layer.launches,
+            'flash_attention': fused_attention.launches}
+
+
+def _reset_musicgen_launches() -> None:
+    rvq_encode.launches = lstm_layer.launches = fused_attention.launches = 0
+
+
+def _cuda_busy_ms(fn) -> tp.Tuple[float, float, list]:
+    """(device busy ms, window ms by CUDA events, kernels by device time) of
+    ``fn`` under torch.profiler; busy 0 when the profiler sees no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = _event()
+        fn()
+        end = _event()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    return busy, start.elapsed_time(end), kernels
+
+
+def print_decode_step(lm, state, cond_batch: int) -> float:
+    """One decode step of ``state`` (a finished generate) at offset
+    MG_STEP_OFFSET, 50 steps each way on the same caches: the eager step's
+    host and device ms, the replayed graph's ms, and the device's busy time
+    and idle share over replays under the profiler; then the attention's and
+    the heads' part of a step, and the step's byte bound.  Returns the graph
+    step's ms."""
+    graph = state.graphs[0]
+    index = state.current[0].index
+
+    def rewind():
+        state.offset.fill_(MG_STEP_OFFSET)
+        index.fill_(MG_STEP_OFFSET - 1)
+
+    def eager():
+        for _ in range(MG_TIMED_STEPS):
+            state.step()
+
+    def replays():
+        for _ in range(MG_TIMED_STEPS):
+            graph.replay()
+
+    with torch.no_grad():
+        rewind()
+        torch.cuda.synchronize()
+        start, t0 = _event(), time.perf_counter()
+        eager()
+        host_ms = (time.perf_counter() - t0) * 1e3 / MG_TIMED_STEPS
+        end = _event()
+        torch.cuda.synchronize()
+        eager_wall = start.elapsed_time(end) / MG_TIMED_STEPS
+        rewind()
+        eager_busy = _cuda_busy_ms(eager)[0] / MG_TIMED_STEPS
+        rewind()
+        torch.cuda.synchronize()
+        start = _event()
+        replays()
+        end = _event()
+        torch.cuda.synchronize()
+        graph_ms = start.elapsed_time(end) / MG_TIMED_STEPS
+        rewind()
+        busy, window, kernels = _cuda_busy_ms(replays)
+    name = card()
+    print(f'decode step at offset {MG_STEP_OFFSET} of {state.plan["S"]}, model batch '
+          f'{cond_batch}, {MG_TIMED_STEPS} steps each way on the same caches: eager '
+          f'{host_ms:.3f} ms of host time a step ({eager_wall:.3f} ms wall by CUDA events, '
+          f'device busy {eager_busy:.3f} ms under the profiler); graph replay {graph_ms:.3f} ms '
+          f'a step; card {name}', flush=True)
+    if busy == 0:
+        print('profiler: no device time seen over the replays (not measured)', flush=True)
+    else:
+        print(f'profiled {MG_TIMED_STEPS} replays: device busy {busy:.2f} ms of {window:.2f} ms '
+              f'(CUDA events), idle share {1 - busy / window:.3f}; top kernels (ms, calls): '
+              + '; '.join(f'{e.key[:60]} {e.self_device_time_total / 1e3:.2f} {e.count}'
+                          for e in kernels[:8]), flush=True)
+
+    # the attention's part: plain_attention over the whole capacity, as a
+    # cached step runs it (24 layers), and the heads with their fp32 casts
+    cache = state.current[0]
+    B, cap, H, D = cache.k.shape
+    gen = torch.Generator().manual_seed(47)
+    q = torch.randn(B, 1, H, D, generator=gen).to(cache.k)
+    mask = torch.zeros(1, 1, 1, cap, device=q.device)
+    n_layers = len(lm.transformer.layers)
+    attn = time_ms(lambda: attention.plain_attention(q, cache.k, cache.v, mask), 20)
+    out = torch.randn(B, 1, lm.dim, generator=gen).to(cache.k)
+    heads = time_ms(lambda: lm.apply_heads(out), 20)
+    # what a step reads: every matrix but the embeddings (4 rows a step) and
+    # the cross-attention's K/V projection rows (2/3 of its in_proj), whose
+    # products come precomputed in the state's cross K/V; those, and the caches
+    weight_bytes = 0
+    for n, p in lm.named_parameters():
+        if not n.startswith('emb.'):
+            share = 3 if n.endswith('cross_attention.in_proj_weight') else 1
+            weight_bytes += p.numel() * p.element_size() // share
+    cross_bytes = sum(t.numel() * t.element_size() for kv in state.cross_kv if kv is not None
+                      for pair in kv for t in pair)
+    kv_read = sum(c.nbytes() for c in state.current)
+    bound = (weight_bytes + cross_bytes + kv_read) / PEAK_BYTES * 1e3
+    print(f'attention over the cache [{B}, {cap}, {H}, {D}] {cache.k.dtype}: {attn:.4f} ms a '
+          f'layer (fp32 upcast of k and v included), x {n_layers} layers = '
+          f'{attn * n_layers:.3f} ms, {attn * n_layers / graph_ms:.3f} of a graph step; heads '
+          f'(4 x {lm.card} x {lm.dim}, weights cast to fp32 each call) {heads:.4f} ms, '
+          f'{heads / graph_ms:.3f} of a step; byte bound of a step (weights '
+          f'{weight_bytes / 1e9:.3f} GB + cross K/V {cross_bytes / 1e9:.3f} GB + KV read '
+          f'{kv_read / 1e9:.3f} GB at 3.35 TB/s) {bound:.3f} ms; card {name}', flush=True)
+    return graph_ms
+
+
+def _musicgen_generate(lm, cond, frames: int, seed: tp.Optional[int], graph_cache,
+                       eager: bool = False, kv_dtype=None, kv_buckets=None,
+                       states: tp.Optional[list] = None, compute_dtype=None) -> torch.Tensor:
+    """``lm.generate`` of MG_PROMPTS-style rows (1-pass CFG, top-k 250 when
+    ``seed`` is given, greedy when None); ``eager`` takes the private eager
+    loop."""
+    gen = None if seed is None else torch.Generator().manual_seed(seed)
+    rows = next(iter(cond.values()))[0].shape[0] // 2
+    return lm.generate(gen, condition_tensors=cond, num_samples=rows, max_gen_len=frames,
+                       use_sampling=seed is not None, top_k=250, cfg_coef=3.0,
+                       compute_dtype=compute_dtype, kv_dtype=kv_dtype, kv_buckets=kv_buckets,
+                       graph_cache=graph_cache, _eager=eager, _state_out=states)
+
+
+def _time_cast_refresh(cache: DecodeCache, lm) -> float:
+    """ms of the bf16 copy's refresh from ``lm``'s weights, which every
+    generate on ``cache`` runs; the copy is made first if it is not there."""
+    cache.cast(lm, torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache.cast(lm, torch.bfloat16)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_musicgen(device) -> tp.Dict[str, int]:
+    print("== phase 11: MusicGen path, get_musicgen('small') generate (bf16 decode, CUDA "
+          'graph steps) + codec decode', flush=True)
+    mg = get_musicgen('small', seed=40)
+    mg.condition_provider.conditioners['description'].load_tokenizer = SeededT5Ids
+    check(mg.decode_dtype == 'bfloat16', f'decode dtype {mg.decode_dtype}')
+    refresh_ms = _time_cast_refresh(mg._decode_cache, mg.lm)
+    frames, hop = int(MG_SECONDS * mg.frame_rate), int(mg.sample_rate // mg.frame_rate)
+    tokenized = _descriptions(MG_PROMPTS, device, seed=41)
+    _reset_musicgen_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cond = mg.condition_provider(tokenized)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    states: list = []
+    tokens = _musicgen_generate(mg.lm, cond, frames, 42, mg._decode_cache, states=states,
+                                compute_dtype=mg.decode_dtype)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    audio = mg.generate_audio(tokens)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = _musicgen_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(len(mg._decode_cache) == 1, f'{len(mg._decode_cache)} decode states after one generate')
+    state = states[0]
+    lm = state.lm
+    check(lm.float_dtype == torch.bfloat16 and lm is not mg.lm, 'the decode copy is not bf16')
+    capture_s = sum(state.capture_seconds)
+    S = state.plan['S']
+    check(tuple(tokens.shape) == (MG_PROMPTS, 4, frames), f'tokens {tuple(tokens.shape)}')
+    check(bool(((tokens >= 0) & (tokens < lm.card)).all()), 'tokens out of range or masked')
+    check(tuple(audio.shape) == (MG_PROMPTS, 1, frames * hop), f'audio {tuple(audio.shape)}')
+    check(bool(torch.isfinite(audio).all()), 'non-finite audio')
+    check(launches == {'rvq_encode': 0, 'lstm_step': 2, 'flash_attention': 0},
+          f'launches {launches} != 2 LSTM launches in the decode only')
+    audio_s, gen_s = MG_PROMPTS * MG_SECONDS, t2 - t1
+    name = card()
+    print(f'tokens {tuple(tokens.shape)}, {int(tokens.unique().numel())} distinct; audio '
+          f'{tuple(audio.shape)}; launches {launches}')
+    print(f'conditions {t1 - t0:.4f} s, generate {gen_s:.3f} s with {len(state.capture_seconds)} '
+          f'capture(s) of {capture_s:.3f} s ({S / gen_s:.1f} steps/s, '
+          f'{MG_PROMPTS * 4 * frames / gen_s:.0f} tokens/s), decode '
+          f'{t3 - t2:.4f} s: {audio_s / (t3 - t0):.2f} audio-s generated/s end to end '
+          f'({audio_s / gen_s:.2f} for the generate alone); KV caches '
+          f'{state.kv_bytes() / 2**30:.3f} GiB; peak memory {peak / 2**30:.2f} GiB; the bf16 '
+          f'copy\'s refresh from the fp32 weights, in every generate, {refresh_ms:.3f} ms; card '
+          f'{name}', flush=True)
+
+    t0 = time.perf_counter()
+    eager = _musicgen_generate(lm, cond, frames, 42, None, eager=True)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    share = float((eager == tokens).float().mean())
+    print(f'the eager loop, same generate: {eager_s:.3f} s against the graph\'s {gen_s:.3f} s '
+          f'({eager_s / gen_s:.2f}x); token match share with the graph route {share:.6f} '
+          f'(bf16; information, the fp32 parity below is gated)', flush=True)
+    check(gen_s < eager_s, f'the graph route ({gen_s:.3f} s) is not faster than the eager '
+                           f'loop ({eager_s:.3f} s)')
+    print_decode_step(lm, state, 2 * MG_PROMPTS)
+    del eager
+
+    # the serving recipe on a copy of the LM: int8 weights, int8 KV, 'auto' buckets
+    served = MusicGen(mg.name, mg.compression_model, copy.deepcopy(mg.lm), mg.condition_provider)
+    served.optimize_for_serving()
+    _time_cast_refresh(served._decode_cache, served.lm)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sstates: list = []
+    stokens = _musicgen_generate(served.lm, cond, frames, 42, served._decode_cache,
+                                 kv_dtype=served.kv_dtype, kv_buckets=served.kv_buckets,
+                                 states=sstates, compute_dtype=served.decode_dtype)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    sstate = sstates[0]
+    slm = sstate.lm
+    segments = [seg[2] for seg in sstate.plan['segments']]
+    check(bool(((stokens >= 0) & (stokens < lm.card)).all()), 'serving: tokens out of range')
+    check(len(sstate.graphs) == len(segments) > 1 and sstate.current[0].quantized,
+          f'serving: {len(sstate.graphs)} graphs for segments {segments}')
+    print(f'optimize_for_serving (int8 weights, int8 KV, kv_buckets auto: segments {segments}, '
+          f'one graph each, captures {sum(sstate.capture_seconds):.3f} s): generate '
+          f'{serve_s:.3f} s, {MG_PROMPTS * 4 * frames / serve_s:.0f} tokens/s (bf16 route '
+          f'{gen_s:.3f} s); KV caches {sstate.kv_bytes() / 2**30:.3f} GiB over all segments; peak '
+          f'memory '
+          f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; token match share with the '
+          f'bf16 route {float((stokens == tokens).float().mean()):.4f} (information); card {name}',
+          flush=True)
+    # the recipe's three parts one at a time (capture included in each)
+    parts = {}
+    for part, (model, kv_dtype, kv_buckets) in {
+            'int8 weights': (slm, None, None), 'int8 KV': (lm, 'int8', None),
+            "kv_buckets 'auto'": (lm, None, 'auto')}.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _musicgen_generate(model, cond, frames, 42, DecodeCache(), kv_dtype=kv_dtype,
+                           kv_buckets=kv_buckets)
+        torch.cuda.synchronize()
+        parts[part] = time.perf_counter() - t0
+    print('the serving recipe by part, one generate each (s): ' + ', '.join(
+        f'{part} {sec:.3f}' for part, sec in parts.items()) + f'; bf16 route {gen_s:.3f}, the '
+          f'whole recipe {serve_s:.3f}; card {name}', flush=True)
+    del served, slm, sstate, sstates, stokens
+
+    # stride extension to MG_STRIDE_SECONDS at B = 1 through the public
+    # generate, its tokens decoded in windows (decode_chunk_frames lowered)
+    windows: tp.List[float] = []
+    mg.set_generation_params(duration=MG_STRIDE_SECONDS, extend_stride=20.0)
+    mg.set_custom_progress_callback(lambda done, text: windows.append(done))
+    mg.decode_chunk_frames = 2000
+    _reset_musicgen_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    audio, long_tokens = mg.generate(['a long piece for strings'],
+                                     generator=torch.Generator().manual_seed(44),
+                                     return_tokens=True)
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - t0
+    launches_long = _musicgen_launches()
+    long_peak = torch.cuda.max_memory_allocated()
+    resident = list(mg._decode_cache.states.values())
+    check(len(resident) == 3 <= mg._decode_cache.max_states,
+          f'{len(resident)} decode states resident after the stride extension, not 3')
+    long_frames = int(MG_STRIDE_SECONDS * mg.frame_rate)
+    check(len(windows) == 2, f'stride extension ran {len(windows)} windows, not 2')
+    check(tuple(long_tokens.shape) == (1, 4, long_frames), f'long tokens {long_tokens.shape}')
+    check(bool(((long_tokens >= 0) & (long_tokens < lm.card)).all()), 'long tokens out of range')
+    check(tuple(audio.shape) == (1, 1, long_frames * hop) and bool(torch.isfinite(audio).all()),
+          f'long audio {tuple(audio.shape)}')
+    check(launches_long['lstm_step'] == 2, f"chunked decode: {launches_long['lstm_step']} LSTM "
+                                           'launches, not 2 (the head runs once)')
+    whole = mg.compression_model.decode(long_tokens)
+    rel = float((audio - whole).abs().max() / whole.abs().max())
+    print(f'stride extension to {MG_STRIDE_SECONDS} s at B = 1 (stride 20 s): {len(windows)} '
+          f'windows, tokens {tuple(long_tokens.shape)}, {long_s:.3f} s with the decode; chunked '
+          f'decode (windows of {mg.decode_chunk_frames // 2} frames) against one decode: '
+          f'max-abs / max {rel:.3g} (bf16, information); launches {launches_long}; peak memory '
+          f'{long_peak / 2**30:.2f} GiB with {len(resident)} decode states resident (at most '
+          f'{mg._decode_cache.max_states}; KV caches {sum(s.kv_bytes() for s in resident) / 2**30:.3f} '
+          f'GiB together), {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated after; card '
+          f'{name}', flush=True)
+    mg.set_custom_progress_callback(None)
+    del audio, whole, long_tokens, lm, state, states, resident
+    mg._decode_cache.clear()   # frees the bf16 copy, the states and their graphs
+    torch.cuda.empty_cache()
+
+    # the debug facade's public entry points (whitespace LUT tokenizer)
+    dmg = get_debug_musicgen()
+    dframes = int(dmg.duration * dmg.frame_rate)
+    dgen = torch.Generator().manual_seed(45)
+    audio, dtokens = dmg.generate(['a short jingle', 'calm piano'], generator=dgen,
+                                  return_tokens=True)
+    check(tuple(dtokens.shape) == (2, 4, dframes)
+          and bool(((dtokens >= 0) & (dtokens < 400)).all()),
+          f'debug generate tokens {tuple(dtokens.shape)}')
+    uaudio, utokens = dmg.generate_unconditional(2, generator=dgen, return_tokens=True)
+    prompt = torch.randn(1, 1, 2 * 44100, generator=torch.Generator().manual_seed(46)) * 0.1
+    dmg.decode_chunk_frames = 60
+    _reset_musicgen_launches()
+    caudio, ctokens = dmg.generate_continuation(prompt.to(device), 44100, ['drums'],
+                                                generator=dgen, return_tokens=True)
+    launches_debug = _musicgen_launches()
+    dhop = int(dmg.sample_rate // dmg.frame_rate)
+    check(tuple(ctokens.shape) == (1, 4, dframes) and tuple(caudio.shape) == (1, 1, dframes * dhop),
+          f'continuation {tuple(ctokens.shape)} {tuple(caudio.shape)}')
+    check(launches_debug['rvq_encode'] == 1, f'continuation: {launches_debug} (one prompt encode)')
+    for a in (audio, uaudio, caudio):
+        check(bool(torch.isfinite(a).all()), 'debug facade: non-finite audio')
+    print(f'debug facade on {caudio.device}: generate {tuple(audio.shape)}, unconditional '
+          f'{tuple(uaudio.shape)}, continuation {tuple(caudio.shape)} decoded in windows of 30 '
+          f'frames; launches in the continuation {launches_debug}', flush=True)
+    phase_musicgen_parity(device, mg)
+    return {'lstm_step': launches['lstm_step'], 'rvq_encode': launches_debug['rvq_encode']}
+
+
+def phase_musicgen_parity(device, mg) -> None:
+    print('== phase 11 parity: MusicGen-small (24 layers) in fp32 (TF32 off), graph vs eager, '
+          'cached vs cache-free, card vs CPU', flush=True)
+    check(not torch.backends.cuda.matmul.allow_tf32, 'TF32 is on')
+    lm, n, frames = mg.lm, 2, int(MG_PARITY_SECONDS * mg.frame_rate)
+    check(lm.float_dtype == torch.float32, 'the parity LM is not fp32')
+    with torch.no_grad():
+        cond = mg.condition_provider(_descriptions(n, device, seed=43))
+    states: list = []
+    graphs = DecodeCache()
+    greedy = _musicgen_generate(lm, cond, frames, None, graphs, states=states)
+    again = _musicgen_generate(lm, cond, frames, None, graphs, states=states)
+    check(len(graphs) == 1 and states[0] is states[1] and torch.equal(greedy, again),
+          'a second generate of one signature did not replay the first one\'s graph alike')
+    eager = _musicgen_generate(lm, cond, frames, None, None, eager=True)
+    check(torch.equal(greedy, eager), 'greedy tokens: graph route != eager loop')
+    sampled = _musicgen_generate(lm, cond, frames, 48, DecodeCache())
+    sampled_eager = _musicgen_generate(lm, cond, frames, 48, None, eager=True)
+    check(torch.equal(sampled, sampled_eager), 'sampled tokens: graph route != eager loop')
+    bucketed_states: list = []
+    bucketed = _musicgen_generate(lm, cond, frames, None, DecodeCache(), kv_buckets=[32, 64],
+                                  states=bucketed_states)
+    check(len(bucketed_states[0].graphs) == 3 and torch.equal(bucketed, greedy),
+          'kv_buckets [32, 64]: not three graphs, or other tokens than one full-capacity cache')
+    halves = tuple({k: (t[i * n:(i + 1) * n], m[i * n:(i + 1) * n]) for k, (t, m) in cond.items()}
+                   for i in range(2))
+    two_step = [lm.generate(condition_tensors=halves, num_samples=n, max_gen_len=frames,
+                            use_sampling=False, cfg_coef=3.0,
+                            graph_cache=DecodeCache() if i == 0 else None, _eager=i == 1)
+                for i in range(2)]
+    check(torch.equal(*two_step), 'two-step CFG: graph route != eager loop')
+    print(f'greedy and sampled (top-k 250) tokens {tuple(greedy.shape)}: graph route equal to '
+          'the eager loop, bit for bit; a second generate replays the first one\'s graph and '
+          'equals it; kv_buckets [32, 64] (three graphs) equal one full-capacity cache; '
+          'two-step CFG (both forwards in one graph) equal to its eager loop', flush=True)
+
+    seq = states[0].seq
+    S = seq.shape[-1]
+    tiled = torch.cat([seq[..., :S - 1]] * 2)
+    with torch.no_grad():
+        full = lm(tiled, cond)
+        caches = lm.init_cache(2 * n, S)
+        cross_kv = lm.transformer.precompute_cross_kv(lm.cross_source(cond, 2 * n))
+        steps = [lm(tiled[..., t:t + 1], cond, cross_kv=cross_kv, caches=caches)
+                 for t in range(S - 1)]
+    rel = float((torch.cat(steps, dim=2) - full).abs().max() / full.abs().max())
+    print(f'cached steps against the cache-free forward, logits [{2 * n}, 4, {S - 1}, '
+          f'{lm.card}]: max-abs / max {rel:.3g} (<= 1e-4)', flush=True)
+    check(rel <= 1e-4, f'cached step logits rel {rel:.3g} > 1e-4')
+    del full, steps, caches
+
+    cpu_lm = copy.deepcopy(lm).cpu()
+    cpu_cond = {k: (t.cpu(), m.cpu()) for k, (t, m) in cond.items()}
+    cpu_states: list = []
+    t0 = time.perf_counter()
+    cpu_tokens = _musicgen_generate(cpu_lm, cpu_cond, frames, None, None, states=cpu_states)
+    cpu_s = time.perf_counter() - t0
+    if torch.equal(cpu_tokens, greedy.cpu()):
+        print(f'greedy tokens, card against CPU ({cpu_s:.1f} s there): equal', flush=True)
+        return
+    cpu_seq, card_seq = cpu_states[0].seq, seq.cpu()
+    diff = (cpu_seq != card_seq).nonzero()
+    step = int(diff[:, 2].min())
+    b, k = (int(v) for v in diff[diff[:, 2] == step][0, :2])
+    with torch.no_grad():
+        logits = cpu_lm(torch.cat([cpu_seq[..., :step]] * 2), cpu_cond)[:, :, -1]
+    logits = logits[n:] + (logits[:n] - logits[n:]) * 3.0
+    top2 = logits[b, k].topk(2).values
+    margin = float((top2[0] - top2[1]) / top2[0].abs())
+    print(f'greedy tokens, card against CPU: first differing step {step} (row {b}, codebook '
+          f'{k}); the CPU\'s top-2 margin there {margin:.3g} relative (< 1e-4: a near-tie)',
+          flush=True)
+    check(margin < 1e-4, f'card and CPU greedy tokens differ at step {step} where the margin '
+                         f'is {margin:.3g}, not a near-tie')
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1750,6 +2181,9 @@ def main() -> int:
     kernels.update(probe_kernels)
     # K6 is on no model path (the JAX package calls it from tests only): its
     # launches are phase 2's, its checks and timing
+    musicgen_launches = phase_musicgen(device)
+    mark()
+    print(f'K1 and K2 launches on the MusicGen path (phase 11): {musicgen_launches}', flush=True)
     launches['mono_input_conv'] = kernel_checks_k6
     launches['flash_attention'] = magnet_launches['flash_attention']
     for name in ('flash_attention_bwd_dkv', 'flash_attention_bwd_dq'):

@@ -10,6 +10,7 @@ import torch
 from audiocraft_tpu_torch import builders
 from audiocraft_tpu_torch.apps import probe_ops
 from audiocraft_tpu_torch.gen.magnet import get_debug_magnet
+from audiocraft_tpu_torch.gen.musicgen import get_debug_musicgen
 from audiocraft_tpu_torch.ops import _build
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -37,7 +38,8 @@ def test_port_and_smoke_import_nothing_of_jax():
 @pytest.mark.parametrize("build", [builders.get_encodec_32khz, builders.get_encodec_24khz,
                                    builders.get_debug_compression_model,
                                    builders.get_magnet_lm, get_debug_magnet,
-                                   builders.get_musicgen_lm, builders.get_debug_musicgen_lm])
+                                   builders.get_musicgen_lm, builders.get_debug_musicgen_lm,
+                                   builders.get_musicgen, get_debug_musicgen])
 def test_entry_points_refuse_to_fall_back_to_the_cpu(build, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
