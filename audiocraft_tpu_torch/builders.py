@@ -19,6 +19,7 @@ import typing as tp
 import torch
 
 from .codec.encodec import EncodecModel
+from .codec.stereo import InterleaveStereoCompressionModel
 from .cond.conditioners import ConditioningProvider, LUTConditioner, T5Conditioner
 from .cond.fuser import ConditionFuser
 from .lm.magnet import MagnetLMModel
@@ -150,20 +151,36 @@ def get_musicgen_lm(size: str = 'small', n_q: int = 4, card: int = 2048, *,
     return _finish(lm, device), _finish(provider, device)
 
 
+def get_wrapped_compression_model(compression_model: EncodecModel,
+                                  interleave_stereo: bool = False, per_timestep: bool = False,
+                                  n_q: tp.Optional[int] = None
+                                  ) -> tp.Union[EncodecModel, InterleaveStereoCompressionModel]:
+    """Optionally set the active codebook count (in place, on the codec
+    given) and wrap the codec for stereo interleaving."""
+    if n_q is not None:
+        compression_model.set_num_codebooks(n_q)
+    if interleave_stereo:
+        return InterleaveStereoCompressionModel(compression_model, per_timestep=per_timestep)
+    return compression_model
+
+
 def get_musicgen(size: str = 'small', *, stereo: bool = False,
                  device: tp.Union[str, torch.device, None] = None, seed: int = 0):
     """The MusicGen facade at a published size: the 32 kHz codec (bf16) and
     :func:`get_musicgen_lm` with its T5-base conditioning, random weights
-    from ``seed``; 30 s windows.  Mono only: ``stereo=True`` needs the
-    interleaving codec wrapper, which is not ported."""
+    from ``seed``; 30 s windows.  ``stereo=True`` is musicgen-stereo-*: the
+    codec wrapped in codebook interleaving, so the LM models twice the
+    codebooks (8) and the facade makes 2-channel audio."""
     from .gen.musicgen import MusicGen
 
+    codec: tp.Union[EncodecModel, InterleaveStereoCompressionModel] = get_encodec_32khz(
+        device=device, seed=seed)
     if stereo:
-        raise NotImplementedError("stereo MusicGen needs codec/stereo.py, which is not ported")
-    codec = get_encodec_32khz(device=device, seed=seed)
-    lm, provider = get_musicgen_lm(size, n_q=codec.quantizer.max_n_q, device=device,
+        codec = get_wrapped_compression_model(codec, interleave_stereo=True)
+    lm, provider = get_musicgen_lm(size, n_q=codec.num_codebooks, device=device,
                                    seed=seed + 1)
-    return MusicGen(f'musicgen-{size}', codec, lm, provider, max_duration=30.0)
+    name = f"musicgen-{'stereo-' if stereo else ''}{size}"
+    return MusicGen(name, codec, lm, provider, max_duration=30.0)
 
 
 def get_magnet_lm(size: str = 'small', n_q: int = 4, card: int = 2048,

@@ -6,9 +6,12 @@ and returns a state dict for the port module's ``load_state_dict``:
 
 * :func:`seanet_state_from_jax`: one SEANet encoder or decoder alone.
 * :func:`encodec_state_from_jax`: EnCodec (the quantizer state as a dict of
-  ``embed``, ``cluster_size``, ``embed_avg`` and ``inited``).  The JAX tree
-  names layers ``layer{i}`` at the same indices as the port's ``model``
-  lists, resnet convs ``conv{j}`` and LSTM layers ``l{k}``.
+  ``embed``, ``cluster_size``, ``embed_avg`` and ``inited``), or the stereo
+  wrapper, whose params are its mono codec's.  The JAX tree names layers
+  ``layer{i}`` at the same indices as the port's ``model`` lists, resnet
+  convs ``conv{j}`` and LSTM layers ``l{k}``; a conv's ``gn_scale`` and
+  ``gn_bias`` (``time_group_norm``) go to ``conv.norm.weight`` and
+  ``conv.norm.bias``.
 * :func:`lm_state_from_jax`: ``LMModel`` and ``MagnetLMModel`` (stacked
   ``[K, ...]`` embeddings and heads, transformer layers ``layer{i}``).
 * :func:`t5_state_from_jax`: the T5 encoder, under HF T5 names.
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from ..codec.encodec import EncodecModel
+from ..codec.stereo import InterleaveStereoCompressionModel
 from ..cond.conditioners import ConditioningProvider, LUTConditioner, T5Conditioner
 from ..lm.model import LMModel
 from ..nn.conv import StreamableConv1d, StreamableConvTranspose1d
@@ -48,19 +52,27 @@ def _weight_bias(sd: dict, prefix: str, params: Tree) -> None:
             sd[f'{prefix}.{name}'] = params[name]
 
 
+def _conv(sd: dict, prefix: str, params: Tree) -> None:
+    """A ``StreamableConv1d`` at ``prefix``, with its GroupNorm if it has one."""
+    _weight_bias(sd, f'{prefix}.conv.conv', params)
+    if 'gn_scale' in params:
+        sd[f'{prefix}.conv.norm.weight'] = params['gn_scale']
+        sd[f'{prefix}.conv.norm.bias'] = params['gn_bias']
+
+
 def _seanet(sd: dict, side: str, stack: torch.nn.Module, params: Tree) -> None:
     for i, layer in enumerate(stack.model):
         prefix = f'{side}.model.{i}'
         if isinstance(layer, StreamableConv1d):
-            _weight_bias(sd, f'{prefix}.conv.conv', params[f'layer{i}'])
+            _conv(sd, prefix, params[f'layer{i}'])
         elif isinstance(layer, StreamableConvTranspose1d):
             _weight_bias(sd, f'{prefix}.convtr.convtr', params[f'layer{i}'])
         elif isinstance(layer, SEANetResnetBlock):
             p = params[f'layer{i}']
             for j in range(len(layer.block) // 2):
-                _weight_bias(sd, f'{prefix}.block.{2 * j + 1}.conv.conv', p[f'conv{j}'])
+                _conv(sd, f'{prefix}.block.{2 * j + 1}', p[f'conv{j}'])
             if layer.shortcut is not None:
-                _weight_bias(sd, f'{prefix}.shortcut.conv.conv', p['shortcut'])
+                _conv(sd, f'{prefix}.shortcut', p['shortcut'])
         elif isinstance(layer, StreamableLSTM):
             for k in range(layer.num_layers):
                 p = params[f'layer{i}'][f'l{k}']
@@ -77,8 +89,12 @@ def seanet_state_from_jax(stack: torch.nn.Module, params: Tree) -> tp.Dict[str, 
     return _tensors({k[len('stack.'):]: v for k, v in sd.items()})
 
 
-def encodec_state_from_jax(model: EncodecModel, params: Tree) -> tp.Dict[str, torch.Tensor]:
-    """The port's state dict for ``model`` holding the JAX ``params``."""
+def encodec_state_from_jax(model: tp.Union[EncodecModel, InterleaveStereoCompressionModel],
+                           params: Tree) -> tp.Dict[str, torch.Tensor]:
+    """The port's state dict for ``model`` holding the JAX ``params``; the
+    stereo wrapper's is its mono codec's under ``model.``."""
+    if isinstance(model, InterleaveStereoCompressionModel):
+        return {f'model.{k}': v for k, v in encodec_state_from_jax(model.model, params).items()}
     sd: tp.Dict[str, tp.Any] = {}
     _seanet(sd, 'encoder', model.encoder, params['encoder'])
     _seanet(sd, 'decoder', model.decoder, params['decoder'])

@@ -18,7 +18,9 @@ whole-signal pads.
 * :func:`chunked_decode` runs the head (the input conv and the LSTM, so K2's
   two launches) once on the whole frame sequence and the upsampling tail per
   window; it equals ``model.decode`` up to float rounding (the convs sum in
-  other blocks at other lengths).
+  other blocks at other lengths).  A stereo wrapper
+  (``codec/stereo.py``) de-interleaves its codes and decodes both channels
+  as one doubled batch of the mono codec, as its own ``decode`` does.
 * :func:`chunked_encode` runs the conv front per window and the tail (the
   LSTM, the last conv, the RVQ: K2 and K1) once on the frame features; it is
   token-exact with ``model.encode`` when the length is a multiple of the
@@ -32,6 +34,7 @@ import typing as tp
 import torch
 
 from .encodec import EncodecModel
+from .stereo import InterleaveStereoCompressionModel
 
 
 def _window_plan(T: int, W: int, halo: int) -> tp.Tuple[tp.List[int], tp.List[int], int]:
@@ -56,12 +59,15 @@ def _stitch(pieces: tp.List[torch.Tensor], body_len: int) -> torch.Tensor:
 
 
 @torch.no_grad()
-def chunked_decode(model: EncodecModel, codes: torch.Tensor,
-                   scale: tp.Optional[torch.Tensor] = None,
+def chunked_decode(model: tp.Union[EncodecModel, InterleaveStereoCompressionModel],
+                   codes: torch.Tensor, scale: tp.Optional[torch.Tensor] = None,
                    chunk_frames: int = 1500) -> torch.Tensor:
     """``model.decode`` of ``codes [B, K, T_f]`` in windows of
     ``chunk_frames``; a sequence of at most one window (or a window under
     four halos) decodes in one call."""
+    if isinstance(model, InterleaveStereoCompressionModel):
+        both, scales = model.both_channels(codes, scale)
+        return model.stereo_audio(chunked_decode(model.model, both, scales, chunk_frames))
     dec = model.decoder
     hop, split = dec.hop_length, dec.split_index
     c_l, c_r = dec.tail_corruption_radius()                  # output samples

@@ -2,22 +2,36 @@
 (counterpart of ``audiocraft_tpu/codec/encodec.py:EncodecModel``).
 
 ``encode(wav [B, C, T]) -> (codes [B, K, T_frames] int32, scale)`` and
-``decode(codes) -> wav [B, C, T_frames * hop]``, the JAX package's layouts.
+``decode(codes) -> wav [B, C, T_frames * hop]``, the JAX package's layouts;
+``encode_to_latent`` stops before the quantizer.  ``total_codebooks``,
+``num_codebooks`` and ``cardinality`` are the CompressionModel contract's.
 
 ``compute_dtype`` ('bfloat16', or None for fp32) is the dtype of the conv and
-LSTM stacks; the stored weights stay fp32 and are cast per call.  In fp32 the
-conv stacks run cuDNN without TF32 whatever the caller's global flag
+LSTM stacks; the stored weights stay fp32 and are cast per call, and a call
+may name another (``compute_dtype=torch.float32`` for the parity dtype).  In
+fp32 the conv stacks run cuDNN without TF32 whatever the caller's global flag
 (``nn/conv.fp32_convs``, restored after each stack), so the fp32 codec is the
 parity path on the card too.  The RVQ distances and the codebook lookup
-always stay fp32: token identity depends on them.  ``lstm_kernel`` is kept
-for config compatibility with the JAX package and selects nothing here: on a
-CUDA tensor every LSTM layer runs the hand-written recurrence kernel at every
-batch size, one launch a layer, and on a CPU tensor its plain version.
+always stay fp32: token identity depends on them.  ``lstm_kernel`` (the
+field, or the per-call argument) is kept for config compatibility with the
+JAX package and selects nothing here: on a CUDA tensor every LSTM layer runs
+the hand-written recurrence kernel at every batch size, one launch a layer,
+and on a CPU tensor its plain version.
 
-``encode(x, fused=True)`` runs the input conv and the first two encoder
-stages through the fused stage kernel (K4, ``ops/seanet.py``);
-``encode(x, conv0_kernel=True)`` runs the mono input conv through K5.  Both
-default to off, as in the JAX package.
+The encoder's route (``nn/seanet.SEANetEncoder.forward``): on a CUDA tensor
+``encode(fused=None)`` takes the fused route, the input conv through K5 and
+the first two stages through K4, wherever the stage plan accepts the config
+and the length (``ops/seanet.fused_length_ok``).  On an H100 it is faster
+than the module stack at every shape of the 32 kHz codec that
+``chip_smoke.py`` times (2.1x at b128 x 10 s, 1.1-1.3x at B = 1), with a
+third of its peak memory at b128, and level with it on the debug codec's
+1 x 2 s in fp32 (PERF.md section 5), so no batch threshold is set.  On a
+CPU tensor the default stays off, as in the JAX package, whose default rests
+on a TPU measurement.  ``fused=False`` runs the module stack;
+``conv0_kernel=True`` with ``fused=False`` runs the input conv alone through
+K5.  In fp32 every route gives the CPU's codes; in bf16 the routes round at
+other points, and about 12 % of the codes of a random-weight codec differ
+between routes (near-ties that the rounding moves, not faults).
 """
 
 from __future__ import annotations
@@ -27,7 +41,10 @@ import typing as tp
 import torch
 
 from ..nn.seanet import SEANetDecoder, SEANetEncoder
+from ..ops.seanet import fused_length_ok
 from ..quant.vq import ResidualVectorQuantizer
+
+Dtype = tp.Union[str, torch.dtype, None]
 
 
 class EncodecModel(torch.nn.Module):
@@ -46,16 +63,31 @@ class EncodecModel(torch.nn.Module):
         self.compute_dtype = compute_dtype
         self.lstm_kernel = lstm_kernel
 
+    @property
+    def total_codebooks(self) -> int:
+        return self.quantizer.max_n_q
+
+    @property
+    def num_codebooks(self) -> int:
+        return self.quantizer.n_q
+
+    @property
+    def cardinality(self) -> int:
+        return self.quantizer.bins
+
     def set_num_codebooks(self, n: int) -> None:
-        """Use the first ``n`` codebooks from now on (in place)."""
+        """Use the first ``n`` codebooks from now on (in place; the JAX
+        package returns a new model)."""
         if not 0 < n <= self.quantizer.max_n_q:
             raise ValueError(f"n={n} is outside [1, {self.quantizer.max_n_q}]")
         self.quantizer.n_q = n
 
-    def _cast(self, x: torch.Tensor) -> torch.Tensor:
-        if self.compute_dtype is None:
+    def _cast(self, x: torch.Tensor, compute_dtype: Dtype = None) -> torch.Tensor:
+        """``x`` in the call's compute dtype, or else the model's (None: fp32)."""
+        dtype = compute_dtype if compute_dtype is not None else self.compute_dtype
+        if dtype is None:
             return x
-        return x.to(getattr(torch, self.compute_dtype))
+        return x.to(getattr(torch, dtype) if isinstance(dtype, str) else dtype)
 
     def preprocess(self, x: torch.Tensor) -> tp.Tuple[torch.Tensor, tp.Optional[torch.Tensor]]:
         if not self.renormalize:
@@ -70,20 +102,44 @@ class EncodecModel(torch.nn.Module):
             x = x * scale.reshape(-1, 1, 1)
         return x
 
+    def fused_default(self, x: torch.Tensor) -> bool:
+        """The route ``fused=None`` takes for ``x``: fused on a CUDA tensor
+        that the stage plan accepts, off on the CPU."""
+        return x.is_cuda and fused_length_ok(self.encoder, x.shape[-1])
+
+    def _latent(self, x: torch.Tensor, compute_dtype: Dtype, fused: tp.Optional[bool],
+                conv0_kernel: tp.Optional[bool]) -> torch.Tensor:
+        if x.dim() != 3:
+            raise ValueError(f"expected [B, C, T], got {tuple(x.shape)}")
+        if fused is None:
+            fused = self.fused_default(x)
+        return self.encoder(self._cast(x, compute_dtype), fused_stages=2 if fused else 0,
+                            conv0_kernel=bool(conv0_kernel)).float()
+
     @torch.no_grad()
-    def encode(self, x: torch.Tensor, fused: tp.Optional[bool] = None,
-               conv0_kernel: tp.Optional[bool] = None
+    def encode(self, x: torch.Tensor, compute_dtype: Dtype = None,
+               fused: tp.Optional[bool] = None, conv0_kernel: tp.Optional[bool] = None,
+               lstm_kernel: tp.Optional[bool] = None
                ) -> tp.Tuple[torch.Tensor, tp.Optional[torch.Tensor]]:
         """x [B, C, T] float -> (codes [B, K, T_frames] int32, scale).
 
-        ``fused`` routes the encoder front end (input conv + 2 stages) through
-        K4, ``conv0_kernel`` the input conv through K5; None means off."""
-        if x.dim() != 3:
-            raise ValueError(f"expected [B, C, T], got {tuple(x.shape)}")
+        ``fused`` routes the encoder front end (input conv + 2 stages)
+        through K4 (None: the default of :meth:`fused_default`),
+        ``conv0_kernel`` the input conv through K5; see the module note.
+        ``lstm_kernel`` selects nothing (the kernel runs on every CUDA
+        tensor)."""
+        del lstm_kernel
         x, scale = self.preprocess(x)
-        emb = self.encoder(self._cast(x), fused_stages=2 if fused else 0,
-                           conv0_kernel=bool(conv0_kernel)).float()
-        return self.quantizer.encode(emb), scale
+        return self.quantizer.encode(self._latent(x, compute_dtype, fused, conv0_kernel)), scale
+
+    @torch.no_grad()
+    def encode_to_latent(self, x: torch.Tensor, compute_dtype: Dtype = None,
+                         fused: tp.Optional[bool] = None) -> torch.Tensor:
+        """x [B, C, T] -> the encoder's latent [B, D, T_frames] fp32, before
+        the quantizer (the codec as a feature extractor), on the route
+        :meth:`encode` takes."""
+        x, _ = self.preprocess(x)
+        return self._latent(x, compute_dtype, fused, None)
 
     @torch.no_grad()
     def decode_latent(self, codes: torch.Tensor) -> torch.Tensor:
@@ -91,9 +147,11 @@ class EncodecModel(torch.nn.Module):
         return self.quantizer.decode(codes)
 
     @torch.no_grad()
-    def decode(self, codes: torch.Tensor,
-               scale: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+    def decode(self, codes: torch.Tensor, scale: tp.Optional[torch.Tensor] = None,
+               compute_dtype: Dtype = None,
+               lstm_kernel: tp.Optional[bool] = None) -> torch.Tensor:
         """codes [B, K, T_frames] -> waveform [B, C, T] fp32."""
+        del lstm_kernel
         emb = self.decode_latent(codes)
-        out = self.decoder(self._cast(emb)).float()
+        out = self.decoder(self._cast(emb, compute_dtype)).float()
         return self.postprocess(out, scale)

@@ -4,11 +4,19 @@
 // Replaces audiocraft_tpu/ops/lstm_pallas.py:_lstm_kernel, which runs all T
 // steps of a layer in one TPU program with W_hh^T resident in VMEM.  For
 // t = 0 .. T-1:
-//     gates = gx[t] + h[t-1] . W_hh^T      (gate order i, f, g, o; h[-1] = 0)
+//     gates = gx[t] + h[t-1] . W_hh^T      (gate order i, f, g, o)
 //     c     = sigmoid(f) * c + sigmoid(i) * tanh(g)
 //     h[t]  = sigmoid(o) * tanh(c)
 // Gates and c are fp32; h is stored in the compute dtype (fp32 or bf16) in
 // out[t], and step t + 1 reads that rounded value back, as the TPU kernel does.
+// The layer starts from h[-1] = 0 and c = 0, or from a carried state: h0
+// [B, H] in the dtype and c0 [B, H] in fp32, the state a chunk of a stream
+// left (codec/streaming.py).  c_out, when given, receives the final c in
+// fp32; the final h is out[T-1].  Step 0 reads h0 from its own buffer
+// through the same ring as every h[t-1]: the caller wrote it before the
+// launch, so no barrier guards it.  c0 is loaded into the block's shared c
+// before step 0, per (b, j) pair as c lives, and c_out is written from there
+// after the last step.
 //
 // Bound on an H100: the step product is 2*B*H*4H operations (537 GFLOP a
 // layer at T = 500, B = 128, H = 1024, 0.54 ms at the bf16 tensor-core rate),
@@ -463,6 +471,7 @@ __device__ __forceinline__ void cell_update_regs(const float (&acc)[MI][NI][4], 
 template <typename T, int MI, int NI>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_layer_kernel(const T* __restrict__ gx, const T* __restrict__ w_hh, T* out,
+                  const T* __restrict__ h0, const float* __restrict__ c0, float* c_out,
                   unsigned* barrier, int steps, int batch, int hidden, int units, int nb,
                   int kc, int resident, int stages, int bgroups) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -500,14 +509,18 @@ lstm_layer_kernel(const T* __restrict__ gx, const T* __restrict__ w_hh, T* out,
   if (resident) load_rows(w_res, P.ld_w, w_hh, rows, 0, P.kp, hidden, vec, w_row);
   load_gx(gxs, gx, 0, batch, bs, nbr, hidden, units, j0, vec);
   cp_commit();
-  for (int e = tid; e < nbr * units; e += kThreads) cs[e] = 0.f;
+  for (int e = tid; e < (nbr << ushift); e += kThreads) {
+    const int u = e & (units - 1), b = bs + (e >> ushift);
+    cs[e] = c0 != nullptr && j0 + u < hidden ? c0[(long long)b * hidden + j0 + u] : 0.f;
+  }
   cp_wait<0>();
   __syncthreads();
 
   for (int t = 0; t < steps; ++t) {
-    const T* h_prev = out + (long long)(t - 1) * batch * hidden;
+    const T* h_prev = t == 0 ? h0 : out + (long long)(t - 1) * batch * hidden;
+    const bool product = h_prev != nullptr;  // from a zero h[-1] the product vanishes
     for (int b0 = bs; b0 < be; b0 += nb) {
-      if (t > 0) {  // h[-1] = 0: the product vanishes at t = 0
+      if (product) {
         float acc[MI][NI][4];
 #pragma unroll
         for (int i = 0; i < MI; ++i)
@@ -586,7 +599,7 @@ lstm_layer_kernel(const T* __restrict__ gx, const T* __restrict__ w_hh, T* out,
           __syncthreads();
         }
       }
-      if (t == 0 || P.wm > 1) {
+      if (!product || P.wm > 1) {
         // cell update from shared memory of the tile's (b, j) pairs, unit fastest
         const int nbv = min(nb, be - b0);
         T* h_out = out + (long long)t * batch * hidden;
@@ -597,7 +610,7 @@ lstm_layer_kernel(const T* __restrict__ gx, const T* __restrict__ w_hh, T* out,
           for (int g = 0; g < 4; ++g) {
             const int r = g * units + u;
             float s = 0.f;
-            if (t > 0)
+            if (product)
               for (int k = 0; k < P.ks; ++k) s += pre[(k * rows + r) * P.ld_pre + bb];
             g4[g] = to_f32(gxs[(b - bs) * rows + r]) + s;
           }
@@ -606,7 +619,16 @@ lstm_layer_kernel(const T* __restrict__ gx, const T* __restrict__ w_hh, T* out,
         }
       }
     }
-    if (t + 1 == steps) break;
+    if (t + 1 == steps) {
+      if (c_out != nullptr) {  // the final c of the block's (b, j) pairs
+        __syncthreads();
+        for (int e = tid; e < (nbr << ushift); e += kThreads) {
+          const int u = e & (units - 1), b = bs + (e >> ushift);
+          if (j0 + u < hidden) c_out[(long long)b * hidden + j0 + u] = cs[e];
+        }
+      }
+      break;
+    }
     // grid barrier: arrive, start the copy of gx[t+1] (it lands during the
     // wait or under step t+1's first chunk), wait
     __syncthreads();  // every h[t] store of the block is issued, gxs is read
@@ -626,8 +648,8 @@ lstm_layer_kernel(const T* __restrict__ gx, const T* __restrict__ w_hh, T* out,
 }
 
 template <typename T>
-using KernelFn = void (*)(const T*, const T*, T*, unsigned*, int, int, int, int, int, int, int,
-                          int, int);
+using KernelFn = void (*)(const T*, const T*, T*, const T*, const float*, float*, unsigned*,
+                          int, int, int, int, int, int, int, int, int);
 
 // The instance for a warp's MI x NI tiles (MI * NI <= kMaxTiles), or null
 template <typename T>
@@ -645,9 +667,10 @@ KernelFn<T> kernel_for(const Plan& P) {
 }
 
 template <typename T>
-int launch(const void* gx, const void* w_hh, void* out, unsigned* barrier, int steps, int batch,
-           int hidden, int units, int grid, int nb, int kc, int resident, int stages,
-           int bgroups, long long smem_bytes, cudaStream_t stream) {
+int launch(const void* gx, const void* w_hh, void* out, const void* h0, const float* c0,
+           float* c_out, unsigned* barrier, int steps, int batch, int hidden, int units, int grid,
+           int nb, int kc, int resident, int stages, int bgroups, long long smem_bytes,
+           cudaStream_t stream) {
   const Plan P = make_plan(batch, hidden, (int)sizeof(T), units, nb, kc, resident, stages,
                            bgroups);
   const KernelFn<T> kernel = kernel_for<T>(P);
@@ -668,8 +691,9 @@ int launch(const void* gx, const void* w_hh, void* out, unsigned* barrier, int s
   const T* g = static_cast<const T*>(gx);
   const T* w = static_cast<const T*>(w_hh);
   T* o = static_cast<T*>(out);
-  void* args[] = {&g,     &w,      &o,  &barrier, &steps,    &batch,  &hidden,
-                  &units, &nb,     &kc, &resident, &stages, &bgroups};
+  const T* h = static_cast<const T*>(h0);
+  void* args[] = {&g,      &w,     &o,      &h,  &c0,       &c_out,  &barrier, &steps, &batch,
+                  &hidden, &units, &nb,     &kc, &resident, &stages, &bgroups};
   err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid), dim3(kThreads), args,
                                     (size_t)smem_bytes, stream);
   if (err != cudaSuccess) return (int)err;
@@ -693,23 +717,26 @@ int info(int units, int nb, int* out) {
 
 }  // namespace
 
-// gx [T, B, 4H], w_hh [4H, H] and out [T, B, H] in one dtype (bf16 when
-// is_bf16, else fp32), all contiguous; barrier one zeroed uint32.  Computes
-// out[0 .. T-1] in one cooperative launch with the plan of ops/lstm.py.
-extern "C" int acx_lstm_layer(const void* gx, const void* w_hh, void* out, void* barrier,
-                              int steps, int batch, int hidden, int is_bf16, int units, int grid,
-                              int nb, int kc, int resident, int stages, int bgroups,
-                              long long smem_bytes, void* stream) {
+// gx [T, B, 4H], w_hh [4H, H], out [T, B, H] and h0 [B, H] in one dtype
+// (bf16 when is_bf16, else fp32), c0 and c_out [B, H] fp32, all contiguous;
+// h0, c0 and c_out may each be null (a zero start; no final c); barrier one
+// zeroed uint32.  Computes out[0 .. T-1] in one cooperative launch with the
+// plan of ops/lstm.py.
+extern "C" int acx_lstm_layer(const void* gx, const void* w_hh, void* out, const void* h0,
+                              const float* c0, float* c_out, void* barrier, int steps, int batch,
+                              int hidden, int is_bf16, int units, int grid, int nb, int kc,
+                              int resident, int stages, int bgroups, long long smem_bytes,
+                              void* stream) {
   if (steps <= 0 || batch <= 0 || hidden <= 0 || units < 4 || (units & (units - 1)) ||
       nb < 8 || (nb & (nb - 1)) || kc < 16 || kc % 16 || stages < 1 || stages > kMaxStages ||
       bgroups < 1 || bgroups > batch)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   unsigned* bar = static_cast<unsigned*>(barrier);
-  return is_bf16 ? launch<bf16>(gx, w_hh, out, bar, steps, batch, hidden, units, grid, nb, kc,
-                                resident, stages, bgroups, smem_bytes, s)
-                 : launch<float>(gx, w_hh, out, bar, steps, batch, hidden, units, grid, nb, kc,
-                                 resident, stages, bgroups, smem_bytes, s);
+  return is_bf16 ? launch<bf16>(gx, w_hh, out, h0, c0, c_out, bar, steps, batch, hidden, units,
+                                grid, nb, kc, resident, stages, bgroups, smem_bytes, s)
+                 : launch<float>(gx, w_hh, out, h0, c0, c_out, bar, steps, batch, hidden, units,
+                                 grid, nb, kc, resident, stages, bgroups, smem_bytes, s);
 }
 
 // What the plan reads of the current device: SMs and the opt-in shared

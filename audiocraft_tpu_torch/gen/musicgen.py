@@ -16,8 +16,12 @@ loop generates window after window, each prompted by the last
 The LM decodes in bf16 on the card (a cast copy kept beside the fp32
 weights, refreshed from them at every generate, so new weights are always
 read) and in fp32 on the CPU, where the JAX facade decodes in bf16 on its
-accelerator and in fp32 elsewhere.  Melody (chroma) and style conditioning
-wait for their conditioners: ``generate_with_chroma`` and
+accelerator and in fp32 elsewhere.  The codec may be the stereo wrapper
+(``codec/stereo.py``, musicgen-stereo-*): the LM then models its interleaved
+codebooks, audio comes out with 2 channels, a long prompt takes the whole
+encode (windows are for a plain ``EncodecModel`` only, as in the JAX
+facade) and a long decode is windowed for both.  Melody (chroma) and style
+conditioning wait for their conditioners: ``generate_with_chroma`` and
 ``set_style_conditioner_params`` raise.
 """
 
@@ -30,6 +34,7 @@ import torch
 
 from ..codec.chunked import chunked_decode, chunked_encode
 from ..codec.encodec import EncodecModel
+from ..codec.stereo import InterleaveStereoCompressionModel
 from ..cond.attributes import (ClassifierFreeGuidanceDropout, ConditioningAttributes,
                                drop_description_condition)
 from ..cond.conditioners import ConditioningProvider
@@ -44,7 +49,9 @@ MelodyList = tp.List[tp.Optional[np.ndarray]]
 class MusicGen:
     """Codec, LM and conditioning with the generation settings."""
 
-    def __init__(self, name: str, compression_model: EncodecModel, lm: LMModel,
+    def __init__(self, name: str,
+                 compression_model: tp.Union[EncodecModel, InterleaveStereoCompressionModel],
+                 lm: LMModel,
                  condition_provider: ConditioningProvider, max_duration: float = 30.0,
                  duration: float = 15.0):
         self.name = name
@@ -133,7 +140,8 @@ class MusicGen:
         if len(descriptions) != prompt.shape[0]:
             raise ValueError("Prompt and nb. descriptions doesn't match")
         hop = int(self.sample_rate / self.frame_rate)
-        if prompt.shape[-1] > self.decode_chunk_frames * hop:
+        if (prompt.shape[-1] > self.decode_chunk_frames * hop
+                and isinstance(self.compression_model, EncodecModel)):
             tokens, scale = chunked_encode(self.compression_model, prompt,
                                            chunk_frames=self.decode_chunk_frames // 2)
         else:

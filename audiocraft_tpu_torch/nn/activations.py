@@ -1,8 +1,9 @@
 """Activations (counterpart of ``audiocraft_tpu/nn/activations.py``).
 
-Ported so far: ELU (the EnCodec configs) and the transformer feed-forward
-activations, exact GELU and ReLU.  The gated units wait for a config that
-uses them.
+Ported so far: ELU (the EnCodec configs), the transformer feed-forward
+activations (exact GELU and ReLU), and SiLU, tanh and sigmoid, which a SEANet
+decoder's ``final_activation`` may name.  The gated units wait for a config
+that uses them.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 _ACTIVATIONS: tp.Dict[str, tp.Callable[..., torch.Tensor]] = {
-    'elu': elu, 'gelu': gelu, 'relu': F.relu}
+    'elu': elu, 'gelu': gelu, 'relu': F.relu, 'silu': F.silu, 'tanh': torch.tanh,
+    'sigmoid': torch.sigmoid}
 
 
 def get_activation_fn(name: str) -> tp.Callable[..., torch.Tensor]:
@@ -35,12 +37,14 @@ def get_activation_fn(name: str) -> tp.Callable[..., torch.Tensor]:
 class Activation(torch.nn.Module):
     """An activation layer named as SEANet configs name it (torch class names,
     e.g. ``'ELU'``); it holds no parameters but takes an index in the layer
-    list, as in the reference state-dict layout."""
+    list, as in the reference state-dict layout.  ``alpha`` is ELU's; the
+    other activations take none."""
 
     def __init__(self, name: str = 'ELU', alpha: float = 1.0):
         super().__init__()
-        self.fn = get_activation_fn(name.lower())
+        self.name = name.lower()
+        self.fn = get_activation_fn(self.name)
         self.alpha = alpha
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fn(x, self.alpha)
+        return self.fn(x, self.alpha) if self.name == 'elu' else self.fn(x)

@@ -10,7 +10,11 @@
 
 Weight norm is folded into the stored weight, as the JAX package stores it, so
 the parameters sit at the reference names ``conv.conv.weight`` and
-``convtr.convtr.weight``.  The stored weights stay fp32; a call casts them to
+``convtr.convtr.weight``.  ``norm='time_group_norm'`` puts GroupNorm(1, C_out)
+after a ``StreamableConv1d`` (one mean and variance over channels and time per
+batch row, eps 1e-5), its scale and bias at the reference names
+``conv.norm.weight`` and ``conv.norm.bias``; a transposed conv takes none, as
+in the JAX package.  The stored weights stay fp32; a call casts them to
 the input's dtype, so a bf16 input runs the conv in bf16.  ``fp32_convs``
 turns cuDNN's TF32 off around an fp32 conv stack.
 """
@@ -99,9 +103,9 @@ def _conv_params(weight_shape: tp.Tuple[int, int, int], in_channels: int,
 
 
 def _check_norm(norm: str) -> None:
-    if norm not in ('none', 'weight_norm'):
-        raise NotImplementedError(f"norm={norm!r} is not ported; 'none' and "
-                                  "'weight_norm' (folded into the weight) are")
+    if norm not in ('none', 'weight_norm', 'time_group_norm'):
+        raise NotImplementedError(f"norm={norm!r} is not ported; 'none', 'weight_norm' "
+                                  "(folded into the weight) and 'time_group_norm' are")
 
 
 class StreamableConv1d(torch.nn.Module):
@@ -119,6 +123,10 @@ class StreamableConv1d(torch.nn.Module):
         shape = (out_channels, in_channels, kernel_size)
         self.conv = torch.nn.ModuleDict({'conv': _conv_params(
             shape, in_channels, out_channels, bias, generator)})
+        if norm == 'time_group_norm':
+            self.conv['norm'] = torch.nn.ParameterDict({
+                'weight': torch.nn.Parameter(torch.ones(out_channels)),
+                'bias': torch.nn.Parameter(torch.zeros(out_channels))})
 
     @property
     def effective_kernel_size(self) -> int:
@@ -136,8 +144,12 @@ class StreamableConv1d(torch.nn.Module):
         x = pad1d(x, pads, mode=self.pad_mode)
         p = self.conv['conv']
         bias = p['bias'].to(x.dtype) if 'bias' in p else None
-        return F.conv1d(x, p['weight'].to(x.dtype), bias, stride=self.stride,
-                        dilation=self.dilation)
+        y = F.conv1d(x, p['weight'].to(x.dtype), bias, stride=self.stride,
+                     dilation=self.dilation)
+        if self.norm == 'time_group_norm':
+            gn = self.conv['norm']
+            y = F.group_norm(y, 1, gn['weight'].to(y.dtype), gn['bias'].to(y.dtype), eps=1e-5)
+        return y
 
 
 class StreamableConvTranspose1d(torch.nn.Module):

@@ -8,6 +8,13 @@ index too, so parameter names match the reference state dict
 ``encoder.model.{i}.lstm.weight_ih_l0``).  An fp32 stack runs its cuDNN
 convs without TF32 (``conv.fp32_convs``), whatever the caller's flag.
 
+The encoder's front end takes one of three routes (``SEANetEncoder.forward``):
+the module stack; the fused route, the input conv and the first stages
+through the fused stage kernel K4, where on a CUDA tensor the input conv
+itself is K5 when it is a mono stride-1 conv (the JAX package and the CPU
+run the module's conv there); or the input conv alone through K5
+(``conv0_kernel`` without the fused route).
+
 ``split_index``, the corruption radii and the ``start_layer`` /
 ``stop_layer`` slices are what ``codec/chunked.py`` windows by: the
 encoder's time-local conv front and the decoder's upsampling tail run per
@@ -163,26 +170,30 @@ class SEANetEncoder(torch.nn.Module):
                 stop_layer: tp.Optional[int] = None) -> torch.Tensor:
         """[B, C, T] -> [B, dimension, T / hop_length].
 
-        ``conv0_kernel`` runs the mono input conv through K5 and consumes
-        layer 0.  ``fused_stages > 0`` then runs the input conv and the first
-        N planned stages through K4, but only while layer 0 is still to do;
-        an ineligible config or length runs the module stack instead.
-        ``start_layer`` / ``stop_layer`` run the layer slice
-        ``[start_layer, stop_layer)`` alone, on the module stack."""
+        ``fused_stages > 0`` runs the input conv and the first N planned
+        stages through K4; an ineligible config or length runs the module
+        stack instead.  On a CUDA tensor the fused route's input conv is K5
+        where the conv is a mono stride-1 one, so ``conv0_kernel`` adds
+        nothing to it.  On a CPU tensor, as in the JAX package,
+        ``conv0_kernel`` consumes layer 0 first and so turns the fused route
+        off.  ``conv0_kernel`` without a fused route runs the input conv
+        alone through K5.  ``start_layer`` / ``stop_layer`` run the layer
+        slice ``[start_layer, stop_layer)`` alone, on the module stack."""
         with fp32_convs(x.dtype):
             if start_layer or stop_layer is not None:
                 for layer in self.model[start_layer:stop_layer]:
                     x = layer(x)
                 return x
             start = 0
-            if conv0_kernel:
+            if fused_stages and (x.is_cuda or not conv0_kernel):
+                fused = fused_encoder_apply(self, x, fused_stages,
+                                            self._conv0_kernel if x.is_cuda else None)
+                if fused is not None:
+                    x, start = fused
+            if conv0_kernel and start == 0:
                 y = self._conv0_kernel(x)
                 if y is not None:
                     x, start = y, 1
-            if fused_stages and start == 0:
-                fused = fused_encoder_apply(self, x, fused_stages)
-                if fused is not None:
-                    x, start = fused
             for layer in self.model[start:]:
                 x = layer(x)
         return x
@@ -192,7 +203,8 @@ class SEANetEncoder(torch.nn.Module):
         conv): StreamableConv1d's exact padding, then the kernel on the padded
         signal, with the weight and bias in the input dtype."""
         mod = self.model[0]
-        if mod.in_channels != 1 or mod.stride != 1 or mod.dilation != 1:
+        if (mod.in_channels != 1 or mod.stride != 1 or mod.dilation != 1
+                or mod.norm == 'time_group_norm'):
             return None
         ks = mod.effective_kernel_size
         padding_total = ks - mod.stride
@@ -211,7 +223,9 @@ class SEANetEncoder(torch.nn.Module):
 class SEANetDecoder(torch.nn.Module):
     """Mirror of the encoder: input conv, optional LSTM, then per ratio an
     activation, a transposed conv that halves the channels and residual
-    blocks, then an activation and the final conv to ``channels``."""
+    blocks, then an activation and the final conv to ``channels``, and the
+    optional ``final_activation`` (a name of ``nn/activations``, e.g.
+    ``'Tanh'``) as the last layer."""
 
     def __init__(self, channels: int = 1, dimension: int = 128, n_filters: int = 32,
                  n_residual_layers: int = 3, ratios: tp.Sequence[int] = (8, 5, 4, 2),
@@ -220,10 +234,12 @@ class SEANetDecoder(torch.nn.Module):
                  residual_kernel_size: int = 3, dilation_base: int = 2,
                  causal: bool = False, pad_mode: str = 'reflect', true_skip: bool = True,
                  compress: int = 2, lstm: int = 0, trim_right_ratio: float = 1.0,
+                 final_activation: tp.Optional[str] = None,
                  generator: tp.Optional[torch.Generator] = None):
         super().__init__()
         self.ratios = tuple(ratios)
         self.hop_length = int(np.prod(self.ratios))
+        self.final_activation = final_activation
         conv = dict(causal=causal, norm=norm, generator=generator)
         act = dict(activation=activation, activation_alpha=activation_alpha)
         mult = int(2 ** len(self.ratios))
@@ -246,6 +262,8 @@ class SEANetDecoder(torch.nn.Module):
         layers.append(Activation(activation, activation_alpha))
         layers.append(StreamableConv1d(n_filters, channels, last_kernel_size,
                                        pad_mode=pad_mode, **conv))
+        if final_activation is not None:
+            layers.append(Activation(final_activation))
         self.model = torch.nn.ModuleList(layers)
 
     @property

@@ -34,7 +34,7 @@ _SIGNATURES = {
     'acx_rvq_encode_clocks': ([*[_P] * 5, _I, _I, _I, _I, ctypes.POINTER(_I), _P, _P], _I),
     'acx_rvq_info': ([_I, _I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)], _I),
     'acx_rvq_max_dim': ([], _I),
-    'acx_lstm_layer': ([_P, _P, _P, _P, *[_I] * 11, _L, _P], _I),
+    'acx_lstm_layer': ([*[_P] * 7, *[_I] * 11, _L, _P], _I),
     'acx_lstm_device': ([ctypes.POINTER(_I)], _I),
     'acx_lstm_info': ([_I, _I, _I, ctypes.POINTER(_I)], _I),
     'acx_attention_fwd': ([_P, _P, _P, _P, _P, _I, _I, _I, _I, *[_L] * 9, _F, _I, _I, _P],

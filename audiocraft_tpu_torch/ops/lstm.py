@@ -10,6 +10,12 @@ split across the SMs); a grid-wide barrier separates the steps.  Gates and the
 cell state are fp32, the hidden state is stored in the compute dtype (fp32 or
 bf16), which are the TPU kernel's numerics.
 
+A layer starts from zero or from a carried ``state = (h0, c0)`` (h0 in the
+compute dtype, c0 fp32: what the kernel keeps), and with ``return_state``
+also returns its final ``(h_T, c_T)`` in the same dtypes; a stream of chunks
+(``codec/streaming.py``) threads that state from one launch to the next.
+With neither, the launch is the zero-start one of a whole signal.
+
 :func:`lstm_plan` is the launch plan, pure Python so that the CPU tests reach
 it: units per block, grid, batch tile, K chunk, whether the weight slice is
 resident or streamed, and the shared-memory bytes.  Bound on an H100 and
@@ -198,19 +204,42 @@ def _gates_x(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
     return torch.matmul(x, w_ih.t()) + (b_ih + b_hh)
 
 
+State = tp.Tuple[torch.Tensor, torch.Tensor]
+LayerOut = tp.Union[torch.Tensor, tp.Tuple[torch.Tensor, State]]
+
+
+def _check_state(state: tp.Optional[State], x: torch.Tensor, H: int) -> None:
+    if state is None:
+        return
+    h0, c0 = state
+    B = x.shape[1]
+    if tuple(h0.shape) != (B, H) or tuple(c0.shape) != (B, H):
+        raise ValueError(f"LSTM state {tuple(h0.shape)}, {tuple(c0.shape)} is not [{B}, {H}]")
+    if h0.device != x.device or c0.device != x.device:
+        raise ValueError("the LSTM state must be on the input's device")
+
+
 def lstm_layer_reference(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
-                         b_ih: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: [T, B, C] -> [T, B, H] in ``x.dtype``.
+                         b_ih: torch.Tensor, b_hh: torch.Tensor,
+                         state: tp.Optional[State] = None,
+                         return_state: bool = False) -> LayerOut:
+    """Plain PyTorch version: [T, B, C] -> [T, B, H] in ``x.dtype`` (and the
+    final ``(h, c)`` with ``return_state``).
 
     The step product takes h in the compute dtype and sums in fp32; gates and
     c are fp32, h is rounded to the compute dtype each step, as in the kernel.
+    ``state`` is the starting ``(h, c)``, zeros when None.
     """
     T, B, _ = x.shape
     H = w_hh.shape[1]
+    _check_state(state, x, H)
     gx = _gates_x(x, w_ih, b_ih, b_hh)
     w_t = w_hh.float().t()
-    h = torch.zeros(B, H, dtype=x.dtype, device=x.device)
-    c = torch.zeros(B, H, dtype=torch.float32, device=x.device)
+    if state is None:
+        h = torch.zeros(B, H, dtype=x.dtype, device=x.device)
+        c = torch.zeros(B, H, dtype=torch.float32, device=x.device)
+    else:
+        h, c = state[0].to(x.dtype), state[1].float()
     out = torch.empty(T, B, H, dtype=x.dtype, device=x.device)
     for t in range(T):
         gates = gx[t].float() + h.float() @ w_t
@@ -218,15 +247,20 @@ def lstm_layer_reference(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = (torch.sigmoid(o) * torch.tanh(c)).to(x.dtype)
         out[t] = h
-    return out
+    return (out, (h, c)) if return_state else out
 
 
 def lstm_layer(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
-               b_ih: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
+               b_ih: torch.Tensor, b_hh: torch.Tensor, state: tp.Optional[State] = None,
+               return_state: bool = False) -> LayerOut:
     """One LSTM layer over [T, B, C] -> [T, B, H], weights in ``x.dtype``
-    (torch layout: ``w_ih`` [4H, C], ``w_hh`` [4H, H], biases [4H])."""
+    (torch layout: ``w_ih`` [4H, C], ``w_hh`` [4H, H], biases [4H]).
+
+    ``state`` = (h0 [B, H], c0 [B, H]) starts the recurrence there (zeros
+    when None); ``return_state`` returns ``(out, (h_T, c_T))``, h_T in
+    ``x.dtype`` and c_T in fp32, as the kernel keeps them."""
     if x.device.type == 'cpu':
-        return lstm_layer_reference(x, w_ih, w_hh, b_ih, b_hh)
+        return lstm_layer_reference(x, w_ih, w_hh, b_ih, b_hh, state, return_state)
     if x.device.type != 'cuda':
         raise ValueError(f"lstm_layer runs on CUDA or CPU tensors, not {x.device}")
     T, B, C = x.shape
@@ -241,8 +275,13 @@ def lstm_layer(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
     for w in (w_ih, w_hh, b_ih, b_hh):
         if w.dtype != x.dtype or w.device != x.device:
             raise ValueError("LSTM weights must share the input's dtype and device")
+    _check_state(state, x, H)
     if T == 0:
-        return x.new_empty(0, B, H)
+        out = x.new_empty(0, B, H)
+        if not return_state:
+            return out
+        h, c = state if state is not None else (x.new_zeros(B, H), x.new_zeros(B, H))
+        return out, (h.to(x.dtype), c.float())
     if B * H * 4 >= 2 ** 31:
         raise ValueError(f"batch {B} x hidden {H} is too large for the kernel's int sizes")
     plan = device_plan(H, B, x.dtype, x.device)
@@ -251,16 +290,22 @@ def lstm_layer(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
     gx = _gates_x(x, w_ih, b_ih, b_hh).contiguous()
     w = w_hh.contiguous()
     out = torch.empty(T, B, H, dtype=x.dtype, device=x.device)
+    h0 = c0 = None
+    if state is not None:
+        h0 = state[0].to(x.dtype).contiguous()
+        c0 = state[1].float().contiguous()
+    c_out = torch.empty(B, H, dtype=torch.float32, device=x.device) if return_state else None
     barrier = torch.zeros(1, dtype=torch.int32, device=x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(x.device):
         err = _build.library().acx_lstm_layer(
-            gx.data_ptr(), w.data_ptr(), out.data_ptr(), barrier.data_ptr(), T, B, H,
-            int(x.dtype == torch.bfloat16), plan.units, plan.grid, plan.batch_tile,
-            plan.k_chunk, int(plan.resident), plan.stages, plan.batch_groups, plan.smem_bytes,
-            torch.cuda.current_stream().cuda_stream)
+            gx.data_ptr(), w.data_ptr(), out.data_ptr(), ptr(h0), ptr(c0), ptr(c_out),
+            barrier.data_ptr(), T, B, H, int(x.dtype == torch.bfloat16), plan.units, plan.grid,
+            plan.batch_tile, plan.k_chunk, int(plan.resident), plan.stages, plan.batch_groups,
+            plan.smem_bytes, torch.cuda.current_stream().cuda_stream)
     _build.check(err, 'acx_lstm_layer')
     lstm_layer.launches += 1
-    return out
+    return (out, (out[-1], c_out)) if return_state else out
 
 
 lstm_layer.launches = 0  # kernel launches (one per layer call) since the last reset

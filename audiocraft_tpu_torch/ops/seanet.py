@@ -63,6 +63,14 @@ class StageSpec:
         return max(128, ((self.c_in + 127) // 128) * 128)
 
 
+def fused_length_ok(enc, length: int, n_stages: int = 2) -> bool:
+    """Whether :func:`fused_encoder_apply` takes a signal of ``length``
+    samples: the config has a stage plan and the length is a multiple of the
+    first stage's stride."""
+    plan = encoder_stage_plan(enc)[:n_stages]
+    return bool(plan) and length % plan[0][0].stride == 0 and length >= 2
+
+
 def encoder_stage_plan(enc) -> tp.List[tp.Tuple[StageSpec, tp.List[int]]]:
     """Leading fusible stages of a SEANetEncoder config: [(spec, [res, down])]
     (layer 0, the input conv, runs before them); empty when the topology is
@@ -395,15 +403,21 @@ def stage_kernel_info(spec: StageSpec, batch: int, length: int,
                      'tile', 'blocks'), out))
 
 
-def fused_encoder_apply(enc, x: torch.Tensor, n_stages: int
+def fused_encoder_apply(enc, x: torch.Tensor, n_stages: int,
+                        conv0: tp.Optional[tp.Callable[[torch.Tensor],
+                                                       tp.Optional[torch.Tensor]]] = None
                         ) -> tp.Optional[tp.Tuple[torch.Tensor, int]]:
-    """Run the input conv (the module's own) and the first ``n_stages``
-    planned stages through K4.  x: [B, 1, T].  Returns (y, next_layer), or
-    None when no stage fuses (the caller runs the module stack)."""
+    """Run the input conv and the first ``n_stages`` planned stages through
+    K4.  x: [B, 1, T].  The input conv is ``conv0(x)`` when given and not
+    None (``SEANetEncoder._conv0_kernel``: K5), else the module's own; the
+    function is the same either way.  Returns (y, next_layer), or None when
+    no stage fuses (the caller runs the module stack)."""
     plan = encoder_stage_plan(enc)[:n_stages]
-    if not plan or x.shape[-1] % plan[0][0].stride or x.shape[-1] < 2:
+    if not fused_length_ok(enc, x.shape[-1], n_stages):
         return None
-    y = enc.model[0](x)
+    y = conv0(x) if conv0 is not None else None
+    if y is None:
+        y = enc.model[0](x)
     next_layer = 0
     for spec, ids in plan:
         if y.shape[-1] % spec.stride:

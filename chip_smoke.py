@@ -18,8 +18,10 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    its bound, its plain version and, where one exists, one PyTorch call
    computing the same thing.
 3. The codec path: ``get_encodec_32khz()`` (bf16, random weights from a
-   seed) tokenizes and reconstructs 128 clips of 10 s; both codec kernels'
-   launch counts must rise during that run.
+   seed) tokenizes and reconstructs 128 clips of 10 s on its default route,
+   the fused route (the input conv through K5, two encoder stages through
+   K4); K1, K2, K4 and K5 must launch during that run.  The breakdown is the
+   module stack's, layer by layer.
 4. fp32 codec parity: the same weights with ``compute_dtype=None`` on the
    card and on the CPU (plain versions), with torch's default TF32 flags:
    the codec turns cuDNN's TF32 off itself.
@@ -44,13 +46,16 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
 8. Training parity in fp32 (TF32 off): loss and every gradient of the
    kernel route against the plain route, then three AdamW steps on each;
    and the bf16-compute gradients of both routes on the same batch.
-9. The fused encode path: ``get_encodec_32khz()`` encodes 128 clips of 10 s
-   three times on each route, the default, ``fused=True`` (the input conv
-   and two stages through K4) and ``conv0_kernel=True`` (K5); K4 must launch
-   twice per fused encode, K5 once per ``conv0_kernel`` encode, K1 once and
-   K2 twice per encode on every route; each route's bf16 latent is held
-   against the default route's, and the fp32 latent of the fused and K5
-   routes against the plain route on the CPU.
+9. The encode routes: ``get_encodec_32khz()`` encodes 128 clips of 10 s
+   three times on each route, the module stack (``fused=False``), the fused
+   route with K5 as its input conv (the default on the card) and
+   ``conv0_kernel`` alone (``fused=False, conv0_kernel=True``); K4 must
+   launch twice and K5 once per fused encode, K5 once per ``conv0_kernel``
+   encode, K1 once and K2 twice per encode on every route; each route's bf16
+   latent is held against the module stack's (3e-2), and the fp32 codes and
+   latent of the fused and K5 routes against the module stack on the CPU.
+   Then every route (and the fused route with cuDNN's input conv, the
+   earlier default's) timed at every encode shape this script runs.
 10. The data-movement probe (P1): ``apps/probe_ops`` runs its seven bf16
    operations on the card, each of which must equal torch's result.
 11. The MusicGen path: ``get_musicgen('small')`` (random weights from a
@@ -69,6 +74,15 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    route's greedy and sampled tokens equal the eager loop's, the cached
    steps' logits the cache-free forward's within 1e-4 relative, and the
    card's greedy tokens the CPU's, or differ first at a near-tie.
+12. Stereo and streaming: the stereo wrapper over ``get_encodec_32khz()``
+   tokenizes and reconstructs 64 stereo clips of 10 s (the mono codec at
+   b128), its codes equal to the mono codec's of each channel;
+   ``get_musicgen('small', stereo=True)`` generates 10 s for 4 seeded
+   descriptions (1-pass CFG, top-k 250, bf16, CUDA graph steps) into
+   [4, 2, 320000] audio, and in fp32 its greedy tokens at 1 s equal the
+   CPU's; the causal ``get_encodec_24khz()`` streams 16 clips of 10 s in 1 s
+   chunks through ``CodecStreamer`` both ways (K2 from a carried (h, c)),
+   held to the whole-signal encode and decode in fp32.
 Phase 2 also holds K3b (the attention backward, both dtypes, at the model
 shapes and the tiles' edges), K4 (both 32 kHz stage shapes and the edges
 of its tiles; its resources, per-phase cycle split and weight bytes from L2
@@ -93,8 +107,10 @@ import numpy as np
 import torch
 
 from audiocraft_tpu_torch.apps import probe_ops, train_lm
-from audiocraft_tpu_torch.builders import (get_encodec_32khz, get_magnet_lm, get_musicgen,
-                                           get_musicgen_lm)
+from audiocraft_tpu_torch.builders import (get_encodec_24khz, get_encodec_32khz, get_magnet_lm,
+                                           get_musicgen, get_musicgen_lm,
+                                           get_wrapped_compression_model)
+from audiocraft_tpu_torch.codec.streaming import CodecStreamer, encoder_stream
 from audiocraft_tpu_torch.cond.attributes import (ClassifierFreeGuidanceDropout,
                                                   ConditioningAttributes)
 from audiocraft_tpu_torch.dist.train import lm_loss, lm_loss_and_grads, make_lm_train_step
@@ -147,6 +163,14 @@ ENCODES = 3   # timed encodes per route in phase 9
 # the step timed over 50 steps from offset 1000
 MG_PROMPTS, MG_SECONDS, MG_STRIDE_SECONDS, MG_PARITY_SECONDS = 4, 30, 45, 2
 MG_TIMED_STEPS, MG_STEP_OFFSET = 50, 1000
+# phase 12: 64 stereo clips x 10 s (the mono codec at b128); MusicGen-stereo-
+# small, 4 descriptions x 10 s, fp32 parity over 1 s; the 24 kHz codec
+# streaming 16 clips x 10 s in chunks of 1 s (75 frames)
+STEREO_BATCH, MGS_SECONDS, MGS_PARITY_SECONDS, MGS_STEP_OFFSET = 64, 10, 1, 250
+STREAM_BATCH, STREAM_SECONDS, STREAM_RATE, STREAM_CHUNK_FRAMES = 16, 10, 24000, 75
+# the encode shapes this script runs (batch, seconds): phases 3 / 9, the
+# training encode of phase 7, and B = 1 and 4 at 10 s
+ROUTE_SHAPES = ((BATCH, SECONDS), (TRAIN_BATCH, TRAIN_SECONDS), (4, SECONDS), (1, SECONDS))
 
 
 class CheckFailed(RuntimeError):
@@ -487,6 +511,49 @@ def check_lstm(device) -> dict:
                 max_abs_err=errs[torch.bfloat16], **entry)
 
 
+def _lstm_state(B: int, H: int, dtype, device, seed: int) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    gen = torch.Generator().manual_seed(seed)
+    return ((torch.randn(B, H, generator=gen) * 0.3).to(device, dtype),
+            (torch.randn(B, H, generator=gen) * 0.3).to(device))
+
+
+def check_lstm_carry(device) -> None:
+    """K2 started from a carried (h0, c0) and returning its final (h, c),
+    against the plain version with the same carry: fp32 within 1e-4, bf16
+    within 5e-2 (as from zero), output, h_T and c_T, at the streaming shape
+    (T = 75, one chunk of the 24 kHz codec, B = 16, H = 512), at T = 1, at a
+    ragged H = 40, B = 3, and at the codec's T = 500, B = 128, H = 1024;
+    then two chained launches against one over the whole sequence."""
+    errs = []
+    for T, B, H in ((STREAM_CHUNK_FRAMES, STREAM_BATCH, 512), (1, STREAM_BATCH, 512),
+                    (9, 3, 40), (LSTM_SHAPE['t'], LSTM_SHAPE['b'], LSTM_SHAPE['h'])):
+        x, *weights = _lstm_args(T, B, H, seed=5)
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+            args = [a.to(device, dtype) for a in (x, *weights)]
+            state = _lstm_state(B, H, dtype, device, seed=6)
+            out, (h, c) = lstm_layer(*args, state=state, return_state=True)
+            ref, (h_ref, c_ref) = lstm_layer_reference(*args, state=state, return_state=True)
+            check(h.dtype == dtype and c.dtype == torch.float32, f'carry dtypes {h.dtype} {c.dtype}')
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in ((out, ref), (h, h_ref), (c, c_ref)))
+            check(err <= tol, f'lstm carry T={T} B={B} H={H} {dtype}: max-abs {err:.3g} > {tol}')
+            errs.append(f'T={T} B={B} H={H} {str(dtype)[6:]} {err:.3g}')
+    T, B, H = 2 * STREAM_CHUNK_FRAMES, STREAM_BATCH, 512
+    x, *weights = [a.to(device) for a in _lstm_args(T, B, H, seed=7)]
+    whole, (h, c) = lstm_layer(x, *weights, return_state=True)
+    first, state = lstm_layer(x[:STREAM_CHUNK_FRAMES], *weights, return_state=True)
+    second, (h2, c2) = lstm_layer(x[STREAM_CHUNK_FRAMES:], *weights, state=state,
+                                  return_state=True)
+    chained = torch.cat([first, second])
+    err = max(float((a - b).abs().max()) for a, b in ((chained, whole), (h2, h), (c2, c)))
+    check(err <= 1e-5, f'lstm fp32: two chained launches max-abs {err:.3g} from one > 1e-5')
+    print(f'lstm from a carried (h, c), output and final (h, c) against plain, max-abs: '
+          f'{"; ".join(errs)} (fp32 <= 1e-4, bf16 <= 5e-2); two chained fp32 launches of '
+          f'{STREAM_CHUNK_FRAMES} steps against one of {T}: max-abs {err:.3g} (<= 1e-5; '
+          f'bit-identical {torch.equal(chained, whole) and torch.equal(c2, c)}, information: '
+          'the input projections are separate matmuls)', flush=True)
+
+
 def phase_kernels(device) -> dict:
     print('== phase 2: kernels against their plain versions', flush=True)
     results = {}
@@ -494,6 +561,7 @@ def phase_kernels(device) -> dict:
 
     results['rvq_encode'] = check_rvq_main(device)
     results['lstm_step'] = check_lstm(device)
+    check_lstm_carry(device)
     results['flash_attention'] = check_attention(device)
     dkv, dq = check_attention_backward(device)
     results[dkv['name']], results[dq['name']] = dkv, dq
@@ -1103,7 +1171,8 @@ def print_breakdown(model, wav: torch.Tensor) -> None:
 
 
 def phase_main_path(device) -> dict:
-    print('== phase 3: main path, get_encodec_32khz() encode + decode', flush=True)
+    print('== phase 3: main path, get_encodec_32khz() encode (its default route on the card: '
+          'the fused route, K5 + K4) + decode', flush=True)
     model = get_encodec_32khz()
     check(model.compute_dtype == 'bfloat16', 'the 32 kHz default is not bf16')
     seed_codebooks(model, _clips(16, SECONDS * SAMPLE_RATE, device, seed=4))
@@ -1111,7 +1180,9 @@ def phase_main_path(device) -> dict:
     model.decode(model.encode(wav)[0])   # warm-up, not counted
     torch.cuda.synchronize()
 
+    check(model.fused_default(wav), 'the default route at b128 x 10 s is not the fused one')
     rvq_encode.launches = lstm_layer.launches = 0
+    fused_stage.launches = banded_mono_conv.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     codes, scale = model.encode(wav)
@@ -1120,7 +1191,7 @@ def phase_main_path(device) -> dict:
     out = model.decode(codes)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = {'rvq_encode': rvq_encode.launches, 'lstm_step': lstm_layer.launches}
+    launches = _seanet_launches()
     peak = torch.cuda.max_memory_allocated()
 
     frames = SECONDS * 50
@@ -1132,6 +1203,8 @@ def phase_main_path(device) -> dict:
     check(launches['rvq_encode'] == 1, f"rvq launches {launches['rvq_encode']} != 1")
     check(launches['lstm_step'] == 2 * 2,
           f"lstm launches {launches['lstm_step']} != 4 (2 layers, encode and decode)")
+    check(launches['fused_stage'] == 2 and launches['banded_mono_conv'] == 1,
+          f'the default encode launched {launches}, not K4 twice and K5 once')
     audio = BATCH * SECONDS
     name = card()
     print(f'codes {tuple(codes.shape)}, {int(codes.unique().numel())} distinct; wav '
@@ -1139,6 +1212,8 @@ def phase_main_path(device) -> dict:
     print(f'encode {t1 - t0:.4f} s = {audio / (t1 - t0):.1f} audio-s tokenized/s; decode '
           f'{t2 - t1:.4f} s = {audio / (t2 - t1):.1f} audio-s decoded/s; peak memory '
           f'{peak / 2**30:.2f} GiB; card {name}', flush=True)
+    print('module stack (fused=False) breakdown, layer by layer (the fused route\'s is phase '
+          '9\'s):', flush=True)
     print_breakdown(model, wav)
     return launches
 
@@ -1321,12 +1396,14 @@ def _launch_counts() -> tp.Dict[str, int]:
     return {'flash_attention': fused_attention.launches,
             'flash_attention_bwd_dkv': attention_bwd_dkv.launches,
             'flash_attention_bwd_dq': attention_bwd_dq.launches,
-            'rvq_encode': rvq_encode.launches, 'lstm_step': lstm_layer.launches}
+            'rvq_encode': rvq_encode.launches, 'lstm_step': lstm_layer.launches,
+            'fused_stage': fused_stage.launches, 'banded_mono_conv': banded_mono_conv.launches}
 
 
 def _reset_launch_counts() -> None:
     fused_attention.launches = attention_bwd_dkv.launches = attention_bwd_dq.launches = 0
     rvq_encode.launches = lstm_layer.launches = 0
+    fused_stage.launches = banded_mono_conv.launches = 0
 
 
 def print_train_breakdown(lm, optimizer, state, codec, wav, codes, cond) -> None:
@@ -1429,7 +1506,8 @@ def phase_train(device, lm, provider) -> tp.Dict[str, int]:
     B, K, T = codes.shape
     check((B, K, T) == (TRAIN_BATCH, 4, TRAIN_SECONDS * 50), f'codes {tuple(codes.shape)}')
     expect = {'flash_attention': n_layers, 'flash_attention_bwd_dkv': n_layers,
-              'flash_attention_bwd_dq': n_layers, 'rvq_encode': 1, 'lstm_step': 2}
+              'flash_attention_bwd_dq': n_layers, 'rvq_encode': 1, 'lstm_step': 2,
+              'fused_stage': 2, 'banded_mono_conv': 1}   # the encode's default, fused route
     for i, counts in enumerate(per_step):
         check(counts == expect, f'step {i} launches {counts} != {expect}')
     check(all(math.isfinite(x) for x in losses), f'non-finite loss {losses}')
@@ -1573,22 +1651,29 @@ def _event() -> torch.cuda.Event:
 
 
 def print_fused_breakdown(model, wav: torch.Tensor) -> None:
-    """Where one fused encode spends device time, CUDA events around the
-    route's own calls: ``fused_encoder_apply`` (the input conv timed by hooks
-    on layer 0, the rest of the call being its K4 stages), each remaining
-    layer by kind, the RVQ."""
+    """Where one encode on the fused route spends device time, CUDA events
+    around the route's own calls: the input conv (K5, and cuDNN's module
+    conv of the earlier default for comparison), K4's two stages, each
+    remaining layer by kind, the RVQ."""
     enc = model.encoder
     conv0: tp.List[torch.cuda.Event] = []
-    hooks = (enc.model[0].register_forward_pre_hook(lambda *_: conv0.append(_event())),
-             enc.model[0].register_forward_hook(lambda *_: conv0.append(_event())))
+
+    def k5(x):
+        conv0.append(_event())
+        y = enc._conv0_kernel(x)
+        conv0.append(_event())
+        return y
+
     with torch.no_grad():
+        x = model._cast(wav)
+        begin = _event()
+        enc.model[0](x)
+        cudnn_marks = (begin, _event())
         start = _event()
-        x, next_layer = fused_encoder_apply(enc, model._cast(wav), 2)
+        x, next_layer = fused_encoder_apply(enc, x, 2, k5)
         end = _event()
-        for hook in hooks:
-            hook.remove()
         check(len(conv0) == 2 and next_layer == 7, f'fused route: next layer {next_layer}')
-        marks = [('conv0 (cuDNN)', start, conv0[1]), ('K4 stages 0-1', conv0[1], end)]
+        marks = [('conv0 (K5)', conv0[0], conv0[1]), ('K4 stages 0-1', conv0[1], end)]
         for layer in enc.model[next_layer:]:
             begin = _event()
             x = layer(x)
@@ -1597,12 +1682,14 @@ def print_fused_breakdown(model, wav: torch.Tensor) -> None:
         model.quantizer.encode(x.float())
         marks.append(('rvq encode', begin, _event()))
     torch.cuda.synchronize()
-    times = [(name, start.elapsed_time(end)) for name, start, end in marks]
+    times = [(name, a.elapsed_time(b)) for name, a, b in marks]
     kinds: tp.Dict[str, float] = {}
     for name, ms in times:
         kinds[name] = kinds.get(name, 0.0) + ms
-    print('fused encode by kind (ms): ' + ', '.join(f'{n} {ms:.2f}' for n, ms in kinds.items())
-          + f', total {sum(kinds.values()):.2f}', flush=True)
+    print('fused route (K5 + K4) encode by kind (ms): ' + ', '.join(
+        f'{n} {ms:.2f}' for n, ms in kinds.items()) + f', total {sum(kinds.values()):.2f}; '
+          f'cuDNN\'s input conv on the same input {cudnn_marks[0].elapsed_time(cudnn_marks[1]):.2f} '
+          f'ms (the earlier default\'s)', flush=True)
 
 
 def _seanet_launches() -> tp.Dict[str, int]:
@@ -1610,21 +1697,77 @@ def _seanet_launches() -> tp.Dict[str, int]:
             'rvq_encode': rvq_encode.launches, 'lstm_step': lstm_layer.launches}
 
 
+# the encode routes of phase 9: name -> encode() arguments
+ROUTES = {'module stack': dict(fused=False), 'fused + K5 (default)': {},
+          'conv0_kernel alone': dict(fused=False, conv0_kernel=True)}
+
+
+def _fused_cudnn_encode(model, wav: torch.Tensor) -> torch.Tensor:
+    """The fused route with cuDNN's input conv (the module's), which the
+    earlier default ran: for timing beside the routes."""
+    with torch.no_grad():
+        x, next_layer = fused_encoder_apply(model.encoder, model._cast(wav), 2)
+        for layer in model.encoder.model[next_layer:]:
+            x = layer(x)
+        return model.quantizer.encode(x.float())
+
+
+def time_encode_routes(model, debug_model, device) -> None:
+    """Each route timed by CUDA events (mean of a few encodes after a warm
+    one) at every encode shape of this script: the 32 kHz codec in bf16 at
+    ROUTE_SHAPES, and the debug codec (fp32) at B = 1 x 2 s, phase 11's
+    prompt encode; the ratio says where the fused route leads."""
+    name = card()
+    shapes = [(model, 'get_encodec_32khz() bf16', b, s) for b, s in ROUTE_SHAPES]
+    shapes.append((debug_model, 'debug codec fp32', 1, 2))
+    for codec, what, b, sec in shapes:
+        wav = _clips(b, sec * SAMPLE_RATE, device, seed=8)
+        reps = 3 if b * sec >= 100 else 10
+        row = {route: time_ms(lambda: codec.encode(wav, **kw), reps)
+               for route, kw in ROUTES.items()}
+        row['fused, cuDNN input conv'] = time_ms(lambda: _fused_cudnn_encode(codec, wav), reps)
+        stack, fused = row['module stack'], row['fused + K5 (default)']
+        print(f'encode routes, {what} B={b} x {sec} s (ms, CUDA events, mean of {reps}): '
+              + ', '.join(f'{r} {ms:.3f}' for r, ms in row.items())
+              + f'; module stack / fused + K5 {stack / fused:.2f}; card {name}', flush=True)
+        del wav
+
+
+def _fp32_codes_vs_cpu(route: str, lat: torch.Tensor, lat_cpu: torch.Tensor, gpu, cpu) -> None:
+    """fp32 codes of a card route against the module stack's on the CPU:
+    every differing code at a near-tie of the CPU's distances (top two
+    within 1e-4 relative), the latent within 1e-4 relative."""
+    rel = float((lat.cpu() - lat_cpu).abs().max() / lat_cpu.abs().max())
+    codes = gpu.quantizer.encode(lat).cpu()
+    codes_cpu = cpu.quantizer.encode(lat_cpu)
+    B, D, T = lat_cpu.shape
+    rows = lat_cpu.transpose(1, 2).reshape(B * T, D)
+    differ = (codes != codes_cpu).any(1).reshape(B * T)
+    near = _near_ties(rows, cpu.quantizer.embeds(),
+                      codes_cpu.permute(1, 0, 2).reshape(codes_cpu.shape[1], -1), rel=1e-4)
+    print(f'{route} fp32 on the card vs the module stack on the CPU, latent [{B}, {D}, {T}]: '
+          f'max-abs / max {rel:.3g} (<= 1e-4); frames with another code {int(differ.sum())} of '
+          f'{B * T}, all at near-ties of the CPU\'s distances: '
+          f'{bool((near | ~differ).all())}', flush=True)
+    check(rel <= 1e-4, f'{route} fp32: latent rel {rel:.3g} > 1e-4')
+    check(bool((near | ~differ).all()), f'{route} fp32: {int((differ & ~near).sum())} frames '
+                                        'differ from the CPU\'s codes away from a near-tie')
+
+
 def phase_fused_encode(device) -> tp.Dict[str, int]:
-    print('== phase 9: fused encode path, get_encodec_32khz() encode(fused=True) and '
-          'encode(conv0_kernel=True)', flush=True)
+    print('== phase 9: encode routes of get_encodec_32khz(): the module stack, the fused route '
+          'with K5 (the default on the card) and conv0_kernel alone', flush=True)
     model = get_encodec_32khz()
     seed_codebooks(model, _clips(16, SECONDS * SAMPLE_RATE, device, seed=4))
     wav = _clips(BATCH, SECONDS * SAMPLE_RATE, device, seed=5)
-    routes = {'default': {}, 'fused': dict(fused=True), 'conv0_kernel': dict(conv0_kernel=True)}
     frames = SECONDS * 50
-    per_encode = {'default': dict(fused_stage=0, banded_mono_conv=0),
-                  'fused': dict(fused_stage=2, banded_mono_conv=0),
-                  'conv0_kernel': dict(fused_stage=0, banded_mono_conv=1)}
+    per_encode = {'module stack': dict(fused_stage=0, banded_mono_conv=0),
+                  'fused + K5 (default)': dict(fused_stage=2, banded_mono_conv=1),
+                  'conv0_kernel alone': dict(fused_stage=0, banded_mono_conv=1)}
     path_launches: tp.Dict[str, int] = {}
     codes, latents = {}, {}
     name = card()
-    for route, kw in routes.items():
+    for route, kw in ROUTES.items():
         model.encode(wav, **kw)   # warm-up, not counted
         torch.cuda.synchronize()
         fused_stage.launches = banded_mono_conv.launches = 0
@@ -1641,9 +1784,9 @@ def phase_fused_encode(device) -> tp.Dict[str, int]:
         expect = {k: ENCODES * v for k, v in per_encode[route].items()}
         expect.update(rvq_encode=ENCODES, lstm_step=ENCODES * 2)
         check(launches == expect, f'{route}: launches {launches} != {expect}')
-        for kernel in ('fused_stage', 'banded_mono_conv'):
-            if expect[kernel]:
-                path_launches[kernel] = launches[kernel]
+        if route == 'fused + K5 (default)':
+            path_launches.update(fused_stage=launches['fused_stage'],
+                                 banded_mono_conv=launches['banded_mono_conv'])
         c = codes[route]
         check(tuple(c.shape) == (BATCH, 4, frames) and bool(((c >= 0) & (c < 2048)).all()),
               f'{route}: codes {tuple(c.shape)}')
@@ -1653,20 +1796,22 @@ def phase_fused_encode(device) -> tp.Dict[str, int]:
               f'{peak / 2**30:.2f} GiB; launches over {ENCODES} encodes {launches}; card {name}',
               flush=True)
         with torch.no_grad():
-            latents[route] = model.encoder(model._cast(wav),
-                                           fused_stages=2 if kw.get('fused') else 0,
-                                           conv0_kernel=bool(kw.get('conv0_kernel'))).float()
+            latents[route] = model.encoder(
+                model._cast(wav), fused_stages=2 if kw.get('fused', True) else 0,
+                conv0_kernel=bool(kw.get('conv0_kernel'))).float()
         check(bool(torch.isfinite(latents[route]).all()), f'{route}: non-finite latent')
-    ref = latents['default']
-    for route in ('fused', 'conv0_kernel'):
+    ref = latents['module stack']
+    for route in ('fused + K5 (default)', 'conv0_kernel alone'):
         rel = float((latents[route] - ref).abs().max() / ref.abs().max())
-        share = float((codes[route] == codes['default']).float().mean())
-        print(f'{route} vs default, bf16 latent [{BATCH}, 128, {frames}]: max-abs / max '
+        share = float((codes[route] == codes['module stack']).float().mean())
+        print(f'{route} vs the module stack, bf16 latent [{BATCH}, 128, {frames}]: max-abs / max '
               f'{rel:.3g} (<= 3e-2); code match share {share:.6f} (information: other bf16 '
               f'rounding points move near-tie codes)', flush=True)
         check(rel <= 3e-2, f'{route}: bf16 latent rel {rel:.3g} > 3e-2')
     print_fused_breakdown(model, wav)
-    del latents, codes, model, wav
+    del latents, codes, wav
+    time_encode_routes(model, get_debug_musicgen().compression_model, device)
+    del model
 
     check(torch.backends.cudnn.allow_tf32, "cuDNN's TF32 flag is not at torch's default")
     gpu = get_encodec_32khz(compute_dtype=None)
@@ -1676,20 +1821,13 @@ def phase_fused_encode(device) -> tp.Dict[str, int]:
     wav = _clips(8, 2 * SAMPLE_RATE, device, seed=7)
     with torch.no_grad():
         lat_cpu = cpu.encoder(wav.cpu()).float()
-        codes_cpu = cpu.quantizer.encode(lat_cpu)
-        for route, kw in (('fused', dict(fused_stages=2)), ('conv0_kernel',
-                                                             dict(conv0_kernel=True))):
+        for route, kw, kernels in (('fused + K5', dict(fused_stages=2), 3),
+                                   ('conv0_kernel alone', dict(conv0_kernel=True), 1)):
             before = fused_stage.launches + banded_mono_conv.launches
             lat = gpu.encoder(wav, **kw).float()
             ran = fused_stage.launches + banded_mono_conv.launches - before
-            check(ran == (2 if route == 'fused' else 1), f'{route} fp32: {ran} kernel launches')
-            rel = float((lat.cpu() - lat_cpu).abs().max() / lat_cpu.abs().max())
-            share = float((gpu.quantizer.encode(lat).cpu() == codes_cpu).float().mean())
-            print(f'{route} fp32 on the card vs the plain unfused route on the CPU, latent '
-                  f'[8, 128, 100]: max-abs / max {rel:.3g} (<= 1e-4); code match share '
-                  f'{share:.6f} (>= 0.995)', flush=True)
-            check(rel <= 1e-4, f'{route} fp32: latent rel {rel:.3g} > 1e-4')
-            check(share >= 0.995, f'{route} fp32: code match share {share:.6f} < 0.995')
+            check(ran == kernels, f'{route} fp32: {ran} kernel launches, not {kernels}')
+            _fp32_codes_vs_cpu(route, lat, lat_cpu, gpu, cpu)
     return path_launches
 
 
@@ -1774,9 +1912,9 @@ def _cuda_busy_ms(fn) -> tp.Tuple[float, float, list]:
     return busy, start.elapsed_time(end), kernels
 
 
-def print_decode_step(lm, state, cond_batch: int) -> float:
-    """One decode step of ``state`` (a finished generate) at offset
-    MG_STEP_OFFSET, 50 steps each way on the same caches: the eager step's
+def print_decode_step(lm, state, cond_batch: int, offset: int = MG_STEP_OFFSET) -> float:
+    """One decode step of ``state`` (a finished generate) at ``offset``,
+    50 steps each way on the same caches: the eager step's
     host and device ms, the replayed graph's ms, and the device's busy time
     and idle share over replays under the profiler; then the attention's and
     the heads' part of a step, and the step's byte bound.  Returns the graph
@@ -1785,8 +1923,8 @@ def print_decode_step(lm, state, cond_batch: int) -> float:
     index = state.current[0].index
 
     def rewind():
-        state.offset.fill_(MG_STEP_OFFSET)
-        index.fill_(MG_STEP_OFFSET - 1)
+        state.offset.fill_(offset)
+        index.fill_(offset - 1)
 
     def eager():
         for _ in range(MG_TIMED_STEPS):
@@ -1817,7 +1955,7 @@ def print_decode_step(lm, state, cond_batch: int) -> float:
         rewind()
         busy, window, kernels = _cuda_busy_ms(replays)
     name = card()
-    print(f'decode step at offset {MG_STEP_OFFSET} of {state.plan["S"]}, model batch '
+    print(f'decode step at offset {offset} of {state.plan["S"]}, model batch '
           f'{cond_batch}, {MG_TIMED_STEPS} steps each way on the same caches: eager '
           f'{host_ms:.3f} ms of host time a step ({eager_wall:.3f} ms wall by CUDA events, '
           f'device busy {eager_busy:.3f} ms under the profiler); graph replay {graph_ms:.3f} ms '
@@ -1861,6 +1999,22 @@ def print_decode_step(lm, state, cond_batch: int) -> float:
           f'{weight_bytes / 1e9:.3f} GB + cross K/V {cross_bytes / 1e9:.3f} GB + KV read '
           f'{kv_read / 1e9:.3f} GB at 3.35 TB/s) {bound:.3f} ms; card {name}', flush=True)
     return graph_ms
+
+
+def replay_ms(state, offset: int) -> float:
+    """ms of one replayed decode step of ``state`` at ``offset``, CUDA
+    events over MG_TIMED_STEPS replays on the same caches."""
+    graph = state.graphs[0]
+    with torch.no_grad():
+        state.offset.fill_(offset)
+        state.current[0].index.fill_(offset - 1)
+        torch.cuda.synchronize()
+        start = _event()
+        for _ in range(MG_TIMED_STEPS):
+            graph.replay()
+        end = _event()
+        torch.cuda.synchronize()
+    return start.elapsed_time(end) / MG_TIMED_STEPS
 
 
 def _musicgen_generate(lm, cond, frames: int, seed: tp.Optional[int], graph_cache,
@@ -1952,6 +2106,16 @@ def phase_musicgen(device) -> tp.Dict[str, int]:
                            f'loop ({eager_s:.3f} s)')
     print_decode_step(lm, state, 2 * MG_PROMPTS)
     del eager
+    # the mono step at phase 12's stereo shape (10 s: caches of 508 steps)
+    short: list = []
+    _musicgen_generate(lm, cond, int(MGS_SECONDS * mg.frame_rate), 42, DecodeCache(),
+                       states=short)
+    mono_short_ms = replay_ms(short[0], MGS_STEP_OFFSET)
+    print(f'MusicGen-small replayed decode step at 4 x {MGS_SECONDS} s (caches of '
+          f'{short[0].plan["S"]} steps), offset {MGS_STEP_OFFSET}: {mono_short_ms:.3f} ms, mean '
+          f'of {MG_TIMED_STEPS} (phase 12 times the stereo step there); card {card()}',
+          flush=True)
+    del short
 
     # the serving recipe on a copy of the LM: int8 weights, int8 KV, 'auto' buckets
     served = MusicGen(mg.name, mg.compression_model, copy.deepcopy(mg.lm), mg.condition_provider)
@@ -2119,6 +2283,14 @@ def phase_musicgen_parity(device, mg) -> None:
     check(rel <= 1e-4, f'cached step logits rel {rel:.3g} > 1e-4')
     del full, steps, caches
 
+    check_greedy_against_cpu(lm, cond, frames, n, greedy, seq)
+
+
+def check_greedy_against_cpu(lm, cond, frames: int, n: int, greedy: torch.Tensor,
+                             seq: torch.Tensor) -> None:
+    """The card's fp32 greedy tokens (``greedy``, its pattern sequence
+    ``seq``) against the same generate on the CPU: equal, or first apart at
+    a near-tie of the CPU's guided logits (top two within 1e-4 relative)."""
     cpu_lm = copy.deepcopy(lm).cpu()
     cpu_cond = {k: (t.cpu(), m.cpu()) for k, (t, m) in cond.items()}
     cpu_states: list = []
@@ -2142,6 +2314,219 @@ def phase_musicgen_parity(device, mg) -> None:
           flush=True)
     check(margin < 1e-4, f'card and CPU greedy tokens differ at step {step} where the margin '
                          f'is {margin:.3g}, not a near-tie')
+
+
+def _stereo_tokenize(device) -> tp.Dict[str, int]:
+    """The stereo wrapper over the 32 kHz codec at b64 stereo x 10 s: the
+    mono codec sees b128 x 10 s, phase 3's kernel shapes."""
+    codec = get_encodec_32khz()
+    seed_codebooks(codec, _clips(16, SECONDS * SAMPLE_RATE, device, seed=4))
+    stereo = get_wrapped_compression_model(codec, interleave_stereo=True)
+    left = _clips(STEREO_BATCH, SECONDS * SAMPLE_RATE, device, seed=70)
+    right = _clips(STEREO_BATCH, SECONDS * SAMPLE_RATE, device, seed=71)
+    wav = torch.cat([left, right], dim=1)
+    stereo.decode(stereo.encode(wav)[0])   # warm-up, not counted
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    codes, scale = stereo.encode(wav)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = stereo.decode(codes)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = _seanet_launches()
+    peak = torch.cuda.max_memory_allocated()
+    frames = SECONDS * 50
+    check(scale is None and tuple(codes.shape) == (STEREO_BATCH, 8, frames),
+          f'stereo codes {tuple(codes.shape)}')
+    check(tuple(out.shape) == (STEREO_BATCH, 2, SECONDS * SAMPLE_RATE)
+          and bool(torch.isfinite(out).all()), f'stereo audio {tuple(out.shape)}')
+    expect = dict(fused_stage=2, banded_mono_conv=1, rvq_encode=1, lstm_step=4)
+    check(launches == expect, f'stereo encode + decode launched {launches}, not {expect}')
+    mono = codec.encode(torch.cat([left, right]))[0]
+    l, r = stereo.get_left_right_codes(codes)
+    check(torch.equal(l, mono[:STEREO_BATCH]) and torch.equal(r, mono[STEREO_BATCH:]),
+          'stereo codes differ from the mono codec\'s codes of each channel')
+    audio = STEREO_BATCH * SECONDS
+    print(f'stereo wrapper, b{STEREO_BATCH} stereo x {SECONDS} s (the mono codec at b'
+          f'{2 * STEREO_BATCH}, its default fused route): codes {tuple(codes.shape)}, equal bit '
+          f'for bit to the mono codec\'s of each channel in one b{2 * STEREO_BATCH} batch; audio '
+          f'{tuple(out.shape)}; encode {t1 - t0:.4f} s = {audio / (t1 - t0):.1f} stereo audio-s '
+          f'tokenized/s, decode {t2 - t1:.4f} s = {audio / (t2 - t1):.1f} decoded/s; peak memory '
+          f'{peak / 2**30:.2f} GiB; launches {launches}; card {card()}', flush=True)
+    return launches
+
+
+def _stereo_musicgen(device) -> tp.Dict[str, int]:
+    """MusicGen-stereo-small at published widths: 4 seeded descriptions x
+    10 s, 1-pass CFG, top-k 250, the LM in bf16 with graph-replayed steps,
+    then the stereo decode; then the fp32 greedy tokens at 1 s against the
+    CPU's."""
+    mg = get_musicgen('small', stereo=True, seed=60)
+    mg.condition_provider.conditioners['description'].load_tokenizer = SeededT5Ids
+    check(mg.name == 'musicgen-stereo-small' and mg.lm.n_q == 8 and mg.audio_channels == 2,
+          f'{mg.name}: {mg.lm.n_q} codebooks, {mg.audio_channels} channels')
+    frames, hop = int(MGS_SECONDS * mg.frame_rate), int(mg.sample_rate // mg.frame_rate)
+    with torch.no_grad():
+        cond = mg.condition_provider(_descriptions(MG_PROMPTS, device, seed=61))
+    _reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states: list = []
+    tokens = _musicgen_generate(mg.lm, cond, frames, 62, mg._decode_cache, states=states,
+                                compute_dtype=mg.decode_dtype)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    audio = mg.generate_audio(tokens)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    state = states[0]
+    check(tuple(tokens.shape) == (MG_PROMPTS, 8, frames)
+          and bool(((tokens >= 0) & (tokens < mg.lm.card)).all()), f'tokens {tuple(tokens.shape)}')
+    check(tuple(audio.shape) == (MG_PROMPTS, 2, frames * hop) and bool(torch.isfinite(audio).all()),
+          f'stereo audio {tuple(audio.shape)}')
+    check(launches['lstm_step'] == 2 and launches['rvq_encode'] == 0,
+          f'generate + decode launched {launches}, not K2 twice (the decode at doubled batch)')
+    S = state.plan['S']
+    name = card()
+    print(f'MusicGen-stereo-small: tokens {tuple(tokens.shape)}, audio {tuple(audio.shape)}; '
+          f'generate {t1 - t0:.3f} s with {len(state.capture_seconds)} capture(s) of '
+          f'{sum(state.capture_seconds):.3f} s ({S / (t1 - t0):.1f} steps/s, '
+          f'{MG_PROMPTS * 8 * frames / (t1 - t0):.0f} tokens/s), stereo decode {t2 - t1:.4f} s; '
+          f'KV caches {state.kv_bytes() / 2**30:.3f} GiB; peak memory {peak / 2**30:.2f} GiB; '
+          f'launches {launches}; card {name}', flush=True)
+    print_decode_step(state.lm, state, 2 * MG_PROMPTS, offset=MGS_STEP_OFFSET)
+    print(f'MusicGen-stereo-small replayed decode step at offset {MGS_STEP_OFFSET}: '
+          f'{replay_ms(state, MGS_STEP_OFFSET):.3f} ms, mean of {MG_TIMED_STEPS} (the mono '
+          f'step at this shape: phase 11); card {name}', flush=True)
+    del tokens, audio, state, states
+    mg._decode_cache.clear()
+    torch.cuda.empty_cache()
+
+    lm, n = mg.lm, 2
+    pframes = int(MGS_PARITY_SECONDS * mg.frame_rate)
+    check(lm.float_dtype == torch.float32 and not torch.backends.cuda.matmul.allow_tf32,
+          'the stereo parity LM is not fp32 with TF32 off')
+    with torch.no_grad():
+        cond = mg.condition_provider(_descriptions(n, device, seed=63))
+    pstates: list = []
+    greedy = _musicgen_generate(lm, cond, pframes, None, DecodeCache(), states=pstates)
+    check(tuple(greedy.shape) == (n, 8, pframes), f'stereo greedy {tuple(greedy.shape)}')
+    print(f'MusicGen-stereo-small fp32 greedy tokens {tuple(greedy.shape)}, card against CPU:',
+          flush=True)
+    check_greedy_against_cpu(lm, cond, pframes, n, greedy, pstates[0].seq)
+    return launches
+
+
+def _streamed_codes_share(codec, lat: torch.Tensor, codes: torch.Tensor,
+                          streamed: torch.Tensor) -> tp.Tuple[float, int, int]:
+    """(share of the streamed codes equal to the whole encode's, frames that
+    differ, of which at near-ties of the whole latent's distances)."""
+    B, D, T = lat.shape
+    differ = (streamed != codes).any(1).reshape(B * T)
+    rows = lat.transpose(1, 2).reshape(B * T, D)
+    near = _near_ties(rows, codec.quantizer.embeds(),
+                      codes.permute(1, 0, 2).reshape(codes.shape[1], -1), rel=1e-4)
+    return (float((streamed == codes).float().mean()), int(differ.sum()),
+            int((differ & near).sum()))
+
+
+def _stream_24khz(device) -> tp.Dict[str, int]:
+    """The causal 24 kHz codec at published widths (fp32) streaming B = 16 x
+    10 s in 1 s chunks through CodecStreamer, each way, against the
+    whole-signal encode and decode; K2 starts each chunk from the carried
+    (h, c).  Then K2 timed with the carry and from zero at the chunk's shape."""
+    codec = get_encodec_24khz()
+    check(codec.compute_dtype is None and codec.causal, 'the 24 kHz codec is not causal fp32')
+    chunk = STREAM_CHUNK_FRAMES * codec.encoder.hop_length
+    check(chunk == STREAM_RATE, f'a chunk of {STREAM_CHUNK_FRAMES} frames is {chunk} samples')
+    seed_codebooks(codec, _clips(8, STREAM_SECONDS * STREAM_RATE, device, seed=73))
+    wav = _clips(STREAM_BATCH, STREAM_SECONDS * STREAM_RATE, device, seed=74)
+    n_chunks = STREAM_SECONDS
+    lat = codec.encode_to_latent(wav)
+    codes = codec.quantizer.encode(lat)
+    whole = codec.decode(codes)
+    state, parts = None, []
+    for i in range(n_chunks):
+        part, state = encoder_stream(codec.encoder, wav[..., i * chunk:(i + 1) * chunk], state)
+        parts.append(part)
+    rel_lat = float((torch.cat(parts, -1) - lat).abs().max() / lat.abs().max())
+    del parts, state
+
+    def stream(direction: str, data: torch.Tensor, size: int) -> tp.Tuple[torch.Tensor, list]:
+        streamer = CodecStreamer(codec, chunk=size if direction == 'encode'
+                                 else STREAM_CHUNK_FRAMES, direction=direction)
+        outs, ms = [], []
+        for i in range(n_chunks):
+            start = _event()
+            out = streamer.feed(data[..., i * size:(i + 1) * size])
+            end = _event()
+            torch.cuda.synchronize()
+            check(len(out) == 1, f'{direction}: chunk {i} gave {len(out)} outputs')
+            outs.append(out[0])
+            ms.append(start.elapsed_time(end))
+        check(streamer.flush() == (None, 0), f'{direction}: a rest was left in the buffer')
+        return torch.cat(outs, -1), ms
+
+    stream('encode', wav, chunk)   # warm-ups, not counted
+    stream('decode', codes, STREAM_CHUNK_FRAMES)
+    _reset_launch_counts()
+    streamed, enc_ms = stream('encode', wav, chunk)
+    enc_launches = _seanet_launches()
+    share, differ, near = _streamed_codes_share(codec, lat, codes, streamed)
+    _reset_launch_counts()
+    audio, dec_ms = stream('decode', codes, STREAM_CHUNK_FRAMES)
+    dec_launches = _seanet_launches()
+    rel_wav = float((audio - whole).abs().max() / whole.abs().max())
+    per_chunk = 2 * n_chunks   # 2 layers
+    check(enc_launches['lstm_step'] == per_chunk and enc_launches['rvq_encode'] == n_chunks,
+          f'stream encode launched {enc_launches}')
+    check(dec_launches['lstm_step'] == per_chunk, f'stream decode launched {dec_launches}')
+    check(tuple(streamed.shape) == tuple(codes.shape) and tuple(audio.shape) == tuple(whole.shape),
+          f'streamed {tuple(streamed.shape)} {tuple(audio.shape)}')
+    check(bool(torch.isfinite(audio).all()), 'non-finite streamed audio')
+    name = card()
+    print(f'24 kHz codec streaming B={STREAM_BATCH} x {STREAM_SECONDS} s in {n_chunks} chunks of '
+          f'{STREAM_CHUNK_FRAMES} frames (fp32), against the whole signal: latent max-abs / max '
+          f'{rel_lat:.3g} (<= 1e-4); code match share {share:.6f} (>= 0.995; {differ} frames '
+          f'differ, {near} of them at near-ties); audio max-abs / max {rel_wav:.3g} (<= 1e-4); '
+          f'launches encode {enc_launches}, decode {dec_launches}', flush=True)
+    print(f'ms per chunk (CUDA events, feed to output): encode '
+          f'{", ".join(f"{m:.2f}" for m in enc_ms)}; decode {", ".join(f"{m:.2f}" for m in dec_ms)}'
+          f' ({STREAM_BATCH} x 1 s of audio a chunk); card {name}', flush=True)
+    check(rel_lat <= 1e-4, f'streamed latent rel {rel_lat:.3g} > 1e-4')
+    check(share >= 0.995, f'streamed code match share {share:.6f} < 0.995')
+    check(rel_wav <= 1e-4, f'streamed audio rel {rel_wav:.3g} > 1e-4')
+
+    H = codec.encoder.model[-3].dimension
+    x, *weights = [a.to(device) for a in _lstm_args(STREAM_CHUNK_FRAMES, STREAM_BATCH, H, seed=75)]
+    carry = _lstm_state(STREAM_BATCH, H, torch.float32, device, seed=76)
+    zero_ms = time_ms(lambda: lstm_layer(x, *weights), 20)
+    carry_ms = time_ms(lambda: lstm_layer(x, *weights, state=carry, return_state=True), 20)
+    print(f'K2 at the chunk\'s shape T={STREAM_CHUNK_FRAMES} B={STREAM_BATCH} H={H} fp32: from a '
+          f'carried (h, c), returning the final (h, c), {carry_ms:.4f} ms; from zero {zero_ms:.4f} '
+          f'ms (mean of 20, CUDA events); card {name}', flush=True)
+    return {'encode': enc_launches['lstm_step'], 'decode': dec_launches['lstm_step']}
+
+
+def phase_stereo_streaming(device) -> tp.Dict[str, tp.Dict[str, int]]:
+    print('== phase 12: stereo and streaming: the stereo wrapper at b64 stereo x 10 s, '
+          "get_musicgen('small', stereo=True), get_encodec_24khz() streamed in 1 s chunks",
+          flush=True)
+    start = time.perf_counter()
+    launches = {'stereo codec': _stereo_tokenize(device)}
+    torch.cuda.empty_cache()
+    launches['musicgen-stereo'] = _stereo_musicgen(device)
+    torch.cuda.empty_cache()
+    launches['streaming K2'] = _stream_24khz(device)
+    print(f'phase 12: {time.perf_counter() - start:.1f} s; launches by path {launches}',
+          flush=True)
+    return launches
 
 
 def main() -> int:
@@ -2184,6 +2569,8 @@ def main() -> int:
     musicgen_launches = phase_musicgen(device)
     mark()
     print(f'K1 and K2 launches on the MusicGen path (phase 11): {musicgen_launches}', flush=True)
+    phase_stereo_streaming(device)
+    mark()
     launches['mono_input_conv'] = kernel_checks_k6
     launches['flash_attention'] = magnet_launches['flash_attention']
     for name in ('flash_attention_bwd_dkv', 'flash_attention_bwd_dq'):

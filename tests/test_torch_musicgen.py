@@ -30,7 +30,6 @@ from audiocraft_tpu.io import audio_utils as jax_audio_utils
 from audiocraft_tpu.io import resample as jax_resample
 from audiocraft_tpu.lm.model import LMModel as JaxLM
 from audiocraft_tpu.patterns import DelayedPatternProvider as JaxDelayed
-from audiocraft_tpu_torch.builders import get_musicgen
 from audiocraft_tpu_torch.ckpt.from_jax import load_musicgen_from_jax
 from audiocraft_tpu_torch.codec import chunked
 from audiocraft_tpu_torch.cond.attributes import (ConditioningAttributes, WavCondition,
@@ -231,8 +230,6 @@ def test_unported_variants_raise(pair):
         tmg.generate_with_chroma(['x'], [np.zeros((1, 100), np.float32)], 32000)
     with pytest.raises(NotImplementedError):
         tmg.set_style_conditioner_params()
-    with pytest.raises(NotImplementedError):
-        get_musicgen('small', stereo=True, device='cpu')
     with pytest.raises(RuntimeError):
         tmg.generate_with_all(np.zeros((1, 1, 3200), np.float32), 32000,
                               melody_wavs=[np.zeros((1, 100), np.float32)])

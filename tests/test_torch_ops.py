@@ -13,9 +13,11 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from audiocraft_tpu.nn import lstm as jax_lstm
 from audiocraft_tpu.nn.lstm import StreamableLSTM as JaxLSTM
 from audiocraft_tpu.ops.lstm_pallas import lstm_layer_pallas
 from audiocraft_tpu.ops.rvq_pallas import _xla_fallback, rvq_encode_fused
+from audiocraft_tpu_torch.nn import lstm as port_lstm
 from audiocraft_tpu_torch.ops.lstm import lstm_layer, lstm_layer_reference
 from audiocraft_tpu_torch.ops.rvq import rvq_encode, rvq_encode_reference
 
@@ -116,6 +118,107 @@ def test_lstm_plain_matches_torch_lstm(T, B, C, H):
         out = lstm_layer_reference(x, ref_mod.weight_ih_l0, ref_mod.weight_hh_l0,
                                    ref_mod.bias_ih_l0, ref_mod.bias_hh_l0)
     np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(np.array(a)).to(dtype)
+
+
+@pytest.mark.parametrize("T,B,C,H", [(9, 3, 16, 16), (1, 4, 24, 32), (12, 2, 32, 8)])
+def test_lstm_plain_with_carry_matches_jax_lstm_layer_with_state(T, B, C, H):
+    """A carried (h, c) in, the final (h, c) out, fp32 at 1e-6: the plain
+    version against JAX's ``lstm_layer_with_state`` (a ``lax.scan``), T as
+    small as one frame."""
+    rng = np.random.RandomState(T * 10 + H)
+    x = rng.randn(T, B, C).astype(np.float32) * 0.5
+    h0, c0 = (rng.randn(B, H).astype(np.float32) * 0.3 for _ in range(2))
+    b = 1.0 / np.sqrt(H)
+    w = [rng.uniform(-b, b, shape).astype(np.float32)
+         for shape in ((4 * H, C), (4 * H, H), (4 * H,), (4 * H,))]
+    ref, (h_ref, c_ref) = jax_lstm.lstm_layer_with_state(
+        jnp.asarray(x), *map(jnp.asarray, w), (jnp.asarray(h0), jnp.asarray(c0)))
+    out, (h, c) = lstm_layer_reference(_t(x), *map(_t, w), state=(_t(h0), _t(c0)),
+                                       return_state=True)
+    assert h.dtype == torch.float32 and c.dtype == torch.float32
+    for ours, theirs in ((out, ref), (h, h_ref), (c, c_ref)):
+        np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=1e-6, atol=1e-6)
+    # no state: the zero start, one output as before
+    zero = lstm_layer(_t(x), *map(_t, w))
+    ref0 = jax_lstm.lstm_layer_with_state(jnp.asarray(x), *map(jnp.asarray, w))[0]
+    np.testing.assert_allclose(zero.numpy(), np.asarray(ref0), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_two_chained_calls_equal_one(dtype):
+    """The first half's final state carried into the second half gives the
+    whole sequence's output and final state, exactly: h is carried in the
+    compute dtype and c in fp32, as each step keeps them."""
+    T, B, H = 14, 3, 16
+    rng = np.random.RandomState(5)
+    x = _t(rng.randn(T, B, H).astype(np.float32) * 0.5, dtype)
+    w = [_t(a, dtype) for a in (rng.uniform(-.25, .25, (4 * H, H)),
+                                rng.uniform(-.25, .25, (4 * H, H)),
+                                rng.uniform(-.25, .25, 4 * H), rng.uniform(-.25, .25, 4 * H))]
+    whole, (h, c) = lstm_layer(x, *w, return_state=True)
+    first, state = lstm_layer(x[:5], *w, return_state=True)
+    second, (h2, c2) = lstm_layer(x[5:], *w, state=state, return_state=True)
+    assert state[0].dtype == dtype and state[1].dtype == torch.float32
+    assert torch.equal(torch.cat([first, second]), whole)
+    assert torch.equal(h2, h) and torch.equal(c2, c)
+    with pytest.raises(ValueError):
+        lstm_layer(x, *w, state=(h[:2], c[:2]))
+
+
+def test_lstm_2layer_pipelined_matches_jax():
+    """The skewed two-layer loop against JAX's, and against two plain
+    layers, fp32 at 1e-6; ``StreamableLSTM(pipelined=True)`` takes it on a
+    CPU tensor."""
+    H, T, B = 16, 11, 3
+    jmod = JaxLSTM(H, num_layers=2, pipelined=True)
+    params = jax.tree.map(np.asarray, jmod.init(jax.random.PRNGKey(4)))
+    x = np.random.RandomState(6).randn(B, H, T).astype(np.float32)
+    ref = np.asarray(jmod(params, jnp.asarray(x)))
+    names = ('w_ih', 'w_hh', 'b_ih', 'b_hh')
+    p0, p1 = ([_t(params[f'l{k}'][n]) for n in names] for k in range(2))
+    xt = _t(x).permute(2, 0, 1)
+    out = port_lstm.lstm_2layer_pipelined(xt, p0, p1)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jax_lstm.lstm_2layer_pipelined(
+        jnp.asarray(x).transpose(2, 0, 1), params['l0'], params['l1'])), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(out.numpy(), lstm_layer(lstm_layer(xt, *p0), *p1).numpy(),
+                               rtol=1e-6, atol=1e-6)
+    mod = port_lstm.StreamableLSTM(H, num_layers=2, pipelined=True)
+    for k, theirs in enumerate((p0, p1)):
+        for name, t in zip(('weight_ih', 'weight_hh', 'bias_ih', 'bias_hh'), theirs):
+            mod.lstm[f'{name}_l{k}'].data = t
+    np.testing.assert_allclose(mod(_t(x)).detach().numpy(), ref, rtol=1e-6, atol=1e-6)
+
+
+def test_streamable_lstm_stream_matches_jax():
+    """``stream`` over three chunks, the state carried, against JAX's stream
+    and against the whole-signal forward (fp32, 1e-6)."""
+    H = 16
+    jmod = JaxLSTM(H, num_layers=2)
+    params = jax.tree.map(np.asarray, jmod.init(jax.random.PRNGKey(7)))
+    mod = port_lstm.StreamableLSTM(H, num_layers=2)
+    for k in range(2):
+        for ours, theirs in (('weight_ih', 'w_ih'), ('weight_hh', 'w_hh'),
+                             ('bias_ih', 'b_ih'), ('bias_hh', 'b_hh')):
+            mod.lstm[f'{ours}_l{k}'].data = _t(params[f'l{k}'][theirs])
+    x = np.random.RandomState(8).randn(2, H, 13).astype(np.float32)
+    jstate = state = None
+    outs, refs = [], []
+    for a, b in ((0, 1), (1, 6), (6, 13)):
+        ref, jstate = jmod.stream(params, jnp.asarray(x[..., a:b]), jstate)
+        out, state = mod.stream(_t(x[..., a:b]), state)
+        refs.append(np.asarray(ref))
+        outs.append(out.detach().numpy())
+        for (h, c), (jh, jc) in zip(state, jstate):
+            np.testing.assert_allclose(h.numpy(), np.asarray(jh), rtol=1e-6, atol=1e-6)
+            np.testing.assert_allclose(c.numpy(), np.asarray(jc), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(np.concatenate(outs, -1), np.concatenate(refs, -1),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(np.concatenate(outs, -1), mod(_t(x)).detach().numpy(),
+                               rtol=1e-6, atol=1e-6)
 
 
 def test_cpu_tensors_take_the_plain_versions():

@@ -2,6 +2,7 @@
 and what it builds."""
 
 import ast
+import functools
 from pathlib import Path
 
 import pytest
@@ -9,6 +10,7 @@ import torch
 
 from audiocraft_tpu_torch import builders
 from audiocraft_tpu_torch.apps import probe_ops
+from audiocraft_tpu_torch.codec.wrappers import HFEncodecCompressionModel
 from audiocraft_tpu_torch.gen.magnet import get_debug_magnet
 from audiocraft_tpu_torch.gen.musicgen import get_debug_musicgen
 from audiocraft_tpu_torch.ops import _build
@@ -39,7 +41,10 @@ def test_port_and_smoke_import_nothing_of_jax():
                                    builders.get_debug_compression_model,
                                    builders.get_magnet_lm, get_debug_magnet,
                                    builders.get_musicgen_lm, builders.get_debug_musicgen_lm,
-                                   builders.get_musicgen, get_debug_musicgen])
+                                   builders.get_musicgen, get_debug_musicgen,
+                                   functools.partial(builders.get_musicgen, stereo=True),
+                                   functools.partial(HFEncodecCompressionModel.from_hf_config,
+                                                     {})])
 def test_entry_points_refuse_to_fall_back_to_the_cpu(build, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
