@@ -20,8 +20,10 @@ import torch
 
 from .codec.encodec import EncodecModel
 from .codec.stereo import InterleaveStereoCompressionModel
+from .cond.chroma_cond import ChromaConditioner
 from .cond.conditioners import ConditioningProvider, LUTConditioner, T5Conditioner
 from .cond.fuser import ConditionFuser
+from .cond.style_cond import StyleConditioner
 from .lm.magnet import MagnetLMModel
 from .lm.model import LMModel
 from .patterns import DelayedPatternProvider
@@ -133,16 +135,32 @@ def get_musicgen_lm(size: str = 'small', n_q: int = 4, card: int = 2048, *,
     pre-norm, no biases, gaussian init, the delay pattern, cross-attention to
     the description.  ``attn_kernel='auto'`` sends every full-sequence
     self-attention (the training forward) to the flash kernels on the card.
-    Returns (lm, provider)."""
-    if melody or style:
-        raise NotImplementedError("the melody (chroma) and style conditioners are not ported "
-                                  "yet; only text conditioning is")
+
+    ``melody=True`` (musicgen-melody) adds ``self_wav``, a chroma
+    conditioner (12 classes, windows of 2 ** 12, 30 s: 938 frames) fused by
+    prepending; ``style=True`` (musicgen-style) makes ``self_wav`` the style
+    conditioner, its own fp32 32 kHz codec as the feature extractor, also
+    prepended.  The two are exclusive.  Returns (lm, provider)."""
+    if melody and style:
+        raise ValueError('style and melody conditioning are exclusive')
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     shape = _MUSICGEN_SIZES[size]
-    provider = ConditioningProvider.from_dict({
-        'description': T5Conditioner(name='t5-base', output_dim=shape['dim'], generator=gen)})
-    fuser = ConditionFuser.from_dict({'cross': ('description',)})
+    conditioners: tp.Dict[str, torch.nn.Module] = {
+        'description': T5Conditioner(name='t5-base', output_dim=shape['dim'], generator=gen)}
+    fuse: tp.Dict[str, tp.Tuple[str, ...]] = {'cross': ('description',)}
+    if melody:
+        conditioners['self_wav'] = ChromaConditioner(
+            output_dim=shape['dim'], sample_rate=32000, n_chroma=12, radix2_exp=12,
+            duration=30.0, generator=gen)
+        fuse['prepend'] = ('self_wav',)
+    if style:
+        codec = get_encodec_32khz(compute_dtype=None, device=device, seed=seed + 1)
+        conditioners['self_wav'] = StyleConditioner(
+            feat_extractor=codec, output_dim=shape['dim'], sample_rate=32000, generator=gen)
+        fuse['prepend'] = ('self_wav',)
+    provider = ConditioningProvider.from_dict(conditioners)
+    fuser = ConditionFuser.from_dict(fuse)
     lm = LMModel(
         fuser, n_q=n_q, card=card, hidden_scale=4, norm_first=True, bias_proj=False,
         bias_ff=False, bias_attn=False, cross_attention=True, causal=True, activation='gelu',
@@ -164,23 +182,30 @@ def get_wrapped_compression_model(compression_model: EncodecModel,
     return compression_model
 
 
-def get_musicgen(size: str = 'small', *, stereo: bool = False,
-                 device: tp.Union[str, torch.device, None] = None, seed: int = 0):
+def get_musicgen(size: str = 'small', *, melody: bool = False, style: bool = False,
+                 stereo: bool = False, device: tp.Union[str, torch.device, None] = None,
+                 seed: int = 0):
     """The MusicGen facade at a published size: the 32 kHz codec (bf16) and
     :func:`get_musicgen_lm` with its T5-base conditioning, random weights
-    from ``seed``; 30 s windows.  ``stereo=True`` is musicgen-stereo-*: the
-    codec wrapped in codebook interleaving, so the LM models twice the
-    codebooks (8) and the facade makes 2-channel audio."""
+    from ``seed``; 30 s windows.  ``melody=True`` is musicgen-melody-* (the
+    chroma prefix), ``style=True`` musicgen-style-* (the style prefix; its
+    recipe generates with double CFG, ``cfg_coef_beta``).  ``stereo=True``
+    is musicgen-stereo-*: the codec wrapped in codebook interleaving, so the
+    LM models twice the codebooks (8) and the facade makes 2-channel
+    audio."""
     from .gen.musicgen import MusicGen
 
+    if melody and style:
+        raise ValueError('style and melody conditioning are exclusive')
     codec: tp.Union[EncodecModel, InterleaveStereoCompressionModel] = get_encodec_32khz(
         device=device, seed=seed)
     if stereo:
         codec = get_wrapped_compression_model(codec, interleave_stereo=True)
-    lm, provider = get_musicgen_lm(size, n_q=codec.num_codebooks, device=device,
-                                   seed=seed + 1)
-    name = f"musicgen-{'stereo-' if stereo else ''}{size}"
-    return MusicGen(name, codec, lm, provider, max_duration=30.0)
+    lm, provider = get_musicgen_lm(size, n_q=codec.num_codebooks, melody=melody, style=style,
+                                   device=device, seed=seed + 1)
+    variant = ('stereo-' if stereo else '') + ('melody-' if melody else '') + \
+        ('style-' if style else '')
+    return MusicGen(f'musicgen-{variant}{size}', codec, lm, provider, max_duration=30.0)
 
 
 def get_magnet_lm(size: str = 'small', n_q: int = 4, card: int = 2048,

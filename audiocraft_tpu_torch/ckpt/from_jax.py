@@ -15,7 +15,14 @@ and returns a state dict for the port module's ``load_state_dict``:
 * :func:`lm_state_from_jax`: ``LMModel`` and ``MagnetLMModel`` (stacked
   ``[K, ...]`` embeddings and heads, transformer layers ``layer{i}``).
 * :func:`t5_state_from_jax`: the T5 encoder, under HF T5 names.
-* :func:`conditioners_state_from_jax`: a ``ConditioningProvider``.
+* :func:`conditioners_state_from_jax`: a ``ConditioningProvider``: the
+  text conditioners, the chroma conditioner (``output_proj``) and the style
+  conditioner (``embed.{i}``, ``transformer.layers.*``,
+  ``rvq.vq.layers.{q}._codebook.*``, ``batch_norm.running_mean`` and
+  ``running_var``, ``output_proj``: the reference names the JAX importer
+  reads, ``ckpt/torch_import.py``:318-349).  The style conditioner's own
+  codec is not in that state dict, as the reference hides it:
+  :func:`load_musicgen_from_jax` loads it from the style params' ``codec``.
 * :func:`load_musicgen_from_jax`: a whole ``MusicGen`` facade (codec, LM and
   conditioners) from the JAX facade's three trees.  Quantized weights are not
   carried: quantize the carried float weights on each side.
@@ -34,6 +41,7 @@ import torch
 from ..codec.encodec import EncodecModel
 from ..codec.stereo import InterleaveStereoCompressionModel
 from ..cond.conditioners import ConditioningProvider, LUTConditioner, T5Conditioner
+from ..cond.style_cond import StyleConditioner
 from ..lm.model import LMModel
 from ..nn.conv import StreamableConv1d, StreamableConvTranspose1d
 from ..nn.lstm import StreamableLSTM
@@ -98,14 +106,26 @@ def encodec_state_from_jax(model: tp.Union[EncodecModel, InterleaveStereoCompres
     sd: tp.Dict[str, tp.Any] = {}
     _seanet(sd, 'encoder', model.encoder, params['encoder'])
     _seanet(sd, 'decoder', model.decoder, params['decoder'])
-    q = params['quantizer']
-    for i in range(len(model.quantizer.vq.layers)):
-        base = f'quantizer.vq.layers.{i}._codebook'
+    _rvq(sd, 'quantizer', params['quantizer'], len(model.quantizer.vq.layers))
+    return _tensors(sd)
+
+
+def _rvq_fields(state: tp.Any) -> Tree:
+    """The JAX RVQ state (a dict, or the JAX package's dataclass) as a dict."""
+    if isinstance(state, tp.Mapping):
+        return state
+    return {name: getattr(state, name) for name in ('embed', 'cluster_size', 'embed_avg',
+                                                     'inited')}
+
+
+def _rvq(sd: dict, prefix: str, state: tp.Any, n_q: int) -> None:
+    q = _rvq_fields(state)
+    for i in range(n_q):
+        base = f'{prefix}.vq.layers.{i}._codebook'
         sd[f'{base}.embed'] = q['embed'][i]
         sd[f'{base}.cluster_size'] = q['cluster_size'][i]
         sd[f'{base}.embed_avg'] = q['embed_avg'][i]
         sd[f'{base}.inited'] = np.reshape(q['inited'][i], (1,))
-    return _tensors(sd)
 
 
 def _attention(sd: dict, prefix: str, p: Tree) -> None:
@@ -181,6 +201,14 @@ def conditioners_state_from_jax(provider: ConditioningProvider,
         _weight_bias(sd, f'{base}.output_proj', p['output_proj'])
         if isinstance(cond, LUTConditioner):
             sd[f'{base}.embed.weight'] = p['embed']
+        if isinstance(cond, StyleConditioner):
+            for i in range(len(cond.embed)):
+                sd[f'{base}.embed.{i}.weight'] = p['embed'][i]
+            _transformer(sd, f'{base}.transformer', p['transformer'],
+                         len(cond.transformer.layers))
+            sd[f'{base}.batch_norm.running_mean'] = p['bn']['mean']
+            sd[f'{base}.batch_norm.running_var'] = p['bn']['var']
+            _rvq(sd, f'{base}.rvq', p['rvq'], cond.rvq.n_q)
         out.update(_tensors(sd))
         if isinstance(cond, T5Conditioner):
             out.update({f'{base}.t5.{k}': v for k, v in t5_state_from_jax(p['t5']).items()})
@@ -190,15 +218,15 @@ def conditioners_state_from_jax(provider: ConditioningProvider,
 def load_musicgen_from_jax(musicgen, codec_params: Tree, lm_params: Tree,
                            cond_params: Tree) -> None:
     """Load the JAX facade's ``codec_params``, ``lm_params`` and
-    ``cond_params`` (numpy trees; the quantizer state may be the JAX
-    package's dataclass) into the port facade ``musicgen``, strictly."""
-    codec = dict(codec_params)
-    q = codec['quantizer']
-    if not isinstance(q, tp.Mapping):
-        codec['quantizer'] = {name: getattr(q, name)
-                              for name in ('embed', 'cluster_size', 'embed_avg', 'inited')}
+    ``cond_params`` (numpy trees; quantizer states may be the JAX package's
+    dataclass) into the port facade ``musicgen``, strictly; a style
+    conditioner's codec from its params' ``codec``."""
     musicgen.compression_model.load_state_dict(
-        encodec_state_from_jax(musicgen.compression_model, codec))
+        encodec_state_from_jax(musicgen.compression_model, codec_params))
     musicgen.lm.load_state_dict(lm_state_from_jax(musicgen.lm, lm_params))
-    musicgen.condition_provider.load_state_dict(
-        conditioners_state_from_jax(musicgen.condition_provider, cond_params))
+    provider = musicgen.condition_provider
+    provider.load_state_dict(conditioners_state_from_jax(provider, cond_params))
+    for name, cond in provider.conditioners.items():
+        if isinstance(cond, StyleConditioner):
+            cond.feat_extractor.load_state_dict(
+                encodec_state_from_jax(cond.feat_extractor, cond_params[name]['codec']))

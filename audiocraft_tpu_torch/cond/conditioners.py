@@ -11,8 +11,11 @@ holds its encoder under ``conditioners.<name>.t5.`` with HF T5 names (the
 reference hides it from the state dict; published T5 weights arrive
 separately).
 
-Only text conditioners are ported; wav, chroma, style and joint-embedding
-conditioners wait for their slices.
+Wav conditions (the melody's chroma, ``cond/chroma_cond.py``, and the
+style's excerpt, ``cond/style_cond.py``) are collated across the batch by
+:func:`collate_wav_conditions`, zero-padded to the longest, and handed to
+their conditioner's ``tokenize``.  The joint-embedding conditioners (CLAP)
+are not ported.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 
 from ..nn import init
 from ..nn.t5 import T5Encoder, T5EncoderConfig
-from .attributes import ConditioningAttributes
+from .attributes import ConditioningAttributes, WavCondition
 from .tokenizers import NoopTokenizer, WhiteSpaceTokenizer
 
 ConditionType = tp.Tuple[torch.Tensor, torch.Tensor]
@@ -100,6 +103,21 @@ class T5Conditioner(torch.nn.Module):
         return _embed_output(self, self.t5(ids.long(), mask), mask)
 
 
+def collate_wav_conditions(conds: tp.Sequence[WavCondition]) -> WavCondition:
+    """One batch of per-sample wav conditions: the wavs zero-padded to the
+    longest and stacked, the lengths, rates, paths and seek times joined
+    (reference ``ConditioningProvider._collate_wavs``,
+    ``conditioners.py``:1547-1600)."""
+    wavs = [np.asarray(c.wav) for c in conds]
+    max_t = max(w.shape[-1] for w in wavs)
+    padded = np.concatenate([np.pad(w, ((0, 0),) * (w.ndim - 1) + ((0, max_t - w.shape[-1]),))
+                             for w in wavs], axis=0)
+    lengths = np.concatenate([np.asarray(c.length).reshape(-1) for c in conds])
+    return WavCondition(padded, lengths, sum((list(c.sample_rate) for c in conds), []),
+                        sum((list(c.path) for c in conds), []),
+                        sum((list(c.seek_time) for c in conds), []))
+
+
 class ConditioningProvider(torch.nn.Module):
     """Named conditioners with collated tokenize and forward phases."""
 
@@ -111,16 +129,23 @@ class ConditioningProvider(torch.nn.Module):
     def from_dict(cls, conditioners: tp.Mapping[str, torch.nn.Module]) -> "ConditioningProvider":
         return cls(conditioners)
 
-    def tokenize(self, inputs: tp.Sequence[ConditioningAttributes]) -> tp.Dict[str, Tokenized]:
-        """Collate each text attribute across the batch and tokenize it."""
+    def tokenize(self, inputs: tp.Sequence[ConditioningAttributes]
+                 ) -> tp.Dict[str, tp.Union[Tokenized, WavCondition]]:
+        """Collate each text and wav attribute across the batch and tokenize
+        it (host work)."""
         text: tp.Dict[str, tp.List[tp.Optional[str]]] = {}
+        wavs: tp.Dict[str, tp.List[WavCondition]] = {}
         for sample in inputs:
-            if any(name in sample.wav for name in self.conditioners):
-                raise NotImplementedError("wav conditioners are not ported yet")
             for name in self.conditioners:
                 if name in sample.text:
                     text.setdefault(name, []).append(sample.text[name])
-        return {name: self.conditioners[name].tokenize(batch) for name, batch in text.items()}
+                if name in sample.wav:
+                    wavs.setdefault(name, []).append(sample.wav[name])
+        out: tp.Dict[str, tp.Union[Tokenized, WavCondition]] = {
+            name: self.conditioners[name].tokenize(batch) for name, batch in text.items()}
+        for name, batch in wavs.items():
+            out[name] = self.conditioners[name].tokenize(collate_wav_conditions(batch))
+        return out
 
-    def forward(self, tokenized: tp.Mapping[str, Tokenized]) -> tp.Dict[str, ConditionType]:
+    def forward(self, tokenized: tp.Mapping[str, tp.Any]) -> tp.Dict[str, ConditionType]:
         return {name: self.conditioners[name](inputs) for name, inputs in tokenized.items()}

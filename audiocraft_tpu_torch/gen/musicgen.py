@@ -1,5 +1,5 @@
-"""MusicGen generation facade: text, unconditional, continuation, and
-lengths past the model's window by stride extension
+"""MusicGen generation facade: text, unconditional, melody, style,
+continuation, and lengths past the model's window by stride extension
 (counterpart of ``audiocraft_tpu/gen/musicgen.py``).
 
 Descriptions become conditions with the null conditions of classifier-free
@@ -11,7 +11,9 @@ at most ``DecodeCache.max_states`` (4) signatures, each holding its KV
 caches at full capacity, the least recently used dropped), and the codec
 decodes them (in windows above ``decode_chunk_frames``).  Beyond ``max_duration`` the stride-extension
 loop generates window after window, each prompted by the last
-``max_duration - extend_stride`` seconds of the one before.
+``max_duration - extend_stride`` seconds of the one before, and hearing
+the melody from its own start on (the melody re-windowed modulo its
+length).
 
 The LM decodes in bf16 on the card (a cast copy kept beside the fp32
 weights, refreshed from them at every generate, so new weights are always
@@ -20,9 +22,14 @@ accelerator and in fp32 elsewhere.  The codec may be the stereo wrapper
 (``codec/stereo.py``, musicgen-stereo-*): the LM then models its interleaved
 codebooks, audio comes out with 2 channels, a long prompt takes the whole
 encode (windows are for a plain ``EncodecModel`` only, as in the JAX
-facade) and a long decode is windowed for both.  Melody (chroma) and style
-conditioning wait for their conditioners: ``generate_with_chroma`` and
-``set_style_conditioner_params`` raise.
+facade) and a long decode is windowed for both.
+
+A model with a ``self_wav`` conditioner takes a melody (musicgen-melody:
+chroma, ``generate_with_chroma`` and ``generate_continuation(melody_wavs=)``)
+or a style clip (musicgen-style, through the same entry points; its
+bottleneck tuned by ``set_style_conditioner_params``); a ``None`` melody is
+a zero wav of one sample.  A model without one refuses a melody and the
+style settings with ``RuntimeError``, as the JAX facade does.
 """
 
 from __future__ import annotations
@@ -36,14 +43,16 @@ from ..codec.chunked import chunked_decode, chunked_encode
 from ..codec.encodec import EncodecModel
 from ..codec.stereo import InterleaveStereoCompressionModel
 from ..cond.attributes import (ClassifierFreeGuidanceDropout, ConditioningAttributes,
-                               drop_description_condition)
+                               WavCondition, drop_description_condition)
 from ..cond.conditioners import ConditioningProvider
+from ..cond.style_cond import StyleConditioner
 from ..io.audio_utils import convert_audio
 from ..lm.decode import DecodeCache
 from ..lm.model import LMModel
 from ..lm.quantize import quantize_lm_params
 
-MelodyList = tp.List[tp.Optional[np.ndarray]]
+Melody = tp.Union[np.ndarray, torch.Tensor]
+MelodyList = tp.List[tp.Optional[Melody]]
 
 
 class MusicGen:
@@ -123,8 +132,18 @@ class MusicGen:
         self.kv_dtype = kv_dtype
         self.kv_buckets = 'auto'
 
-    def set_style_conditioner_params(self, *args, **kwargs) -> None:
-        raise NotImplementedError("the style conditioner is not ported yet")
+    def set_style_conditioner_params(self, eval_q: int = 3, excerpt_length: float = 3.0,
+                                     ds_factor: tp.Optional[int] = None,
+                                     encodec_n_q: tp.Optional[int] = None) -> None:
+        """Tune the style conditioner's bottleneck for the next generates
+        (reference ``musicgen.py``:185-209), in place."""
+        styles = [c for c in self.condition_provider.conditioners.values()
+                  if isinstance(c, StyleConditioner)]
+        if not styles:
+            raise RuntimeError('set_style_conditioner_params requires a style model')
+        for cond in styles:
+            cond.set_params(eval_q=eval_q, excerpt_length=excerpt_length, ds_factor=ds_factor,
+                            encodec_n_q=encodec_n_q)
 
     # ------------------------------------------------------------- prepare
     def _prepare_tokens_and_attributes(
@@ -132,7 +151,22 @@ class MusicGen:
             prompt: tp.Optional[torch.Tensor], melody_wavs: tp.Optional[MelodyList] = None,
     ) -> tp.Tuple[tp.List[ConditioningAttributes], tp.Optional[torch.Tensor]]:
         attributes = [ConditioningAttributes(text={'description': d}) for d in descriptions]
-        if melody_wavs is not None and any(m is not None for m in melody_wavs):
+        if 'self_wav' in self.condition_provider.conditioners:
+            if melody_wavs is None:
+                melody_wavs = [None] * len(descriptions)
+            if len(melody_wavs) != len(descriptions):
+                raise ValueError("Melody wavs and nb. descriptions doesn't match")
+            for attr, melody in zip(attributes, melody_wavs):
+                if melody is None:
+                    attr.wav['self_wav'] = WavCondition(
+                        np.zeros((1, 1, 1), np.float32), np.zeros(1, np.int64),
+                        sample_rate=[self.sample_rate], path=[None])
+                else:
+                    melody = np.asarray(torch.as_tensor(melody).detach().float().cpu())
+                    attr.wav['self_wav'] = WavCondition(
+                        melody[None], np.asarray([melody.shape[-1]]),
+                        sample_rate=[self.sample_rate], path=[None])
+        elif melody_wavs is not None and any(m is not None for m in melody_wavs):
             raise RuntimeError("This model doesn't support melody conditioning. "
                                "Use the `melody` model.")
         if prompt is None:
@@ -181,8 +215,31 @@ class MusicGen:
         return self._out(self._generate_tokens(attributes, None, generator, progress),
                          return_tokens)
 
-    def generate_with_chroma(self, *args, **kwargs):
-        raise NotImplementedError("melody (chroma) conditioning is not ported yet")
+    def _convert_melodies(self, melody_wavs: tp.Union[MelodyList, np.ndarray, torch.Tensor],
+                          melody_sample_rate: int) -> MelodyList:
+        """Each melody [C, T] (or a batch [B, C, T]) to mono at the model's
+        rate, on the model's device."""
+        if isinstance(melody_wavs, (np.ndarray, torch.Tensor)):
+            if melody_wavs.ndim == 2:
+                melody_wavs = melody_wavs[None]
+            melody_wavs = list(melody_wavs)
+        return [None if m is None else convert_audio(
+            torch.as_tensor(m, dtype=torch.float32).to(self.device), melody_sample_rate,
+            self.sample_rate, 1) for m in melody_wavs]
+
+    def generate_with_chroma(self, descriptions: tp.List[tp.Optional[str]],
+                             melody_wavs: tp.Union[MelodyList, np.ndarray, torch.Tensor],
+                             melody_sample_rate: int,
+                             generator: tp.Optional[torch.Generator] = None,
+                             progress: bool = False, return_tokens: bool = False):
+        """Text and melody: one melody [C, T] per description (``None`` for
+        none), at ``melody_sample_rate``, converted to mono at the model's
+        rate (reference ``musicgen.py``:243-280)."""
+        attributes, _ = self._prepare_tokens_and_attributes(
+            descriptions, None,
+            melody_wavs=self._convert_melodies(melody_wavs, melody_sample_rate))
+        return self._out(self._generate_tokens(attributes, None, generator, progress),
+                         return_tokens)
 
     def generate_continuation(self, prompt: tp.Union[torch.Tensor, np.ndarray],
                               prompt_sample_rate: int,
@@ -192,8 +249,9 @@ class MusicGen:
                               generator: tp.Optional[torch.Generator] = None,
                               progress: bool = False, return_tokens: bool = False):
         """Continue an audio prompt [B, C, T] (or [C, T]) at
-        ``prompt_sample_rate``, resampled and converted to the codec's."""
-        del melody_sample_rate  # melody conditioning is refused below
+        ``prompt_sample_rate``, resampled and converted to the codec's;
+        ``melody_wavs`` at ``melody_sample_rate`` (the prompt's rate when
+        None) condition a melody model as in :meth:`generate_with_chroma`."""
         prompt = torch.as_tensor(prompt, dtype=torch.float32).to(self.device)
         if prompt.dim() == 2:
             prompt = prompt[None]
@@ -203,6 +261,9 @@ class MusicGen:
                                self.audio_channels)
         if descriptions is None:
             descriptions = [None] * prompt.shape[0]
+        if melody_wavs is not None:
+            melody_wavs = self._convert_melodies(melody_wavs,
+                                                 melody_sample_rate or prompt_sample_rate)
         attributes, prompt_tokens = self._prepare_tokens_and_attributes(
             descriptions, prompt, melody_wavs=melody_wavs)
         return self._out(self._generate_tokens(attributes, prompt_tokens, generator, progress),
@@ -242,6 +303,22 @@ class MusicGen:
             compute_dtype=self.decode_dtype if self.device.type == 'cuda' else None,
             kv_dtype=self.kv_dtype, kv_buckets=self.kv_buckets, graph_cache=self._decode_cache)
 
+    def _rewindow_melodies(self, attributes: tp.List[ConditioningAttributes],
+                           ref_wavs: tp.List[tp.Optional[WavCondition]],
+                           time_offset: float) -> None:
+        """The window at ``time_offset`` seconds hears ``max_duration``
+        seconds of each melody from that point, wrapping around its length
+        (reference ``musicgen.py``:487-502)."""
+        for attr, ref_wav in zip(attributes, ref_wavs):
+            if ref_wav is None or int(ref_wav.length[0]) == 0:
+                continue
+            target = int(self.max_duration * self.sample_rate)
+            positions = (int(time_offset * self.sample_rate) + np.arange(target)) \
+                % int(ref_wav.length[0])
+            attr.wav['self_wav'] = WavCondition(
+                ref_wav.wav[..., positions], np.full_like(ref_wav.length, target),
+                [self.sample_rate] * ref_wav.wav.shape[0], [None], [0.])
+
     def _generate_tokens(self, attributes: tp.List[ConditioningAttributes],
                          prompt_tokens: tp.Optional[torch.Tensor],
                          generator: tp.Optional[torch.Generator] = None,
@@ -271,6 +348,7 @@ class MusicGen:
 
         # stride extension: each window is prompted by the end of the last
         all_tokens = []
+        ref_wavs = [attr.wav.get('self_wav') for attr in attributes]
         if prompt_tokens is None:
             prompt_length = 0
         else:
@@ -282,6 +360,7 @@ class MusicGen:
             time_offset = current_gen_offset / self.frame_rate
             chunk_duration = min(self.duration - time_offset, self.max_duration)
             max_gen_len = int(chunk_duration * self.frame_rate)
+            self._rewindow_melodies(attributes, ref_wavs, time_offset)
             gen_tokens = self._lm_generate(attributes, prompt_tokens, generator, max_gen_len)
             if prompt_tokens is None:
                 all_tokens.append(gen_tokens)
@@ -304,3 +383,31 @@ def get_debug_musicgen(*, device: tp.Union[str, torch.device, None] = None,
     codec = get_debug_compression_model(32000, device=device, seed=seed)
     lm, provider = get_debug_musicgen_lm(device=device, seed=seed)
     return MusicGen('debug', codec, lm, provider, max_duration=30.0, duration=5.0)
+
+
+def get_debug_melody_musicgen(*, device: tp.Union[str, torch.device, None] = None,
+                              seed: int = 0) -> MusicGen:
+    """Debug melody MusicGen: the debug MusicGen with a chroma ``self_wav``
+    (4 classes, windows of 2 ** 12, 5 s) prepended beside the text's
+    cross-attention, the MusicGen-melody layout (JAX
+    ``get_debug_melody_musicgen``)."""
+    from ..builders import _finish, get_debug_compression_model, resolve_device
+    from ..cond.chroma_cond import ChromaConditioner
+    from ..cond.conditioners import LUTConditioner
+    from ..cond.fuser import ConditionFuser
+    from ..patterns import DelayedPatternProvider
+
+    device = resolve_device(device)
+    codec = get_debug_compression_model(32000, device=device, seed=seed)
+    gen = torch.Generator().manual_seed(seed)
+    provider = ConditioningProvider.from_dict({
+        'description': LUTConditioner(n_bins=128, dim=16, output_dim=16, tokenizer='whitespace',
+                                      generator=gen),
+        'self_wav': ChromaConditioner(output_dim=16, sample_rate=32000, n_chroma=4,
+                                      radix2_exp=12, duration=5.0, generator=gen)})
+    fuser = ConditionFuser.from_dict({'cross': ('description',), 'prepend': ('self_wav',)})
+    lm = LMModel(fuser, n_q=4, card=400, dim=16, num_heads=4, num_layers=2,
+                 cross_attention=True, causal=True, norm_first=False, activation='relu',
+                 pattern_provider=DelayedPatternProvider(4), generator=gen)
+    return MusicGen('debug-melody', codec, _finish(lm, device), _finish(provider, device),
+                    max_duration=30.0, duration=5.0)

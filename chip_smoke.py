@@ -83,6 +83,22 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    CPU's; the causal ``get_encodec_24khz()`` streams 16 clips of 10 s in 1 s
    chunks through ``CodecStreamer`` both ways (K2 from a carried (h, c)),
    held to the whole-signal encode and decode in fp32.
+13. Melody and style: the chroma extractor at 10 s on the card against the
+   CPU (and every seeded note at its pitch class);
+   ``get_musicgen('medium', melody=True)`` (published widths, bf16 decode,
+   CUDA graph steps) generates 10 s for 2 seeded descriptions, each with a
+   seeded 10 s melody, behind the 938-frame chroma prefix (K2 twice, in the
+   decode); two generates in one decode cache with other melodies give a
+   fresh cache's tokens; fp32 greedy tokens at 1 s on 4 of the 48 layers
+   equal the CPU's; ``generate_music_segments`` extends a 20 s melody in
+   10 s segments with 1 s of overlap (K5, K4, K1 and K2 in each
+   continuation's prompt encode), stitched, written with ``audio_write``
+   and read back.  Then ``get_musicgen('medium', style=True)``: its style
+   embeddings (the fp32 codec through K5, K4's fp32 variant, K2 and K1,
+   then K1 in the bottleneck) against the CPU's (1e-4), the bottleneck
+   codes equal but at near-ties, K1 at D = 512, K = 1024, n_q = 3, K4 fp32
+   and K2 fp32 at the 3 s excerpt against their plain versions and timed,
+   and a double-CFG generate of 10 s for 2 descriptions with 10 s clips.
 Phase 2 also holds K3b (the attention backward, both dtypes, at the model
 shapes and the tiles' edges), K4 (both 32 kHz stage shapes and the edges
 of its tiles; its resources, per-phase cycle split and weight bytes from L2
@@ -99,6 +115,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 import typing as tp
 import warnings
@@ -112,11 +129,17 @@ from audiocraft_tpu_torch.builders import (get_encodec_24khz, get_encodec_32khz,
                                            get_wrapped_compression_model)
 from audiocraft_tpu_torch.codec.streaming import CodecStreamer, encoder_stream
 from audiocraft_tpu_torch.cond.attributes import (ClassifierFreeGuidanceDropout,
-                                                  ConditioningAttributes)
+                                                  ConditioningAttributes, WavCondition)
 from audiocraft_tpu_torch.dist.train import lm_loss, lm_loss_and_grads, make_lm_train_step
+from audiocraft_tpu_torch.gen.extend import (generate_music_segments, plan_segments,
+                                             stitch_segments)
 from audiocraft_tpu_torch.gen.magnet import get_debug_magnet
 from audiocraft_tpu_torch.gen.musicgen import MusicGen, get_debug_musicgen
+from audiocraft_tpu_torch.io.audio_utils import normalize_audio
+from audiocraft_tpu_torch.io.wav import audio_read, audio_write
 from audiocraft_tpu_torch.lm.decode import DecodeCache
+from audiocraft_tpu_torch.lm.model import LMModel
+from audiocraft_tpu_torch.nn.chroma import ChromaExtractor
 from audiocraft_tpu_torch.nn.transformer import StreamingMultiheadAttention
 from audiocraft_tpu_torch.ops import _build, attention
 from audiocraft_tpu_torch.ops import lstm as lstm_ops
@@ -129,10 +152,12 @@ from audiocraft_tpu_torch.ops.probe import gather, split_contract, split_contrac
 from audiocraft_tpu_torch.ops.rvq import (rvq_encode, rvq_encode_clocks, rvq_encode_reference,
                                          rvq_kernel_info, rvq_plan)
 from audiocraft_tpu_torch.ops.seanet import (
-    StageSpec, banded_mono_conv, banded_mono_conv_reference, fused_encoder_apply, fused_stage,
-    fused_stage_clocks, fused_stage_reference, mono_input_conv, mono_input_conv_reference,
-    packed_stage_weights, stage_kernel_info, stage_plan, stage_weight_l2_bytes)
+    StageSpec, banded_mono_conv, banded_mono_conv_reference, encoder_stage_plan,
+    encoder_stage_weights, fused_encoder_apply, fused_stage, fused_stage_clocks,
+    fused_stage_reference, mono_input_conv, mono_input_conv_reference, packed_stage_weights,
+    stage_kernel_info, stage_plan, stage_weight_l2_bytes)
 from audiocraft_tpu_torch.optim import make_optimizer
+from audiocraft_tpu_torch.patterns import DelayedPatternProvider
 from audiocraft_tpu_torch.quant.codebook import compute_distances, quantize
 
 # Published H100 SXM peaks (dense): fp32 outside the tensor cores, bf16
@@ -168,6 +193,13 @@ MG_TIMED_STEPS, MG_STEP_OFFSET = 50, 1000
 # streaming 16 clips x 10 s in chunks of 1 s (75 frames)
 STEREO_BATCH, MGS_SECONDS, MGS_PARITY_SECONDS, MGS_STEP_OFFSET = 64, 10, 1, 250
 STREAM_BATCH, STREAM_SECONDS, STREAM_RATE, STREAM_CHUNK_FRAMES = 16, 10, 24000, 75
+# phase 13: MusicGen-melody-medium and MusicGen-style-medium, 2 descriptions x
+# 10 s with 10 s melodies or style clips, the step timed at offset 250; the
+# stale-prefix check at 2 s; fp32 melody parity at 1 s on 4 of the 48 layers;
+# the extend utility over a 20 s melody in 10 s segments, 1 s of overlap
+MEL_PROMPTS, MEL_SECONDS, MEL_STEP_OFFSET, MEL_CHECK_SECONDS = 2, 10, 250, 2
+MEL_PARITY_SECONDS, MEL_PARITY_LAYERS = 1, 4
+EXTEND_SECONDS, EXTEND_SEGMENT, EXTEND_OVERLAP = 20, 10, 1
 # the encode shapes this script runs (batch, seconds): phases 3 / 9, the
 # training encode of phase 7, and B = 1 and 4 at 10 s
 ROUTE_SHAPES = ((BATCH, SECONDS), (TRAIN_BATCH, TRAIN_SECONDS), (4, SECONDS), (1, SECONDS))
@@ -1968,8 +2000,15 @@ def print_decode_step(lm, state, cond_batch: int, offset: int = MG_STEP_OFFSET) 
               + '; '.join(f'{e.key[:60]} {e.self_device_time_total / 1e3:.2f} {e.count}'
                           for e in kernels[:8]), flush=True)
 
-    # the attention's part: plain_attention over the whole capacity, as a
-    # cached step runs it (24 layers), and the heads with their fp32 casts
+    print_step_parts(lm, state, graph_ms)
+    return graph_ms
+
+
+def print_step_parts(lm, state, graph_ms: float) -> None:
+    """The attention's part of a replayed step of ``graph_ms``:
+    plain_attention over the whole capacity, as a cached step runs it in
+    every layer; the heads with their fp32 casts; and the step's byte
+    bound."""
     cache = state.current[0]
     B, cap, H, D = cache.k.shape
     gen = torch.Generator().manual_seed(47)
@@ -1979,9 +2018,22 @@ def print_decode_step(lm, state, cond_batch: int, offset: int = MG_STEP_OFFSET) 
     attn = time_ms(lambda: attention.plain_attention(q, cache.k, cache.v, mask), 20)
     out = torch.randn(B, 1, lm.dim, generator=gen).to(cache.k)
     heads = time_ms(lambda: lm.apply_heads(out), 20)
-    # what a step reads: every matrix but the embeddings (4 rows a step) and
-    # the cross-attention's K/V projection rows (2/3 of its in_proj), whose
-    # products come precomputed in the state's cross K/V; those, and the caches
+    weight_bytes, cross_bytes, kv_read, bound = step_bound(lm, state)
+    print(f'attention over the cache [{B}, {cap}, {H}, {D}] {cache.k.dtype}: {attn:.4f} ms a '
+          f'layer (fp32 upcast of k and v included), x {n_layers} layers = '
+          f'{attn * n_layers:.3f} ms, {attn * n_layers / graph_ms:.3f} of a graph step; heads '
+          f'(4 x {lm.card} x {lm.dim}, weights cast to fp32 each call) {heads:.4f} ms, '
+          f'{heads / graph_ms:.3f} of a step; byte bound of a step (weights '
+          f'{weight_bytes / 1e9:.3f} GB + cross K/V {cross_bytes / 1e9:.3f} GB + KV read '
+          f'{kv_read / 1e9:.3f} GB at 3.35 TB/s) {bound:.3f} ms; card {card()}', flush=True)
+
+
+def step_bound(lm, state) -> tp.Tuple[int, int, int, float]:
+    """What a decode step of ``state`` reads: every matrix of ``lm`` but the
+    embeddings (4 rows a step) and the cross-attention's K/V projection rows
+    (2/3 of its in_proj), whose products come precomputed in the state's
+    cross K/V; those, and the running segment's caches.  Returns (weight,
+    cross K/V and cache bytes, the step's byte bound in ms)."""
     weight_bytes = 0
     for n, p in lm.named_parameters():
         if not n.startswith('emb.'):
@@ -1990,24 +2042,18 @@ def print_decode_step(lm, state, cond_batch: int, offset: int = MG_STEP_OFFSET) 
     cross_bytes = sum(t.numel() * t.element_size() for kv in state.cross_kv if kv is not None
                       for pair in kv for t in pair)
     kv_read = sum(c.nbytes() for c in state.current)
-    bound = (weight_bytes + cross_bytes + kv_read) / PEAK_BYTES * 1e3
-    print(f'attention over the cache [{B}, {cap}, {H}, {D}] {cache.k.dtype}: {attn:.4f} ms a '
-          f'layer (fp32 upcast of k and v included), x {n_layers} layers = '
-          f'{attn * n_layers:.3f} ms, {attn * n_layers / graph_ms:.3f} of a graph step; heads '
-          f'(4 x {lm.card} x {lm.dim}, weights cast to fp32 each call) {heads:.4f} ms, '
-          f'{heads / graph_ms:.3f} of a step; byte bound of a step (weights '
-          f'{weight_bytes / 1e9:.3f} GB + cross K/V {cross_bytes / 1e9:.3f} GB + KV read '
-          f'{kv_read / 1e9:.3f} GB at 3.35 TB/s) {bound:.3f} ms; card {name}', flush=True)
-    return graph_ms
+    return (weight_bytes, cross_bytes, kv_read,
+            (weight_bytes + cross_bytes + kv_read) / PEAK_BYTES * 1e3)
 
 
-def replay_ms(state, offset: int) -> float:
-    """ms of one replayed decode step of ``state`` at ``offset``, CUDA
-    events over MG_TIMED_STEPS replays on the same caches."""
+def replay_ms(state, offset: int, prefix: int = 0) -> float:
+    """ms of one replayed decode step of ``state`` at ``offset`` (behind a
+    prefix of ``prefix`` positions), CUDA events over MG_TIMED_STEPS replays
+    on the same caches."""
     graph = state.graphs[0]
     with torch.no_grad():
         state.offset.fill_(offset)
-        state.current[0].index.fill_(offset - 1)
+        state.current[0].index.fill_(prefix + offset - 1)
         torch.cuda.synchronize()
         start = _event()
         for _ in range(MG_TIMED_STEPS):
@@ -2529,6 +2575,431 @@ def phase_stereo_streaming(device) -> tp.Dict[str, tp.Dict[str, int]]:
     return launches
 
 
+NOTE_HZ = (261.63, 329.63, 392.0, 466.16, 293.66, 369.99, 493.88)   # C E G A# D F# B
+NOTE_CLASS = (0, 4, 7, 10, 2, 6, 11)
+
+
+def _melodies(batch: int, seconds: float, seed: int,
+              note_s: float = 0.5) -> tp.Tuple[np.ndarray, tp.List[tp.List[int]]]:
+    """Seeded melodies [batch, 1, T] at 32 kHz: runs of sine notes of
+    ``note_s`` seconds at pitch classes drawn from the seed; and each row's
+    classes, note by note."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(note_s * SAMPLE_RATE)) / SAMPLE_RATE
+    rows, classes = [], []
+    for _ in range(batch):
+        picks = rng.randint(0, len(NOTE_HZ), int(round(seconds / note_s)))
+        rows.append(np.concatenate([0.4 * np.sin(2 * np.pi * NOTE_HZ[p] * t) for p in picks]))
+        classes.append([NOTE_CLASS[p] for p in picks])
+    return np.stack(rows)[:, None].astype(np.float32), classes
+
+
+def check_chroma(device) -> None:
+    """13.1: the chroma extractor at 10 s on the card against the CPU (the
+    raw normalized chroma within 1e-5; the one-hot equal wherever the CPU's
+    top two classes are more than 1e-5 apart), and every note's inner frames
+    at its pitch class."""
+    wav, classes = _melodies(MEL_PROMPTS, MEL_SECONDS, seed=80)
+    x = torch.from_numpy(wav)
+    raw = ChromaExtractor(sample_rate=SAMPLE_RATE, n_chroma=12, radix2_exp=12)
+    hot = ChromaExtractor(sample_rate=SAMPLE_RATE, n_chroma=12, radix2_exp=12, argmax=True)
+    card_raw, cpu_raw = raw(x.to(device)).cpu(), raw(x)
+    err = float((card_raw - cpu_raw).abs().max())
+    card_hot, cpu_hot = hot(x.to(device)).cpu(), hot(x)
+    top2 = cpu_raw.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 1e-5
+    per_note = card_hot.shape[1] / len(classes[0])
+    missed = sum(int((card_hot[b, int((i + 0.3) * per_note):int((i + 0.7) * per_note)]
+                      .argmax(-1) != c).sum())
+                 for b, row in enumerate(classes) for i, c in enumerate(row))
+    ms = time_ms(lambda: hot(x.to(device)), 5)
+    print(f'chroma [{MEL_PROMPTS}, 1, {MEL_SECONDS * SAMPLE_RATE}] -> {tuple(card_hot.shape)}: '
+          f'card against CPU, raw max-abs {err:.3g} (<= 1e-5), one-hot equal on {int(sure.sum())} '
+          f'frames ({int((~sure).sum())} near-tie frames excluded); inner frames off their '
+          f'note\'s class {missed} (0); {ms:.3f} ms on the card with the host copy (CUDA events, '
+          'information)', flush=True)
+    check(err <= 1e-5, f'chroma raw card vs CPU max-abs {err:.3g} > 1e-5')
+    check(torch.equal(card_hot[sure], cpu_hot[sure]), 'chroma one-hot card != CPU off near-ties')
+    check(missed == 0, f'{missed} inner note frames off their pitch class')
+
+
+def _generate_timed(mg, descriptions, wavs, seed: int):
+    """The facade's public ``generate_with_chroma`` (melody or style clips
+    at 32 kHz): (audio, tokens, seconds to the tokens, seconds with the
+    decode, the decode state it ran)."""
+    marks: tp.List[float] = []
+
+    def done(_progress, _text):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    mg.set_custom_progress_callback(done)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    audio, tokens = mg.generate_with_chroma(descriptions, wavs, SAMPLE_RATE,
+                                            generator=torch.Generator().manual_seed(seed),
+                                            return_tokens=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mg.set_custom_progress_callback(None)
+    state = list(mg._decode_cache.states.values())[-1]
+    return audio, tokens, marks[-1] - t0, t1 - t0, state
+
+
+_LAP = [0.0]
+
+
+def _lap(what: str) -> None:
+    """Print the seconds since the last lap of phase 13."""
+    now = time.perf_counter()
+    print(f'   [phase 13: {what} {now - _LAP[0]:.1f} s]', flush=True)
+    _LAP[0] = now
+
+
+def _print_generate(what: str, mg, tokens, audio, gen_s: float, total_s: float, state,
+                    launches, model_batch: int) -> int:
+    """Print a generate's numbers and its replayed step at MEL_STEP_OFFSET
+    with the attention's part and the byte bound (phase 11 profiles the
+    step; the profiler's reading of a 48-layer window takes minutes of
+    host time); returns the prefix length."""
+    S = state.plan['S']
+    prefix = state.plan['segments'][-1][2] - S
+    audio_s = tokens.shape[0] * tokens.shape[-1] / mg.frame_rate
+    name = card()
+    print(f'{what}: tokens {tuple(tokens.shape)}, audio {tuple(audio.shape)}; prefix {prefix} '
+          f'frames before {S} pattern steps; conditions + generate {gen_s:.3f} s with '
+          f'{len(state.capture_seconds)} capture(s) of {sum(state.capture_seconds):.3f} s '
+          f'({S / gen_s:.1f} steps/s), decode {total_s - gen_s:.3f} s: '
+          f'{audio_s / total_s:.2f} audio-s/s end to end ({audio_s / gen_s:.2f} to the tokens); '
+          f'KV caches {state.kv_bytes() / 1e9:.3f} GB; peak memory '
+          f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}; card {name}',
+          flush=True)
+    step = replay_ms(state, MEL_STEP_OFFSET, prefix)
+    print(f'{what}: replayed decode step at offset {MEL_STEP_OFFSET} of {S}, model batch '
+          f'{model_batch}: {step:.3f} ms, mean of {MG_TIMED_STEPS}; card {name}', flush=True)
+    print_step_parts(state.lm, state, step)
+    return prefix
+
+
+def phase_melody_parity(device, mg, descriptions, melodies) -> None:
+    """fp32 greedy tokens at MEL_PARITY_SECONDS of an LM at the medium widths
+    cut to MEL_PARITY_LAYERS layers, behind the melody's 938-frame chroma
+    prefix (the facade's fp32 conditions), card against CPU."""
+    gen = torch.Generator().manual_seed(84)
+    lm = LMModel(
+        mg.lm.fuser, n_q=4, card=2048, dim=mg.lm.dim, num_heads=mg.lm.transformer.num_heads,
+        num_layers=MEL_PARITY_LAYERS, hidden_scale=4, norm_first=True, bias_proj=False,
+        bias_ff=False, bias_attn=False, cross_attention=True, causal=True, activation='gelu',
+        weight_init='gaussian', attn_kernel='auto', pattern_provider=DelayedPatternProvider(4),
+        generator=gen).to(device).eval().requires_grad_(False)
+    check(not torch.backends.cuda.matmul.allow_tf32, 'TF32 is on')
+    attributes, _ = mg._prepare_tokens_and_attributes(
+        descriptions, None, melody_wavs=mg._convert_melodies(melodies, SAMPLE_RATE))
+    with torch.no_grad():
+        cond = mg._cfg_condition_tensors(attributes)
+    n, frames = len(descriptions), int(MEL_PARITY_SECONDS * mg.frame_rate)
+    states: list = []
+    greedy = _musicgen_generate(lm, cond, frames, None, DecodeCache(), states=states)
+    check(tuple(greedy.shape) == (n, 4, frames), f'melody greedy {tuple(greedy.shape)}')
+    print(f'MusicGen-melody at the medium widths cut to {MEL_PARITY_LAYERS} of 48 layers, fp32 '
+          f'greedy tokens {tuple(greedy.shape)} behind the {cond["self_wav"][0].shape[1]}-frame '
+          'chroma prefix, card against CPU:', flush=True)
+    check_greedy_against_cpu(lm, cond, frames, n, greedy, states[0].seq)
+
+
+def _extend_melody(device, mg) -> tp.Dict[str, int]:
+    """13.3: ``generate_music_segments`` over a seeded 20 s melody in 10 s
+    segments with 1 s of overlap, then ``stitch_segments``; the segments
+    and the stitched length against ``plan_segments`` and the stitch's
+    arithmetic; K5, K4, K1 and K2 per continuation's prompt encode, K2 per
+    decode; the result written with ``audio_write`` and read back."""
+    mg.set_generation_params(duration=EXTEND_SEGMENT, top_k=250, cfg_coef=3.0)
+    melody = _melodies(1, EXTEND_SECONDS, seed=86)[0][0, 0]
+    total, duration, excess = plan_segments(EXTEND_SECONDS, EXTEND_SEGMENT, EXTEND_OVERLAP)
+    _reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    segments, excess_out = generate_music_segments(
+        'a melody that goes on', (SAMPLE_RATE, melody), 87, mg, duration=EXTEND_SECONDS,
+        overlap=EXTEND_OVERLAP, segment_duration=EXTEND_SEGMENT)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launch_counts()
+    # the segment lengths generate_music_segments gives: whole segments, the
+    # last one (or one past the remaining duration) cut to what remains
+    lengths, remaining = [], duration
+    for idx in range(total):
+        last = idx + 1 == total or remaining < EXTEND_SEGMENT
+        lengths.append((max(min(remaining, EXTEND_SEGMENT), 1) if last else EXTEND_SEGMENT)
+                       * SAMPLE_RATE)
+        if remaining > EXTEND_SEGMENT:
+            remaining -= EXTEND_SEGMENT
+    check(total == 3 and len(segments) == total and excess_out == excess,
+          f'extend: {len(segments)} segments, plan {total, duration, excess}')
+    check([tuple(s.shape) for s in segments] == [(1, 1, n) for n in lengths],
+          f'extend segments {[tuple(s.shape) for s in segments]} != {lengths}')
+    stitched = stitch_segments(segments, SAMPLE_RATE, EXTEND_OVERLAP)
+    expect = sum(lengths) - (total - 1) * (EXTEND_OVERLAP * SAMPLE_RATE // 2)
+    check(tuple(stitched.shape) == (1, 1, expect) and bool(torch.isfinite(stitched).all()),
+          f'stitched {tuple(stitched.shape)}, expected {expect} samples')
+    per = dict(banded_mono_conv=total, fused_stage=2 * total, rvq_encode=total,
+               lstm_step=2 + 2 * total + 2 * total)
+    check({k: launches[k] for k in per} == per and launches['flash_attention'] == 0,
+          f'extend launched {launches}, expected {per}')
+    with tempfile.TemporaryDirectory() as tmp:
+        path = audio_write(f'{tmp}/extended', stitched[0], SAMPLE_RATE)
+        back, sr = audio_read(path)
+    peak = normalize_audio(stitched[0].cpu(), strategy='peak')
+    err = float(np.abs(back - peak.numpy()).max())
+    check(sr == SAMPLE_RATE and back.shape == (1, expect) and err <= 1.0 / 2 ** 15 + 1e-7,
+          f'audio_write / audio_read: {back.shape} at {sr}, {err:.3g} from the normalized wav')
+    print(f'extend: plan_segments({EXTEND_SECONDS}, {EXTEND_SEGMENT}, {EXTEND_OVERLAP}) = '
+          f'{(total, duration, excess)}; the prompt segment and {total} continuations in '
+          f'{seconds:.3f} s, segments of {[n // SAMPLE_RATE for n in lengths]} s, stitched '
+          f'{expect} samples ({expect / SAMPLE_RATE:.2f} s: sum less half an overlap a join); '
+          f'launches {launches} (per continuation K5 1, K4 2, K1 1, K2 2 in the prompt encode '
+          f'and 2 in the decode; K2 2 for the prompt segment\'s decode); written and read back '
+          f'as 16-bit wav, {err:.3g} from the peak-normalized audio; card {card()}', flush=True)
+    return launches
+
+
+def _melody_musicgen(device) -> tp.Dict[str, int]:
+    """13.2: MusicGen-melody-medium at the published widths."""
+    t0 = time.perf_counter()
+    mg = get_musicgen('medium', melody=True, seed=80)
+    build_s = time.perf_counter() - t0
+    mg.condition_provider.conditioners['description'].load_tokenizer = SeededT5Ids
+    lm = mg.lm
+    check(mg.name == 'musicgen-melody-medium' and lm.dim == 1536
+          and len(lm.transformer.layers) == 48 and lm.transformer.num_heads == 24,
+          f'{mg.name}: dim {lm.dim}, {len(lm.transformer.layers)} layers')
+    mg.set_generation_params(duration=MEL_SECONDS, top_k=250, cfg_coef=3.0)
+    wav, _ = _melodies(MEL_PROMPTS, MEL_SECONDS, seed=81)
+    melodies = [torch.from_numpy(w).to(device) for w in wav]
+    descriptions = [f'a tune to follow, take {i}' for i in range(MEL_PROMPTS)]
+    _reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    audio, tokens, gen_s, total_s, state = _generate_timed(mg, descriptions, melodies, 82)
+    launches = _launch_counts()
+    frames = int(MEL_SECONDS * mg.frame_rate)
+    check(tuple(tokens.shape) == (MEL_PROMPTS, 4, frames)
+          and bool(((tokens >= 0) & (tokens < lm.card)).all()), f'tokens {tuple(tokens.shape)}')
+    check(tuple(audio.shape) == (MEL_PROMPTS, 1, MEL_SECONDS * SAMPLE_RATE)
+          and bool(torch.isfinite(audio).all()), f'melody audio {tuple(audio.shape)}')
+    expect = {k: 2 if k == 'lstm_step' else 0 for k in launches}
+    check(launches == expect, f'melody generate launched {launches}, not K2 twice (the decode)')
+    print(f'get_musicgen(\'medium\', melody=True) built in {build_s:.1f} s', flush=True)
+    prefix = _print_generate('MusicGen-melody-medium', mg, tokens, audio, gen_s, total_s, state,
+                             launches, 2 * MEL_PROMPTS)
+    _lap('melody build, generate and step')
+    check(prefix == 938, f'melody prefix {prefix} frames, not 938')
+    del audio, tokens, state
+
+    # two generates in one DecodeCache with other melodies, then the second
+    # from a fresh cache: the captured steps read the prefix of their call
+    mg.set_generation_params(duration=MEL_CHECK_SECONDS, top_k=250, cfg_coef=3.0)
+    other = [torch.from_numpy(w).to(device) for w in _melodies(MEL_PROMPTS, MEL_SECONDS, 83)[0]]
+    runs = []
+    for mels, fresh in ((melodies, False), (other, False), (other, True)):
+        if fresh:
+            mg._decode_cache.clear()
+        runs.append(mg.generate_with_chroma(descriptions, mels, SAMPLE_RATE,
+                                            generator=torch.Generator().manual_seed(85),
+                                            return_tokens=True)[1])
+    check(torch.equal(runs[1], runs[2]), 'a reused decode state gave other tokens than a fresh '
+                                         'one for the same melodies (a stale prefix)')
+    share = float((runs[0] == runs[1]).float().mean())
+    check(share < 1.0, 'two melodies gave the same tokens')
+    print(f'stale-prefix check at {MEL_CHECK_SECONDS} s: melodies A then B in one DecodeCache, '
+          f'B again from a fresh one: B equal bit for bit; A and B share {share:.3f} of their '
+          f'tokens', flush=True)
+    mg._decode_cache.clear()
+    torch.cuda.empty_cache()
+    _lap('stale-prefix check')
+    phase_melody_parity(device, mg, descriptions, melodies)
+    _lap('melody fp32 parity')
+    extend_launches = _extend_melody(device, mg)
+    _lap('extend')
+    mg._decode_cache.clear()
+    return {'generate': launches['lstm_step'], **{f'extend {k}': v for k, v in
+                                                  extend_launches.items() if v}}
+
+
+def _style_inputs(style, clips: torch.Tensor) -> WavCondition:
+    """The double-CFG batch the facade collates for ``clips``: each clip, the
+    clips again (the style-only rows) and the null rows, zero-padded to the
+    clips' length with length 0."""
+    B, _, T = clips.shape
+    wav = torch.cat([clips, clips, torch.zeros_like(clips)]).cpu().numpy()
+    lengths = np.array([T] * (2 * B) + [0] * B)
+    return WavCondition(wav, lengths, [SAMPLE_RATE] * 3 * B, [None] * 3 * B, [None] * 3 * B)
+
+
+def check_style_kernels(device, style, x: WavCondition) -> None:
+    """K1 at the bottleneck's shape (D = 512, K = 1024, n_q = 3), K4's fp32
+    variant at the excerpt's stages and K2 in fp32 at its T = 150, each
+    against its plain version on the inputs the style forward gives it,
+    then timed beside its plain version and bound."""
+    wav = torch.from_numpy(x.wav).to(device)
+    name = card()
+    with torch.no_grad():
+        z = style.embed_tokens(style.excerpt_tokens(wav))
+        flat = z.reshape(-1, z.shape[-1]).contiguous()
+        embeds = style.rvq.embeds()[:style.eval_q].contiguous()
+        codes, plain = rvq_encode(flat, embeds), rvq_encode_reference(flat, embeds)
+        near = _near_ties(flat, embeds, plain)
+        check(not bool((codes != plain)[:, ~near].any()),
+              'rvq at the style bottleneck: codes differ from plain off near-ties')
+        n, d = flat.shape
+        q, k, _ = embeds.shape
+        b_ms, b_by = bound_ms(2.0 * n * d * k * q, PEAK_FP32, 4.0 * (n * d + q * k * d + q * n))
+        ms = time_ms(lambda: rvq_encode(flat, embeds), 10)
+        plain_ms = time_ms(lambda: rvq_encode_reference(flat, embeds), 10)
+        print(f'rvq at the style bottleneck N={n} D={d} K={k} n_q={q}: codes equal to plain on '
+              f'{int((~near).sum())} rows ({int(near.sum())} near-tie rows excluded); kernel '
+              f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); plan '
+              f'{rvq_plan(d).rows} rows a block, {rvq_kernel_info(n, d, k, q)["blocks"]} blocks; '
+              f'card {name}', flush=True)
+        enc = style.feat_extractor.encoder
+        start = style.excerpt_start(wav.shape[-1])
+        n_samples = int(style.length * style.sample_rate)
+        y = enc.model[0](wav[..., start:start + n_samples].contiguous())
+        for si, (spec, ids) in enumerate(encoder_stage_plan(enc)[:2]):
+            params = encoder_stage_weights(enc, spec, ids, torch.float32)
+            out, ref = fused_stage(y, params, spec), fused_stage_reference(y, params, spec)
+            rel = float((out - ref).abs().max() / ref.abs().max())
+            check(rel <= 1e-5, f'K4 fp32 stage {si} at the style excerpt: {rel:.3g} > 1e-5')
+            B, C, L = y.shape
+            U, H = L // spec.stride, spec.res_hidden
+            ops = 2.0 * B * L * (3 * C * H + H * C) + 2.0 * B * U * (2 * spec.stride * C
+                                                                     * spec.c_out)
+            nbytes = 4.0 * (B * C * L + B * spec.c_out * U + 3 * C * H + H * C
+                            + 2 * spec.stride * C * spec.c_out)
+            s_ms, s_by = bound_ms(ops, PEAK_FP32, nbytes)
+            print(f'K4 fp32 (FMA variant; plan {stage_plan(spec, torch.float32)}) stage {si} '
+                  f'[{B}, {C}, {L}] -> [{B}, {spec.c_out}, {U}]: max-abs / max against plain '
+                  f'{rel:.3g} (<= 1e-5); kernel {time_ms(lambda: fused_stage(y, params, spec), 5):.3f}'
+                  f' ms, plain {time_ms(lambda: fused_stage_reference(y, params, spec), 3):.3f} ms, '
+                  f'bound {s_ms:.4f} ms ({s_by}); card {name}', flush=True)
+            y = out
+    T, B, H = int(style.length * style.feat_extractor.frame_rate), wav.shape[0], 1024
+    args = [a.to(device) for a in _lstm_args(T, B, H, seed=92)]
+    out, ref = lstm_layer(*args), lstm_layer_reference(*args)
+    err = float((out - ref).abs().max())
+    check(err <= 1e-4, f'K2 fp32 T={T} B={B}: max-abs {err:.3g} > 1e-4')
+    cudnn, _ = _cudnn_lstm(args)
+    with torch.no_grad():
+        library = time_ms(lambda: cudnn(args[0]), 10)
+    l_ms, l_by = bound_ms(2.0 * T * B * 4 * H * 2 * H, PEAK_FP32,
+                          4.0 * (2 * T * B * H + 8 * H * H + 8 * H))
+    print(f'K2 fp32 at the style excerpt T={T} B={B} H={H}: max-abs against plain {err:.3g} '
+          f'(<= 1e-4); kernel {time_ms(lambda: lstm_layer(*args), 10):.4f} ms, plain '
+          f'{time_ms(lambda: lstm_layer_reference(*args), 3):.4f} ms, cuDNN nn.LSTM '
+          f'{library:.4f} ms, bound {l_ms:.4f} ms ({l_by}); plan '
+          f'{plan_text(lstm_ops.device_plan(H, B, torch.float32, device))}; card {name}',
+          flush=True)
+
+
+def _style_musicgen(device) -> tp.Dict[str, int]:
+    """13.4: MusicGen-style-medium at the published widths, double CFG."""
+    t0 = time.perf_counter()
+    smg = get_musicgen('medium', style=True, seed=90)
+    build_s = time.perf_counter() - t0
+    smg.condition_provider.conditioners['description'].load_tokenizer = SeededT5Ids
+    style = smg.condition_provider.conditioners['self_wav']
+    check(smg.name == 'musicgen-style-medium' and smg.lm.dim == 1536
+          and style.feat_extractor.compute_dtype is None and style.dim == 512
+          and style.rvq.bins == 1024 and style.eval_q == 3,
+          f'{smg.name}: style dim {style.dim}, eval_q {style.eval_q}')
+    clips = _clips(MEL_PROMPTS, MEL_SECONDS * SAMPLE_RATE, device, seed=91)
+    x = _style_inputs(style, clips)
+    _reset_launch_counts()
+    emb, mask = style(x)
+    torch.cuda.synchronize()
+    cond_launches = _launch_counts()
+    expect = dict(banded_mono_conv=1, fused_stage=2, lstm_step=2, rvq_encode=2)
+    check({k: cond_launches[k] for k in expect} == expect,
+          f'the style forward launched {cond_launches}, not {expect}')
+    cpu_style = copy.deepcopy(style).cpu()
+    emb_cpu, mask_cpu = cpu_style(x)
+    wav = torch.from_numpy(x.wav)
+    with torch.no_grad():
+        tokens, tokens_cpu = style.excerpt_tokens(wav.to(device)).cpu(), cpu_style.excerpt_tokens(wav)
+        z_cpu = cpu_style.embed_tokens(tokens_cpu)
+        z = style.embed_tokens(tokens_cpu.to(device)).cpu()
+        zq, codes = (t.cpu() for t in style.bottleneck(z.to(device)))
+        zq_cpu, codes_cpu = cpu_style.bottleneck(z_cpu)
+    same_tokens = torch.equal(tokens, tokens_cpu)
+    rel = float((emb.cpu() - emb_cpu).abs().max() / emb_cpu.abs().max())
+    rel_z = float((z - z_cpu).abs().max() / z_cpu.abs().max())
+    rel_q = float((zq - zq_cpu).abs().max() / zq_cpu.abs().max())
+    rows = z_cpu.reshape(-1, z_cpu.shape[-1])
+    near = _near_ties(rows, cpu_style.rvq.embeds()[:style.eval_q],
+                      codes_cpu.permute(1, 0, 2).reshape(style.eval_q, -1), rel=1e-4)
+    differ = (codes != codes_cpu).any(1).reshape(-1)
+    print(f'style embeddings {tuple(emb.shape)} (mask {mask.sum(1).tolist()}), card against CPU: '
+          f'codec tokens of the excerpt equal {same_tokens}; embeddings max-abs / max {rel:.3g} '
+          f'(<= 1e-4 when the tokens are equal); from the CPU\'s tokens, the bottleneck input '
+          f'{rel_z:.3g} and output {rel_q:.3g} (<= 1e-4), its codes {tuple(codes.shape)} differ on '
+          f'{int(differ.sum())} of {differ.numel()} frames, near-ties {int((differ & near).sum())}; '
+          f'launches of the style forward {cond_launches}', flush=True)
+    if same_tokens:
+        check(rel <= 1e-4, f'style embeddings card vs CPU rel {rel:.3g} > 1e-4')
+    else:   # the excerpt's codes apart only at near-ties; the rest held from shared tokens
+        start = style.excerpt_start(wav.shape[-1])
+        excerpt = wav[..., start:start + int(style.length * style.sample_rate)]
+        _fp32_codes_vs_cpu('style codec', style.feat_extractor.encode_to_latent(
+            excerpt.to(device)), cpu_style.feat_extractor.encode_to_latent(excerpt),
+            style.feat_extractor, cpu_style.feat_extractor)
+    check(torch.equal(mask.cpu(), mask_cpu), 'style mask card != CPU')
+    check(rel_z <= 1e-4 and rel_q <= 1e-4, f'style bottleneck rel {rel_z:.3g} / {rel_q:.3g}')
+    check(bool((near | ~differ).all()), 'style bottleneck codes differ off near-ties')
+    del cpu_style
+    _lap('style build and embeddings against the CPU')
+    check_style_kernels(device, style, x)
+    _lap('K1, K4 fp32 and K2 fp32 at the style shapes')
+
+    smg.set_generation_params(duration=MEL_SECONDS, top_k=250, cfg_coef=3.0, cfg_coef_beta=5.0)
+    descriptions = [f'in this style, take {i}' for i in range(MEL_PROMPTS)]
+    _reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    audio, tokens, gen_s, total_s, state = _generate_timed(
+        smg, descriptions, [c for c in clips], 93)
+    launches = _launch_counts()
+    frames = int(MEL_SECONDS * smg.frame_rate)
+    check(tuple(tokens.shape) == (MEL_PROMPTS, 4, frames)
+          and bool(((tokens >= 0) & (tokens < smg.lm.card)).all()), f'tokens {tuple(tokens.shape)}')
+    check(tuple(audio.shape) == (MEL_PROMPTS, 1, MEL_SECONDS * SAMPLE_RATE)
+          and bool(torch.isfinite(audio).all()), f'style audio {tuple(audio.shape)}')
+    expect = dict(banded_mono_conv=1, fused_stage=2, rvq_encode=2, lstm_step=4)
+    check({k: launches[k] for k in expect} == expect and launches['flash_attention'] == 0,
+          f'style generate launched {launches}, not {expect}')
+    check(state.plan['n_groups'] == 3, 'the style generate is not double CFG')
+    print(f'get_musicgen(\'medium\', style=True) built in {build_s:.1f} s', flush=True)
+    prefix = _print_generate('MusicGen-style-medium (double CFG 3.0 / beta 5.0)', smg, tokens,
+                             audio, gen_s, total_s, state, launches, 3 * MEL_PROMPTS)
+    _lap('style generate and step')
+    check(prefix == 10, f'style prefix {prefix} frames, not 10')
+    smg._decode_cache.clear()
+    return launches
+
+
+def phase_melody_style(device) -> tp.Dict[str, tp.Dict[str, int]]:
+    print("== phase 13: melody and style: chroma on the card, get_musicgen('medium', "
+          "melody=True) with the extend utility, get_musicgen('medium', style=True)", flush=True)
+    start = _LAP[0] = time.perf_counter()
+    check_chroma(device)
+    _lap('chroma')
+    launches = {'musicgen-melody': _melody_musicgen(device)}
+    torch.cuda.empty_cache()
+    _lap('melody model freed')
+    launches['musicgen-style'] = _style_musicgen(device)
+    torch.cuda.empty_cache()
+    print(f'phase 13: {time.perf_counter() - start:.1f} s; launches by path {launches}',
+          flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -2570,6 +3041,8 @@ def main() -> int:
     mark()
     print(f'K1 and K2 launches on the MusicGen path (phase 11): {musicgen_launches}', flush=True)
     phase_stereo_streaming(device)
+    mark()
+    phase_melody_style(device)
     mark()
     launches['mono_input_conv'] = kernel_checks_k6
     launches['flash_attention'] = magnet_launches['flash_attention']

@@ -225,14 +225,19 @@ def test_unconditional_and_continuation(pair):
 
 
 def test_unported_variants_raise(pair):
-    _, tmg = pair
-    with pytest.raises(NotImplementedError):
+    """A model without a ``self_wav`` conditioner refuses a melody and the
+    style settings with RuntimeError, as the JAX facade does."""
+    jmg, tmg = pair
+    for mg, kw in ((jmg, {}), (tmg, {})):
+        with pytest.raises(RuntimeError):
+            mg.set_style_conditioner_params(**kw)
+    with pytest.raises(RuntimeError):
         tmg.generate_with_chroma(['x'], [np.zeros((1, 100), np.float32)], 32000)
-    with pytest.raises(NotImplementedError):
-        tmg.set_style_conditioner_params()
     with pytest.raises(RuntimeError):
         tmg.generate_with_all(np.zeros((1, 1, 3200), np.float32), 32000,
                               melody_wavs=[np.zeros((1, 100), np.float32)])
+    with pytest.raises(RuntimeError):
+        jmg.generate_with_chroma(['x'], [np.zeros((1, 100), np.float32)], 32000)
     with pytest.raises(ValueError):   # double CFG needs a style (self_wav) condition
         drop_description_condition([ConditioningAttributes(text={'description': 'x'})])
     wav = WavCondition(np.zeros((1, 1, 4), np.float32), np.array([4]), [32000])

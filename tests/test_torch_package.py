@@ -12,7 +12,9 @@ from audiocraft_tpu_torch import builders
 from audiocraft_tpu_torch.apps import probe_ops
 from audiocraft_tpu_torch.codec.wrappers import HFEncodecCompressionModel
 from audiocraft_tpu_torch.gen.magnet import get_debug_magnet
-from audiocraft_tpu_torch.gen.musicgen import get_debug_musicgen
+from audiocraft_tpu_torch.cond.chroma_cond import ChromaConditioner
+from audiocraft_tpu_torch.cond.style_cond import StyleConditioner
+from audiocraft_tpu_torch.gen.musicgen import get_debug_melody_musicgen, get_debug_musicgen
 from audiocraft_tpu_torch.ops import _build
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -43,6 +45,11 @@ def test_port_and_smoke_import_nothing_of_jax():
                                    builders.get_musicgen_lm, builders.get_debug_musicgen_lm,
                                    builders.get_musicgen, get_debug_musicgen,
                                    functools.partial(builders.get_musicgen, stereo=True),
+                                   functools.partial(builders.get_musicgen, melody=True),
+                                   functools.partial(builders.get_musicgen, style=True),
+                                   functools.partial(builders.get_musicgen_lm, melody=True),
+                                   functools.partial(builders.get_musicgen_lm, style=True),
+                                   get_debug_melody_musicgen,
                                    functools.partial(HFEncodecCompressionModel.from_hf_config,
                                                      {})])
 def test_entry_points_refuse_to_fall_back_to_the_cpu(build, monkeypatch):
@@ -140,7 +147,22 @@ def test_build_is_named_by_the_sources_and_the_headers(tmp_path, monkeypatch):
     assert len(set(tags)) == 3
 
 
-def test_musicgen_melody_and_style_are_not_ported_yet():
-    for flag in ('melody', 'style'):
-        with pytest.raises(NotImplementedError):
-            builders.get_musicgen_lm('small', device='cpu', **{flag: True})
+def test_musicgen_melody_and_style_are_not_ported_yet(monkeypatch):
+    """musicgen-melody and musicgen-style build (at a thin LM width here; the
+    published widths run on the card, in chip_smoke.py), with their
+    ``self_wav`` conditioner prepended; melody with style raises, as JAX
+    asserts."""
+    monkeypatch.setitem(builders._MUSICGEN_SIZES, 'small', dict(dim=64, num_layers=1,
+                                                                num_heads=4))
+    for flag, cls in (('melody', ChromaConditioner), ('style', StyleConditioner)):
+        mg = builders.get_musicgen('small', device='cpu', **{flag: True})
+        assert mg.name == f'musicgen-{flag}-small'
+        cond = mg.condition_provider.conditioners['self_wav']
+        assert isinstance(cond, cls) and cond.output_proj.out_features == 64
+        assert mg.lm.fuser.fuse2cond == {'cross': ('description',), 'prepend': ('self_wav',)}
+    assert cond.feat_extractor.compute_dtype is None and cond.rvq.n_q == 6
+    assert builders.get_musicgen_lm('small', melody=True, device='cpu')[1].conditioners[
+        'self_wav'].chroma_len == 938
+    for build in (builders.get_musicgen, builders.get_musicgen_lm):
+        with pytest.raises(ValueError):
+            build('small', melody=True, style=True, device='cpu')

@@ -221,7 +221,8 @@ def test_get_musicgen_stereo_wiring(monkeypatch):
     run on the card, in chip_smoke.py)."""
     made = {}
 
-    def thin_lm(size, n_q, device, seed):
+    def thin_lm(size, n_q, device, seed, melody=False, style=False):
+        assert not (melody or style)
         made['lm'] = (size, n_q)
         return builders.get_debug_musicgen_lm(device=device, seed=seed)
 
