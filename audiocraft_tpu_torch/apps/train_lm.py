@@ -63,8 +63,8 @@ def main(argv=None):
     waiting = {'DATA_DIR': (args.data and not args.synthetic, 'data/audio_dataset.py'),
                '--codec-ckpt': (args.codec_ckpt, 'ckpt/io.py'),
                '--ckpt': (args.ckpt, 'ckpt/io.py'),
-               '--save-every': (args.save_every, 'ckpt/train_state.py'),
-               '--resume': (args.resume, 'ckpt/train_state.py')}
+               '--save-every': (args.save_every, 'ckpt/io.py (the run is saved beside --ckpt)'),
+               '--resume': (args.resume, 'ckpt/io.py (the run is saved beside --ckpt)')}
     for flag, (given, module) in waiting.items():
         if given:
             raise NotImplementedError(f"{flag} waits for {module}, which is not ported yet")

@@ -10,6 +10,11 @@ the plain versions of the kernels on the CPU.
 
 Models come back frozen for serving (eval mode, ``requires_grad`` off); a
 trainer (``dist/train.make_lm_train_step``) turns gradients back on.
+
+A codec's codebooks start as the JAX package's do (``kmeans_init``): zeros
+with ``inited`` 0, which every row quantizes to code 0 until a training
+forward runs k-means on its first batch or real weights are loaded.  The
+debug codec comes warmed (:func:`get_debug_compression_model`).
 """
 
 from __future__ import annotations
@@ -86,7 +91,11 @@ def get_encodec_24khz(n_filters: int = 32, dimension: int = 128, n_q: int = 8,
 def get_debug_compression_model(sample_rate: int = 32000, *,
                                 device: tp.Union[str, torch.device, None] = None,
                                 seed: int = 0) -> EncodecModel:
-    """Tiny codec for tests (the reference's debug compression model)."""
+    """Tiny codec for tests (the reference's debug compression model), its
+    codebooks warmed as the JAX package's ``init_debug_compression_model``
+    warms them (reference builders.py:277-278): one training forward of the
+    quantizer (k-means, then an EMA step) on a seeded normal latent batch
+    [8, 32, 128]."""
     if sample_rate not in (16000, 32000):
         raise ValueError(f"sample_rate must be 16000 or 32000, not {sample_rate}")
     device = resolve_device(device)
@@ -98,6 +107,8 @@ def get_debug_compression_model(sample_rate: int = 32000, *,
                          ResidualVectorQuantizer(dimension=32, bins=400, n_q=4,
                                                  generator=gen),
                          frame_rate=25, sample_rate=sample_rate, channels=1)
+    model.quantizer(torch.randn(8, 32, 128, generator=gen), frame_rate=1, training=True,
+                    generator=gen)
     return _finish(model, device)
 
 

@@ -6,14 +6,20 @@ and returns a state dict for the port module's ``load_state_dict``:
 
 * :func:`seanet_state_from_jax`: one SEANet encoder or decoder alone.
 * :func:`encodec_state_from_jax`: EnCodec (the quantizer state as a dict of
-  ``embed``, ``cluster_size``, ``embed_avg`` and ``inited``), or the stereo
+  ``embed``, ``cluster_size``, ``embed_avg`` and ``inited``, a fresh
+  codebook's zeros and ``inited`` 0 included), or the stereo
   wrapper, whose params are its mono codec's.  The JAX tree names layers
   ``layer{i}`` at the same indices as the port's ``model`` lists, resnet
   convs ``conv{j}`` and LSTM layers ``l{k}``; a conv's ``gn_scale`` and
   ``gn_bias`` (``time_group_norm``) go to ``conv.norm.weight`` and
   ``conv.norm.bias``.
 * :func:`lm_state_from_jax`: ``LMModel`` and ``MagnetLMModel`` (stacked
-  ``[K, ...]`` embeddings and heads, transformer layers ``layer{i}``).
+  ``[K, ...]`` embeddings and heads, transformer layers ``layer{i}``, or
+  the layers stacked on a leading ``[num_layers]`` axis, as the JAX
+  package's ``scan_layers`` transformer's ``stack_params`` writes them).
+* :func:`discriminator_state_from_jax`: ``MultiScaleSTFTDiscriminator``
+  (``scale{s}/conv{i}`` to ``discriminators.{s}.convs.{i}``).
+* :func:`balancer_state_from_jax`: the balancer's EMA norms and count.
 * :func:`t5_state_from_jax`: the T5 encoder, under HF T5 names.
 * :func:`conditioners_state_from_jax`: a ``ConditioningProvider``: the
   text conditioners, the chroma conditioner (``output_proj``) and the style
@@ -38,6 +44,7 @@ import typing as tp
 import numpy as np
 import torch
 
+from ..adversarial import MultiScaleSTFTDiscriminator
 from ..codec.encodec import EncodecModel
 from ..codec.stereo import InterleaveStereoCompressionModel
 from ..cond.conditioners import ConditioningProvider, LUTConditioner, T5Conditioner
@@ -138,9 +145,23 @@ def _attention(sd: dict, prefix: str, p: Tree) -> None:
             _weight_bias(sd, f'{prefix}.{norm}', p[norm])
 
 
+def _layer(params: Tree, i: int) -> Tree:
+    """Layer ``i`` of a transformer tree: ``layer{i}``, or slice i of the
+    stacked leaves."""
+    if f'layer{i}' in params:
+        return params[f'layer{i}']
+    return {k: _layer_slice(v, i) for k, v in params.items()}
+
+
+def _layer_slice(tree: tp.Any, i: int) -> tp.Any:
+    if isinstance(tree, tp.Mapping):
+        return {k: _layer_slice(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
 def _transformer(sd: dict, prefix: str, params: Tree, num_layers: int) -> None:
     for i in range(num_layers):
-        p, base = params[f'layer{i}'], f'{prefix}.layers.{i}'
+        p, base = _layer(params, i), f'{prefix}.layers.{i}'
         _attention(sd, f'{base}.self_attn', p['self_attn'])
         for name in ('norm1', 'norm2', 'linear1', 'linear2'):
             _weight_bias(sd, f'{base}.{name}', p[name])
@@ -164,6 +185,23 @@ def lm_state_from_jax(lm: LMModel, params: Tree) -> tp.Dict[str, torch.Tensor]:
     if 'out_norm' in params:
         _weight_bias(sd, 'out_norm', params['out_norm'])
     return _tensors(sd)
+
+
+def discriminator_state_from_jax(disc: MultiScaleSTFTDiscriminator,
+                                 params: Tree) -> tp.Dict[str, torch.Tensor]:
+    """The port's state dict for ``disc`` holding the JAX MS-STFT
+    discriminator's ``params`` (``scale{s}`` -> ``conv{i}`` -> weight, bias)."""
+    sd: tp.Dict[str, tp.Any] = {}
+    for s, sub in enumerate(disc.discriminators):
+        for i in range(len(sub.convs)):
+            _weight_bias(sd, f'discriminators.{s}.convs.{i}', params[f'scale{s}'][f'conv{i}'])
+    return _tensors(sd)
+
+
+def balancer_state_from_jax(state: Tree) -> tp.Dict[str, torch.Tensor]:
+    """The JAX balancer's state (``{name: norm EMA, '_count': count}``) as
+    the port's ``Balancer.init_state()`` dict."""
+    return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in state.items()}
 
 
 def t5_state_from_jax(params: Tree) -> tp.Dict[str, torch.Tensor]:

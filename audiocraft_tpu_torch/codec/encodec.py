@@ -12,11 +12,21 @@ may name another (``compute_dtype=torch.float32`` for the parity dtype).  In
 fp32 the conv stacks run cuDNN without TF32 whatever the caller's global flag
 (``nn/conv.fp32_convs``, restored after each stack), so the fp32 codec is the
 parity path on the card too.  The RVQ distances and the codebook lookup
-always stay fp32: token identity depends on them.  ``lstm_kernel`` (the
-field, or the per-call argument) is kept for config compatibility with the
-JAX package and selects nothing here: on a CUDA tensor every LSTM layer runs
-the hand-written recurrence kernel at every batch size, one launch a layer,
-and on a CPU tensor its plain version.
+always stay fp32: token identity depends on them.  ``lstm_kernel`` of
+``encode`` / ``decode`` picks the LSTM's route: None (the default) and True
+run the hand-written recurrence kernel K2 on a CUDA tensor at every batch
+size, one launch a layer, and its plain version on a CPU tensor; False runs
+the differentiable route (``nn/lstm.lstm_stack_differentiable``).  The
+model's ``lstm_kernel`` field is kept for config compatibility with the JAX
+package and selects nothing.
+
+``forward(x, training=...)`` is the JAX package's training forward
+(``codec/encodec.py``:217-263): the module stack (``fused_stages=0``, no K5)
+and the differentiable LSTM route, since K2, K4 and K5 are forward only; the
+SEANet stacks in ``compute_dtype`` (None: fp32) with the fp32 weights cast
+per call, so gradients reach the fp32 leaves; the quantizer always in fp32,
+its EMA state updated in place in the codebook buffers when training; the
+output trimmed to the input length.
 
 The encoder's route (``nn/seanet.SEANetEncoder.forward``): on a CUDA tensor
 ``encode(fused=None)`` takes the fused route, the input conv through K5 and
@@ -40,9 +50,10 @@ import typing as tp
 
 import torch
 
+from ..dist.mesh import Group
 from ..nn.seanet import SEANetDecoder, SEANetEncoder
 from ..ops.seanet import fused_length_ok
-from ..quant.vq import ResidualVectorQuantizer
+from ..quant.vq import Draws, QuantizedResult, ResidualVectorQuantizer
 
 Dtype = tp.Union[str, torch.dtype, None]
 
@@ -108,13 +119,15 @@ class EncodecModel(torch.nn.Module):
         return x.is_cuda and fused_length_ok(self.encoder, x.shape[-1])
 
     def _latent(self, x: torch.Tensor, compute_dtype: Dtype, fused: tp.Optional[bool],
-                conv0_kernel: tp.Optional[bool]) -> torch.Tensor:
+                conv0_kernel: tp.Optional[bool],
+                lstm_kernel: tp.Optional[bool] = None) -> torch.Tensor:
         if x.dim() != 3:
             raise ValueError(f"expected [B, C, T], got {tuple(x.shape)}")
         if fused is None:
             fused = self.fused_default(x)
         return self.encoder(self._cast(x, compute_dtype), fused_stages=2 if fused else 0,
-                            conv0_kernel=bool(conv0_kernel)).float()
+                            conv0_kernel=bool(conv0_kernel),
+                            lstm_kernel=lstm_kernel is not False).float()
 
     @torch.no_grad()
     def encode(self, x: torch.Tensor, compute_dtype: Dtype = None,
@@ -125,12 +138,11 @@ class EncodecModel(torch.nn.Module):
 
         ``fused`` routes the encoder front end (input conv + 2 stages)
         through K4 (None: the default of :meth:`fused_default`),
-        ``conv0_kernel`` the input conv through K5; see the module note.
-        ``lstm_kernel`` selects nothing (the kernel runs on every CUDA
-        tensor)."""
-        del lstm_kernel
+        ``conv0_kernel`` the input conv through K5, ``lstm_kernel`` the LSTM
+        (None or True: K2); see the module note."""
         x, scale = self.preprocess(x)
-        return self.quantizer.encode(self._latent(x, compute_dtype, fused, conv0_kernel)), scale
+        return self.quantizer.encode(
+            self._latent(x, compute_dtype, fused, conv0_kernel, lstm_kernel)), scale
 
     @torch.no_grad()
     def encode_to_latent(self, x: torch.Tensor, compute_dtype: Dtype = None,
@@ -150,8 +162,41 @@ class EncodecModel(torch.nn.Module):
     def decode(self, codes: torch.Tensor, scale: tp.Optional[torch.Tensor] = None,
                compute_dtype: Dtype = None,
                lstm_kernel: tp.Optional[bool] = None) -> torch.Tensor:
-        """codes [B, K, T_frames] -> waveform [B, C, T] fp32."""
-        del lstm_kernel
+        """codes [B, K, T_frames] -> waveform [B, C, T] fp32; ``lstm_kernel``
+        as in :meth:`encode`."""
         emb = self.decode_latent(codes)
-        out = self.decoder(self._cast(emb, compute_dtype)).float()
+        out = self.decoder(self._cast(emb, compute_dtype),
+                           lstm_kernel=lstm_kernel is not False).float()
         return self.postprocess(out, scale)
+
+    def forward(self, x: torch.Tensor, training: bool = False,
+                n_q_active: tp.Optional[int] = None,
+                generator: tp.Optional[torch.Generator] = None,
+                draws: tp.Optional[Draws] = None, group: Group = None,
+                expiry: str = 'reference', compute_dtype: Dtype = None) -> QuantizedResult:
+        """x [B, C, T] -> the quantizer's result with ``x`` the reconstruction
+        [B, C, T] fp32, trimmed to the input length (reference
+        encodec.py:206-221), differentiable in the SEANet weights.
+
+        ``compute_dtype`` is the SEANet stacks' dtype for this call (None:
+        fp32; unlike :meth:`encode`, the model's field does not apply, as in
+        the JAX package, whose trainer decides the training dtype).  With
+        ``training`` the quantizer runs its training forward (k-means on a
+        fresh codebook, the EMA in place, the straight-through estimator;
+        ``n_q_active``, ``generator``, ``draws``, ``group`` and ``expiry`` go
+        to :meth:`ResidualVectorQuantizer.train_forward`; quantizer dropout
+        passes ``n_q_active=quantizer.sample_n_q_active(generator)``, as the
+        JAX package's caller would).  Without, it runs the eval forward."""
+        if x.dim() != 3:
+            raise ValueError(f"expected [B, C, T], got {tuple(x.shape)}")
+        length = x.shape[-1]
+        x, scale = self.preprocess(x)
+        emb = self.encoder(self._cast(x, compute_dtype or torch.float32),
+                           lstm_kernel=False).float()
+        res = self.quantizer(emb, self.frame_rate, n_q_active=n_q_active, training=training,
+                             generator=generator, draws=draws, group=group, expiry=expiry)
+        out = self.decoder(self._cast(res.x, compute_dtype or torch.float32),
+                           lstm_kernel=False).float()
+        if out.shape[-1] < length:
+            raise ValueError(f"the decoder gave {out.shape[-1]} samples for {length}")
+        return res._replace(x=self.postprocess(out[..., :length], scale))

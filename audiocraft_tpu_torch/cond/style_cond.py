@@ -95,8 +95,10 @@ class StyleConditioner(torch.nn.Module):
             dim_feedforward=4 * dim, causal=False, norm_first=True, bias_ff=False,
             bias_attn=False, activation='gelu', generator=generator, **args)
         self.batch_norm = _EvalBatchNorm(dim)
+        # kmeans_init=False, as the JAX package's: a fresh bottleneck starts
+        # from the uniform init
         self.rvq = ResidualVectorQuantizer(dimension=dim, n_q=n_q_out, bins=bins,
-                                           generator=generator)
+                                           generator=generator, kmeans_init=False)
         self.output_proj = init.linear(dim, output_dim, True, 1.0 / math.sqrt(dim), generator)
 
     @property

@@ -120,7 +120,7 @@ class LMModel(torch.nn.Module):
                  qk_layer_norm_cross: bool = False, activation: str = 'gelu',
                  attn_kernel: tp.Union[bool, str] = False,
                  pattern_provider: tp.Optional[CodebooksPatternProvider] = None,
-                 cfg_coef: float = 3.0,
+                 cfg_coef: float = 3.0, checkpointing: bool = False,
                  generator: tp.Optional[torch.Generator] = None):
         super().__init__()
         if weight_init not in (None, 'gaussian'):
@@ -141,7 +141,7 @@ class LMModel(torch.nn.Module):
             cross_attention=cross_attention, layer_scale=layer_scale, norm_first=norm_first,
             bias_ff=bias_ff, bias_attn=bias_attn, qk_layer_norm=qk_layer_norm,
             qk_layer_norm_cross=qk_layer_norm_cross, activation=activation,
-            attn_kernel=attn_kernel, generator=generator)
+            attn_kernel=attn_kernel, checkpointing=checkpointing, generator=generator)
         self.out_norm = LayerNorm(dim) if norm_first else None
         linears = []
         for _ in range(n_q):

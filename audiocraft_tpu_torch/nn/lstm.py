@@ -1,9 +1,16 @@
 """Multi-layer LSTM over conv layout with a skip connection
 (counterpart of ``audiocraft_tpu/nn/lstm.py``).
 
-Each layer goes through :func:`audiocraft_tpu_torch.ops.lstm.lstm_layer`: the
-hand-written recurrence kernel on a CUDA tensor, its plain version on a CPU
-tensor.  Parameters sit at the ``torch.nn.LSTM`` names under ``lstm.``
+``forward(x, lstm_kernel=True)`` sends each layer through
+:func:`audiocraft_tpu_torch.ops.lstm.lstm_layer`: the hand-written
+recurrence kernel on a CUDA tensor, its plain version on a CPU tensor.  That
+route is forward only and refuses a tensor that requires a gradient while
+grad mode is on (``ops/_grad.py``).  ``lstm_kernel=False`` is the
+differentiable route, :func:`lstm_stack_differentiable`: torch's own LSTM
+(cuDNN's on the card) over all layers, in fp32 whatever the input dtype, as
+the training forward runs it (the JAX package runs a ``lax.scan`` there).
+The caller picks the route; nothing falls back from one to the other.
+Parameters sit at the ``torch.nn.LSTM`` names under ``lstm.``
 (``lstm.weight_ih_l0`` ...), gate order i, f, g, o.
 
 :meth:`StreamableLSTM.stream` runs a chunk from the ``(h, c)`` of each layer
@@ -19,6 +26,7 @@ from __future__ import annotations
 
 import math
 import typing as tp
+import warnings
 
 import torch
 
@@ -73,6 +81,24 @@ def lstm_2layer_pipelined(x: torch.Tensor, p0: Weights, p1: Weights) -> torch.Te
     return out
 
 
+def lstm_stack_differentiable(x: torch.Tensor, layers: tp.Sequence[Weights]) -> torch.Tensor:
+    """Stacked layers over [T, B, C] from zero state through torch's LSTM
+    (cuDNN on the card), differentiable in the input and every weight.  It
+    computes in fp32 and returns ``x.dtype``; an fp32 stack inside
+    ``nn/conv.fp32_convs`` runs cuDNN without TF32."""
+    T, B, _ = x.shape
+    H = layers[0][1].shape[1]
+    flat = [w.float() for layer in layers for w in layer]
+    zeros = torch.zeros(len(layers), B, H, dtype=torch.float32, device=x.device)
+    with warnings.catch_warnings():
+        # cuDNN packs the separate weights into its buffer each call (a copy
+        # of the weights, small beside the recurrence) and warns that it does
+        warnings.filterwarnings('ignore', message='RNN module weights are not part')
+        out, _, _ = torch._VF.lstm(x.float(), (zeros, zeros), flat, True, len(layers), 0.0,
+                                   torch.is_grad_enabled(), False, False)
+    return out.to(x.dtype)
+
+
 class StreamableLSTM(torch.nn.Module):
     """LSTM over [B, C, T] with an additive skip connection."""
 
@@ -95,15 +121,21 @@ class StreamableLSTM(torch.nn.Module):
         return [self.lstm[f'{name}_l{layer}'].to(dtype)
                 for name in ('weight_ih', 'weight_hh', 'bias_ih', 'bias_hh')]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, lstm_kernel: bool = True) -> torch.Tensor:
+        """[B, C, T] -> [B, C, T].  ``lstm_kernel`` True runs K2 (its plain
+        version on a CPU tensor; forward only), False the differentiable
+        route."""
         y = x.permute(2, 0, 1)  # [B, C, T] -> [T, B, C]
         inp = y
-        weights = [self._weights(layer, x.dtype) for layer in range(self.num_layers)]
-        if self.pipelined and self.num_layers == 2 and x.device.type == 'cpu':
+        if not lstm_kernel:
+            y = lstm_stack_differentiable(y, [self._weights(layer, torch.float32)
+                                              for layer in range(self.num_layers)])
+        elif self.pipelined and self.num_layers == 2 and x.device.type == 'cpu':
+            weights = [self._weights(layer, x.dtype) for layer in range(self.num_layers)]
             y = lstm_2layer_pipelined(y, *weights)
         else:
-            for w in weights:
-                y = lstm_layer(y, *w)
+            for layer in range(self.num_layers):
+                y = lstm_layer(y, *self._weights(layer, x.dtype))
         if self.skip:
             y = y + inp
         return y.permute(1, 2, 0)

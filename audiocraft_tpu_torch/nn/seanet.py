@@ -67,6 +67,14 @@ def corruption_radius(layers: tp.Sequence[torch.nn.Module], lo: int,
     return c_l, c_r
 
 
+def _run(layers: tp.Iterable[torch.nn.Module], x: torch.Tensor,
+         lstm_kernel: bool) -> torch.Tensor:
+    """``layers`` in order, the LSTM on the route ``lstm_kernel`` picks."""
+    for layer in layers:
+        x = layer(x, lstm_kernel=lstm_kernel) if isinstance(layer, StreamableLSTM) else layer(x)
+    return x
+
+
 class SEANetResnetBlock(torch.nn.Module):
     """[act, conv(k, dilation), act, conv(1)] with a ``dim // compress``
     bottleneck, plus the identity (``true_skip``) or a 1x1-conv shortcut."""
@@ -167,7 +175,7 @@ class SEANetEncoder(torch.nn.Module):
 
     def forward(self, x: torch.Tensor, fused_stages: int = 0,
                 conv0_kernel: bool = False, start_layer: int = 0,
-                stop_layer: tp.Optional[int] = None) -> torch.Tensor:
+                stop_layer: tp.Optional[int] = None, lstm_kernel: bool = True) -> torch.Tensor:
         """[B, C, T] -> [B, dimension, T / hop_length].
 
         ``fused_stages > 0`` runs the input conv and the first N planned
@@ -178,12 +186,14 @@ class SEANetEncoder(torch.nn.Module):
         ``conv0_kernel`` consumes layer 0 first and so turns the fused route
         off.  ``conv0_kernel`` without a fused route runs the input conv
         alone through K5.  ``start_layer`` / ``stop_layer`` run the layer
-        slice ``[start_layer, stop_layer)`` alone, on the module stack."""
+        slice ``[start_layer, stop_layer)`` alone, on the module stack.
+        ``lstm_kernel`` picks the LSTM's route (:class:`StreamableLSTM`):
+        True is K2, forward only; training passes False, with
+        ``fused_stages=0`` and ``conv0_kernel=False``, as the JAX package's
+        training forward runs."""
         with fp32_convs(x.dtype):
             if start_layer or stop_layer is not None:
-                for layer in self.model[start_layer:stop_layer]:
-                    x = layer(x)
-                return x
+                return _run(self.model[start_layer:stop_layer], x, lstm_kernel)
             start = 0
             if fused_stages and (x.is_cuda or not conv0_kernel):
                 fused = fused_encoder_apply(self, x, fused_stages,
@@ -194,9 +204,7 @@ class SEANetEncoder(torch.nn.Module):
                 y = self._conv0_kernel(x)
                 if y is not None:
                     x, start = y, 1
-            for layer in self.model[start:]:
-                x = layer(x)
-        return x
+            return _run(self.model[start:], x, lstm_kernel)
 
     def _conv0_kernel(self, x: torch.Tensor) -> tp.Optional[torch.Tensor]:
         """The input conv through K5 (None when it is not a mono stride-1
@@ -280,10 +288,9 @@ class SEANetDecoder(torch.nn.Module):
         return corruption_radius(self.model, self.split_index, len(self.model))
 
     def forward(self, z: torch.Tensor, start_layer: int = 0,
-                stop_layer: tp.Optional[int] = None) -> torch.Tensor:
+                stop_layer: tp.Optional[int] = None, lstm_kernel: bool = True) -> torch.Tensor:
         """[B, dimension, T_frames] -> [B, channels, T_frames * hop_length];
-        ``start_layer`` / ``stop_layer`` run the slice ``[start_layer, stop_layer)``."""
+        ``start_layer`` / ``stop_layer`` run the slice ``[start_layer, stop_layer)``;
+        ``lstm_kernel`` as in :meth:`SEANetEncoder.forward`."""
         with fp32_convs(z.dtype):
-            for layer in self.model[start_layer:stop_layer]:
-                z = layer(z)
-        return z
+            return _run(self.model[start_layer:stop_layer], z, lstm_kernel)

@@ -31,9 +31,18 @@ scales per position and head (:func:`_kv_quantize`, attended by
 ``_attend_int8``).  Projections read plain weights or the weight-only int8
 and int4 leaves of ``lm/quantize.py`` (:func:`linear_w`).
 
-Not ported: RoPE (and the positional options beside 'sin'), ``kv_repeat >
-1``, scanned and checkpointed (rematerialised) layers; no factory in
-``builders.py`` uses them.
+``checkpointing`` rematerialises each layer in the backward
+(``torch.utils.checkpoint``, ``use_reentrant=False``; the kernel route's
+``autograd.Function`` runs K3f again there), as the JAX package's
+``jax.checkpoint`` per layer does: the same gradients, less activation
+memory.  It applies to a full-sequence forward with grad on, without a
+cache.  The JAX package's ``scan_layers`` (a ``lax.scan`` over stacked layer
+params, a compile-size option of XLA) has no counterpart here: the stack is
+a Python loop, and ``ckpt/from_jax.py`` reads the stacked params such a JAX
+model holds.
+
+Not ported: RoPE (and the positional options beside 'sin') and ``kv_repeat >
+1``; no factory in ``builders.py`` uses them.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ import typing as tp
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..ops.attention import (additive_mask, causal_mask, fused_attention, kernel_route,
                              plain_attention)
@@ -459,6 +469,19 @@ class StreamingTransformerLayer(torch.nn.Module):
         return self.norm2(x + self.layer_scale_2(self._ff(x)))
 
 
+def _checkpointed(layer: torch.nn.Module, x: torch.Tensor, kw: dict) -> torch.Tensor:
+    """``layer(x, **kw)`` rematerialised in the backward.  The layer's
+    weights enter as inputs of the checkpoint, so the recompute reads the
+    tensors the forward read: under ``torch.func.functional_call`` (the
+    train step's bf16 copies) those are gone from the module by then."""
+    names, weights = zip(*layer.named_parameters())
+
+    def run(y, *values):
+        return torch.func.functional_call(layer, dict(zip(names, values)), (y,), kw)
+
+    return torch.utils.checkpoint.checkpoint(run, x, *weights, use_reentrant=False)
+
+
 class StreamingTransformer(torch.nn.Module):
     """A stack of :class:`StreamingTransformerLayer` with sinusoidal positions
     (max period 10000, scale 1)."""
@@ -469,9 +492,10 @@ class StreamingTransformer(torch.nn.Module):
                  cross_attention: bool = False, layer_scale: tp.Optional[float] = None,
                  qk_layer_norm: bool = False, qk_layer_norm_cross: bool = False,
                  norm_first: bool = True, activation: str = 'gelu',
-                 attn_kernel: tp.Union[bool, str] = False,
+                 attn_kernel: tp.Union[bool, str] = False, checkpointing: bool = False,
                  generator: tp.Optional[torch.Generator] = None):
         super().__init__()
+        self.checkpointing = checkpointing
         self.layers = torch.nn.ModuleList(
             StreamingTransformerLayer(
                 d_model, num_heads, dim_feedforward, bias_ff=bias_ff, bias_attn=bias_attn,
@@ -515,10 +539,15 @@ class StreamingTransformer(torch.nn.Module):
         if caches is not None:
             positions = positions + caches[0].index
         x = x + create_sin_embedding(positions, C).to(x.dtype)
+        remat = self.checkpointing and caches is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            x = layer(x, cross_attention_src=cross_attention_src,
+            kw = dict(cross_attention_src=cross_attention_src,
                       cross_kv=None if cross_kv is None else cross_kv[i], attn_mask=attn_mask,
                       cache=None if caches is None else caches[i])
+            if remat:
+                x = _checkpointed(layer, x, kw)
+            else:
+                x = layer(x, **kw)
         if caches is not None:
             caches[0].index.add_(T)
         return x

@@ -36,6 +36,7 @@ import typing as tp
 import torch
 
 from . import _build
+from ._grad import refuse_grad
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -258,7 +259,12 @@ def lstm_layer(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
 
     ``state`` = (h0 [B, H], c0 [B, H]) starts the recurrence there (zeros
     when None); ``return_state`` returns ``(out, (h_T, c_T))``, h_T in
-    ``x.dtype`` and c_T in fp32, as the kernel keeps them."""
+    ``x.dtype`` and c_T in fp32, as the kernel keeps them.
+
+    Forward only: a tensor that requires a gradient raises while grad mode
+    is on (``ops/_grad.py``), on either device."""
+    refuse_grad('lstm_layer (K2)', (x, w_ih, w_hh, b_ih, b_hh) + tuple(state or ()),
+                'StreamableLSTM(lstm_kernel=False)')
     if x.device.type == 'cpu':
         return lstm_layer_reference(x, w_ih, w_hh, b_ih, b_hh, state, return_state)
     if x.device.type != 'cuda':

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from ..nn.conv import fp32_convs, pad1d
 from . import _build
+from ._grad import refuse_grad
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -352,7 +353,8 @@ def fused_stage(x: torch.Tensor, params: tp.Dict[str, torch.Tensor],
     weights already in :func:`pack_b_tiles` layout
     (:func:`packed_stage_weights`)
     (:func:`encoder_stage_weights` packs them once); else they are packed
-    here."""
+    here.  Forward only (``ops/_grad.py``)."""
+    refuse_grad('fused_stage (K4)', (x, *params.values()), 'fused_stages=0')
     if _check_stage(x, params, spec, 'fused_stage'):
         return fused_stage_reference(x, params, spec)
     y = _launch_stage(x, params, spec)
@@ -530,7 +532,9 @@ def _check_mono(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 def banded_mono_conv(x: torch.Tensor, weight: torch.Tensor,
                      bias: torch.Tensor) -> torch.Tensor:
     """K5, the encoder's first conv on a padded mono signal: x [B, 1, T + k - 1],
-    weight [C_out, 1, k], bias [C_out] (added in fp32) -> [B, C_out, T]."""
+    weight [C_out, 1, k], bias [C_out] (added in fp32) -> [B, C_out, T].
+    Forward only (``ops/_grad.py``)."""
+    refuse_grad('banded_mono_conv (K5)', (x, weight, bias), 'conv0_kernel=False')
     cpu = _check_mono(x, weight, bias, 'banded_mono_conv')
     t_out = x.shape[-1] - weight.shape[-1] + 1
     if t_out < 1:
@@ -548,7 +552,9 @@ banded_mono_conv.launches = 0  # kernel launches since the last reset
 def mono_input_conv(x: torch.Tensor, weight: torch.Tensor,
                     bias: torch.Tensor) -> torch.Tensor:
     """K6, the same conv with the reflect pad built in: x [B, 1, T], odd k,
-    T > (k - 1) / 2 -> [B, C_out, T]; the bias is rounded to x's dtype."""
+    T > (k - 1) / 2 -> [B, C_out, T]; the bias is rounded to x's dtype.
+    Forward only (``ops/_grad.py``)."""
+    refuse_grad('mono_input_conv (K6)', (x, weight, bias), 'the module stack')
     cpu = _check_mono(x, weight, bias, 'mono_input_conv')
     k, T = weight.shape[-1], x.shape[-1]
     h = (k - 1) // 2

@@ -99,10 +99,31 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    codes equal but at near-ties, K1 at D = 512, K = 1024, n_q = 3, K4 fp32
    and K2 fp32 at the 3 s excerpt against their plain versions and timed,
    and a double-CFG generate of 10 s for 2 descriptions with 10 s clips.
+14. Codec training: ``get_encodec_32khz()`` from fresh codebooks (k-means
+   on the first batch) against ``MultiScaleSTFTDiscriminator()``, the JAX
+   CLI's defaults (8 x 1 s, Adam 3e-4, the balancer's weights, bf16
+   compute on fp32 masters): the GAN step and the reconstruction step, 3
+   warm-up and 10 timed steps each, by CUDA events per part and by the
+   host clock, with audio-s trained/s, peak memory and the device's idle
+   share under the profiler; no forward-only kernel may launch, every LSTM
+   weight must get a gradient and every loss be finite; codebook usage is
+   printed.  Then one fp32 GAN step at 2 x 0.5 s on the card and on the
+   CPU (losses within 1e-4 relative, codes equal but at near-ties, the EMA
+   state within 1e-5, gradients within 1e-3 in global norm); on a
+   world-size-1 NCCL group the GAN step equals the step alone bit for bit
+   and the data-parallel LM step (``make_lm_train_step`` with the group) at
+   MusicGen-small widths (2 x 10 s) equals the step alone, through K3f and
+   K3b, as does the step with
+   per-layer checkpointing (K3f again in the backward); K2, K4 and K5
+   refuse a grad-requiring input.
+Every random-weight codec that encodes or decodes (phases 3-13) has its
+codebooks seeded from its own latents first (``seed_codebooks``): a fresh
+codebook is zeros, as the JAX package's ``kmeans_init`` makes it.
 Phase 2 also holds K3b (the attention backward, both dtypes, at the model
-shapes and the tiles' edges), K4 (both 32 kHz stage shapes and the edges
-of its tiles; its resources, per-phase cycle split and weight bytes from L2
-printed), K5 and K6 against their plain versions.  Then
+shapes, phase 14's data-parallel LM step's included, and the tiles'
+edges), K4 (both 32 kHz stage shapes and the edges of its tiles; its
+resources, per-phase cycle split and weight bytes from L2 printed), K5 and
+K6 against their plain versions.  Then
 one JSON line on the kernels and, last, one JSON line with the result.
 Any failed check ends the run with a non-zero exit and no result line, as
 does a host without a CUDA card.
@@ -123,6 +144,7 @@ import warnings
 import numpy as np
 import torch
 
+from audiocraft_tpu_torch.adversarial import MultiScaleSTFTDiscriminator
 from audiocraft_tpu_torch.apps import probe_ops, train_lm
 from audiocraft_tpu_torch.builders import (get_encodec_24khz, get_encodec_32khz, get_magnet_lm,
                                            get_musicgen, get_musicgen_lm,
@@ -130,7 +152,10 @@ from audiocraft_tpu_torch.builders import (get_encodec_24khz, get_encodec_32khz,
 from audiocraft_tpu_torch.codec.streaming import CodecStreamer, encoder_stream
 from audiocraft_tpu_torch.cond.attributes import (ClassifierFreeGuidanceDropout,
                                                   ConditioningAttributes, WavCondition)
-from audiocraft_tpu_torch.dist.train import lm_loss, lm_loss_and_grads, make_lm_train_step
+from audiocraft_tpu_torch.dist.mesh import make_data_group
+from audiocraft_tpu_torch.dist.train import (GAN_WEIGHTS, lm_loss, lm_loss_and_grads,
+                                             make_encodec_gan_train_step,
+                                             make_encodec_train_step, make_lm_train_step)
 from audiocraft_tpu_torch.gen.extend import (generate_music_segments, plan_segments,
                                              stitch_segments)
 from audiocraft_tpu_torch.gen.magnet import get_debug_magnet
@@ -156,7 +181,8 @@ from audiocraft_tpu_torch.ops.seanet import (
     encoder_stage_weights, fused_encoder_apply, fused_stage, fused_stage_clocks,
     fused_stage_reference, mono_input_conv, mono_input_conv_reference, packed_stage_weights,
     stage_kernel_info, stage_plan, stage_weight_l2_bytes)
-from audiocraft_tpu_torch.optim import make_optimizer
+from audiocraft_tpu_torch.losses import Balancer
+from audiocraft_tpu_torch.optim import OptState, make_optimizer
 from audiocraft_tpu_torch.patterns import DelayedPatternProvider
 from audiocraft_tpu_torch.quant.codebook import compute_distances, quantize
 
@@ -175,6 +201,9 @@ ATTN_SHAPE = dict(b=2 * PROMPTS, t=MAGNET_SECONDS * 50, h=16, d=64)
 # MusicGen-small training: 4 clips x 30 s, T = 1500 codes, S = 1501 steps
 TRAIN_BATCH, TRAIN_SECONDS, TRAIN_STEPS, TRAIN_LR = 4, 30, 5, 1e-4
 TRAIN_ATTN_SHAPE = (TRAIN_BATCH, TRAIN_SECONDS * 50 + 1, 16, 64)
+# phase 14's data-parallel MusicGen-small LM step: 2 clips x 10 s, S = 501
+LM_DP_BATCH, LM_DP_SECONDS = 2, 10
+LM_DP_ATTN_SHAPE = (LM_DP_BATCH, LM_DP_SECONDS * 50 + 1, 16, 64)
 # the two stages that encode(fused=True) runs through K4 at 32 kHz, b128 x 10 s
 STAGES = ((StageSpec(c_in=64, c_out=128, stride=4), SECONDS * SAMPLE_RATE),
           (StageSpec(c_in=128, c_out=256, stride=4), SECONDS * SAMPLE_RATE // 4))
@@ -651,10 +680,11 @@ def check_attention(device) -> dict:
     fp32 sums differs) and bf16 at 2e-2 (the online rescaling, P carried as
     two bf16 parts into the tensor-core product and the bf16 rounding of the
     output), causal and not, at MAGNeT's shape, off the 64-row tiles, and
-    on peaked rows (bf16; one key takes most of the weight, |v| up to 4); causal
-    at the training shape; on views the bf16 wrapper copies (a start off 16
-    bytes) or pads (D = 36 to 40), and on the fused qkv slices, which it
-    must pass uncopied.  D = 256 must raise when the kernel is called, and a
+    on peaked rows (bf16; one key takes most of the weight, |v| up to 4);
+    causal at the training shapes (phase 7's and phase 14's data-parallel
+    step's); on views the bf16 wrapper copies (a start off 16 bytes) or pads
+    (D = 36 to 40), and on the fused qkv slices, which it must pass
+    uncopied.  D = 256 must raise when the kernel is called, and a
     transformer layer with heads of 256 and attn_kernel='auto' must take the
     plain path by shape, launch nothing and equal the plain route (fp32,
     1e-5).  Then times in bf16: K3f at S = 1500 and 500 (not causal) and at the
@@ -664,6 +694,7 @@ def check_attention(device) -> dict:
     both = (False, True)
     cases = [('main', tuple(ATTN_SHAPE.values()), 'plain', both),
              ('training', TRAIN_ATTN_SHAPE, 'plain', (True,)),
+             ('data-parallel training', LM_DP_ATTN_SHAPE, 'plain', (True,)),
              ('off-tile', (1, 130, 3, 32), 'plain', both),
              ('peaked', (2, ATTN_SHAPE['t'], 16, 64), 'peaked', both),
              ('copied', (2, 130, 3, 64), 'offset', both),
@@ -812,16 +843,18 @@ def check_attention_backward(device) -> tp.Tuple[dict, dict]:
     the order of fp32 sums differs) within 1e-4 of each gradient's max-abs,
     bf16 within 2e-2 (the gradients are rounded to bf16; P and dS are
     rounded once to bf16 on both sides, at the same points), lse within
-    1e-5.  Shapes: the training shape (causal), MAGNeT's (not causal), the
-    tiles' edges at D = 64 (T = 1, 63, 65, 129), D = 32 and 128 at T = 130,
-    q, k, v as strided slices of one fused projection, and D = 36 (padded to
-    40 by the wrapper for the bf16 kernels' 16-byte copies); both masks except
-    at the two model shapes.  Then each kernel timed at the training shape in
+    1e-5.  Shapes: the training shapes (causal; phase 7's and phase 14's
+    data-parallel step's), MAGNeT's (not causal), the tiles' edges at D = 64
+    (T = 1, 63, 65, 129), D = 32 and 128 at T = 130, q, k, v as strided
+    slices of one fused projection, and D = 36 (padded to 40 by the wrapper
+    for the bf16 kernels' 16-byte copies); both masks except at the model
+    shapes.  Then each kernel timed at the training shape in
     bf16 beside SDPA's backward and the bound."""
     print_attention_bwd_resources()
     gen = torch.Generator().manual_seed(11)
     both = (True, False)
-    cases = [(TRAIN_ATTN_SHAPE, (True,), False), (tuple(ATTN_SHAPE.values()), (False,), False),
+    cases = [(TRAIN_ATTN_SHAPE, (True,), False), (LM_DP_ATTN_SHAPE, (True,), False),
+             (tuple(ATTN_SHAPE.values()), (False,), False),
              *(((2, t, 3, 64), both, False) for t in (1, 63, 65, 129)),
              ((1, 130, 3, 32), both, False), ((1, 130, 3, 128), both, False),
              ((2, 257, 4, 64), both, True), ((1, 70, 2, 36), both, False)]
@@ -1155,7 +1188,10 @@ def _clips(batch: int, samples: int, device, seed: int) -> torch.Tensor:
 
 def seed_codebooks(model, wav: torch.Tensor, seed: int = 3) -> None:
     """Codebook q takes random residual frames left after q codebooks, as a
-    k-means init would start, so that codes spread over the codebook."""
+    k-means init would start, so that codes spread over the codebook, and
+    counts as inited.  A fresh codec's codebooks are zeros (``kmeans_init``),
+    on which every row takes code 0, so every random-weight codec that
+    encodes or decodes here is seeded first."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         x = model.encoder(model._cast(wav)).float()
@@ -1165,6 +1201,7 @@ def seed_codebooks(model, wav: torch.Tensor, seed: int = 3) -> None:
             pick = torch.randperm(residual.shape[0], generator=gen)[:cb.embed.shape[0]]
             cb.embed.copy_(residual[pick.to(residual.device)])
             cb.embed_avg.copy_(cb.embed)
+            cb.inited.fill_(1)
             residual = residual - cb.embed[quantize(residual, cb.embed).long()]
 
 
@@ -1302,6 +1339,7 @@ def _stage_sequence(lm, batch: int, device, seed: int) -> torch.Tensor:
 def phase_magnet(device, lm32, provider32, codec) -> dict:
     print('== phase 5: MAGNeT path, get_magnet_lm(small, 30 s) generate + codec decode',
           flush=True)
+    seed_codebooks(codec, _clips(8, SECONDS * SAMPLE_RATE, device, seed=22))
     lm = copy.deepcopy(lm32).to(torch.bfloat16)
     provider = copy.deepcopy(provider32).to(torch.bfloat16)
     tokenized = _descriptions(PROMPTS, device, seed=20)
@@ -2092,6 +2130,7 @@ def phase_musicgen(device) -> tp.Dict[str, int]:
     print("== phase 11: MusicGen path, get_musicgen('small') generate (bf16 decode, CUDA "
           'graph steps) + codec decode', flush=True)
     mg = get_musicgen('small', seed=40)
+    seed_codebooks(mg.compression_model, _clips(8, SECONDS * SAMPLE_RATE, device, seed=44))
     mg.condition_provider.conditioners['description'].load_tokenizer = SeededT5Ids
     check(mg.decode_dtype == 'bfloat16', f'decode dtype {mg.decode_dtype}')
     refresh_ms = _time_cast_refresh(mg._decode_cache, mg.lm)
@@ -2411,6 +2450,7 @@ def _stereo_musicgen(device) -> tp.Dict[str, int]:
     then the stereo decode; then the fp32 greedy tokens at 1 s against the
     CPU's."""
     mg = get_musicgen('small', stereo=True, seed=60)
+    seed_codebooks(mg.compression_model.model, _clips(8, SECONDS * SAMPLE_RATE, device, seed=64))
     mg.condition_provider.conditioners['description'].load_tokenizer = SeededT5Ids
     check(mg.name == 'musicgen-stereo-small' and mg.lm.n_q == 8 and mg.audio_channels == 2,
           f'{mg.name}: {mg.lm.n_q} codebooks, {mg.audio_channels} channels')
@@ -2768,6 +2808,7 @@ def _melody_musicgen(device) -> tp.Dict[str, int]:
     t0 = time.perf_counter()
     mg = get_musicgen('medium', melody=True, seed=80)
     build_s = time.perf_counter() - t0
+    seed_codebooks(mg.compression_model, _clips(8, SECONDS * SAMPLE_RATE, device, seed=84))
     mg.condition_provider.conditioners['description'].load_tokenizer = SeededT5Ids
     lm = mg.lm
     check(mg.name == 'musicgen-melody-medium' and lm.dim == 1536
@@ -2907,6 +2948,9 @@ def _style_musicgen(device) -> tp.Dict[str, int]:
     build_s = time.perf_counter() - t0
     smg.condition_provider.conditioners['description'].load_tokenizer = SeededT5Ids
     style = smg.condition_provider.conditioners['self_wav']
+    seed_codebooks(smg.compression_model, _clips(8, SECONDS * SAMPLE_RATE, device, seed=94))
+    if style.feat_extractor is not smg.compression_model:
+        seed_codebooks(style.feat_extractor, _clips(8, SECONDS * SAMPLE_RATE, device, seed=95))
     check(smg.name == 'musicgen-style-medium' and smg.lm.dim == 1536
           and style.feat_extractor.compute_dtype is None and style.dim == 512
           and style.rvq.bins == 1024 and style.eval_q == 3,
@@ -3000,6 +3044,349 @@ def phase_melody_style(device) -> tp.Dict[str, tp.Dict[str, int]]:
     return launches
 
 
+# phase 14: EnCodec training at the 32 kHz codec's widths with the JAX CLI's
+# defaults (8 clips x 1 s, Adam 3e-4, the balancer's weights, bf16 compute on
+# fp32 masters), 3 warm-up and 10 timed steps; fp32 parity with the CPU at
+# 2 x 0.5 s; the group path on a world-size-1 NCCL group, with
+# MusicGen-small's data-parallel LM step at 2 x 10 s
+CT_BATCH, CT_SECONDS, CT_WARM, CT_TIMED = 8, 1, 3, 10
+CT_PARITY_BATCH, CT_PARITY_SAMPLES, CT_LR = 2, SAMPLE_RATE // 2, 3e-4
+
+
+class _GradCapture:
+    """An optimizer that keeps the gradients it is given and updates nothing."""
+
+    def init(self, params):
+        return OptState(0, [], [])
+
+    def update(self, grads, state, params):
+        self.grads = [g.detach().clone() for g in grads]
+        state.count += 1
+
+
+class _CodecTrainer:
+    """A codec, the EnCodec discriminator, Adam for both, the balancer and
+    both steps, from seeds; ``optimizer`` makes both optimizers instead of
+    Adam."""
+
+    def __init__(self, device, seed: int, compute_dtype, group=None, optimizer=None):
+        self.model = get_encodec_32khz(compute_dtype=None, device=device, seed=seed)
+        self.disc = MultiScaleSTFTDiscriminator(
+            generator=torch.Generator().manual_seed(seed + 1)).to(device)
+        self.g_opt = optimizer() if optimizer else make_optimizer('adam', CT_LR)
+        self.d_opt = optimizer() if optimizer else make_optimizer('adam', CT_LR)
+        self.balancer = Balancer(weights=dict(GAN_WEIGHTS))
+        self.gan = make_encodec_gan_train_step(self.model, self.disc, self.g_opt, self.d_opt,
+                                               self.balancer, compute_dtype=compute_dtype,
+                                               group=group)
+        self.recon = make_encodec_train_step(self.model, self.g_opt,
+                                             compute_dtype=compute_dtype, group=group)
+        self.g_state = self.g_opt.init(list(self.model.parameters()))
+        self.r_state = self.g_opt.init(list(self.model.parameters()))
+        self.d_state = self.d_opt.init(list(self.disc.parameters()))
+        self.bal = self.balancer.init_state(device)
+        self.generator = torch.Generator().manual_seed(seed + 2)
+
+    def gan_step(self, x, on_part=None):
+        return self.gan(self.g_state, self.d_state, self.bal, x, self.generator, on_part=on_part)
+
+    def recon_step(self, x, on_part=None):
+        return self.recon(self.r_state, x, self.generator, on_part=on_part)
+
+
+def _time_train_steps(step, wav, what: str) -> tp.Dict[str, tp.Any]:
+    """CT_TIMED steps timed by CUDA events per part and by the host clock,
+    peak memory over them, then CT_TIMED more under the profiler for the
+    device's idle share; every loss must be finite."""
+    marks: tp.List[tp.Tuple[str, torch.cuda.Event]] = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    starts, metrics = [], []
+    t0 = time.perf_counter()
+    for _ in range(CT_TIMED):
+        starts.append(len(marks))
+        marks.append(('start', _event()))
+        metrics.append(step(wav, on_part=lambda name: marks.append((name, _event()))))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    parts: tp.Dict[str, float] = {}
+    for i in range(1, len(marks)):
+        name, ev = marks[i]
+        if name != 'start':
+            parts[name] = parts.get(name, 0.0) + marks[i - 1][1].elapsed_time(ev) / CT_TIMED
+    for m in metrics:
+        bad = [k for k, v in m.items() if not math.isfinite(float(v))]
+        check(not bad, f'{what}: non-finite {bad}')
+    busy, window, kernels = _cuda_busy_ms(lambda: [step(wav) for _ in range(CT_TIMED)])
+    step_ms = sum(parts.values())
+    audio_s = wav.shape[0] * wav.shape[-1] / SAMPLE_RATE
+    print(f'{what}: {step_ms:.3f} ms a step by CUDA events ('
+          + ', '.join(f'{k} {v:.3f}' for k, v in parts.items())
+          + f'); {wall / CT_TIMED * 1e3:.3f} ms by the host clock = '
+          f'{audio_s * CT_TIMED / wall:.1f} audio-s trained/s; peak memory '
+          f'{peak / 2**30:.3f} GiB; device busy {busy:.1f} of {window:.1f} ms over '
+          f'{CT_TIMED} steps under the profiler: idle share {1 - busy / window:.3f}', flush=True)
+    print(f'{what}: last metrics ' + ', '.join(f'{k} {float(v):.4g}' for k, v in
+                                               metrics[-1].items()), flush=True)
+    print(f'{what}: {len(kernels)} kernel names; the most device time a step (ms): '
+          + '; '.join(f'{e.key[:60]} {e.self_device_time_total / 1e3 / CT_TIMED:.3f} '
+                      f'x{e.count // CT_TIMED}' for e in kernels[:8]), flush=True)
+    return dict(step_ms=step_ms, parts=parts, host_ms=wall / CT_TIMED * 1e3, peak=peak,
+                idle=1 - busy / window)
+
+
+def _codebook_usage(model) -> tp.List[int]:
+    return [int((layer._codebook.cluster_size >= layer._codebook.threshold_ema_dead_code).sum())
+            for layer in model.quantizer.vq.layers]
+
+
+def _capture_codes(model) -> tp.Tuple[list, tp.Any]:
+    """Each quantizer forward's input rows and codes, through hooks."""
+    seen: list = []
+
+    def pre(module, args):
+        seen.append(['input', args[0].detach().clone()])
+
+    def post(module, args, out):
+        seen[-1].append(out.codes.detach().clone())
+
+    return seen, (model.quantizer.register_forward_pre_hook(pre),
+                  model.quantizer.register_forward_hook(post))
+
+
+def check_gan_step(device) -> dict:
+    """14a: the GAN step and the reconstruction step at full width, from a
+    fresh codec (k-means on the first batch)."""
+    tr = _CodecTrainer(device, seed=100, compute_dtype='bfloat16')
+    check(all(float(layer._codebook.inited) == 0 for layer in tr.model.quantizer.vq.layers),
+          'a fresh codec is not un-inited')
+    wav = _clips(CT_BATCH, CT_SECONDS * SAMPLE_RATE, device, seed=101)
+    lstm = {n: p.detach().clone() for n, p in tr.model.named_parameters() if '.lstm.' in n}
+    _reset_launch_counts()
+    tr.gan_step(wav)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    check(all(float(layer._codebook.inited) == 1 for layer in tr.model.quantizer.vq.layers),
+          'k-means did not run on the first batch')
+    # Adam's first update is lr * g / (|g| + eps): an element moves iff its gradient is non-zero
+    moved = {n: float((p.detach() != lstm[n]).float().mean())
+             for n, p in tr.model.named_parameters() if n in lstm}
+    print(f'LSTM weights moved by the first Adam step (share of elements): '
+          + ', '.join(f'{n} {v:.4f}' for n, v in moved.items()), flush=True)
+    check(len(moved) == 16 and min(moved.values()) > 0.5,
+          f'LSTM weights got zero gradients: {moved}')
+    check(sum(launches.values()) == 0,
+          f'the training step launched forward-only kernels: {launches}')
+    for _ in range(CT_WARM - 1):
+        tr.gan_step(wav)
+    gan = _time_train_steps(tr.gan_step, wav, 'GAN step (8 x 1 s, bf16 compute)')
+    seen, hooks = _capture_codes(tr.model)
+    tr.gan_step(wav)
+    for h in hooks:
+        h.remove()
+    codes = seen[-1][2]
+    print(f'codebook usage after {CT_WARM + 2 * CT_TIMED + 2} GAN steps: active codes '
+          f'(EMA count >= 2) per codebook {_codebook_usage(tr.model)} of '
+          f'{tr.model.quantizer.bins}; distinct codes in '
+          f'the last batch {[int(codes[:, q].unique().numel()) for q in range(codes.shape[1])]}',
+          flush=True)
+    for _ in range(CT_WARM):
+        tr.recon_step(wav)
+    recon = _time_train_steps(tr.recon_step, wav, 'reconstruction step (8 x 1 s, bf16 compute)')
+    print(f'card {card()}', flush=True)
+    return {'gan': gan, 'recon': recon}
+
+
+def check_gan_parity(device) -> None:
+    """14b: one fp32 GAN step at 2 x 0.5 s on the card and on the CPU, the
+    same weights, codebooks and draws: losses within 1e-4 relative, codes
+    equal but at near-ties, the EMA state within 1e-5, gradients within 1e-3
+    relative in global norm (gradients, not post-Adam weights)."""
+    gpu, cpu = (_CodecTrainer(dev, seed=110, compute_dtype=None, optimizer=_GradCapture)
+                for dev in (device, torch.device('cpu')))
+    seed_codebooks(gpu.model, _clips(8, SECONDS * SAMPLE_RATE, device, seed=111))
+    gen = torch.Generator().manual_seed(112)
+    bins = gpu.model.quantizer.bins
+    for layer in gpu.model.quantizer.vq.layers:   # some codes under the expiry threshold
+        layer._codebook.cluster_size.copy_(6 * torch.rand(bins, generator=gen))
+    cpu.model.load_state_dict(gpu.model.state_dict())
+    cpu.disc.load_state_dict(gpu.disc.state_dict())
+    before = [layer._codebook.embed.cpu().clone() for layer in cpu.model.quantizer.vq.layers]
+    wav = _clips(CT_PARITY_BATCH, CT_PARITY_SAMPLES, torch.device('cpu'), seed=113)
+    results = []
+    for tr in (gpu, cpu):
+        seen, hooks = _capture_codes(tr.model)
+        metrics = tr.gan_step(wav.to(next(tr.model.parameters()).device))
+        for h in hooks:
+            h.remove()
+        state = {k: torch.stack([getattr(layer._codebook, k) for layer in
+                                 tr.model.quantizer.vq.layers]).cpu()
+                 for k in ('cluster_size', 'embed_avg', 'embed')}
+        results.append((metrics, seen[-1][1].cpu(), seen[-1][2].cpu(), state,
+                        [g.cpu() for g in tr.g_opt.grads], [g.cpu() for g in tr.d_opt.grads]))
+    (mg, _, cg, sg, gg, dg), (mc, xc, cc, sc, gc, dc) = results
+    worst = max(abs(float(mg[k]) - float(mc[k])) / max(abs(float(mc[k])), 1e-30) for k in mc)
+    rows = xc.transpose(1, 2).reshape(-1, xc.shape[1])
+    flat_c = cc.permute(1, 0, 2).reshape(cc.shape[1], -1)
+    flat_g = cg.permute(1, 0, 2).reshape(cg.shape[1], -1)
+    near = _near_ties(rows, before, flat_c, rel=1e-5)
+    differ = (flat_c != flat_g).any(0)
+    check(not bool((differ & ~near).any()),
+          f'{int((differ & ~near).sum())} code rows differ away from near-ties')
+    touched = torch.zeros(bins, dtype=torch.bool)
+    for q in range(flat_c.shape[0]):
+        touched[flat_c[q, differ].long()] = True
+        touched[flat_g[q, differ].long()] = True
+    ema = max(float(((sg[k] - sc[k]).abs() - 1e-5 * sc[k].abs())[:, ~touched].max())
+              for k in sc)
+    norm = lambda gs: torch.sqrt(sum(g.double().square().sum() for g in gs))
+    g_rel = float(norm([a - b for a, b in zip(gg, gc)]) / norm(gc))
+    d_rel = float(norm([a - b for a, b in zip(dg, dc)]) / norm(dc))
+    print(f'fp32 GAN step, card vs CPU at {CT_PARITY_BATCH} x 0.5 s: worst loss rel {worst:.3g} '
+          f'(<= 1e-4); code rows differing {int(differ.sum())} of {differ.numel()} (near-ties '
+          f'{int(near.sum())}); EMA state excess over 1e-5 + 1e-5 rel {ema:.3g} (<= 0) on '
+          f'{int((~touched).sum())} untouched codes; generator gradients rel {g_rel:.3g}, '
+          f'discriminator gradients rel {d_rel:.3g} (<= 1e-3)', flush=True)
+    check(worst <= 1e-4, f'losses differ by {worst:.3g}')
+    check(ema <= 1e-5, f'EMA state differs by {ema:.3g} beyond 1e-5')
+    check(g_rel <= 1e-3 and d_rel <= 1e-3, f'gradients differ: {g_rel:.3g}, {d_rel:.3g}')
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def _trainer_tensors(tr) -> tp.Dict[str, torch.Tensor]:
+    out = {f'model.{k}': v for k, v in tr.model.state_dict().items()}
+    out.update({f'disc.{k}': v for k, v in tr.disc.state_dict().items()})
+    out.update({f'bal.{k}': v for k, v in tr.bal.items()})
+    for name, st in (('g', tr.g_state), ('d', tr.d_state)):
+        out.update({f'{name}.mu{i}': t for i, t in enumerate(st.mu)})
+        out.update({f'{name}.nu{i}': t for i, t in enumerate(st.nu)})
+    return out
+
+
+def check_group_path(device) -> tp.Dict[str, int]:
+    """14c: a world-size-1 NCCL group: the GAN step with the group equals
+    the step without, bit for bit; the data-parallel LM step (make_lm_train_step
+    with the group) at MusicGen-small widths equals the step without, running
+    K3f and K3b at LM_DP_ATTN_SHAPE, which phase 2 holds against plain."""
+    import torch.distributed as dist
+    group = make_data_group('nccl', f'tcp://127.0.0.1:{_free_port()}', 1, 0)
+    wav = _clips(CT_BATCH, CT_SECONDS * SAMPLE_RATE, device, seed=121)
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        out = {}
+        for name, g in (('alone', None), ('group', group)):
+            tr = _CodecTrainer(device, seed=120, compute_dtype='bfloat16', group=g)
+            metrics = [tr.gan_step(wav) for _ in range(2)]   # k-means, then the EMA
+            out[name] = (metrics, _trainer_tensors(tr))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    (ma, ta), (mb, tb) = out['alone'], out['group']
+    diff = [k for k in ta if not torch.equal(ta[k], tb[k])]
+    diff += [f'metric {k}' for a, b in zip(ma, mb) for k in a if not torch.equal(a[k], b[k])]
+    print(f'GAN step with a world-size-1 NCCL group against the step alone, 2 steps: '
+          f'{len(ta)} tensors and {sum(len(m) for m in ma)} metrics compared, '
+          f'{len(diff)} differ {diff[:5]}', flush=True)
+    check(not diff, f'the group step differs from the step alone: {diff[:5]}')
+
+    lm, provider = get_musicgen_lm('small', seed=1)
+    gen = torch.Generator().manual_seed(122)
+    codes = torch.randint(0, lm.card, (LM_DP_BATCH, lm.n_q, LM_DP_SECONDS * 50),
+                          generator=gen).to(device)
+    cond = _train_conditions(provider, LM_DP_BATCH, device, seed=123)
+    grads, launches = {}, {}
+    for name in ('alone', 'dp'):
+        cap = _GradCapture()
+        step = make_lm_train_step(lm, cap, compute_dtype='bfloat16',
+                                  group=None if name == 'alone' else group)
+        _reset_launch_counts()
+        loss = float(step(cap.init(None), codes, cond)['loss'])
+        launches[name] = _launch_counts()
+        grads[name] = (loss, cap.grads)
+    (la, ga), (lb, gb) = grads['alone'], grads['dp']
+    norm = lambda gs: torch.sqrt(sum(g.double().square().sum() for g in gs))
+    rel = float(norm([a - b for a, b in zip(ga, gb)]) / norm(ga))
+    same = all(torch.equal(a, b) for a, b in zip(ga, gb))
+    k = launches['dp']
+    print(f"make_lm_train_step with the group at MusicGen-small widths, {LM_DP_BATCH} x "
+          f"{LM_DP_SECONDS} s (attention {LM_DP_ATTN_SHAPE}): "
+          f"loss {lb:.6f} against {la:.6f}; gradients bit-equal {same}, rel {rel:.3g}; "
+          f"launches in the dp step: K3f {k['flash_attention']}, K3b dK/dV "
+          f"{k['flash_attention_bwd_dkv']}, dQ {k['flash_attention_bwd_dq']}", flush=True)
+    check(la == lb and rel <= 1e-6, f'the dp LM step differs: loss {lb} vs {la}, rel {rel:.3g}')
+    check(k['flash_attention'] > 0 and k['flash_attention_bwd_dkv'] > 0
+          and k['flash_attention_bwd_dq'] > 0, f'the dp LM step launched {k}')
+    # per-layer checkpointing: K3f runs again in the backward, the gradients stay
+    lm.transformer.checkpointing = True
+    cap = _GradCapture()
+    _reset_launch_counts()
+    lc = float(make_lm_train_step(lm, cap, compute_dtype='bfloat16')(cap.init(None), codes,
+                                                                     cond)['loss'])
+    kc = _launch_counts()
+    lm.transformer.checkpointing = False
+    rel_c = float(norm([a - b for a, b in zip(ga, cap.grads)]) / norm(ga))
+    print(f'the same LM step with per-layer checkpointing: loss {lc:.6f}, gradients rel '
+          f'{rel_c:.3g} (<= 1e-6); K3f launches {kc["flash_attention"]} (twice the '
+          f'{launches["alone"]["flash_attention"]} without)', flush=True)
+    check(lc == la and rel_c <= 1e-6, f'checkpointing changed the step: rel {rel_c:.3g}')
+    check(kc['flash_attention'] == 2 * launches['alone']['flash_attention'],
+          f'checkpointing launched K3f {kc["flash_attention"]} times')
+    dist.destroy_process_group()
+    del lm, provider
+    torch.cuda.empty_cache()
+    return k
+
+
+def check_grad_refusal(device) -> None:
+    """14d: K2, K4 and K5 raise on a CUDA input that requires a gradient."""
+    refused = {}
+    x = torch.zeros(4, 2, 64, device=device, requires_grad=True)
+    w = [torch.zeros(256, 64, device=device) for _ in range(2)] + \
+        [torch.zeros(256, device=device) for _ in range(2)]
+    spec = STAGES[0][0]
+    cases = {
+        'K2 lstm_layer': lambda: lstm_layer(x, *w),
+        'K4 fused_stage': lambda: fused_stage(
+            torch.zeros(1, spec.c_in, 64, device=device, requires_grad=True),
+            _stage_params(spec, device, torch.bfloat16, seed=1), spec),
+        'K5 banded_mono_conv': lambda: banded_mono_conv(
+            torch.zeros(1, 1, 70, device=device, requires_grad=True),
+            torch.zeros(64, 1, 7, device=device), torch.zeros(64, device=device)),
+    }
+    for name, fn in cases.items():
+        try:
+            fn()
+            refused[name] = False
+        except RuntimeError as err:
+            refused[name] = 'no backward' in str(err)
+    print(f'forward-only kernels refuse a grad-requiring input on the card: {refused}',
+          flush=True)
+    check(all(refused.values()), f'a kernel took a grad-requiring input: {refused}')
+
+
+def phase_codec_training(device) -> tp.Dict[str, int]:
+    print("== phase 14: codec training, get_encodec_32khz() with the MS-STFT discriminator: "
+          'the GAN and reconstruction steps, fp32 parity with the CPU, the NCCL group path',
+          flush=True)
+    start = time.perf_counter()
+    check_gan_step(device)
+    print(f'-- 14a {time.perf_counter() - start:.1f} s', flush=True)
+    check_gan_parity(device)
+    print(f'-- 14b {time.perf_counter() - start:.1f} s', flush=True)
+    launches = check_group_path(device)
+    check_grad_refusal(device)
+    print(f'phase 14: {time.perf_counter() - start:.1f} s', flush=True)
+    return launches
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -3044,6 +3431,10 @@ def main() -> int:
     mark()
     phase_melody_style(device)
     mark()
+    dp_launches = phase_codec_training(device)
+    mark()
+    print(f'K3f and K3b launches in one data-parallel LM step (phase 14): {dp_launches}',
+          flush=True)
     launches['mono_input_conv'] = kernel_checks_k6
     launches['flash_attention'] = magnet_launches['flash_attention']
     for name in ('flash_attention_bwd_dkv', 'flash_attention_bwd_dq'):
