@@ -28,10 +28,14 @@ from .codec.stereo import InterleaveStereoCompressionModel
 from .cond.chroma_cond import ChromaConditioner
 from .cond.conditioners import ConditioningProvider, LUTConditioner, T5Conditioner
 from .cond.fuser import ConditionFuser
+from .cond.jasco_conditioners import (ChordsEmbConditioner, DrumsConditioner,
+                                      JascoConditioningProvider, MelodyConditioner)
 from .cond.style_cond import StyleConditioner
+from .lm.flow_matching import FlowMatchingModel
 from .lm.magnet import MagnetLMModel
 from .lm.model import LMModel
 from .patterns import DelayedPatternProvider
+from .nn.demucs import HTDemucs, HTDemucsConfig
 from .nn.seanet import SEANetDecoder, SEANetEncoder
 from .quant.vq import ResidualVectorQuantizer
 
@@ -241,3 +245,51 @@ def get_magnet_lm(size: str = 'small', n_q: int = 4, card: int = 2048,
         attn_kernel='auto', subcodes_context=5, span_len=3, compression_model_framerate=50,
         segment_duration=segment_duration, generator=gen, **shape)
     return _finish(lm, device), _finish(provider, device)
+
+
+def get_htdemucs(cfg: tp.Optional[HTDemucsConfig] = None, *,
+                 device: tp.Union[str, torch.device, None] = None, seed: int = 0) -> HTDemucs:
+    """The Hybrid Transformer Demucs separator (``HTDemucsConfig()``: the
+    published htdemucs, 4 stems at 44.1 kHz stereo), fp32, random weights
+    from ``seed``.  A demucs state dict loads through
+    ``ckpt/demucs_import.import_htdemucs``, but the decoders' transposed
+    convs run its taps mirrored, as the JAX reference does, so a published
+    checkpoint gives wrong stems (the importer warns).  Its ``separate`` and
+    ``nn/demucs.make_stem_fn`` are the melody and drums conditioners'
+    ``stem_fn``."""
+    device = resolve_device(device)
+    return _finish(HTDemucs(cfg or HTDemucsConfig(), torch.Generator().manual_seed(seed)),
+                   device)
+
+
+def get_jasco_model(compression_model: tp.Optional[EncodecModel] = None, dim: int = 512,
+                    num_heads: int = 8, num_layers: int = 8, chords_dim: int = 16,
+                    drums_dim: int = 16, melody_dim: int = 16, flow_dim: int = 128,
+                    sequence_length: int = 500, attn_kernel: tp.Union[bool, str] = 'auto', *,
+                    device: tp.Union[str, torch.device, None] = None, seed: int = 0
+                    ) -> tp.Tuple[FlowMatchingModel, JascoConditioningProvider, EncodecModel]:
+    """JASCO (reference builders.py:94-124, loaders.py:246-256): the flow
+    model over the 32 kHz codec's latents (dim 512, 8 heads, 8 layers,
+    flow_dim 128, 500 frames) with chords, drums and melody at 16 channels
+    each and the T5-base description fused by cross-attention; random
+    weights from ``seed``.  The drums conditioner encodes with the codec
+    (``get_encodec_32khz()`` unless ``compression_model`` is given).
+    ``attn_kernel='auto'`` sends the U-net's self-attention to K3f on the
+    card (JAX's default, False, keeps the plain path).  Returns (model,
+    provider, codec)."""
+    device = resolve_device(device)
+    codec = compression_model or get_encodec_32khz(device=device, seed=seed + 1)
+    gen = torch.Generator().manual_seed(seed)
+    provider = JascoConditioningProvider.from_dict({
+        'description': T5Conditioner(name='t5-base', output_dim=dim, generator=gen),
+        'chords': ChordsEmbConditioner(card=194, out_dim=chords_dim, generator=gen),
+        'melody': MelodyConditioner(card=53, out_dim=melody_dim, generator=gen),
+        'self_wav': DrumsConditioner(
+            feat_extractor=codec, out_dim=drums_dim,
+            compression_model_latent_dim=codec.quantizer.dimension, generator=gen),
+    }, sequence_length=sequence_length)
+    model = FlowMatchingModel(
+        ConditionFuser.from_dict({'cross': ('description',)}), dim=dim, num_heads=num_heads,
+        num_layers=num_layers, flow_dim=flow_dim, chords_dim=chords_dim, drums_dim=drums_dim,
+        melody_dim=melody_dim, attn_kernel=attn_kernel, generator=gen)
+    return _finish(model, device), _finish(provider, device), codec

@@ -32,6 +32,17 @@ and returns a state dict for the port module's ``load_state_dict``:
 * :func:`load_musicgen_from_jax`: a whole ``MusicGen`` facade (codec, LM and
   conditioners) from the JAX facade's three trees.  Quantized weights are not
   carried: quantize the carried float weights on each side.
+* :func:`htdemucs_state_from_jax`: ``HTDemucs`` under the demucs names, the
+  inverse of the JAX package's ``ckpt/demucs_import.py`` (q, k and v packed
+  into ``in_proj_weight``; a cross layer's ``norm_kv`` to ``norm2`` and its
+  ``norm2`` to ``norm3``).
+* :func:`flow_matching_state_from_jax`: JASCO's flow model (``emb``,
+  ``transformer.layers``, ``transformer.skip_projections.{i}``,
+  ``temb.dense.{0,1}``, ``temb_proj``, ``out_norm``, ``linear``);
+  :func:`conditioners_state_from_jax` also takes JASCO's provider (chords
+  ``emb``, melody and drums ``output_proj``) and the joint-embedding
+  conditioner (``rvq``); :func:`load_jasco_from_jax` loads both, and the
+  drums' codec from its params' ``codec``.
 
 The names produced are the reference audiocraft ones, which the JAX
 package's importers read back.  Nothing of the JAX package is imported.
@@ -48,7 +59,10 @@ from ..adversarial import MultiScaleSTFTDiscriminator
 from ..codec.encodec import EncodecModel
 from ..codec.stereo import InterleaveStereoCompressionModel
 from ..cond.conditioners import ConditioningProvider, LUTConditioner, T5Conditioner
+from ..cond.jasco_conditioners import ChordsEmbConditioner, DrumsConditioner
+from ..cond.joint_embed import JointEmbeddingConditioner
 from ..cond.style_cond import StyleConditioner
+from ..lm.flow_matching import FlowMatchingModel
 from ..lm.model import LMModel
 from ..nn.conv import StreamableConv1d, StreamableConvTranspose1d
 from ..nn.lstm import StreamableLSTM
@@ -236,9 +250,14 @@ def conditioners_state_from_jax(provider: ConditioningProvider,
     for name, cond in provider.conditioners.items():
         p, base = params[name], f'conditioners.{name}'
         sd: tp.Dict[str, tp.Any] = {}
-        _weight_bias(sd, f'{base}.output_proj', p['output_proj'])
+        if 'output_proj' in p:
+            _weight_bias(sd, f'{base}.output_proj', p['output_proj'])
         if isinstance(cond, LUTConditioner):
             sd[f'{base}.embed.weight'] = p['embed']
+        if isinstance(cond, ChordsEmbConditioner):
+            sd[f'{base}.emb.weight'] = p['emb']
+        if isinstance(cond, JointEmbeddingConditioner) and cond.rvq is not None:
+            _rvq(sd, f'{base}.rvq', p['rvq'], cond.rvq.n_q)
         if isinstance(cond, StyleConditioner):
             for i in range(len(cond.embed)):
                 sd[f'{base}.embed.{i}.weight'] = p['embed'][i]
@@ -264,7 +283,90 @@ def load_musicgen_from_jax(musicgen, codec_params: Tree, lm_params: Tree,
     musicgen.lm.load_state_dict(lm_state_from_jax(musicgen.lm, lm_params))
     provider = musicgen.condition_provider
     provider.load_state_dict(conditioners_state_from_jax(provider, cond_params))
+    _load_feature_codecs(provider, cond_params)
+
+
+def _load_feature_codecs(provider: ConditioningProvider, cond_params: Tree) -> None:
+    """The style and drums conditioners' own codecs, from their params' ``codec``."""
     for name, cond in provider.conditioners.items():
-        if isinstance(cond, StyleConditioner):
+        if isinstance(cond, (StyleConditioner, DrumsConditioner)):
             cond.feat_extractor.load_state_dict(
                 encodec_state_from_jax(cond.feat_extractor, cond_params[name]['codec']))
+
+
+def flow_matching_state_from_jax(model: FlowMatchingModel,
+                                 params: Tree) -> tp.Dict[str, torch.Tensor]:
+    """The port's state dict for JASCO's flow ``model`` holding the JAX
+    ``FlowMatchingModel`` params."""
+    sd: tp.Dict[str, tp.Any] = {'emb.weight': params['emb']['weight']}
+    tr = params['transformer']
+    _transformer(sd, 'transformer', tr, len(model.transformer.layers))
+    for i, p in enumerate(tr.get('skip_projections', ())):
+        _weight_bias(sd, f'transformer.skip_projections.{i}', p)
+    for ours, theirs in (('temb_dense0', 'temb.dense.0'), ('temb_dense1', 'temb.dense.1'),
+                         ('temb_proj', 'temb_proj'), ('linear', 'linear'),
+                         ('out_norm', 'out_norm')):
+        if ours in params:
+            _weight_bias(sd, theirs, params[ours])
+    return _tensors(sd)
+
+
+def load_jasco_from_jax(model: FlowMatchingModel, provider: ConditioningProvider,
+                        flow_params: Tree, cond_params: Tree) -> None:
+    """Load JAX's JASCO flow ``flow_params`` and provider ``cond_params``
+    into the port's model and provider, strictly, and the drums' codec
+    from its params' ``codec``."""
+    model.load_state_dict(flow_matching_state_from_jax(model, flow_params))
+    provider.load_state_dict(conditioners_state_from_jax(provider, cond_params))
+    _load_feature_codecs(provider, cond_params)
+
+
+def _demucs_dconv(sd: dict, prefix: str, p: Tree) -> None:
+    for j in range(len(p)):
+        b, base = p[f'block{j}'], f'{prefix}.layers.{j}'
+        for part, name in ((0, 'conv1'), (1, 'norm1'), (3, 'conv2'), (4, 'norm2')):
+            _weight_bias(sd, f'{base}.{part}', b[name])
+        sd[f'{base}.6.scale'] = b['scale']
+
+
+def htdemucs_state_from_jax(model, params: Tree) -> tp.Dict[str, torch.Tensor]:
+    """The port's ``HTDemucs`` state dict holding the JAX HTDemucs
+    ``params`` (``model`` gives the config)."""
+    cfg, sd = model.cfg, {}
+    for branch in ('encoder', 'tencoder'):
+        for i in range(cfg.depth):
+            p, base = params[branch][f'layer{i}'], f'{branch}.{i}'
+            _weight_bias(sd, f'{base}.conv', p['conv'])
+            _weight_bias(sd, f'{base}.rewrite', p['rewrite'])
+            _demucs_dconv(sd, f'{base}.dconv', p['dconv'])
+    for branch in ('decoder', 'tdecoder'):
+        for i in range(cfg.depth):
+            p, base = params[branch][f'layer{i}'], f'{branch}.{i}'
+            _weight_bias(sd, f'{base}.rewrite', p['rewrite'])
+            _weight_bias(sd, f'{base}.conv_tr', p['convtr'])
+    tf = params['crosstransformer']
+    _weight_bias(sd, 'crosstransformer.norm_in', tf['norm_in_s'])
+    _weight_bias(sd, 'crosstransformer.norm_in_t', tf['norm_in_t'])
+    for i in range(cfg.t_depth):
+        cross = i % 2 == 1
+        attn = 'cross_attn' if cross else 'self_attn'
+        for ours, layers in ((f'spec{i}', 'layers'), (f'time{i}', 'layers_t')):
+            p, base = tf[ours], f'crosstransformer.{layers}.{i}'
+            sd[f'{base}.{attn}.in_proj_weight'] = np.concatenate(
+                [np.asarray(p[n]['weight']) for n in 'qkv'])
+            sd[f'{base}.{attn}.in_proj_bias'] = np.concatenate(
+                [np.asarray(p[n]['bias']) for n in 'qkv'])
+            _weight_bias(sd, f'{base}.{attn}.out_proj', p['o'])
+            norms = (('norm1', 'norm1'), ('norm_kv', 'norm2'), ('norm2', 'norm3')) if cross \
+                else (('norm1', 'norm1'), ('norm2', 'norm2'))
+            for name, theirs in norms + (('norm_out', 'norm_out'), ('lin1', 'linear1'),
+                                         ('lin2', 'linear2')):
+                _weight_bias(sd, f'{base}.{theirs}', p[name])
+            sd[f'{base}.gamma_1.scale'] = p['scale1']
+            sd[f'{base}.gamma_2.scale'] = p['scale2']
+    sd['freq_emb.embedding.weight'] = params['freq_emb']
+    for name in ('channel_upsampler', 'channel_downsampler', 'channel_upsampler_t',
+                 'channel_downsampler_t'):
+        if name in params:
+            _weight_bias(sd, name, params[name])
+    return _tensors(sd)

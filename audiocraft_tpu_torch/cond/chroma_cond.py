@@ -4,7 +4,8 @@
 
 The reference runs Demucs first to keep the vocal and other stems; the JAX
 package makes stem separation an optional hook (``stem_fn`` in
-``tokenize``), and so does the port (Demucs is not ported).  The rest is
+``tokenize``), and so does the port; ``nn/demucs.make_stem_fn`` builds it
+from the port's HTDemucs.  The rest is
 the reference's: chroma extraction (``nn/chroma.py``), the nullified
 condition's handling, ``match_len_on_eval`` (truncate or tile the chroma to
 the training duration's length, ``chroma_len``; the mask is then all ones)

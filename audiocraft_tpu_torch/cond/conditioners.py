@@ -14,8 +14,8 @@ separately).
 Wav conditions (the melody's chroma, ``cond/chroma_cond.py``, and the
 style's excerpt, ``cond/style_cond.py``) are collated across the batch by
 :func:`collate_wav_conditions`, zero-padded to the longest, and handed to
-their conditioner's ``tokenize``.  The joint-embedding conditioners (CLAP)
-are not ported.
+their conditioner's ``tokenize``.  The joint-embedding (CLAP) conditioner
+is ``cond/joint_embed.py``, JASCO's provider ``cond/jasco_conditioners.py``.
 """
 
 from __future__ import annotations

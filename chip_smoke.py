@@ -116,7 +116,24 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    K3b, as does the step with
    per-layer checkpointing (K3f again in the backward); K2, K4 and K5
    refuse a grad-requiring input.
-Every random-weight codec that encodes or decodes (phases 3-13) has its
+15. HTDemucs, JASCO and the joint embedding: ``get_htdemucs()`` at the
+   published htdemucs widths (fp32, cuDNN's TF32 off) against the CPU on a
+   1 s mix (1e-4), one 7.8 s window and a 30 s mix in six windows timed
+   (audio-s/s, peak memory, kernels under the profiler); MusicGen-melody's
+   chroma conditioner on a 10 s melody with and without the vocals and
+   other stems; ``get_jasco_model()`` at its defaults: 2 samples x 10 s
+   with 3 CFG terms, the drums separated by Demucs and encoded by the 32
+   kHz codec (K5, K4 twice, K2 twice, K1; K1 against plain at the drum
+   rows), K3f at [6, 500, 8, 64] fp32 against plain, SDPA and its bound,
+   one vector-field evaluation on the K3f route (8 launches) against the
+   plain route (1e-5) and the CPU (1e-4), the 100-step Euler generate on
+   each route (800 launches; 1e-3), one dopri5 generate with its steps and
+   host reads; ``JointEmbeddingConditioner(512, 1536)`` on 8 rows, K1 once
+   at N = 8, D = 512, K = 1024, n_q = 12, codes equal to plain.  The
+   ``kernels`` line gives each kernel's phase-15 counts beside the main
+   path's: ``launches_jasco`` (the drums encode and the Euler generate on
+   the K3f route) and ``launches_joint_embed``.
+Every random-weight codec that encodes or decodes (phases 3-13, 15) has its
 codebooks seeded from its own latents first (``seed_codebooks``): a fresh
 codebook is zeros, as the JAX package's ``kmeans_init`` makes it.
 Phase 2 also holds K3b (the attention backward, both dtypes, at the model
@@ -146,12 +163,15 @@ import torch
 
 from audiocraft_tpu_torch.adversarial import MultiScaleSTFTDiscriminator
 from audiocraft_tpu_torch.apps import probe_ops, train_lm
-from audiocraft_tpu_torch.builders import (get_encodec_24khz, get_encodec_32khz, get_magnet_lm,
-                                           get_musicgen, get_musicgen_lm,
-                                           get_wrapped_compression_model)
+from audiocraft_tpu_torch.builders import (get_encodec_24khz, get_encodec_32khz, get_htdemucs,
+                                           get_jasco_model, get_magnet_lm, get_musicgen,
+                                           get_musicgen_lm, get_wrapped_compression_model)
 from audiocraft_tpu_torch.codec.streaming import CodecStreamer, encoder_stream
 from audiocraft_tpu_torch.cond.attributes import (ClassifierFreeGuidanceDropout,
-                                                  ConditioningAttributes, WavCondition)
+                                                  ConditioningAttributes, JointEmbedCondition,
+                                                  SymbolicCondition, WavCondition)
+from audiocraft_tpu_torch.cond.chroma_cond import ChromaConditioner
+from audiocraft_tpu_torch.cond.joint_embed import JointEmbeddingConditioner
 from audiocraft_tpu_torch.dist.mesh import make_data_group
 from audiocraft_tpu_torch.dist.train import (GAN_WEIGHTS, lm_loss, lm_loss_and_grads,
                                              make_encodec_gan_train_step,
@@ -165,6 +185,7 @@ from audiocraft_tpu_torch.io.wav import audio_read, audio_write
 from audiocraft_tpu_torch.lm.decode import DecodeCache
 from audiocraft_tpu_torch.lm.model import LMModel
 from audiocraft_tpu_torch.nn.chroma import ChromaExtractor
+from audiocraft_tpu_torch.nn.demucs import HTDemucs, make_stem_fn
 from audiocraft_tpu_torch.nn.transformer import StreamingMultiheadAttention
 from audiocraft_tpu_torch.ops import _build, attention
 from audiocraft_tpu_torch.ops import lstm as lstm_ops
@@ -1310,7 +1331,8 @@ def phase_parity(device) -> None:
 
 
 def set_attn_kernel(lm, flag) -> None:
-    """Route every self-attention of ``lm`` by ``flag`` (see ops.attention.kernel_route)."""
+    """Route every self-attention of ``lm`` (an LM or JASCO's flow model) by
+    ``flag`` (see ops.attention.kernel_route)."""
     for layer in lm.transformer.layers:
         layer.self_attn.attn_kernel = flag
 
@@ -3387,6 +3409,347 @@ def phase_codec_training(device) -> tp.Dict[str, int]:
 
 
 
+# phase 15: HTDemucs at the published widths (one 7.8 s window, a 30 s mix in
+# six windows, card against CPU at 1 s); a 10 s melody's chroma behind the
+# vocals and other stems; JASCO at get_jasco_model()'s widths, 2 samples x
+# 10 s with 3 CFG terms (all conditions, text only, null; weights summing to
+# 1), the 100-step Euler generate on each attention route and one dopri5
+# generate; the joint embedding's bottleneck (K1 at N = 8, D = 512)
+DM_WINDOW_S, DM_MIX_S, DM_PARITY_S = 7.8, 30, 1
+JASCO_SAMPLES, JASCO_SECONDS, JASCO_STEPS = 2, 10, 100
+JASCO_CFG = (3.0, 1.0, -3.0)
+JE_ROWS, JE_DIM, JE_OUT = 8, 512, 1536
+
+
+def _sync_s(fn):
+    """(fn(), host seconds to the end of its device work)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _stereo_mix(seconds: float, sr: int, seed: int) -> torch.Tensor:
+    """Seeded stereo test audio [1, 2, T]: a few tones, a pulse train and noise."""
+    gen = torch.Generator().manual_seed(seed)
+    t = torch.arange(int(seconds * sr)) / sr
+    freqs = 60 + 1500 * torch.rand(2, 5, 1, generator=gen)
+    tones = torch.sin(2 * math.pi * freqs * t).sum(1) * 0.08
+    pulse = (torch.sin(2 * math.pi * 2.0 * t) > 0.95).float() * 0.3
+    return (tones + pulse + 0.02 * torch.randn(2, t.shape[0], generator=gen))[None]
+
+
+def _rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float().cpu() - b.float().cpu()).abs().max() / b.float().abs().max())
+
+
+def check_demucs(device) -> HTDemucs:
+    """15a: HTDemucs at ``HTDemucsConfig()``'s widths, fp32 with cuDNN's
+    TF32 off: the card against the CPU on a 1 s mix (within 1e-4 of the
+    stems' largest value); one 7.8 s window and a 30 s mix in six windows,
+    timed, with their audio-s/s and peak memory; the device's kernels over
+    one window under the profiler."""
+    name = card()
+    model, build_s = _sync_s(lambda: get_htdemucs(seed=150))
+    sr = model.cfg.sample_rate
+    print(f'HTDemucs {model.cfg}: {sum(p.numel() for p in model.parameters()) / 1e6:.2f} M '
+          f'parameters, built in {build_s:.1f} s', flush=True)
+    x = _stereo_mix(DM_PARITY_S, sr, seed=151)
+    cpu = get_htdemucs(device='cpu', seed=150)
+    card_stems, cpu_stems = model.separate(x.to(device)).cpu(), cpu.separate(x)
+    err = _rel_err(card_stems, cpu_stems)
+    print(f'HTDemucs {DM_PARITY_S} s mix {tuple(x.shape)} -> stems {tuple(card_stems.shape)}: '
+          f'card against CPU max-abs / max {err:.3g} (<= 1e-4)', flush=True)
+    check(err <= 1e-4, f'HTDemucs card vs CPU {err:.3g} > 1e-4')
+    check(torch.backends.cudnn.allow_tf32, 'HTDemucs did not restore the cuDNN TF32 flag')
+    del cpu
+    window = _stereo_mix(DM_WINDOW_S, sr, seed=152).to(device)
+    check(window.shape[-1] <= model.segment_length(), 'the 7.8 s mix is longer than a window')
+    win_ms = time_ms(lambda: model.separate(window), 3)
+    mix = _stereo_mix(DM_MIX_S, sr, seed=153).to(device)
+    torch.cuda.reset_peak_memory_stats()
+    stems, mix_s = _sync_s(lambda: model.separate(mix))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_win = len(range(0, mix.shape[-1], int(model.segment_length() * 0.75)))
+    check(tuple(stems.shape) == (1, 4, 2, mix.shape[-1]) and bool(torch.isfinite(stems).all()),
+          f'HTDemucs 30 s stems {tuple(stems.shape)} not finite or mis-shaped')
+    recon = _rel_err(stems.sum(1), mix)
+    print(f'HTDemucs one {DM_WINDOW_S} s window ({window.shape[-1]} samples, padded to '
+          f'{model.segment_length()}): {win_ms:.1f} ms ({DM_WINDOW_S / win_ms * 1e3:.1f} '
+          f'audio-s/s); {DM_MIX_S} s mix in {n_win} windows: {mix_s * 1e3:.1f} ms '
+          f'({DM_MIX_S / mix_s:.1f} audio-s/s), peak memory {peak:.2f} GiB; stems summed '
+          f'against the mix {recon:.3g} (random weights: information); card {name}', flush=True)
+    check(n_win == 6, f'the 30 s mix ran {n_win} windows, not 6')
+    padded = torch.nn.functional.pad(window, (0, model.segment_length() - window.shape[-1]))
+    busy, span, kernels = _cuda_busy_ms(lambda: model(padded))
+    print(f'HTDemucs one window under the profiler: device busy {busy:.1f} ms of '
+          f'{span:.1f} ms (idle share {max(0.0, 1 - busy / span):.3f}); kernels by device '
+          'time: ' + '; '.join(f'{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms x'
+                               f'{e.count}' for e in kernels[:10]), flush=True)
+    return model
+
+
+def check_melody_stems(device, demucs: HTDemucs) -> None:
+    """15b: a seeded 10 s melody through MusicGen-melody-medium's chroma
+    conditioner (``ChromaConditioner``, 1536 channels) with and without
+    ``make_stem_fn(stems=('vocals', 'other'))``, timed."""
+    cond = ChromaConditioner(output_dim=1536, sample_rate=SAMPLE_RATE, n_chroma=12,
+                             radix2_exp=12, duration=30.0,
+                             generator=torch.Generator().manual_seed(154)).to(device)
+    wav, _ = _melodies(1, MEL_SECONDS, seed=155)
+    x = WavCondition(wav, np.array([wav.shape[-1]]), [SAMPLE_RATE], [None], [None])
+    stem_fn = make_stem_fn(demucs, SAMPLE_RATE, stems=('vocals', 'other'))
+    with torch.no_grad():
+        cond(cond.tokenize(x, stem_fn=stem_fn))                      # warm
+        (plain, _), plain_s = _sync_s(lambda: cond(cond.tokenize(x)))
+        filtered, stem_s = _sync_s(lambda: cond.tokenize(x, stem_fn=stem_fn))
+        (stemmed, _), chroma_s = _sync_s(lambda: cond(filtered))
+    check(filtered.wav.shape == wav.shape and np.isfinite(filtered.wav).all(),
+          f'the stem hook gave {filtered.wav.shape}')
+    check(plain.shape == stemmed.shape and bool(torch.isfinite(stemmed).all()),
+          'the chroma condition behind the stems is not finite')
+    print(f'melody {tuple(wav.shape)} through the chroma conditioner -> {tuple(stemmed.shape)}: '
+          f'{plain_s * 1e3:.1f} ms without the separator, {(stem_s + chroma_s) * 1e3:.1f} ms '
+          f'with it (separation {stem_s * 1e3:.1f} ms); card {card()}', flush=True)
+
+
+def _jasco_attributes(descriptions, chords, melody, drums) -> tp.List[ConditioningAttributes]:
+    """The 3 CFG groups stacked on the batch: every condition, the text
+    alone (the null chord, a zero melody, a nullified drum wav), nothing."""
+    rows = []
+    for term in ('all', 'text', 'null'):
+        for i, desc in enumerate(descriptions):
+            keep = term == 'all'
+            a = ConditioningAttributes(text={'description': None if term == 'null' else desc})
+            a.symbolic['chords'] = SymbolicCondition(
+                frame_chords=chords[i] if keep else np.full_like(chords[i], 194))
+            a.symbolic['melody'] = SymbolicCondition(
+                melody=melody[i] if keep else np.zeros_like(melody[i]))
+            w = drums[i:i + 1] if keep else np.zeros((1, 1, 1), np.float32)
+            a.wav['self_wav'] = WavCondition(w, np.array([w.shape[-1]]), [SAMPLE_RATE],
+                                             [None], [None])
+            rows.append(a)
+    return rows
+
+
+def _jasco_conditions(device, provider, codec, demucs: HTDemucs):
+    """15c's conditions: seeded chords, melody salience and mixes; the drum
+    stems by Demucs; the provider's tokenize (T5 ids from ``SeededT5Ids``)
+    and each conditioner timed; K1, K2, K4 and K5 counted in the drums
+    encode, and K1 held against its plain version at the drum rows."""
+    n, frames = JASCO_SAMPLES, JASCO_SECONDS * 50
+    rng = np.random.RandomState(160)
+    chords = [np.repeat(rng.randint(0, 194, frames // 25), 25) for _ in range(n)]
+    melody = [rng.rand(53, frames).astype(np.float32) ** 4 for _ in range(n)]
+    mix = torch.cat([_clips(1, JASCO_SECONDS * SAMPLE_RATE, device, seed=161 + i)
+                     for i in range(n)])
+    seed_codebooks(codec, _clips(8, JASCO_SECONDS * SAMPLE_RATE, device, seed=159))
+    stem_fn = make_stem_fn(demucs, SAMPLE_RATE, stems=('drums',))
+    drums, demucs_s = _sync_s(lambda: stem_fn(mix))
+    descriptions = ['funky drums with a walking bass', 'slow jazz ballad']
+    provider.conditioners['description'].load_tokenizer = SeededT5Ids
+    tokenized, tok_s = _sync_s(lambda: provider.tokenize(
+        _jasco_attributes(descriptions, chords, melody, drums)))
+    cond, times = {}, {}
+    with torch.no_grad():
+        for name, module in provider.conditioners.items():
+            if name == 'self_wav':
+                _reset_launch_counts()
+            cond[name], times[name] = _sync_s(lambda: module(tokenized[name]))
+            if name == 'self_wav':
+                launches = _launch_counts()
+    expect = dict(rvq_encode=1, lstm_step=2, fused_stage=2, banded_mono_conv=1)
+    check(all(launches[k] == v for k, v in expect.items()),
+          f'drums encode launched {launches}, not {expect}')
+    check(all(c[0].shape[0] == 3 * n for c in cond.values()), 'a condition lost its CFG rows')
+    for name in ('chords', 'melody', 'self_wav'):
+        check(cond[name][0].shape[1] == frames, f'{name} has {cond[name][0].shape[1]} frames')
+    wav = torch.from_numpy(tokenized['self_wav'].wav).to(device)
+    with torch.no_grad():
+        lat = codec.encode_to_latent(wav)
+        flat = lat.transpose(1, 2).reshape(-1, lat.shape[1]).contiguous()
+        embeds = codec.quantizer.embeds().contiguous()
+        codes, plain = rvq_encode(flat, embeds), rvq_encode_reference(flat, embeds)
+    near = _near_ties(flat, embeds, plain)
+    check(not bool((codes != plain)[:, ~near].any()),
+          'rvq at the drum rows: codes differ from plain off near-ties')
+    print(f'JASCO conditions for {3 * n} rows ({n} samples x 3 CFG terms): Demucs drum stems '
+          f'{demucs_s * 1e3:.1f} ms, tokenize {tok_s * 1e3:.1f} ms, T5 '
+          f'{times["description"] * 1e3:.1f} ms, drums (codec encode, first-codebook latent, '
+          f'blur) {times["self_wav"] * 1e3:.1f} ms, chords {times["chords"] * 1e3:.2f} ms, '
+          f'melody {times["melody"] * 1e3:.2f} ms; drums encode launches {launches}; K1 at '
+          f'the drum rows N={flat.shape[0]} D={flat.shape[1]}: codes equal to plain on '
+          f'{int((~near).sum())} rows ({int(near.sum())} near-tie rows excluded); card {card()}',
+          flush=True)
+    return cond, launches
+
+
+def check_jasco_attention(device) -> None:
+    """K3f at the U-net's self-attention, [6, 500, 8, 64] fp32 non-causal:
+    against its plain version (1e-5), timed beside SDPA and the bound."""
+    shape = (3 * JASCO_SAMPLES, JASCO_SECONDS * 50, 8, 64)
+    B, T, H, D = shape
+    gen = torch.Generator().manual_seed(162)
+    q, k, v = (torch.randn(shape, generator=gen).to(device) for _ in range(3))
+    err = float((fused_attention(q, k, v, causal=False)
+                 - fused_attention_reference(q, k, v, causal=False)).abs().max())
+    check(err <= 1e-5, f'attention at the JASCO shape: max-abs {err:.3g} > 1e-5')
+    ops = 4.0 * B * H * T * T * D
+    b_ms, b_by = bound_ms(ops, PEAK_FP32, 4.0 * 4 * B * T * H * D)
+    ms = time_ms(lambda: fused_attention(q, k, v, causal=False), 20)
+    plain_ms = time_ms(lambda: fused_attention_reference(q, k, v, causal=False), 5)
+    sdpa_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)), 20)
+    print(f'attention fp32 {shape} not causal (the JASCO U-net): max-abs against plain '
+          f'{err:.3g} (<= 1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA '
+          f'{sdpa_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); {ops / ms / 1e9:.1f} TFLOP/s; card '
+          f'{card()}', flush=True)
+
+
+def _generate(model, cond, method: str, seed: int):
+    return _sync_s(lambda: model.generate(
+        cond, JASCO_CFG, num_samples=JASCO_SAMPLES, max_gen_len=JASCO_SECONDS * 50,
+        euler_steps=JASCO_STEPS, method=method, generator=torch.Generator().manual_seed(seed)))
+
+
+def check_jasco(device, demucs: HTDemucs) -> tp.Dict[str, int]:
+    """15c: JASCO from ``get_jasco_model()`` (seeded weights): one vector
+    field evaluation on each attention route (1e-5) and against the CPU
+    (1e-4); the 100-step Euler generate on each route (1e-3), K3f 8 times an
+    evaluation on the kernel route and never on the plain one; a dopri5
+    generate with its trial and accepted steps."""
+    name = card()
+    (model, provider, codec), build_s = _sync_s(lambda: get_jasco_model(seed=163))
+    n_layers = len(model.transformer.layers)
+    print(f'get_jasco_model(): flow model {sum(p.numel() for p in model.parameters()) / 1e6:.1f}'
+          f' M parameters ({n_layers} layers, dim {model.dim}, flow_dim {model.flow_dim}), '
+          f'provider {sum(p.numel() for p in provider.parameters()) / 1e6:.1f} M, built in '
+          f'{build_s:.1f} s', flush=True)
+    cond, drum_launches = _jasco_conditions(device, provider, codec, demucs)
+    check_jasco_attention(device)
+    gen = torch.Generator().manual_seed(164)
+    z = torch.randn(JASCO_SAMPLES, JASCO_SECONDS * 50, model.flow_dim, generator=gen).to(device)
+    t = torch.tensor(0.37, device=device)
+
+    def vf():
+        return model.estimated_vector_field(z, t, cond, JASCO_CFG)
+
+    with torch.no_grad():
+        fused_attention.launches = 0
+        routed = vf()
+        check(fused_attention.launches == n_layers,
+              f'one evaluation launched K3f {fused_attention.launches} times, not {n_layers}')
+        routed_ms = time_ms(vf, 10)
+        set_attn_kernel(model, False)
+        fused_attention.launches = 0
+        plain = vf()
+        plain_ms = time_ms(vf, 10)
+        check(fused_attention.launches == 0, 'the plain route launched K3f')
+        set_attn_kernel(model, 'auto')
+        err = _rel_err(routed, plain)
+        check(err <= 1e-5, f'JASCO vector field kernel vs plain route {err:.3g} > 1e-5')
+        cpu = copy.deepcopy(model).cpu()
+        on_cpu = cpu.estimated_vector_field(z.cpu(), t.cpu(), {
+            k: (a.cpu(), b.cpu()) for k, (a, b) in cond.items()}, JASCO_CFG)
+        cpu_err = _rel_err(routed, on_cpu)
+        del cpu
+    check(cpu_err <= 1e-4, f'JASCO vector field card vs CPU {cpu_err:.3g} > 1e-4')
+    print(f'JASCO vector field [{3 * JASCO_SAMPLES}, {JASCO_SECONDS * 50}, {model.dim}] with 3 '
+          f'CFG terms {JASCO_CFG}: kernel route {routed_ms:.3f} ms, plain route '
+          f'{plain_ms:.3f} ms; max-abs / max kernel vs plain {err:.3g} (<= 1e-5), card vs CPU '
+          f'{cpu_err:.3g} (<= 1e-4); card {name}', flush=True)
+
+    fused_attention.launches = 0
+    euler, euler_s = _generate(model, cond, 'euler', seed=165)
+    euler_launches = fused_attention.launches
+    check(euler_launches == n_layers * JASCO_STEPS,
+          f'the Euler generate launched K3f {euler_launches} times')
+    set_attn_kernel(model, False)
+    euler_plain, plain_s = _generate(model, cond, 'euler', seed=165)
+    set_attn_kernel(model, 'auto')
+    check(fused_attention.launches == euler_launches, 'the plain generate launched K3f')
+    gen_err = _rel_err(euler, euler_plain)
+    check(gen_err <= 1e-3, f'JASCO Euler latents kernel vs plain route {gen_err:.3g} > 1e-3')
+    check(tuple(euler.shape) == (JASCO_SAMPLES, JASCO_SECONDS * 50, model.flow_dim)
+          and bool(torch.isfinite(euler).all()), f'Euler latents {tuple(euler.shape)}')
+    fused_attention.launches = 0
+    dopri, dopri_s = _generate(model, cond, 'dopri5', seed=165)
+    stats = dict(model.ode_stats)
+    check(bool(torch.isfinite(dopri).all()), 'dopri5 latents are not finite')
+    check(fused_attention.launches == n_layers * stats['evals'],
+          f'dopri5 launched K3f {fused_attention.launches} times for {stats["evals"]} evaluations')
+    print(f'JASCO Euler {JASCO_STEPS} steps -> latents {tuple(euler.shape)}: kernel route '
+          f'{euler_s:.3f} s ({euler_s / JASCO_STEPS * 1e3:.2f} ms a step, '
+          f'{JASCO_SAMPLES * JASCO_SECONDS / euler_s:.1f} audio-s/s), K3f launches '
+          f'{euler_launches}; plain route {plain_s:.3f} s; max-abs / max kernel vs plain '
+          f'{gen_err:.3g} (<= 1e-3); card {name}', flush=True)
+    print(f'JASCO dopri5 (atol = rtol = 1e-5): {dopri_s:.3f} s, {stats["trials"]} trial steps, '
+          f'{stats["accepted"]} accepted, {stats["evals"]} evaluations, {stats["host_reads"]} '
+          f'host reads, K3f launches {fused_attention.launches}; max-abs / max against the '
+          f'Euler latents {_rel_err(dopri, euler):.3g} (information); card {name}', flush=True)
+    return {**{k: drum_launches[k] for k in ('rvq_encode', 'lstm_step', 'fused_stage',
+                                            'banded_mono_conv')},
+            'flash_attention': euler_launches}
+
+
+def _seeded_joint_embed(x: JointEmbedCondition) -> tp.Tuple[np.ndarray, tp.List[int]]:
+    """Stands in for CLAP (``transformers`` is not on this machine):
+    L2-normalised seeded rows, the empty rows' indices."""
+    rows = np.stack([np.random.RandomState(int(abs(w).sum() * 1e3) % 2 ** 31).randn(JE_DIM)
+                     for w in np.asarray(x.wav)]).astype(np.float32)
+    return rows / np.linalg.norm(rows, axis=-1, keepdims=True), \
+        [i for i, n in enumerate(x.length) if n <= 1]
+
+
+def check_joint_embed(device) -> int:
+    """15d: ``JointEmbeddingConditioner(dim=512, output_dim=1536)`` on 8 rows:
+    its RVQ eval forward launches K1 once (N = 8, D = 512, K = 1024, n_q =
+    12), whose codes equal the plain version's; K1 there timed."""
+    je = JointEmbeddingConditioner(JE_DIM, JE_OUT, embed_fn=_seeded_joint_embed,
+                                   generator=torch.Generator().manual_seed(170)).to(device)
+    wav = np.random.RandomState(171).randn(JE_ROWS, 1, 48000).astype(np.float32)
+    length = np.array([48000] * (JE_ROWS - 1) + [1])
+    x = JointEmbedCondition(wav, ['a'] * JE_ROWS, length, [48000] * JE_ROWS, [None] * JE_ROWS,
+                            [None] * JE_ROWS)
+    tokens = je.tokenize(x)
+    rvq_encode.launches = 0
+    with torch.no_grad():
+        out, mask = je(tokens)
+    launches = rvq_encode.launches
+    check(launches == 1, f'the joint embedding launched K1 {launches} times')
+    check(tuple(out.shape) == (JE_ROWS, 1, JE_OUT) and float(out[-1].abs().max()) == 0
+          and float(mask[-1]) == 0, 'the joint embedding did not mask its empty row')
+    flat = torch.from_numpy(tokens[0]).to(device)
+    embeds = je.rvq.embeds().contiguous()
+    codes, plain = rvq_encode(flat, embeds), rvq_encode_reference(flat, embeds)
+    check(torch.equal(codes, plain), 'K1 at the joint embedding: codes differ from plain')
+    n, d = flat.shape
+    q, k, _ = embeds.shape
+    b_ms, b_by = bound_ms(2.0 * n * d * k * q, PEAK_FP32, 4.0 * (n * d + q * k * d + q * n))
+    print(f'joint embedding [{JE_ROWS}, {JE_DIM}] -> {tuple(out.shape)}: K1 N={n} D={d} K={k} '
+          f'n_q={q} codes equal to plain; kernel {time_ms(lambda: rvq_encode(flat, embeds), 20):.4f}'
+          f' ms, plain {time_ms(lambda: rvq_encode_reference(flat, embeds), 20):.4f} ms, bound '
+          f'{b_ms:.4f} ms ({b_by}); card {card()}', flush=True)
+    return launches
+
+
+def phase_demucs_jasco(device) -> tp.Dict[str, int]:
+    print("== phase 15: HTDemucs, MusicGen-melody's chroma behind the stems, get_jasco_model() "
+          'with Demucs drums, the joint embedding', flush=True)
+    start = time.perf_counter()
+    demucs = check_demucs(device)
+    print(f'-- 15a {time.perf_counter() - start:.1f} s', flush=True)
+    check_melody_stems(device, demucs)
+    launches = check_jasco(device, demucs)
+    print(f'-- 15c {time.perf_counter() - start:.1f} s', flush=True)
+    launches['rvq_encode (joint embedding)'] = check_joint_embed(device)
+    del demucs
+    torch.cuda.empty_cache()
+    print(f'phase 15: {time.perf_counter() - start:.1f} s; launches {launches}', flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -3435,14 +3798,26 @@ def main() -> int:
     mark()
     print(f'K3f and K3b launches in one data-parallel LM step (phase 14): {dp_launches}',
           flush=True)
+    jasco_launches = phase_demucs_jasco(device)
+    mark()
+    print(f'K1, K2, K3f, K4 and K5 launches on the JASCO path (phase 15): {jasco_launches}',
+          flush=True)
     launches['mono_input_conv'] = kernel_checks_k6
     launches['flash_attention'] = magnet_launches['flash_attention']
     for name in ('flash_attention_bwd_dkv', 'flash_attention_bwd_dq'):
         launches[name] = train_launches[name]
     for name, n in launches.items():
         kernels[name]['launches'] = n
-    keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err', 'ms',
-            'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
+    # phase 15's counts beside the main path's: the drums encode and the
+    # 100-step Euler generate, and the joint embedding's RVQ forward
+    joint_embed = jasco_launches.pop('rvq_encode (joint embedding)')
+    check(set(jasco_launches) <= set(kernels), f'phase 15 counted unknown kernels {jasco_launches}')
+    for name, kern in kernels.items():
+        kern['launches_jasco'] = jasco_launches.get(name, 0)
+        kern['launches_joint_embed'] = joint_embed if name == 'rvq_encode' else 0
+    keys = ('name', 'route', 'source', 'replaces', 'launches', 'launches_jasco',
+            'launches_joint_embed', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+            'library_ms')
     print(card())
     print(json.dumps({'kernels': [{k: kern[k] for k in keys} for kern in kernels.values()]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

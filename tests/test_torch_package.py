@@ -50,6 +50,7 @@ def test_port_and_smoke_import_nothing_of_jax():
                                    functools.partial(builders.get_musicgen_lm, melody=True),
                                    functools.partial(builders.get_musicgen_lm, style=True),
                                    get_debug_melody_musicgen,
+                                   builders.get_htdemucs, builders.get_jasco_model,
                                    functools.partial(HFEncodecCompressionModel.from_hf_config,
                                                      {})])
 def test_entry_points_refuse_to_fall_back_to_the_cpu(build, monkeypatch):
