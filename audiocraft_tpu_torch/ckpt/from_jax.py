@@ -43,6 +43,10 @@ and returns a state dict for the port module's ``load_state_dict``:
   ``emb``, melody and drums ``output_proj``) and the joint-embedding
   conditioner (``rvq``); :func:`load_jasco_from_jax` loads both, and the
   drums' codec from its params' ``codec``.
+* :func:`diffusion_unet_state_from_jax`: MultiBand-Diffusion's
+  ``DiffusionUnet`` (``encoders`` / ``decoders`` lists with their ``res``
+  blocks, ``embedding`` and ``embeddings``, ``bilstm``, ``transformer``,
+  ``conv_codec``), the same names on both sides.
 
 The names produced are the reference audiocraft ones, which the JAX
 package's importers read back.  Nothing of the JAX package is imported.
@@ -369,4 +373,29 @@ def htdemucs_state_from_jax(model, params: Tree) -> tp.Dict[str, torch.Tensor]:
                  'channel_downsampler_t'):
         if name in params:
             _weight_bias(sd, name, params[name])
+    return _tensors(sd)
+
+
+def diffusion_unet_state_from_jax(unet, params: Tree) -> tp.Dict[str, torch.Tensor]:
+    """The port's ``DiffusionUnet`` state dict holding the JAX UNet's
+    ``params`` (``unet`` gives the config)."""
+    sd: tp.Dict[str, tp.Any] = {'embedding': params['embedding']}
+    for i, emb in enumerate(params.get('embeddings', ())):
+        sd[f'embeddings.{i}'] = emb
+    for side, names in (('encoders', ('conv', 'norm')), ('decoders', ('norm', 'convtr'))):
+        for d, p in enumerate(params[side]):
+            for name in names:
+                _weight_bias(sd, f'{side}.{d}.{name}', p[name])
+            for j, res in enumerate(p['res']):
+                for name in ('norm1', 'conv1', 'norm2', 'conv2'):
+                    _weight_bias(sd, f'{side}.{d}.res.{j}.{name}', res[name])
+    if 'bilstm' in params:
+        for i, layer in enumerate(params['bilstm']['layers']):
+            for name, value in layer.items():
+                sd[f'bilstm.layers.{i}.{name}'] = value
+        _weight_bias(sd, 'bilstm.linear', params['bilstm']['linear'])
+    if 'transformer' in params:
+        _transformer(sd, 'transformer', params['transformer'], len(unet.transformer.layers))
+    if 'conv_codec' in params:
+        _weight_bias(sd, 'conv_codec', params['conv_codec'])
     return _tensors(sd)

@@ -26,8 +26,10 @@ step is captured as a CUDA graph and replayed; on the CPU it runs eagerly.
 (token-exact); ``kv_dtype='int8'`` stores the caches quantized; heads and
 projections may hold the int8 or int4 weights of ``lm/quantize.py``.
 
-Not ported: RoPE positions and ``kv_repeat > 1`` (no factory in
-``builders.py`` uses them), the 'uniform' weight init and the depthwise init
+``positional_embedding`` ('sin', 'rope', 'sin_rope') and ``kv_repeat`` go
+to the transformer (``nn/transformer.py``); the caches then hold the kv
+heads only.  :func:`dist.mesh.shard_lm` splits a model over a tensor-parallel
+group.  Not ported: the 'uniform' weight init and the depthwise init
 scaling.
 """
 
@@ -114,10 +116,12 @@ class LMModel(torch.nn.Module):
                  num_heads: int = 8, num_layers: int = 8, hidden_scale: int = 4,
                  norm_first: bool = False, bias_proj: bool = True,
                  cross_attention: bool = False, causal: bool = True,
-                 past_context: tp.Optional[int] = None, layer_scale: tp.Optional[float] = None,
+                 past_context: tp.Optional[int] = None, positional_embedding: str = 'sin',
+                 layer_scale: tp.Optional[float] = None,
                  weight_init: tp.Optional[str] = None, bias_ff: bool = True,
                  bias_attn: bool = True, qk_layer_norm: bool = False,
-                 qk_layer_norm_cross: bool = False, activation: str = 'gelu',
+                 qk_layer_norm_cross: bool = False, kv_repeat: int = 1,
+                 activation: str = 'gelu',
                  attn_kernel: tp.Union[bool, str] = False,
                  pattern_provider: tp.Optional[CodebooksPatternProvider] = None,
                  cfg_coef: float = 3.0, checkpointing: bool = False,
@@ -138,9 +142,10 @@ class LMModel(torch.nn.Module):
         self.transformer = StreamingTransformer(
             d_model=dim, num_heads=num_heads, num_layers=num_layers,
             dim_feedforward=int(hidden_scale * dim), causal=causal, past_context=past_context,
-            cross_attention=cross_attention, layer_scale=layer_scale, norm_first=norm_first,
+            cross_attention=cross_attention, layer_scale=layer_scale,
+            positional_embedding=positional_embedding, norm_first=norm_first,
             bias_ff=bias_ff, bias_attn=bias_attn, qk_layer_norm=qk_layer_norm,
-            qk_layer_norm_cross=qk_layer_norm_cross, activation=activation,
+            qk_layer_norm_cross=qk_layer_norm_cross, kv_repeat=kv_repeat, activation=activation,
             attn_kernel=attn_kernel, checkpointing=checkpointing, generator=generator)
         self.out_norm = LayerNorm(dim) if norm_first else None
         linears = []

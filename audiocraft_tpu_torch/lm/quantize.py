@@ -113,8 +113,17 @@ def _quantize_linear(linear: torch.nn.Module, qfn) -> QuantizedLinear:
 def quantize_lm_params(lm: torch.nn.Module, mode: str = 'int8',
                        group_size: int = 128) -> torch.nn.Module:
     """Quantize ``lm``'s transformer matrices and heads in place (one-way);
-    returns ``lm``."""
+    returns ``lm``.  A model split over a model group (its parallel layers,
+    ``dist/mesh.shard_lm``) is refused."""
     qfn = _quant_fn(mode, group_size)
+    for layer in lm.transformer.layers:
+        linears = [layer.linear1, layer.linear2] + [
+            attn.out_proj for attn in (layer.self_attn, layer.cross_attention) if attn is not None]
+        for linear in linears:
+            if not isinstance(linear, (torch.nn.Linear, QuantizedLinear)):
+                raise ValueError(f"quantize_lm_params takes nn.Linear layers, not "
+                                 f"{type(linear).__name__}: a model split by shard_lm is not "
+                                 f"quantized")
     for layer in lm.transformer.layers:
         for attn in (layer.self_attn, layer.cross_attention):
             if attn is None:

@@ -41,8 +41,18 @@ params, a compile-size option of XLA) has no counterpart here: the stack is
 a Python loop, and ``ckpt/from_jax.py`` reads the stacked params such a JAX
 model holds.
 
-Not ported: RoPE (and the positional options beside 'sin') and ``kv_repeat >
-1``; no factory in ``builders.py`` uses them.
+Positions: ``positional_embedding`` 'sin' adds the sinusoidal embedding
+(times ``positional_scale``, of ``max_period``) to the stack's input;
+'rope' rotates each self-attention's q and k (``nn/rope.py``, with
+``xpos``); 'sin_rope' does both.  Cross-attention takes no rope.  Under a
+cache the positions start at its index, a device tensor, so a captured
+decode step rotates at the position it replays at.
+
+``kv_repeat = r > 1`` shares each key and value head between r query heads:
+``in_proj_weight`` is [E + 2 E / r, E], the caches (int8 and their scales
+too) hold ``num_heads / r`` heads, and k and v are repeated head by head
+(``repeat_interleave``) before every attention route, K3f included, which
+takes equal head counts.
 """
 
 from __future__ import annotations
@@ -59,6 +69,7 @@ from ..ops.attention import (additive_mask, causal_mask, fused_attention, kernel
                              plain_attention)
 from . import init
 from .activations import get_activation_fn
+from .rope import RotaryEmbedding
 
 CrossKV = tp.Tuple[torch.Tensor, torch.Tensor]
 
@@ -271,25 +282,34 @@ def linear_w(x: torch.Tensor, w: tp.Union[torch.Tensor, QuantizedWeight],
 
 class StreamingMultiheadAttention(torch.nn.Module):
     """Multi-head self- or cross-attention with a fused ``in_proj_weight``
-    [3E, E] (rows q, k, v).  ``attn_kernel``: see :func:`ops.attention.kernel_route`."""
+    [E + 2 E / kv_repeat, E] (rows q, k, v).  ``attn_kernel``: see
+    :func:`ops.attention.kernel_route`; ``rope`` rotates self-attention's q
+    and k; ``kv_repeat`` shares each k, v head between that many q heads."""
 
     def __init__(self, embed_dim: int, num_heads: int, bias: bool = True, causal: bool = False,
                  past_context: tp.Optional[int] = None, cross_attention: bool = False,
                  qk_layer_norm: bool = False, attn_kernel: tp.Union[bool, str] = False,
+                 rope: tp.Optional[RotaryEmbedding] = None, kv_repeat: int = 1,
                  generator: tp.Optional[torch.Generator] = None):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of {num_heads} heads")
+        if num_heads % kv_repeat:
+            raise ValueError(f"{num_heads} heads do not share kv heads by {kv_repeat}")
         if past_context is not None and not causal:
             raise ValueError("past_context needs causal attention")
-        if cross_attention and causal:
-            raise ValueError("cross-attention is not causal")
+        if cross_attention and (causal or rope is not None or kv_repeat != 1):
+            raise ValueError("cross-attention is not causal and takes no rope and no kv_repeat")
+        if qk_layer_norm and kv_repeat != 1:
+            raise ValueError("qk_layer_norm needs kv_repeat == 1")
         self.embed_dim, self.num_heads = embed_dim, num_heads
         self.causal, self.past_context = causal, past_context
         self.cross_attention, self.attn_kernel = cross_attention, attn_kernel
+        self.rope, self.kv_repeat = rope, kv_repeat
         bound = 1.0 / math.sqrt(embed_dim)
-        self.in_proj_weight = init.uniform((3 * embed_dim, embed_dim), bound, generator)
-        self.in_proj_bias = init.constant((3 * embed_dim,), 0.0) if bias else None
+        out_dim = embed_dim + 2 * self.kv_dim
+        self.in_proj_weight = init.uniform((out_dim, embed_dim), bound, generator)
+        self.in_proj_bias = init.constant((out_dim,), 0.0) if bias else None
         self.out_proj = init.linear(embed_dim, embed_dim, bias, bound, generator)
         self.q_layer_norm = LayerNorm(embed_dim) if qk_layer_norm else None
         self.k_layer_norm = LayerNorm(embed_dim) if qk_layer_norm else None
@@ -297,6 +317,14 @@ class StreamingMultiheadAttention(torch.nn.Module):
     @property
     def head_dim(self) -> int:
         return self.embed_dim // self.num_heads
+
+    @property
+    def num_kv_heads(self) -> int:
+        return self.num_heads // self.kv_repeat
+
+    @property
+    def kv_dim(self) -> int:
+        return self.head_dim * self.num_kv_heads
 
     def _proj(self, x: torch.Tensor, part: int) -> torch.Tensor:
         """Rows of ``in_proj_weight`` for q (0), k (1) or v (2)."""
@@ -306,7 +334,14 @@ class StreamingMultiheadAttention(torch.nn.Module):
         return linear_w(x, self.in_proj_weight, b, rows=rows)
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
-        return x.unflatten(-1, (self.num_heads, self.head_dim))
+        return x.unflatten(-1, (-1, self.head_dim))
+
+    def _repeat_kv(self, *xs: torch.Tensor) -> tp.List[torch.Tensor]:
+        """Each kv head repeated for the ``kv_repeat`` q heads that share it
+        (axis 2, head by head)."""
+        if self.kv_repeat == 1:
+            return list(xs)
+        return [x.repeat_interleave(self.kv_repeat, dim=2) for x in xs]
 
     def precompute_cross_kv(self, source: torch.Tensor) -> CrossKV:
         """Project the condition's K and V once, for every forward of a generate."""
@@ -329,12 +364,13 @@ class StreamingMultiheadAttention(torch.nn.Module):
         dtype before the second product, as in the JAX package)."""
         dtype = q.dtype
         scale = 1.0 / math.sqrt(self.head_dim)
+        kq, vq, ks, vs = self._repeat_kv(cache.k, cache.v, cache.k_scale, cache.v_scale)
         qs = (q * scale).float().transpose(1, 2)                        # [B, H, Tq, D]
-        logits = torch.matmul(qs, cache.k.float().permute(0, 2, 3, 1))  # [B, H, Tq, Tk]
-        logits = logits * cache.k_scale.transpose(1, 2)[:, :, None, :] + mask
+        logits = torch.matmul(qs, kq.float().permute(0, 2, 3, 1))       # [B, H, Tq, Tk]
+        logits = logits * ks.transpose(1, 2)[:, :, None, :] + mask
         w = torch.softmax(logits, dim=-1)
-        wv = (w * cache.v_scale.transpose(1, 2)[:, :, None, :]).to(dtype).float()
-        out = torch.matmul(wv, cache.v.float().transpose(1, 2))        # [B, H, Tq, D]
+        wv = (w * vs.transpose(1, 2)[:, :, None, :]).to(dtype).float()
+        out = torch.matmul(wv, vq.float().transpose(1, 2))             # [B, H, Tq, D]
         return out.transpose(1, 2).to(dtype)
 
     def _attend_cache(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache: KVCache,
@@ -361,7 +397,8 @@ class StreamingMultiheadAttention(torch.nn.Module):
             mask = mask + attn_mask
         if cache.quantized:
             return self._attend_int8(q, cache, mask)
-        return plain_attention(q, cache.k, cache.v, mask, 1.0 / math.sqrt(self.head_dim))
+        k_all, v_all = self._repeat_kv(cache.k, cache.v)
+        return plain_attention(q, k_all, v_all, mask, 1.0 / math.sqrt(self.head_dim))
 
     def forward(self, query: torch.Tensor, key: tp.Optional[torch.Tensor] = None,
                 value: tp.Optional[torch.Tensor] = None,
@@ -370,7 +407,8 @@ class StreamingMultiheadAttention(torch.nn.Module):
                 cache: tp.Optional[KVCache] = None) -> torch.Tensor:
         """With a ``cache`` (self-attention only) the new keys and values are
         written into it at its index, which the caller advances."""
-        B, Tq, E = query.shape
+        B, Tq, _ = query.shape
+        E = self.embed_dim   # this rank's share under a model group (dist/mesh.shard_lm)
         scale = 1.0 / math.sqrt(self.head_dim)
         if self.cross_attention:
             if cache is not None:
@@ -390,16 +428,26 @@ class StreamingMultiheadAttention(torch.nn.Module):
             out = plain_attention(self._heads(q), k, v, attn_mask, scale)
         else:
             # fused qkv projection; q, k, v stay strided views of it
-            q, k, v = linear_w(query, self.in_proj_weight, self.in_proj_bias).split(E, dim=-1)
+            q, k, v = linear_w(query, self.in_proj_weight, self.in_proj_bias).split(
+                [E, self.kv_dim, self.kv_dim], dim=-1)
             if self.q_layer_norm is not None:
                 q, k = self.q_layer_norm(q), self.k_layer_norm(k)
             q, k, v = self._heads(q), self._heads(k), self._heads(v)
+            if self.rope is not None:
+                # positions from the cache's index, a device tensor
+                pos = torch.arange(Tq, device=query.device)
+                if cache is not None:
+                    pos = pos + cache.index
+                q = self.rope.rotate(q, pos)
+                k = self.rope.rotate(k, pos, invert_decay=True)
             if cache is not None:
                 out = self._attend_cache(q, k, v, cache, attn_mask)
             elif (attn_mask is None and Tq > 1 and self.past_context is None
                     and kernel_route(self.attn_kernel, self.head_dim)):
+                k, v = self._repeat_kv(k, v)
                 out = fused_attention(q, k, v, causal=self.causal, sm_scale=scale)
             else:
+                k, v = self._repeat_kv(k, v)
                 out = plain_attention(q, k, v, self._self_mask(Tq, query.device, attn_mask),
                                       scale)
         return self.out_proj(out.reshape(B, Tq, E))
@@ -415,12 +463,14 @@ class StreamingTransformerLayer(torch.nn.Module):
                  qk_layer_norm_cross: bool = False, cross_attention: bool = False,
                  layer_scale: tp.Optional[float] = None, norm_first: bool = True,
                  activation: str = 'gelu', attn_kernel: tp.Union[bool, str] = False,
+                 rope: tp.Optional[RotaryEmbedding] = None, kv_repeat: int = 1,
                  generator: tp.Optional[torch.Generator] = None):
         super().__init__()
         D, Fd = d_model, dim_feedforward
         self.self_attn = StreamingMultiheadAttention(
             D, num_heads, bias=bias_attn, causal=causal, past_context=past_context,
-            qk_layer_norm=qk_layer_norm, attn_kernel=attn_kernel, generator=generator)
+            qk_layer_norm=qk_layer_norm, attn_kernel=attn_kernel, rope=rope,
+            kv_repeat=kv_repeat, generator=generator)
         self.linear1 = init.linear(D, Fd, bias_ff, 1.0 / math.sqrt(D), generator)
         self.linear2 = init.linear(Fd, D, bias_ff, 1.0 / math.sqrt(Fd), generator)
         self.norm1, self.norm2 = LayerNorm(D), LayerNorm(D)
@@ -483,26 +533,38 @@ def _checkpointed(layer: torch.nn.Module, x: torch.Tensor, kw: dict) -> torch.Te
 
 
 class StreamingTransformer(torch.nn.Module):
-    """A stack of :class:`StreamingTransformerLayer` with sinusoidal positions
-    (max period 10000, scale 1)."""
+    """A stack of :class:`StreamingTransformerLayer` with sinusoidal
+    positions, rotary ones or both (``positional_embedding`` 'sin', 'rope'
+    or 'sin_rope'; see the module note)."""
 
     def __init__(self, d_model: int, num_heads: int, num_layers: int,
                  dim_feedforward: int = 2048, bias_ff: bool = True, bias_attn: bool = True,
                  causal: bool = False, past_context: tp.Optional[int] = None,
                  cross_attention: bool = False, layer_scale: tp.Optional[float] = None,
+                 positional_embedding: str = 'sin', max_period: float = 10000.0,
+                 positional_scale: float = 1.0, xpos: bool = False,
                  qk_layer_norm: bool = False, qk_layer_norm_cross: bool = False,
-                 norm_first: bool = True, activation: str = 'gelu',
+                 kv_repeat: int = 1, norm_first: bool = True, activation: str = 'gelu',
                  attn_kernel: tp.Union[bool, str] = False, checkpointing: bool = False,
                  generator: tp.Optional[torch.Generator] = None):
         super().__init__()
+        if positional_embedding not in ('sin', 'rope', 'sin_rope'):
+            raise ValueError(f"positional_embedding {positional_embedding!r}: "
+                             "'sin', 'rope' or 'sin_rope'")
         self.checkpointing = checkpointing
+        self.positional_embedding = positional_embedding
+        self.max_period, self.positional_scale = max_period, positional_scale
+        rope = None
+        if positional_embedding in ('rope', 'sin_rope'):
+            rope = RotaryEmbedding(d_model // num_heads, max_period=max_period, xpos=xpos,
+                                   scale=positional_scale)
         self.layers = torch.nn.ModuleList(
             StreamingTransformerLayer(
                 d_model, num_heads, dim_feedforward, bias_ff=bias_ff, bias_attn=bias_attn,
                 causal=causal, past_context=past_context, qk_layer_norm=qk_layer_norm,
                 qk_layer_norm_cross=qk_layer_norm_cross, cross_attention=cross_attention,
                 layer_scale=layer_scale, norm_first=norm_first, activation=activation,
-                attn_kernel=attn_kernel, generator=generator)
+                attn_kernel=attn_kernel, rope=rope, kv_repeat=kv_repeat, generator=generator)
             for _ in range(num_layers))
 
     @property
@@ -513,6 +575,10 @@ class StreamingTransformer(torch.nn.Module):
     def head_dim(self) -> int:
         return self.layers[0].self_attn.head_dim
 
+    @property
+    def num_kv_heads(self) -> int:
+        return self.layers[0].self_attn.num_kv_heads
+
     def init_cache(self, batch: int, capacity: int, dtype: torch.dtype = torch.float32,
                    kv_dtype: tp.Optional[str] = None,
                    device: tp.Union[str, torch.device, None] = None) -> tp.List[KVCache]:
@@ -521,7 +587,7 @@ class StreamingTransformer(torch.nn.Module):
         if kv_dtype not in (None, 'int8'):
             raise ValueError(f"kv_dtype {kv_dtype!r}: None or 'int8'")
         index = torch.zeros((), dtype=torch.long, device=device)
-        return [KVCache.create(batch, capacity, self.num_heads, self.head_dim, dtype,
+        return [KVCache.create(batch, capacity, self.num_kv_heads, self.head_dim, dtype,
                                quantized=kv_dtype == 'int8', device=device, index=index)
                 for _ in self.layers]
 
@@ -535,10 +601,12 @@ class StreamingTransformer(torch.nn.Module):
         """With ``caches`` (from :meth:`init_cache`) positions start at their
         index, each layer appends to its cache, and the index advances by T."""
         B, T, C = x.shape
-        positions = torch.arange(T, device=x.device).view(1, -1, 1)
-        if caches is not None:
-            positions = positions + caches[0].index
-        x = x + create_sin_embedding(positions, C).to(x.dtype)
+        if self.positional_embedding in ('sin', 'sin_rope'):
+            positions = torch.arange(T, device=x.device).view(1, -1, 1)
+            if caches is not None:
+                positions = positions + caches[0].index
+            emb = create_sin_embedding(positions, C, self.max_period).to(x.dtype)
+            x = x + (emb if self.positional_scale == 1.0 else self.positional_scale * emb)
         remat = self.checkpointing and caches is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             kw = dict(cross_attention_src=cross_attention_src,

@@ -133,7 +133,28 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    ``kernels`` line gives each kernel's phase-15 counts beside the main
    path's: ``launches_jasco`` (the drums encode and the Euler generate on
    the K3f route) and ``launches_joint_embed``.
-Every random-weight codec that encodes or decodes (phases 3-13, 15) has its
+16. Pod, the model group, MultiBand-Diffusion, the metrics, rope: one 1 x
+   120 s file through ``pod_encode`` / ``pod_decode`` on a world-size-1
+   NCCL group with ``get_encodec_32khz()`` (fp32 codes equal the module
+   stack's encode of the padded signal but at near-ties, the waveform within
+   1e-5 of decode; bf16 timed beside encode and decode; K2 2 + 2, K1 1);
+   ``get_musicgen_lm('large')`` in bf16 sharded by ``shard_lm`` over the
+   group's model group (``make_mesh(1, 1)``), 2 x 10 s of codes with T5
+   conditions: logits bit-equal to the unsharded forward, K3f 48 times, one
+   all-reduce timed, the device's busy time under the profiler;
+   one ``DiffusionUnet`` and ``NoiseSchedule()`` a band and the
+   ``MultiBandProcessor`` (stand-in widths, fp32) conditioned on the
+   32 kHz codec's latent of 4 x 10 s of codes: a UNet forward card vs CPU
+   (1e-4), the BLSTM variant's K2 against plain (1e-4), the 4-band reverse
+   process of 80 UNet calls timed; codec-FAD and codec-KLD of 8 + 8 clips
+   of 10 s, fp32 card vs CPU (FAD and ``chroma_cosine`` 1e-4, codes equal
+   but at near-ties); MusicGen-small's widths with rope and ``kv_repeat=2``:
+   K3f (24) against plain (1e-4), 2 x 10 s generated through replayed
+   graphs, the step beside its byte bound, fp32 greedy tokens at 2 s equal
+   the CPU's but at near-ties.  The ``kernels`` line gives each kernel's
+   phase-16 counts: ``launches_pod``, ``launches_tp``,
+   ``launches_diffusion``, ``launches_metrics`` and ``launches_rope``.
+Every random-weight codec that encodes or decodes (phases 3-13, 15, 16) has its
 codebooks seeded from its own latents first (``seed_codebooks``): a fresh
 codebook is zeros, as the JAX package's ``kmeans_init`` makes it.
 Phase 2 also holds K3b (the attention backward, both dtypes, at the model
@@ -172,7 +193,9 @@ from audiocraft_tpu_torch.cond.attributes import (ClassifierFreeGuidanceDropout,
                                                   SymbolicCondition, WavCondition)
 from audiocraft_tpu_torch.cond.chroma_cond import ChromaConditioner
 from audiocraft_tpu_torch.cond.joint_embed import JointEmbeddingConditioner
-from audiocraft_tpu_torch.dist.mesh import make_data_group
+from audiocraft_tpu_torch.dist.mesh import (global_sum, make_data_group, make_mesh, shard_lm,
+                                            world_size)
+from audiocraft_tpu_torch.dist.pod import pod_decode, pod_encode
 from audiocraft_tpu_torch.dist.train import (GAN_WEIGHTS, lm_loss, lm_loss_and_grads,
                                              make_encodec_gan_train_step,
                                              make_encodec_train_step, make_lm_train_step)
@@ -186,6 +209,7 @@ from audiocraft_tpu_torch.lm.decode import DecodeCache
 from audiocraft_tpu_torch.lm.model import LMModel
 from audiocraft_tpu_torch.nn.chroma import ChromaExtractor
 from audiocraft_tpu_torch.nn.demucs import HTDemucs, make_stem_fn
+from audiocraft_tpu_torch.nn.diffusion import DiffusionUnet, MultiBandProcessor, NoiseSchedule
 from audiocraft_tpu_torch.nn.transformer import StreamingMultiheadAttention
 from audiocraft_tpu_torch.ops import _build, attention
 from audiocraft_tpu_torch.ops import lstm as lstm_ops
@@ -203,6 +227,9 @@ from audiocraft_tpu_torch.ops.seanet import (
     fused_stage_reference, mono_input_conv, mono_input_conv_reference, packed_stage_weights,
     stage_kernel_info, stage_plan, stage_weight_l2_bytes)
 from audiocraft_tpu_torch.losses import Balancer
+from audiocraft_tpu_torch.metrics import (FrechetAudioDistance, chroma_cosine,
+                                          kl_divergence_metric, make_codec_embed_fn,
+                                          make_codec_prob_fn)
 from audiocraft_tpu_torch.optim import OptState, make_optimizer
 from audiocraft_tpu_torch.patterns import DelayedPatternProvider
 from audiocraft_tpu_torch.quant.codebook import compute_distances, quantize
@@ -3750,6 +3777,381 @@ def phase_demucs_jasco(device) -> tp.Dict[str, int]:
     return launches
 
 
+# phase 16: one 120 s file tokenized by pod; MusicGen-large over a model group;
+# the stand-in MultiBand-Diffusion decode (4 bands, 20 UNet calls each) of 4 x
+# 10 s; codec-FAD and codec-KLD of 8 + 8 clips of 10 s; MusicGen-small widths
+# with rope and kv_repeat 2, 2 x 10 s decoded (fp32 against the CPU at 2 s)
+POD_SECONDS = 120
+TP_BATCH, TP_SECONDS = 2, 10
+MBD_BATCH, MBD_SECONDS, MBD_BANDS = 4, 10, 4
+METRIC_CLIPS, METRIC_SECONDS, METRIC_WINDOW = 8, 10, 0.2
+ROPE_BATCH, ROPE_SECONDS, ROPE_PARITY_SECONDS, ROPE_STEP_OFFSET = 2, 10, 2, 250
+
+
+def _peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def check_pod(device, group) -> tp.Dict[str, int]:
+    """16a: one 120 s file through ``pod_encode`` / ``pod_decode`` on the
+    group, ``get_encodec_32khz()`` at its widths: in fp32 (cuDNN's TF32
+    off) the codes equal the module stack's ``encode`` of the padded signal
+    but at near-ties of its distances (1e-4 relative), the waveform within
+    1e-5 of ``decode``; in bf16 timed beside the plain encode and decode,
+    with K2's and K1's launches counted."""
+    model = get_encodec_32khz()
+    wav = _clips(1, POD_SECONDS * SAMPLE_RATE, device, seed=160)
+    seed_codebooks(model, wav)
+    f32 = torch.float32
+    with torch.no_grad():
+        codes = pod_encode(model, wav, group, compute_dtype=f32)
+        lat = model.encoder(wav, lstm_kernel=True).float()
+        ref = model.quantizer.encode(lat)
+    rows = lat[0].t()
+    differ = (codes != ref)[0].any(0)
+    near = _near_ties(rows, model.quantizer.embeds(), ref[0], rel=1e-4)
+    print(f'pod_encode fp32 of 1 x {POD_SECONDS} s ({wav.shape[-1]} samples, {codes.shape[-1]} '
+          f'frames) on a world-size-{world_size(group)} NCCL group against encode(fused=False): '
+          f'{int(differ.sum())} frames with another code, all at near-ties: '
+          f'{bool((near | ~differ).all())}', flush=True)
+    check(bool((near | ~differ).all()), f'pod codes differ away from a near-tie at '
+                                        f'{int((differ & ~near).sum())} frames')
+    wav_pod = pod_decode(model, ref, group, compute_dtype=f32)
+    wav_ref = model.decode(ref, compute_dtype=f32)
+    err = float((wav_pod - wav_ref).abs().max())
+    print(f'pod_decode fp32 against decode: max-abs {err:.3g} (<= 1e-5)', flush=True)
+    check(err <= 1e-5, f'pod_decode: max-abs {err:.3g} > 1e-5')
+    del lat, rows, wav_pod, wav_ref
+    _reset_launch_counts()
+    codes = pod_encode(model, wav, group)
+    pod_audio = pod_decode(model, codes, group)
+    launches = _launch_counts()
+    check(launches['lstm_step'] == 4 and launches['rvq_encode'] == 1,
+          f'pod encode and decode launched {launches} (K2 2 + 2, K1 1 expected)')
+    check(bool(torch.isfinite(pod_audio).all()), 'pod_decode: non-finite audio')
+    torch.cuda.reset_peak_memory_stats()
+    times = {name: time_ms(fn, 2) for name, fn in (
+        ('pod_encode', lambda: pod_encode(model, wav, group)),
+        ('encode (default route)', lambda: model.encode(wav)),
+        ('pod_decode', lambda: pod_decode(model, codes, group)),
+        ('decode', lambda: model.decode(codes)))}
+    print(f'pod bf16, 1 x {POD_SECONDS} s on {world_size(group)} rank(s): '
+          + ', '.join(f'{k} {v:.1f} ms' for k, v in times.items())
+          + f'; launches in one pod encode + decode: K2 {launches["lstm_step"]}, K1 '
+          f'{launches["rvq_encode"]}; peak memory {_peak_gib():.2f} GiB; card {card()}',
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_tensor_parallel(device, group) -> tp.Dict[str, int]:
+    """16b: ``get_musicgen_lm('large')`` in bf16, 2 x 10 s of codes with T5
+    conditions: ``shard_lm`` over the model group gives the unsharded
+    forward's logits bit for bit; the forward timed, K3f's launches
+    counted."""
+    lm, provider = get_musicgen_lm('large', seed=2)
+    check(len(lm.transformer.layers) == 48 and lm.dim == 2048
+          and lm.transformer.num_heads == 32, 'not the large widths')
+    n_params = sum(p.numel() for p in lm.parameters())
+    cond = _train_conditions(provider, TP_BATCH, device, seed=161)
+    del provider
+    lm.to(torch.bfloat16)
+    cond = {k: (t.to(torch.bfloat16), m) for k, (t, m) in cond.items()}
+    gen = torch.Generator().manual_seed(162)
+    seq = torch.randint(0, lm.card, (TP_BATCH, lm.n_q, TP_SECONDS * 50), generator=gen).to(device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        ref = lm(seq, cond)
+        plain_ms = time_ms(lambda: lm(seq, cond), 3)
+        shard_lm(lm, group)
+        _reset_launch_counts()
+        logits = lm(seq, cond)
+        launches = _launch_counts()
+        ms = time_ms(lambda: lm(seq, cond), 3)
+        # what one of the forward's 96 all-reduces costs on this group, and
+        # the device's busy time over a sharded forward
+        y = torch.zeros(TP_BATCH, TP_SECONDS * 50, lm.dim, dtype=torch.bfloat16, device=device)
+        reduce_ms = time_ms(lambda: global_sum(y, group), 20)
+        busy, window, kernels = _cuda_busy_ms(lambda: lm(seq, cond))
+    same = torch.equal(logits, ref)
+    print(f'MusicGen-large ({n_params / 1e9:.2f} B parameters, bf16) sharded over a '
+          f'world-size-{world_size(group)} NCCL model group, {TP_BATCH} x {TP_SECONDS} s: logits '
+          f'{tuple(logits.shape)} bit-equal to the unsharded forward {same}; forward {ms:.1f} ms '
+          f'(unsharded {plain_ms:.1f} ms); one all-reduce of {tuple(y.shape)} bf16 '
+          f'{reduce_ms:.3f} ms (96 a forward, after each out_proj and linear2); K3f launches '
+          f'{launches["flash_attention"]}; peak memory {_peak_gib():.2f} GiB; card {card()}',
+          flush=True)
+    print(f'a sharded forward under the profiler: device busy {busy:.1f} of {window:.1f} ms '
+          f'(CUDA events); top kernels (ms, calls): '
+          + '; '.join(f'{e.key[:50]} {e.self_device_time_total / 1e3:.2f} {e.count}'
+                      for e in kernels[:6]), flush=True)
+    check(same, 'the sharded logits differ from the unsharded forward')
+    check(launches['flash_attention'] == 48, f'the sharded forward launched {launches}')
+    del lm, ref, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _blstm_plain(bilstm, z: torch.Tensor) -> torch.Tensor:
+    """The BLSTM of ``nn/diffusion.py`` with each direction on K2's plain
+    version (``lstm_layer_reference``) on the same tensors."""
+    C = z.shape[1]
+    y = z.permute(2, 0, 1)
+    for i, p in enumerate(bilstm.layers):
+        fwd = lstm_layer_reference(y, *[p[n] for n in bilstm.NAMES[:4]])
+        bwd = lstm_layer_reference(y.flip(0), *[p[n] for n in bilstm.NAMES[4:]]).flip(0)
+        y = torch.cat([fwd, bwd], dim=-1)
+        if i < len(bilstm.layers) - 1:
+            y = y[..., :C] + y[..., C:]
+    return bilstm.linear(y).permute(1, 2, 0)
+
+
+def _stand_in_unets(n_bands: int, device, seed: int, **overrides) -> tp.List[DiffusionUnet]:
+    """One ``DiffusionUnet`` a band at the stand-in widths (no published
+    MultiBand-Diffusion configuration is in the repository): 48 hidden
+    channels, depth 4, kernel 8, stride 4, growth 2, 4 norm groups, every
+    layer's timestep embedding, a transformer bottleneck of 384 channels at
+    T / 256, the 32 kHz codec's 128-d latent as the condition; fp32."""
+    gen = torch.Generator().manual_seed(seed)
+    cfg = dict(chin=1, hidden=48, depth=4, kernel=8, stride=4, growth=2.0, norm_groups=4,
+               res_blocks=1, emb_all_layers=True, codec_dim=128, use_transformer=True)
+    cfg.update(overrides)
+    return [DiffusionUnet(**cfg, generator=gen).to(device).eval().requires_grad_(False)
+            for _ in range(n_bands)]
+
+
+def check_diffusion(device, codec) -> tp.Dict[str, int]:
+    """16c: the stand-in MultiBand-Diffusion widths (``_stand_in_unets``)
+    conditioned on the 32 kHz codec's latent of 4 x 10 s of codes, fp32: one
+    UNet forward at 1 s on the card against the CPU (1e-4 relative); the
+    BLSTM variant's K2 (fp32, H = 384, T = 1250, B = 4) against its plain
+    version (1e-4, phase 2's fp32 bar); the 4-band reverse process timed."""
+    unets = _stand_in_unets(MBD_BANDS, device, seed=163)
+    processor = MultiBandProcessor(n_bands=MBD_BANDS, sample_rate=SAMPLE_RATE).to(device)
+    schedules = [NoiseSchedule() for _ in range(MBD_BANDS)]
+    gen = torch.Generator().manual_seed(164)
+    frames = MBD_SECONDS * 50
+    codes = torch.randint(0, codec.cardinality, (MBD_BATCH, codec.num_codebooks, frames),
+                          generator=gen).to(device)
+    cond = codec.decode_latent(codes)                                 # [4, 128, 500]
+    # the processor's band statistics from the codec's own audio of the codes
+    processor.project_sample(codec.decode(codes),
+                             generator=torch.Generator(device=device).manual_seed(168))
+    x1 = torch.randn(MBD_BATCH, 1, SAMPLE_RATE, generator=gen).to(device)
+    unet = unets[0]
+    with torch.no_grad():
+        out = unet(x1, 500, condition=cond[..., :50])
+        out_cpu = copy.deepcopy(unet).cpu()(x1.cpu(), 500, condition=cond[..., :50].cpu())
+    rel = _rel_err(out, out_cpu)
+    print(f'DiffusionUnet fp32 at 1 s, card against CPU: max-abs / max {rel:.3g} (<= 1e-4); '
+          f'bottleneck {unet.bottleneck_dim} channels', flush=True)
+    check(rel <= 1e-4, f'UNet card vs CPU: rel {rel:.3g} > 1e-4')
+
+    blstm = _stand_in_unets(1, device, seed=165, bilstm=True, use_transformer=False)[0]
+    z = torch.randn(MBD_BATCH, blstm.bottleneck_dim, frames * 640 // 256, generator=gen).to(device)
+    _reset_launch_counts()
+    with torch.no_grad():
+        y = blstm.bilstm(z)
+        launches_blstm = _launch_counts()['lstm_step']
+        err = float((y - _blstm_plain(blstm.bilstm, z)).abs().max())
+        x_full = torch.randn(MBD_BATCH, 1, MBD_SECONDS * SAMPLE_RATE, generator=gen).to(device)
+        blstm_ms = time_ms(lambda: blstm(x_full, 500, condition=cond), 2)
+    print(f'BLSTM bottleneck {tuple(z.shape)} fp32: K2 launches {launches_blstm} (2 layers x 2 '
+          f'directions), max-abs against the plain LSTM {err:.3g} (<= 1e-4); the BLSTM UNet\'s '
+          f'forward at {MBD_BATCH} x {MBD_SECONDS} s {blstm_ms:.1f} ms', flush=True)
+    check(launches_blstm == 4, f'the BLSTM launched K2 {launches_blstm} times')
+    check(err <= 1e-4, f'BLSTM on K2 against plain: max-abs {err:.3g} > 1e-4')
+    del blstm
+
+    noise = torch.randn(MBD_BATCH, 1, MBD_SECONDS * SAMPLE_RATE, generator=gen).to(device)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: unet(noise, 500, condition=cond), 3)
+        calls = [0]
+
+        def band_fn(band):
+            def fn(x, step, c):
+                calls[0] += 1
+                return unets[band](x, step, condition=c)
+            return fn
+
+        def reverse():
+            out = sum(schedules[b].generate_subsampled(
+                band_fn(b), noise, condition=cond,
+                generator=torch.Generator(device=device).manual_seed(166 + b))
+                for b in range(MBD_BANDS))
+            return processor.return_sample(out)
+
+        _reset_launch_counts()
+        audio, seconds = _sync_s(reverse)
+        launches = _launch_counts()
+    check(calls[0] == 20 * MBD_BANDS, f'{calls[0]} UNet calls, not {20 * MBD_BANDS}')
+    check(bool(torch.isfinite(audio).all()) and audio.shape == noise.shape,
+          'the reverse process gave no finite audio of the input shape')
+    audio_s = MBD_BATCH * MBD_SECONDS
+    print(f'MultiBand-Diffusion stand-in, {MBD_BANDS} bands x 20 UNet calls on {MBD_BATCH} x '
+          f'{MBD_SECONDS} s, fp32: one UNet forward {fwd_ms:.1f} ms; reverse process '
+          f'{seconds:.2f} s, {audio_s / seconds:.1f} audio-s/s; peak memory {_peak_gib():.2f} '
+          f'GiB; card {card()}', flush=True)
+    del unets, processor
+    torch.cuda.empty_cache()
+    launches['lstm_step'] += launches_blstm
+    return launches
+
+
+def _fad(embed_fn, ref: np.ndarray, gen: np.ndarray) -> float:
+    fad = FrechetAudioDistance(embed_fn, SAMPLE_RATE)
+    fad.add(reference=ref, generated=gen)
+    return fad.compute()
+
+
+def check_metrics(device) -> tp.Dict[str, int]:
+    """16d: codec-FAD and codec-KLD between two sets of 8 x 10 s clips on the
+    32 kHz codec (windows of 0.2 s: 400 embeddings of 256 dims a set, a
+    full-rank covariance): fp32 FAD and ``chroma_cosine`` on the card against
+    the CPU within 1e-4 relative; the prob fn's codes equal the CPU's but at
+    near-ties, the KLD printed on both; the bf16 embed fn timed."""
+    gpu = get_encodec_32khz(compute_dtype=None)
+    cpu = get_encodec_32khz(compute_dtype=None, device='cpu')
+    seed_codebooks(gpu, _clips(8, SECONDS * SAMPLE_RATE, device, seed=170))
+    cpu.load_state_dict(gpu.state_dict())
+    samples = METRIC_SECONDS * SAMPLE_RATE
+    ref = _clips(METRIC_CLIPS, samples, 'cpu', seed=171).numpy()
+    gen = _clips(METRIC_CLIPS, samples, 'cpu', seed=172).numpy()
+    _reset_launch_counts()
+    fad = _fad(make_codec_embed_fn(gpu, METRIC_WINDOW), ref, gen)
+    prob = make_codec_prob_fn(gpu)
+    kld = kl_divergence_metric(prob(ref, SAMPLE_RATE), prob(gen, SAMPLE_RATE))['kld']
+    launches = _launch_counts()
+    t0 = time.perf_counter()
+    fad_cpu = _fad(make_codec_embed_fn(cpu, METRIC_WINDOW), ref, gen)
+    prob_cpu = make_codec_prob_fn(cpu)
+    kld_cpu = kl_divergence_metric(prob_cpu(ref, SAMPLE_RATE), prob_cpu(gen, SAMPLE_RATE))['kld']
+    cpu_s = time.perf_counter() - t0
+    rel_fad = abs(fad - fad_cpu) / abs(fad_cpu)
+    x = torch.from_numpy(ref[:2]).to(device)
+    with torch.no_grad():
+        _fp32_codes_vs_cpu('the prob fn\'s encode (2 of the clips)', gpu.encode_to_latent(x),
+                           cpu.encode_to_latent(x.cpu()), gpu, cpu)
+    chroma = chroma_cosine(ref, gen, SAMPLE_RATE, device=device)
+    chroma_cpu = chroma_cosine(ref, gen, SAMPLE_RATE, device='cpu')
+    rel_chroma = abs(chroma - chroma_cpu) / abs(chroma_cpu)
+    print(f'codec-FAD fp32 of {METRIC_CLIPS} + {METRIC_CLIPS} clips x {METRIC_SECONDS} s: card '
+          f'{fad:.6f}, CPU {fad_cpu:.6f} (rel {rel_fad:.3g} <= 1e-4; {cpu_s:.1f} s on the CPU); '
+          f'codec-KLD card {kld:.6f}, CPU {kld_cpu:.6f}; chroma_cosine card {chroma:.6f}, CPU '
+          f'{chroma_cpu:.6f} (rel {rel_chroma:.3g} <= 1e-4)', flush=True)
+    check(rel_fad <= 1e-4, f'FAD card vs CPU: rel {rel_fad:.3g} > 1e-4')
+    check(rel_chroma <= 1e-4, f'chroma_cosine card vs CPU: rel {rel_chroma:.3g} > 1e-4')
+    check(launches['rvq_encode'] == 2 and launches['lstm_step'] == 8,
+          f'the metrics launched {launches} (K1 2, K2 8 expected)')
+    del cpu
+    bf16 = get_encodec_32khz()
+    bf16.load_state_dict(gpu.state_dict())
+    embed = make_codec_embed_fn(bf16, METRIC_WINDOW)
+    embed_ms = time_ms(lambda: embed(ref, SAMPLE_RATE), 3)
+    print(f'codec embed fn bf16 on {METRIC_CLIPS} x {METRIC_SECONDS} s (host array in, host '
+          f'array out): {embed_ms:.1f} ms; card {card()}', flush=True)
+    del gpu, bf16
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_rope(device) -> tp.Dict[str, int]:
+    """16e: MusicGen-small's widths with ``positional_embedding='rope'`` and
+    ``kv_repeat=2``: an fp32 forward over 2 x 10 s of codes on K3f (k and v
+    repeated to the q heads) against the plain route (1e-4 relative, phase
+    6's bar); 2 x 10 s generated in
+    bf16 with the replayed CUDA-graph step, the step beside its byte bound;
+    fp32 greedy tokens at 2 s equal the CPU's but at near-ties.  No published
+    size uses rope or ``kv_repeat``: the LM is ``get_musicgen_lm('small')``'s
+    with those two set."""
+    small, provider = get_musicgen_lm('small', seed=3)
+    lm = LMModel(small.fuser, n_q=4, card=2048, dim=small.dim,
+                 num_heads=small.transformer.num_heads, num_layers=len(small.transformer.layers),
+                 hidden_scale=4, norm_first=True, bias_proj=False, bias_ff=False,
+                 bias_attn=False, cross_attention=True, causal=True, activation='gelu',
+                 weight_init='gaussian', attn_kernel='auto', positional_embedding='rope',
+                 kv_repeat=2, pattern_provider=DelayedPatternProvider(4),
+                 generator=torch.Generator().manual_seed(3))
+    lm = lm.to(device).eval().requires_grad_(False)
+    del small
+    attn = lm.transformer.layers[0].self_attn
+    check(attn.num_kv_heads == 8 and attn.in_proj_weight.shape == (2048, 1024),
+          'not the kv_repeat=2 projection')
+    cond = _descriptions(ROPE_BATCH, device, seed=180)
+    with torch.no_grad():
+        cond_t = provider(cond)
+    gen = torch.Generator().manual_seed(181)
+    seq = torch.randint(0, lm.card, (ROPE_BATCH, lm.n_q, ROPE_SECONDS * 50),
+                        generator=gen).to(device)
+    cond_rows = {k: (t[:ROPE_BATCH], m[:ROPE_BATCH]) for k, (t, m) in cond_t.items()}
+    with torch.no_grad():
+        _reset_launch_counts()
+        logits = lm(seq, cond_rows)
+        launches = _launch_counts()
+        set_attn_kernel(lm, False)
+        plain = lm(seq, cond_rows)
+        set_attn_kernel(lm, 'auto')
+    rel = _rel_err(logits, plain)
+    print(f'rope + kv_repeat 2 forward fp32 [{ROPE_BATCH}, 4, {ROPE_SECONDS * 50}]: K3f launches '
+          f'{launches["flash_attention"]}, logits against the plain route max-abs / max '
+          f'{rel:.3g} (<= 1e-4)', flush=True)
+    check(launches['flash_attention'] == 24, f'the rope forward launched {launches}')
+    check(rel <= 1e-4, f'rope forward K3f vs plain: rel {rel:.3g} > 1e-4')
+    del logits, plain
+    cache, states = DecodeCache(), []
+    frames = ROPE_SECONDS * 50
+    tokens, gen_s = _sync_s(lambda: _musicgen_generate(lm, cond_t, frames, 182, cache,
+                                                       states=states,
+                                                       compute_dtype=torch.bfloat16))
+    state = states[0]
+    check(bool(state.graphs) and tokens.shape == (ROPE_BATCH, 4, frames)
+          and bool(((tokens >= 0) & (tokens < lm.card)).all()), 'the rope generate failed')
+    step_ms = replay_ms(state, ROPE_STEP_OFFSET)
+    weight_bytes, cross_bytes, kv_read, bound = step_bound(state.lm, state)
+    print(f'rope + kv_repeat 2 generate bf16, {ROPE_BATCH} x {ROPE_SECONDS} s with CFG through '
+          f'replayed CUDA graphs: {gen_s:.2f} s; step at offset {ROPE_STEP_OFFSET} '
+          f'{step_ms:.3f} ms against its byte bound {bound:.3f} ms (weights '
+          f'{weight_bytes / 1e9:.3f} GB + cross K/V {cross_bytes / 1e9:.3f} GB + KV read '
+          f'{kv_read / 1e9:.3f} GB of {state.current[0].k.shape[2]} kv heads); card {card()}',
+          flush=True)
+    del cache, states, state
+    parity = ROPE_PARITY_SECONDS * 50
+    states = []
+    greedy = _musicgen_generate(lm, cond_t, parity, None, DecodeCache(), states=states)
+    check_greedy_against_cpu(lm, cond_t, parity, ROPE_BATCH, greedy, states[0].seq)
+    del lm, provider, states
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_pod_tp_diffusion(device) -> tp.Dict[str, tp.Dict[str, int]]:
+    print('== phase 16: pod tokenization, MusicGen-large over a model group, the '
+          'MultiBand-Diffusion stand-in, the generation metrics, rope and kv_repeat', flush=True)
+    start = time.perf_counter()
+    data_group, model_group = make_mesh(1, 1, 'nccl', f'tcp://127.0.0.1:{_free_port()}', 1, 0)
+    launches = {}
+    for key, fn in (('pod', lambda: check_pod(device, data_group)),
+                    ('tp', lambda: check_tensor_parallel(device, model_group)),
+                    ('diffusion', lambda: check_diffusion(device, _seeded_codec(device))),
+                    ('metrics', lambda: check_metrics(device)),
+                    ('rope', lambda: check_rope(device))):
+        launches[key] = fn()
+        print(f'-- 16 {key}: {time.perf_counter() - start:.1f} s', flush=True)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    print(f'phase 16: {time.perf_counter() - start:.1f} s; launches {launches}', flush=True)
+    return launches
+
+
+def _seeded_codec(device):
+    codec = get_encodec_32khz()
+    seed_codebooks(codec, _clips(8, SECONDS * SAMPLE_RATE, device, seed=167))
+    return codec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -3802,6 +4204,8 @@ def main() -> int:
     mark()
     print(f'K1, K2, K3f, K4 and K5 launches on the JASCO path (phase 15): {jasco_launches}',
           flush=True)
+    slice16 = phase_pod_tp_diffusion(device)
+    mark()
     launches['mono_input_conv'] = kernel_checks_k6
     launches['flash_attention'] = magnet_launches['flash_attention']
     for name in ('flash_attention_bwd_dkv', 'flash_attention_bwd_dq'):
@@ -3815,9 +4219,15 @@ def main() -> int:
     for name, kern in kernels.items():
         kern['launches_jasco'] = jasco_launches.get(name, 0)
         kern['launches_joint_embed'] = joint_embed if name == 'rvq_encode' else 0
+        # phase 16's counts: one pod encode + decode, one tensor-parallel
+        # forward, the diffusion reverse process and a BLSTM bottleneck, the
+        # metrics' four encodes, the rope forward
+        for key, counts in slice16.items():
+            kern[f'launches_{key}'] = counts.get(name, 0)
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'launches_jasco',
-            'launches_joint_embed', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
-            'library_ms')
+            'launches_joint_embed', 'launches_pod', 'launches_tp', 'launches_diffusion',
+            'launches_metrics', 'launches_rope', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+            'bound_by', 'library_ms')
     print(card())
     print(json.dumps({'kernels': [{k: kern[k] for k in keys} for kern in kernels.values()]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
