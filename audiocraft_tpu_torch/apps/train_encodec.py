@@ -22,11 +22,13 @@ optimizer moments, the discriminator and its optimizer, the balancer's
 state, the weight EMA, the step and the generators) to ``--run-dir`` every N
 steps and at the end (``ckpt/train_state.py``); ``--resume`` continues from
 it (the synthetic batches are seeded by the step, so a resumed run trains on
-the batches the whole run would have).  The JAX package keeps that state
-beside its model checkpoint in ``--ckpt``; here the exported model
-checkpoint (``--ckpt``) and DATA_DIR wait for ``ckpt/io.py`` and
-``data/audio_dataset.py`` (ROADMAP Queue 1, item 5) and raise.  ``--synthetic`` (the default without DATA_DIR) trains on
-seeded noise.  ``--debug`` is the debug codec (and a 2-scale discriminator
+the batches the whole run would have).  ``--ckpt DIR`` exports the codec at
+the end as a checkpoint directory (``ckpt/io.py``; the weight EMA with
+``--ema-decay``), the ``compression/`` half of what
+``ckpt/loaders.get_pretrained`` serves.  The JAX package keeps the run's
+state beside its model checkpoint in ``--ckpt``; here it goes to
+``--run-dir``.  DATA_DIR waits for ``data/audio_dataset.py`` and raises.
+``--synthetic`` (the default without DATA_DIR) trains on seeded noise.  ``--debug`` is the debug codec (and a 2-scale discriminator
 of 4 filters); without it, the 32 kHz codec and the EnCodec discriminator.
 """
 
@@ -77,18 +79,16 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if (args.save_every or args.resume) and not args.run_dir:
         parser.error('--save-every/--resume require --run-dir')
-    waiting = {'DATA_DIR': (args.data and not args.synthetic, 'data/audio_dataset.py'),
-               '--ckpt': (args.ckpt, 'ckpt/io.py')}
-    for flag, (given, module) in waiting.items():
-        if given:
-            raise NotImplementedError(f"{flag} waits for {module}, which is not ported yet "
-                                      f"(ROADMAP Queue 1, item 5)")
+    if args.data and not args.synthetic:
+        raise NotImplementedError("DATA_DIR waits for data/audio_dataset.py, which is not "
+                                  "ported yet")
 
     import numpy as np
     import torch
 
     from ..adversarial import MultiScaleSTFTDiscriminator
     from ..builders import get_debug_compression_model, get_encodec_32khz, resolve_device
+    from ..ckpt.io import save_checkpoint
     from ..ckpt.train_state import has_train_state, load_train_state, save_train_state
     from ..dist.mesh import in_torchrun, make_data_group, rank, shard_batch
     from ..dist.train import GAN_WEIGHTS, make_encodec_gan_train_step, make_encodec_train_step
@@ -163,6 +163,14 @@ def main(argv=None):
             save_train_state(args.run_dir, run, step + 1)
     if args.save_every and rank(group) == 0:
         save_train_state(args.run_dir, run, args.steps)
+    if args.ckpt and rank(group) == 0:
+        if wema:
+            with torch.no_grad():
+                for p, w in zip(params, wema):
+                    p.copy_(w)
+        save_checkpoint(args.ckpt, model,
+                        extra={'steps': args.steps, 'weights': 'ema' if wema else 'raw'})
+        print(f"saved checkpoint to {args.ckpt}")
 
 
 if __name__ == '__main__':

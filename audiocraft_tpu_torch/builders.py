@@ -34,7 +34,7 @@ from .cond.style_cond import StyleConditioner
 from .lm.flow_matching import FlowMatchingModel
 from .lm.magnet import MagnetLMModel
 from .lm.model import LMModel
-from .patterns import DelayedPatternProvider
+from .patterns import DelayedPatternProvider, ParallelPatternProvider
 from .nn.demucs import HTDemucs, HTDemucsConfig
 from .nn.seanet import SEANetDecoder, SEANetEncoder
 from .quant.vq import ResidualVectorQuantizer
@@ -179,8 +179,9 @@ def get_musicgen_lm(size: str = 'small', n_q: int = 4, card: int = 2048, *,
     lm = LMModel(
         fuser, n_q=n_q, card=card, hidden_scale=4, norm_first=True, bias_proj=False,
         bias_ff=False, bias_attn=False, cross_attention=True, causal=True, activation='gelu',
-        weight_init='gaussian', attn_kernel='auto',
-        pattern_provider=DelayedPatternProvider(n_q), generator=gen, **shape)
+        weight_init='gaussian', depthwise_init='current', zero_bias_init=True,
+        attn_kernel='auto', pattern_provider=DelayedPatternProvider(n_q), generator=gen,
+        **shape)
     return _finish(lm, device), _finish(provider, device)
 
 
@@ -241,7 +242,8 @@ def get_magnet_lm(size: str = 'small', n_q: int = 4, card: int = 2048,
     lm = MagnetLMModel(
         fuser, n_q=n_q, card=card, hidden_scale=4, norm_first=True, bias_proj=False,
         bias_ff=False, bias_attn=False, cross_attention=True, causal=False,
-        activation='gelu', weight_init='gaussian',
+        activation='gelu', weight_init='gaussian', depthwise_init='current',
+        zero_bias_init=True, pattern_provider=ParallelPatternProvider(n_q),
         attn_kernel='auto', subcodes_context=5, span_len=3, compression_model_framerate=50,
         segment_duration=segment_duration, generator=gen, **shape)
     return _finish(lm, device), _finish(provider, device)

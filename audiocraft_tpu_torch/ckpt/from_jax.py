@@ -267,8 +267,9 @@ def conditioners_state_from_jax(provider: ConditioningProvider,
                 sd[f'{base}.embed.{i}.weight'] = p['embed'][i]
             _transformer(sd, f'{base}.transformer', p['transformer'],
                          len(cond.transformer.layers))
-            sd[f'{base}.batch_norm.running_mean'] = p['bn']['mean']
-            sd[f'{base}.batch_norm.running_var'] = p['bn']['var']
+            if cond.batch_norm is not None:
+                sd[f'{base}.batch_norm.running_mean'] = p['bn']['mean']
+                sd[f'{base}.batch_norm.running_var'] = p['bn']['var']
             _rvq(sd, f'{base}.rvq', p['rvq'], cond.rvq.n_q)
         out.update(_tensors(sd))
         if isinstance(cond, T5Conditioner):

@@ -24,6 +24,7 @@ import typing as tp
 import numpy as np
 import torch
 
+from ..ckpt.torch_import import as_array, get_conv_weight, import_lstm
 from ..nn.conv import StreamableConv1d, StreamableConvTranspose1d
 from ..nn.lstm import StreamableLSTM
 from ..nn.seanet import SEANetDecoder, SEANetEncoder, SEANetResnetBlock
@@ -33,44 +34,15 @@ from .encodec import EncodecModel
 StateDict = tp.Mapping[str, tp.Any]
 
 
-def _array(v: tp.Any) -> np.ndarray:
-    if isinstance(v, torch.Tensor):
-        v = v.detach().cpu().numpy()
-    return np.asarray(v, dtype=np.float32)
-
-
-def get_conv_weight(sd: StateDict, prefix: str) -> np.ndarray:
-    """The conv weight at ``prefix`` (e.g. ``'encoder.layers.0.conv'``), with
-    weight norm folded: ``g * v / |v|``, the norm over all axes but the
-    first, for either of torch's weight-norm layouts."""
-    if f'{prefix}.weight' in sd:
-        return _array(sd[f'{prefix}.weight'])
-    for g_key, v_key in ((f'{prefix}.weight_g', f'{prefix}.weight_v'),
-                         (f'{prefix}.parametrizations.weight.original0',
-                          f'{prefix}.parametrizations.weight.original1')):
-        if g_key in sd:
-            g, v = _array(sd[g_key]), _array(sd[v_key])
-            norm = np.sqrt(np.sum(np.square(v), axis=tuple(range(1, v.ndim)), keepdims=True))
-            return g * v / norm
-    raise KeyError(f'no conv weight found under {prefix}')
-
-
-def import_lstm(sd: StateDict, prefix: str, num_layers: int) -> tp.Dict[str, np.ndarray]:
-    """The ``lstm.*_l{k}`` tensors under ``prefix``, at the same names."""
-    return {f'lstm.{name}_l{k}': _array(sd[f'{prefix}.lstm.{name}_l{k}'])
-            for k in range(num_layers)
-            for name in ('weight_ih', 'weight_hh', 'bias_ih', 'bias_hh')}
-
-
 def _hf_conv(sd: StateDict, prefix: str, ours: str, norm: bool) -> tp.Dict[str, np.ndarray]:
     """An HF conv at ``prefix`` (one ``.conv`` level) at the port's ``ours``
     (``conv.conv`` or ``convtr.convtr``), with its GroupNorm when ``norm``."""
     out = {f'{ours}.weight': get_conv_weight(sd, f'{prefix}.conv')}
     if f'{prefix}.conv.bias' in sd:
-        out[f'{ours}.bias'] = _array(sd[f'{prefix}.conv.bias'])
+        out[f'{ours}.bias'] = as_array(sd[f'{prefix}.conv.bias'])
     if norm:
-        out['conv.norm.weight'] = _array(sd[f'{prefix}.norm.weight'])
-        out['conv.norm.bias'] = _array(sd[f'{prefix}.norm.bias'])
+        out['conv.norm.weight'] = as_array(sd[f'{prefix}.norm.weight'])
+        out['conv.norm.bias'] = as_array(sd[f'{prefix}.norm.bias'])
     return out
 
 
@@ -112,9 +84,9 @@ def import_hf_rvq(sd: StateDict, n_q: int, prefix: str = 'quantizer'
     for q in range(n_q):
         theirs, ours = f'{prefix}.layers.{q}.codebook', f'quantizer.vq.layers.{q}._codebook'
         for name in ('embed', 'cluster_size', 'embed_avg'):
-            out[f'{ours}.{name}'] = _array(sd[f'{theirs}.{name}'])
+            out[f'{ours}.{name}'] = as_array(sd[f'{theirs}.{name}'])
         inited = f'{theirs}.inited'
-        out[f'{ours}.inited'] = (_array(sd[inited]).reshape(1) if inited in sd
+        out[f'{ours}.inited'] = (as_array(sd[inited]).reshape(1) if inited in sd
                                  else np.ones(1, np.float32))
     return out
 

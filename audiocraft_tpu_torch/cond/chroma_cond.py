@@ -39,6 +39,7 @@ class ChromaConditioner(torch.nn.Module):
         super().__init__()
         self.output_dim, self.sample_rate, self.n_chroma = output_dim, sample_rate, n_chroma
         self.duration, self.match_len_on_eval = duration, match_len_on_eval
+        self.radix2_exp, self.argmax = radix2_exp, argmax
         self.chroma = ChromaExtractor(sample_rate=sample_rate, n_chroma=n_chroma,
                                       radix2_exp=radix2_exp, argmax=argmax)
         bound = 1.0 / math.sqrt(n_chroma)

@@ -68,13 +68,21 @@ class LUTConditioner(torch.nn.Module):
 
 class T5Conditioner(torch.nn.Module):
     """T5-encoder text conditioner.  ``tokenize`` needs an HF-style tokenizer
-    (a callable returning ``input_ids`` and ``attention_mask`` arrays)."""
+    (a callable returning ``input_ids`` and ``attention_mask`` arrays).
+    ``config`` (None: the architecture of ``name``) is the encoder's shape;
+    ``finetune`` and ``word_dropout``, which the JAX package reads nowhere,
+    are kept for the checkpoint config only."""
+
+    MODELS_DIMS = {"t5-small": 512, "t5-base": 768, "t5-large": 1024, "t5-3b": 1024,
+                   "t5-11b": 1024, "google/flan-t5-small": 512, "google/flan-t5-base": 768,
+                   "google/flan-t5-large": 1024}
 
     def __init__(self, name: str = 't5-base', output_dim: int = 512,
-                 config: tp.Optional[T5EncoderConfig] = None,
-                 generator: tp.Optional[torch.Generator] = None):
+                 config: tp.Optional[T5EncoderConfig] = None, finetune: bool = False,
+                 word_dropout: float = 0.0, generator: tp.Optional[torch.Generator] = None):
         super().__init__()
-        self.name = name
+        self.name, self.config = name, config
+        self.finetune, self.word_dropout = finetune, word_dropout
         self.t5_config = config or T5EncoderConfig.for_name(name)
         self.dim = self.t5_config.d_model
         self.output_dim = output_dim
@@ -119,9 +127,12 @@ def collate_wav_conditions(conds: tp.Sequence[WavCondition]) -> WavCondition:
 
 
 class ConditioningProvider(torch.nn.Module):
-    """Named conditioners with collated tokenize and forward phases."""
+    """Named conditioners with collated tokenize and forward phases;
+    ``conditioners`` is a mapping or, as the JAX package keeps it, a
+    sequence of (name, conditioner) pairs."""
 
-    def __init__(self, conditioners: tp.Mapping[str, torch.nn.Module]):
+    def __init__(self, conditioners: tp.Union[tp.Mapping[str, torch.nn.Module],
+                                              tp.Sequence[tp.Tuple[str, torch.nn.Module]]]):
         super().__init__()
         self.conditioners = torch.nn.ModuleDict(conditioners)
 

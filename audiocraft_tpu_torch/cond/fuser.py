@@ -22,9 +22,13 @@ FUSING_METHODS = ("sum", "prepend", "cross", "ignore", "input_interpolate")
 
 class ConditionFuser:
 
-    def __init__(self, fuse2cond: tp.Mapping[str, tp.Sequence[str]],
+    def __init__(self, fuse2cond: tp.Union[tp.Mapping[str, tp.Sequence[str]],
+                                           tp.Sequence[tp.Tuple[str, tp.Sequence[str]]]],
                  cross_attention_pos_emb: bool = False,
                  cross_attention_pos_emb_scale: float = 1.0):
+        """``fuse2cond``: {method: condition names}, or the JAX package's
+        ((method, names), ...) pairs."""
+        fuse2cond = dict(fuse2cond)
         unknown = set(fuse2cond) - set(FUSING_METHODS)
         if unknown:
             raise ValueError(f"unknown fusing methods {sorted(unknown)}")

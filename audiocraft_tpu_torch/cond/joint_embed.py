@@ -48,9 +48,12 @@ class JointEmbeddingConditioner(torch.nn.Module):
     def __init__(self, dim: int, output_dim: int, quantize: bool = True, n_q: int = 12, bins: int = 1024, text_p: float = 0.0,
                  embed_fn: tp.Optional[EmbedFn] = None,
                  text_embed_fn: tp.Optional[EmbedFn] = None,
+                 attribute: str = 'description',
                  generator: tp.Optional[torch.Generator] = None):
         super().__init__()
         self.dim, self.output_dim = dim, output_dim
+        # ``attribute`` names the condition; the JAX package reads it nowhere
+        self.attribute, self.quantize, self.n_q, self.bins = attribute, quantize, n_q, bins
         self.text_p, self.embed_fn, self.text_embed_fn = text_p, embed_fn, text_embed_fn
         bound = 1.0 / math.sqrt(dim)
         self.output_proj = init.linear(dim, output_dim, True, bound, generator, bias_bound=bound)

@@ -76,7 +76,9 @@ class StyleConditioner(torch.nn.Module):
                  transformer_scale: str = 'default', ds_factor: int = 15, n_q_out: int = 6,
                  eval_q: int = 3, bins: int = 1024, use_middle_of_segment: bool = False,
                  ds_rate_compression: int = 640, num_codebooks_lm: int = 4,
-                 generator: tp.Optional[torch.Generator] = None):
+                 q_dropout: bool = True, varying_lengths: tp.Sequence[float] = (1.5, 4.5),
+                 batch_norm: bool = True, rvq_threshold_ema_dead_code: float = 0.1,
+                 compute_mask: bool = True, generator: tp.Optional[torch.Generator] = None):
         super().__init__()
         # hidden from the state dict, as the reference hides it
         self.__dict__['feat_extractor'] = feat_extractor
@@ -85,6 +87,11 @@ class StyleConditioner(torch.nn.Module):
         self.n_q_out, self.eval_q = n_q_out, eval_q
         self.use_middle_of_segment = use_middle_of_segment
         self.ds_rate_compression, self.num_codebooks_lm = ds_rate_compression, num_codebooks_lm
+        self.transformer_scale, self.bins = transformer_scale, bins
+        # read by the JAX package's training only, or nowhere: kept for the config
+        self.q_dropout, self.varying_lengths = q_dropout, tuple(varying_lengths)
+        self.compute_mask = compute_mask
+        self.rvq_threshold_ema_dead_code = rvq_threshold_ema_dead_code
         args = _TRANSFORMER_SCALES[transformer_scale]
         self.dim = dim = args['d_model']
         self.embed = torch.nn.ModuleList(
@@ -94,11 +101,13 @@ class StyleConditioner(torch.nn.Module):
         self.transformer = StreamingTransformer(
             dim_feedforward=4 * dim, causal=False, norm_first=True, bias_ff=False,
             bias_attn=False, activation='gelu', generator=generator, **args)
-        self.batch_norm = _EvalBatchNorm(dim)
+        self.batch_norm = _EvalBatchNorm(dim) if batch_norm else None
         # kmeans_init=False, as the JAX package's: a fresh bottleneck starts
         # from the uniform init
         self.rvq = ResidualVectorQuantizer(dimension=dim, n_q=n_q_out, bins=bins,
-                                           generator=generator, kmeans_init=False)
+                                           generator=generator, kmeans_init=False,
+                                           q_dropout=q_dropout,
+                                           threshold_ema_dead_code=rvq_threshold_ema_dead_code)
         self.output_proj = init.linear(dim, output_dim, True, 1.0 / math.sqrt(dim), generator)
 
     @property
@@ -166,8 +175,9 @@ class StyleConditioner(torch.nn.Module):
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens [B, encodec_n_q, T'] -> the bottleneck's input [B, T', dim]:
         the embeddings summed, the transformer, the batch norm."""
-        z = sum(self.embed[q](tokens[:, q].long()) for q in range(tokens.shape[1]))
-        return self.batch_norm(self.transformer(z))
+        z = self.transformer(sum(self.embed[q](tokens[:, q].long())
+                                 for q in range(tokens.shape[1])))
+        return z if self.batch_norm is None else self.batch_norm(z)
 
     def bottleneck(self, z: torch.Tensor) -> tp.Tuple[torch.Tensor, torch.Tensor]:
         """z [B, T', dim] -> (the RVQ's sum of ``eval_q`` codebook vectors

@@ -29,8 +29,13 @@ projections may hold the int8 or int4 weights of ``lm/quantize.py``.
 ``positional_embedding`` ('sin', 'rope', 'sin_rope') and ``kv_repeat`` go
 to the transformer (``nn/transformer.py``); the caches then hold the kv
 heads only.  :func:`dist.mesh.shard_lm` splits a model over a tensor-parallel
-group.  Not ported: the 'uniform' weight init and the depthwise init
-scaling.
+group.
+
+The configuration is kept on the module under the JAX fields' names, for
+``ckpt/io.py``.  ``depthwise_init`` and ``zero_bias_init`` (which JAX's
+init reads nowhere), ``scan_layers`` (a JAX compile setting) and
+``two_step_cfg`` (the facade's ``two_step_cfg`` picks the CFG form) are
+kept for the config and change nothing here.
 """
 
 from __future__ import annotations
@@ -125,19 +130,37 @@ class LMModel(torch.nn.Module):
                  attn_kernel: tp.Union[bool, str] = False,
                  pattern_provider: tp.Optional[CodebooksPatternProvider] = None,
                  cfg_coef: float = 3.0, checkpointing: bool = False,
+                 two_step_cfg: bool = False, depthwise_init: tp.Optional[str] = None,
+                 zero_bias_init: bool = False, scan_layers: bool = False,
                  generator: tp.Optional[torch.Generator] = None):
         super().__init__()
-        if weight_init not in (None, 'gaussian'):
-            raise ValueError(f"weight_init {weight_init!r}: None or 'gaussian'")
+        if weight_init not in (None, 'gaussian', 'uniform'):
+            raise ValueError(f"weight_init {weight_init!r}: None, 'gaussian' or 'uniform'")
         self.fuser = fuser
         self.pattern_provider = pattern_provider
         self.n_q, self.card, self.dim = n_q, card, dim
-        self.cross_attention = cross_attention
-        self.cfg_coef = cfg_coef
+        self.num_heads, self.num_layers, self.hidden_scale = num_heads, num_layers, hidden_scale
+        self.norm_first, self.bias_proj, self.bias_ff, self.bias_attn = (
+            norm_first, bias_proj, bias_ff, bias_attn)
+        self.cross_attention, self.causal, self.past_context = cross_attention, causal, past_context
+        self.positional_embedding, self.layer_scale = positional_embedding, layer_scale
+        self.qk_layer_norm, self.qk_layer_norm_cross = qk_layer_norm, qk_layer_norm_cross
+        self.kv_repeat, self.activation, self.attn_kernel = kv_repeat, activation, attn_kernel
+        self.cfg_coef, self.checkpointing, self.two_step_cfg = cfg_coef, checkpointing, two_step_cfg
+        self.weight_init, self.depthwise_init = weight_init, depthwise_init
+        self.zero_bias_init, self.scan_layers = zero_bias_init, scan_layers
         std = 1.0 / math.sqrt(dim)
-        emb = [init.normal((card + 1, dim), std, generator, truncate=3.0)
-               if weight_init == 'gaussian' else init.normal((card + 1, dim), 1.0, generator)
-               for _ in range(n_q)]
+        bound = math.sqrt(3.0) * std    # 'uniform': the std of the gaussian init
+
+        def table(rows: int, gaussian: bool) -> torch.nn.Parameter:
+            """[rows, dim]: uniform, truncated gaussian of ``std``, or N(0, 1)."""
+            if weight_init == 'uniform':
+                return init.uniform((rows, dim), bound, generator)
+            if gaussian:
+                return init.normal((rows, dim), std, generator, truncate=3.0)
+            return init.normal((rows, dim), 1.0, generator)
+
+        emb = [table(card + 1, weight_init == 'gaussian') for _ in range(n_q)]
         self.emb = torch.nn.ModuleList(init.embedding(card + 1, dim, w) for w in emb)
         self.transformer = StreamingTransformer(
             d_model=dim, num_heads=num_heads, num_layers=num_layers,
@@ -151,7 +174,7 @@ class LMModel(torch.nn.Module):
         linears = []
         for _ in range(n_q):
             layer = torch.nn.Linear(dim, card, bias=bias_proj, device='meta')
-            layer.weight = init.normal((card, dim), std, generator, truncate=3.0)
+            layer.weight = table(card, True)
             if bias_proj:
                 layer.bias = init.constant((card,), 0.0)
             linears.append(layer)

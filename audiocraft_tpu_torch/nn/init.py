@@ -4,16 +4,41 @@ Every draw is made on the CPU from a ``torch.Generator``; ``generator=None``
 draws from a fresh generator seeded with 0, never from torch's global one.
 Builders pass one generator through the whole model, so a seed fixes every
 weight on every device.
+
+Under :func:`allocate_only` the functions draw nothing and allocate on the
+given device: for a module whose every weight is loaded next (a checkpoint
+directory), built where it will run.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import typing as tp
 
 import torch
 
 Generator = tp.Optional[torch.Generator]
+
+
+_ALLOCATE_ON: tp.Optional[torch.device] = None
+
+
+@contextlib.contextmanager
+def allocate_only(device: tp.Union[str, torch.device]) -> tp.Iterator[None]:
+    """Inside, :func:`uniform`, :func:`normal` and :func:`constant` return
+    uninitialised parameters on ``device`` and draw nothing."""
+    global _ALLOCATE_ON
+    saved, _ALLOCATE_ON = _ALLOCATE_ON, torch.device(device)
+    try:
+        yield
+    finally:
+        _ALLOCATE_ON = saved
+
+
+def _empty(shape: tp.Sequence[int]) -> tp.Optional[torch.nn.Parameter]:
+    return None if _ALLOCATE_ON is None else _param(torch.empty(tuple(shape),
+                                                                device=_ALLOCATE_ON))
 
 
 def _gen(generator: Generator) -> torch.Generator:
@@ -26,6 +51,9 @@ def _param(data: torch.Tensor) -> torch.nn.Parameter:
 
 def uniform(shape: tp.Sequence[int], bound: float, generator: Generator) -> torch.nn.Parameter:
     """fp32 parameter drawn uniformly from [-bound, bound)."""
+    empty = _empty(shape)
+    if empty is not None:
+        return empty
     data = torch.rand(tuple(shape), generator=_gen(generator)) * (2 * bound) - bound
     return _param(data)
 
@@ -34,6 +62,9 @@ def normal(shape: tp.Sequence[int], std: float, generator: Generator,
            truncate: tp.Optional[float] = None) -> torch.nn.Parameter:
     """fp32 parameter ``std * N(0, 1)``, optionally truncated to
     [-truncate, truncate] standard deviations before the scaling."""
+    empty = _empty(shape)
+    if empty is not None:
+        return empty
     if truncate is None:
         data = torch.randn(tuple(shape), generator=_gen(generator))
     else:  # inverse CDF of the truncated normal
@@ -44,7 +75,7 @@ def normal(shape: tp.Sequence[int], std: float, generator: Generator,
 
 
 def constant(shape: tp.Sequence[int], value: float) -> torch.nn.Parameter:
-    return _param(torch.full(tuple(shape), float(value)))
+    return _param(torch.full(tuple(shape), float(value), device=_ALLOCATE_ON))
 
 
 def linear(in_features: int, out_features: int, bias: bool, bound: float,

@@ -67,6 +67,12 @@ def corruption_radius(layers: tp.Sequence[torch.nn.Module], lo: int,
     return c_l, c_r
 
 
+def _check_outer_blocks(n: int, n_blocks: int) -> int:
+    if not 0 <= n <= n_blocks:
+        raise ValueError(f"disable_norm_outer_blocks={n} is outside [0, {n_blocks}]")
+    return n
+
+
 def _run(layers: tp.Iterable[torch.nn.Module], x: torch.Tensor,
          lstm_kernel: bool) -> torch.Tensor:
     """``layers`` in order, the LSTM on the route ``lstm_kernel`` picks."""
@@ -114,8 +120,13 @@ class SEANetEncoder(torch.nn.Module):
     an activation and a strided conv that doubles the channels, then the
     optional LSTM, an activation and the final conv to ``dimension``.
 
-    The configuration is kept on the module: ``ops/seanet.encoder_stage_plan``
-    reads it to decide which stages the fused kernel takes."""
+    ``disable_norm_outer_blocks`` drops the norm of the first blocks, the
+    input conv counting as block 1 and each ratio's stage as one more, up to
+    ``n_blocks`` (``len(ratios) + 2``), which drops the final conv's too.
+
+    The configuration is kept on the module, under the constructor's names:
+    ``ops/seanet.encoder_stage_plan`` reads it to decide which stages the
+    fused kernel takes, and ``ckpt/io.py`` writes it out."""
 
     def __init__(self, channels: int = 1, dimension: int = 128, n_filters: int = 32,
                  n_residual_layers: int = 3, ratios: tp.Sequence[int] = (8, 5, 4, 2),
@@ -123,38 +134,52 @@ class SEANetEncoder(torch.nn.Module):
                  norm: str = 'none', kernel_size: int = 7, last_kernel_size: int = 7,
                  residual_kernel_size: int = 3, dilation_base: int = 2,
                  causal: bool = False, pad_mode: str = 'reflect', true_skip: bool = True,
-                 compress: int = 2, lstm: int = 0,
+                 compress: int = 2, lstm: int = 0, disable_norm_outer_blocks: int = 0,
                  generator: tp.Optional[torch.Generator] = None):
         super().__init__()
         self.ratios = tuple(ratios)
         self.hop_length = int(np.prod(self.ratios))
-        self.channels, self.n_filters, self.kernel_size = channels, n_filters, kernel_size
+        self.channels, self.dimension, self.n_filters = channels, dimension, n_filters
+        self.kernel_size, self.last_kernel_size = kernel_size, last_kernel_size
         self.n_residual_layers, self.norm = n_residual_layers, norm
         self.activation, self.activation_alpha = activation, activation_alpha
         self.residual_kernel_size, self.dilation_base = residual_kernel_size, dilation_base
         self.causal, self.pad_mode = causal, pad_mode
-        self.true_skip, self.compress = true_skip, compress
-        conv = dict(causal=causal, pad_mode=pad_mode, norm=norm, generator=generator)
+        self.true_skip, self.compress, self.lstm = true_skip, compress, lstm
+        self.disable_norm_outer_blocks = _check_outer_blocks(disable_norm_outer_blocks,
+                                                             self.n_blocks)
+        conv = dict(causal=causal, pad_mode=pad_mode, generator=generator)
         act = dict(activation=activation, activation_alpha=activation_alpha)
         mult = 1
-        layers: tp.List[torch.nn.Module] = [
-            StreamableConv1d(channels, n_filters, kernel_size, **conv)]
-        for ratio in reversed(self.ratios):
+        layers: tp.List[torch.nn.Module] = [StreamableConv1d(
+            channels, n_filters, kernel_size, norm=self._block_norm(1), **conv)]
+        for i, ratio in enumerate(reversed(self.ratios)):
+            block_norm = self._block_norm(i + 2)
             for j in range(n_residual_layers):
                 layers.append(SEANetResnetBlock(
                     mult * n_filters, kernel_sizes=(residual_kernel_size, 1),
                     dilations=(dilation_base ** j, 1), compress=compress,
-                    true_skip=true_skip, **act, **conv))
+                    true_skip=true_skip, norm=block_norm, **act, **conv))
             layers.append(Activation(activation, activation_alpha))
             layers.append(StreamableConv1d(mult * n_filters, mult * n_filters * 2,
-                                           kernel_size=ratio * 2, stride=ratio, **conv))
+                                           kernel_size=ratio * 2, stride=ratio,
+                                           norm=block_norm, **conv))
             mult *= 2
         if lstm:
             layers.append(StreamableLSTM(mult * n_filters, num_layers=lstm,
                                          generator=generator))
         layers.append(Activation(activation, activation_alpha))
-        layers.append(StreamableConv1d(mult * n_filters, dimension, last_kernel_size, **conv))
+        layers.append(StreamableConv1d(mult * n_filters, dimension, last_kernel_size,
+                                       norm=self._block_norm(self.n_blocks), **conv))
         self.model = torch.nn.ModuleList(layers)
+
+    @property
+    def n_blocks(self) -> int:
+        return len(self.ratios) + 2
+
+    def _block_norm(self, block: int) -> str:
+        """The norm of block ``block`` (1-based, from the input)."""
+        return 'none' if self.disable_norm_outer_blocks >= block else self.norm
 
     @property
     def enc_ratios(self) -> tp.Tuple[int, ...]:
@@ -233,7 +258,9 @@ class SEANetDecoder(torch.nn.Module):
     activation, a transposed conv that halves the channels and residual
     blocks, then an activation and the final conv to ``channels``, and the
     optional ``final_activation`` (a name of ``nn/activations``, e.g.
-    ``'Tanh'``) as the last layer."""
+    ``'Tanh'``) as the last layer.  ``disable_norm_outer_blocks`` counts
+    blocks from the output: the final conv is block 1, the input conv block
+    ``n_blocks``."""
 
     def __init__(self, channels: int = 1, dimension: int = 128, n_filters: int = 32,
                  n_residual_layers: int = 3, ratios: tp.Sequence[int] = (8, 5, 4, 2),
@@ -243,36 +270,57 @@ class SEANetDecoder(torch.nn.Module):
                  causal: bool = False, pad_mode: str = 'reflect', true_skip: bool = True,
                  compress: int = 2, lstm: int = 0, trim_right_ratio: float = 1.0,
                  final_activation: tp.Optional[str] = None,
+                 disable_norm_outer_blocks: int = 0,
                  generator: tp.Optional[torch.Generator] = None):
         super().__init__()
         self.ratios = tuple(ratios)
         self.hop_length = int(np.prod(self.ratios))
-        self.final_activation = final_activation
-        conv = dict(causal=causal, norm=norm, generator=generator)
+        self.channels, self.dimension, self.n_filters = channels, dimension, n_filters
+        self.kernel_size, self.last_kernel_size = kernel_size, last_kernel_size
+        self.n_residual_layers, self.norm = n_residual_layers, norm
+        self.activation, self.activation_alpha = activation, activation_alpha
+        self.residual_kernel_size, self.dilation_base = residual_kernel_size, dilation_base
+        self.causal, self.pad_mode = causal, pad_mode
+        self.true_skip, self.compress, self.lstm = true_skip, compress, lstm
+        self.trim_right_ratio, self.final_activation = trim_right_ratio, final_activation
+        self.disable_norm_outer_blocks = _check_outer_blocks(disable_norm_outer_blocks,
+                                                             self.n_blocks)
+        n_blocks = self.n_blocks
+        conv = dict(causal=causal, generator=generator)
         act = dict(activation=activation, activation_alpha=activation_alpha)
         mult = int(2 ** len(self.ratios))
         layers: tp.List[torch.nn.Module] = [StreamableConv1d(
-            dimension, mult * n_filters, kernel_size, pad_mode=pad_mode, **conv)]
+            dimension, mult * n_filters, kernel_size, pad_mode=pad_mode,
+            norm=self._block_norm(n_blocks), **conv)]
         if lstm:
             layers.append(StreamableLSTM(mult * n_filters, num_layers=lstm,
                                          generator=generator))
-        for ratio in self.ratios:
+        for i, ratio in enumerate(self.ratios):
+            block_norm = self._block_norm(n_blocks - (i + 1))
             layers.append(Activation(activation, activation_alpha))
             layers.append(StreamableConvTranspose1d(
                 mult * n_filters, mult * n_filters // 2, kernel_size=ratio * 2,
-                stride=ratio, trim_right_ratio=trim_right_ratio, **conv))
+                stride=ratio, trim_right_ratio=trim_right_ratio, norm=block_norm, **conv))
             for j in range(n_residual_layers):
                 layers.append(SEANetResnetBlock(
                     mult * n_filters // 2, kernel_sizes=(residual_kernel_size, 1),
                     dilations=(dilation_base ** j, 1), compress=compress,
-                    true_skip=true_skip, pad_mode=pad_mode, **act, **conv))
+                    true_skip=true_skip, pad_mode=pad_mode, norm=block_norm, **act, **conv))
             mult //= 2
         layers.append(Activation(activation, activation_alpha))
         layers.append(StreamableConv1d(n_filters, channels, last_kernel_size,
-                                       pad_mode=pad_mode, **conv))
+                                       pad_mode=pad_mode, norm=self._block_norm(1), **conv))
         if final_activation is not None:
             layers.append(Activation(final_activation))
         self.model = torch.nn.ModuleList(layers)
+
+    @property
+    def n_blocks(self) -> int:
+        return len(self.ratios) + 2
+
+    def _block_norm(self, block: int) -> str:
+        """The norm of block ``block`` (1-based, from the output)."""
+        return 'none' if self.disable_norm_outer_blocks >= block else self.norm
 
     @property
     def split_index(self) -> int:

@@ -73,19 +73,31 @@ class ResidualVectorQuantizer(torch.nn.Module):
     """Codes layout ``[B, K, T]``, latents ``[B, D, T]``.  The training
     fields are those of the JAX package that its training forward reads
     (reference vq.py:35-48): ``decay``, ``kmeans_init``, ``kmeans_iters`` and
-    ``threshold_ema_dead_code``.  JAX's ``q_dropout`` and
-    ``commitment_weight`` fields are read by nothing there: quantizer
-    dropout is the caller's ``n_q_active`` (:meth:`sample_n_q_active`) and
-    the penalty's weight the train steps' ``commit_weight``."""
+    ``threshold_ema_dead_code``.  JAX's ``q_dropout``, ``commitment_weight``
+    and ``orthogonal_reg_active_codes_only`` fields are read by nothing
+    there and are kept only for the checkpoint config: quantizer dropout is
+    the caller's ``n_q_active`` (:meth:`sample_n_q_active`) and the
+    penalty's weight the train steps' ``commit_weight``.  Neither package has
+    the orthogonal regularisation loss, so ``orthogonal_reg_weight > 0`` is
+    refused."""
 
     def __init__(self, dimension: int = 256, n_q: int = 8, bins: int = 1024,
                  generator: tp.Optional[torch.Generator] = None, decay: float = 0.99,
                  kmeans_init: bool = True, kmeans_iters: int = 10,
-                 threshold_ema_dead_code: float = 2.0):
+                 threshold_ema_dead_code: float = 2.0, q_dropout: bool = False,
+                 orthogonal_reg_weight: float = 0.0,
+                 orthogonal_reg_active_codes_only: bool = False,
+                 commitment_weight: float = 1.0):
         super().__init__()
+        if orthogonal_reg_weight > 0:
+            raise ValueError(f"orthogonal_reg_weight={orthogonal_reg_weight}: the orthogonal "
+                             "regularisation loss is not implemented")
         self.dimension, self.n_q, self.max_n_q, self.bins = dimension, n_q, n_q, bins
         self.decay, self.kmeans_init, self.kmeans_iters = decay, kmeans_init, kmeans_iters
         self.threshold_ema_dead_code = threshold_ema_dead_code
+        self.q_dropout, self.commitment_weight = q_dropout, commitment_weight
+        self.orthogonal_reg_weight = orthogonal_reg_weight
+        self.orthogonal_reg_active_codes_only = orthogonal_reg_active_codes_only
         codebook = dict(kmeans_init=kmeans_init, kmeans_iters=kmeans_iters, decay=decay,
                         threshold_ema_dead_code=threshold_ema_dead_code)
         self.vq = ResidualVectorQuantization(

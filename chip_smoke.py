@@ -4146,6 +4146,408 @@ def phase_pod_tp_diffusion(device) -> tp.Dict[str, tp.Dict[str, int]]:
     return launches
 
 
+# ------------------------------------------------- phase 17: checkpoints
+
+CKPT_ENCODE, CKPT_GEN, CKPT_HF_STEPS, CKPT_HF_GEN = (4, 10), (2, 10), 50, (2, 5)
+
+
+def encodec_32khz_xp_cfg() -> dict:
+    """The ``xp.cfg`` of a facebook/encodec_32khz export, as a plain dict
+    (reference builders.py:56-91 schema, the published values)."""
+    return {
+        'compression_model': 'encodec', 'device': 'cuda', 'dtype': 'float32',
+        'encodec': {'autoencoder': 'seanet', 'quantizer': 'rvq', 'sample_rate': 32000,
+                    'channels': 1, 'causal': False, 'renormalize': False},
+        'seanet': {'dimension': 128, 'channels': 1, 'causal': False, 'n_filters': 64,
+                   'n_residual_layers': 1, 'ratios': [8, 5, 4, 4], 'activation': 'ELU',
+                   'activation_params': {'alpha': 1.0}, 'norm': 'weight_norm',
+                   'norm_params': {}, 'kernel_size': 7, 'residual_kernel_size': 3,
+                   'last_kernel_size': 7, 'dilation_base': 2, 'pad_mode': 'reflect',
+                   'true_skip': True, 'compress': 2, 'lstm': 2, 'disable_norm_outer_blocks': 0,
+                   'encoder': {}, 'decoder': {'trim_right_ratio': 1.0, 'final_activation': None,
+                                              'final_activation_params': None}},
+        'rvq': {'n_q': 4, 'q_dropout': False, 'bins': 2048, 'decay': 0.99, 'kmeans_init': True,
+                'kmeans_iters': 10, 'threshold_ema_dead_code': 2.0,
+                'orthogonal_reg_weight': 0.0, 'orthogonal_reg_active_codes_only': False,
+                'orthogonal_reg_max_codes': None},
+    }
+
+
+def musicgen_small_xp_cfg() -> dict:
+    """The ``xp.cfg`` of a facebook/musicgen-small LM export (reference
+    builders.py:136-254 schema, config/model/lm/musicgen_lm.yaml's fields,
+    the small solver's values)."""
+    return {
+        'lm_model': 'transformer_lm', 'device': 'cuda', 'dtype': 'float16',
+        'transformer_lm': {
+            'dim': 1024, 'num_heads': 16, 'num_layers': 24, 'hidden_scale': 4, 'n_q': 4,
+            'card': 2048, 'dropout': 0.0, 'emb_lr': None, 'activation': 'gelu',
+            'norm_first': True, 'bias_ff': False, 'bias_attn': False, 'bias_proj': False,
+            'past_context': None, 'causal': True, 'custom': False, 'memory_efficient': True,
+            'attention_as_float32': False, 'positional_embedding': 'sin', 'xpos': False,
+            'checkpointing': 'none', 'weight_init': 'gaussian', 'depthwise_init': 'current',
+            'zero_bias_init': True, 'norm': 'layer_norm', 'cross_attention': False,
+            'qk_layer_norm': False, 'qk_layer_norm_cross': False, 'attention_dropout': None,
+            'kv_repeat': 1, 'two_step_cfg': False, 'q_modeling': None},
+        'codebooks_pattern': {'modeling': 'delay', 'delay': {'delays': [0, 1, 2, 3],
+                                                             'flatten_first': 0,
+                                                             'empty_initial': 0}},
+        'conditioners': {'args': {'merge_text_conditions_p': 0.25, 'drop_desc_p': 0.5},
+                         'description': {'model': 't5', 't5': {'name': 't5-base',
+                                                               'finetune': False,
+                                                               'word_dropout': 0.3,
+                                                               'normalize_text': False}}},
+        'fuser': {'cross_attention_pos_emb': False, 'cross_attention_pos_emb_scale': 1.0,
+                  'sum': [], 'prepend': [], 'cross': ['description'], 'input_interpolate': []},
+        'classifier_free_guidance': {'training_dropout': 0.3, 'inference_coef': 3.0},
+        'attribute_dropout': {'args': {'active_on_eval': False}, 'text': {},
+                              'wav': {'self_wav': 1.0}},
+        'dataset': {'segment_duration': 30},
+    }
+
+
+def musicgen_small_hf_config() -> dict:
+    """facebook/musicgen-small's ``config.json`` (MusicgenForConditionalGeneration):
+    the published values of its decoder, its t5-base text encoder and its
+    32 kHz audio encoder."""
+    return {
+        'architectures': ['MusicgenForConditionalGeneration'], 'model_type': 'musicgen',
+        'decoder': {'activation_function': 'gelu', 'audio_channels': 1, 'ffn_dim': 4096,
+                    'hidden_size': 1024, 'num_attention_heads': 16, 'num_codebooks': 4,
+                    'num_hidden_layers': 24, 'vocab_size': 2048, 'max_position_embeddings': 2048,
+                    'model_type': 'musicgen_decoder'},
+        'text_encoder': {'_name_or_path': 't5-base', 'd_ff': 3072, 'd_kv': 64, 'd_model': 768,
+                         'feed_forward_proj': 'relu', 'num_heads': 12, 'num_layers': 12,
+                         'relative_attention_max_distance': 128,
+                         'relative_attention_num_buckets': 32, 'vocab_size': 32128,
+                         'model_type': 't5'},
+        'audio_encoder': {'audio_channels': 1, 'codebook_dim': 128, 'codebook_size': 2048,
+                          'compress': 2, 'dilation_growth_rate': 2, 'hidden_size': 128,
+                          'kernel_size': 7, 'last_kernel_size': 7, 'norm_type': 'weight_norm',
+                          'normalize': False, 'num_filters': 64, 'num_lstm_layers': 2,
+                          'num_residual_layers': 1, 'pad_mode': 'reflect',
+                          'residual_kernel_size': 3, 'sampling_rate': 32000,
+                          'target_bandwidths': [2.2], 'trim_right_ratio': 1.0,
+                          'upsampling_ratios': [8, 5, 4, 4], 'use_causal_conv': False,
+                          'use_conv_shortcut': False, 'model_type': 'encodec'},
+    }
+
+
+def weight_norm_export(state: tp.Mapping[str, torch.Tensor]) -> tp.Dict[str, torch.Tensor]:
+    """A codec state dict with every SEANet conv weight stored as weight
+    norm keeps it (``weight_g``, ``weight_v``), as the published EnCodec
+    exports do: v the weight, g its fp32 norm over all axes but the first."""
+    out = {}
+    for key, w in state.items():
+        w = w.detach().cpu()
+        if key.endswith(('conv.conv.weight', 'convtr.convtr.weight')):
+            base = key[:-len('weight')]
+            v = w.float().numpy()
+            g = np.sqrt(np.sum(np.square(v), axis=tuple(range(1, v.ndim)), keepdims=True))
+            out[base + 'weight_g'], out[base + 'weight_v'] = torch.from_numpy(g), w.float()
+        else:
+            out[key] = w
+    return out
+
+
+def _hf_codec_name(key: str) -> str:
+    for ours, theirs in (('encoder.model.', 'encoder.layers.'), ('decoder.model.', 'decoder.layers.'),
+                         ('.conv.conv.', '.conv.'), ('.convtr.convtr.', '.conv.'),
+                         ('quantizer.vq.layers.', 'quantizer.layers.'),
+                         ('._codebook.', '.codebook.')):
+        key = key.replace(ours, theirs)
+    return key
+
+
+_HF_LAYER_NAMES = (('norm1.', 'self_attn_layer_norm.'), ('norm2.', 'final_layer_norm.'),
+                   ('norm_cross.', 'encoder_attn_layer_norm.'), ('linear1.', 'fc1.'),
+                   ('linear2.', 'fc2.'), ('cross_attention.', 'encoder_attn.'))
+
+
+def hf_snapshot_state(codec, lm, provider) -> tp.Dict[str, torch.Tensor]:
+    """The port's modules under ``MusicgenForConditionalGeneration``'s
+    names: the inverse of ``ckpt/hf_import`` and of the HF codec import
+    (``codec/wrappers.py``), which the package does not ship (the JAX
+    package has no exporter either)."""
+    out: tp.Dict[str, torch.Tensor] = {}
+    dec = 'decoder.model.decoder.'
+    for key, value in lm.state_dict().items():
+        head, _, rest = key.partition('.')
+        if head == 'emb':
+            out[f'{dec}embed_tokens.{rest}'] = value
+        elif head == 'linears':
+            out[f'decoder.lm_heads.{rest}'] = value
+        elif head == 'out_norm':
+            out[f'{dec}layer_norm.{rest}'] = value
+        else:
+            name = key[len('transformer.'):]
+            for ours, theirs in _HF_LAYER_NAMES:
+                name = name.replace(ours, theirs)
+            if name.endswith('in_proj_weight'):
+                for part, chunk in zip('qkv', value.chunk(3)):
+                    out[f'{dec}{name[:-len("in_proj_weight")]}{part}_proj.weight'] = chunk
+            else:
+                out[dec + name] = value
+    cond = 'conditioners.description.'
+    for key, value in provider.state_dict().items():
+        if key.startswith(cond + 't5.'):
+            out['text_encoder.' + key[len(cond + 't5.'):]] = value
+        elif key.startswith(cond + 'output_proj.'):
+            out['enc_to_dec_proj.' + key[len(cond + 'output_proj.'):]] = value
+    for key, value in codec.state_dict().items():
+        out['audio_encoder.' + _hf_codec_name(key)] = value
+    return {k: v.detach().cpu().contiguous() for k, v in out.items()}
+
+
+def write_safetensors(path, tensors: tp.Mapping[str, torch.Tensor]) -> None:
+    """A ``.safetensors`` file of fp32 tensors: the 8-byte little-endian
+    header length, the JSON header (dtype, shape, byte offsets), the raw
+    buffers."""
+    import struct
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        blob = t.float().numpy().tobytes()
+        header[name] = {'dtype': 'F32', 'shape': list(t.shape),
+                        'data_offsets': [offset, offset + len(blob)]}
+        blobs.append(blob)
+        offset += len(blob)
+    head = json.dumps(header).encode()
+    head += b' ' * (-len(head) % 8)
+    with open(path, 'wb') as f:
+        f.write(struct.pack('<Q', len(head)))
+        f.write(head)
+        for blob in blobs:
+            f.write(blob)
+
+
+def _gb(path) -> float:
+    from pathlib import Path
+    return sum(f.stat().st_size for f in Path(path).rglob('state.npz')) / 1e9
+
+
+def _states_equal(ours: torch.nn.Module, theirs: torch.nn.Module, what: str,
+                  folded: tp.Sequence[str] = ()) -> None:
+    """``ours`` holds ``theirs``'s state: bit for bit, or, for the weights
+    under a weight-norm fold, within one fp32 ulp relative elementwise."""
+    mine = ours.state_dict()
+    for key, value in theirs.state_dict().items():
+        got = mine[key]
+        if key.endswith(tuple(folded)):
+            rel = float(((got.float() - value.float()).abs()
+                         / value.float().abs().clamp_min(1e-30)).max())
+            check(rel <= 2 ** -23, f'{what} {key}: the folded weight is {rel:.3g} relative from '
+                                   'the written one (> 1 ulp)')
+        else:
+            check(torch.equal(got, value), f'{what} {key}: the loaded state differs')
+
+
+def _codes_apart_from_near_ties(model, wav, codes) -> int:
+    """``codes`` against ``model``'s fp32 codes of ``wav``: rows that differ
+    must be near-ties of ``model``'s distances, 1e-3 relative (the fold
+    moves the weights by up to an ulp and the latent by about 1e-6 of its
+    largest value; a residual's distances are far smaller than its squared
+    norm, so their relative margins move by up to about 1e-4).  Returns the
+    differing rows."""
+    lat = model.encode_to_latent(wav, compute_dtype='float32')
+    ref = model.quantizer.encode(lat)
+    x = lat.transpose(1, 2).reshape(-1, lat.shape[1])
+    flat = lambda c: c.transpose(0, 1).reshape(c.shape[1], -1)
+    near = _near_ties(x, model.quantizer.embeds(), flat(ref), rel=1e-3)
+    diff = (flat(codes) != flat(ref)).any(0)
+    check(not bool((diff & ~near).any()),
+          f'{int((diff & ~near).sum())} rows of the loaded codec\'s codes differ away from a '
+          'near-tie')
+    return int(diff.sum())
+
+
+def _greedy(mg, descriptions, seconds: float) -> tp.Tuple[torch.Tensor, float]:
+    mg.set_generation_params(use_sampling=False, duration=seconds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, tokens = mg.generate(descriptions, return_tokens=True)
+    torch.cuda.synchronize()
+    return tokens, time.perf_counter() - t0
+
+
+def check_reference_export(device, root) -> tp.Tuple[tp.Any, tp.Dict[str, int]]:
+    """17a: MusicGen-small and its 32 kHz codec, seeded, written in the
+    reference export layout, imported by the CLI, loaded by get_pretrained.
+    Returns the original facade and the kernels' launches on the loaded
+    facade's path (the import, the load, an encode and a generate)."""
+    from audiocraft_tpu_torch.apps import import_checkpoint
+    from audiocraft_tpu_torch.ckpt import loaders
+    from audiocraft_tpu_torch.config import diff_models
+
+    mg = get_musicgen('small')
+    codec, lm, provider = mg.compression_model, mg.lm, mg.condition_provider
+    seed_codebooks(codec, _clips(8, SECONDS * SAMPLE_RATE, device, seed=171))
+    t5 = provider.conditioners['description'].t5
+    t0 = time.perf_counter()
+    torch.save({'xp.cfg': encodec_32khz_xp_cfg(),
+                'best_state': weight_norm_export(codec.state_dict())},
+               root / 'compression_state_dict.bin')
+    lm_state = {k: v.cpu() for k, v in lm.state_dict().items()}
+    lm_state.update({f'condition_provider.{k}': v.cpu() for k, v in provider.state_dict().items()
+                     if '.t5.' not in k})
+    torch.save({'xp.cfg': musicgen_small_xp_cfg(), 'best_state': lm_state},
+               root / 'state_dict.bin')
+    torch.save({k: v.cpu() for k, v in t5.state_dict().items()}, root / 't5.bin')
+    written = time.perf_counter() - t0
+
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    import_checkpoint.main(['compression', str(root / 'compression_state_dict.bin'),
+                            '--out', str(root / 'model' / 'compression')])
+    t1 = time.perf_counter()
+    import_checkpoint.main(['lm', str(root / 'state_dict.bin'), '--out',
+                            str(root / 'model' / 'lm'), '--t5-state', str(root / 't5.bin')])
+    t2 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loaded = loaders.get_pretrained(str(root / 'model'))
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    loaded.condition_provider.conditioners['description'].load_tokenizer = SeededT5Ids
+    mg.condition_provider.conditioners['description'].load_tokenizer = SeededT5Ids
+    batch, seconds = CKPT_ENCODE
+    wav = _clips(batch, seconds * SAMPLE_RATE, device, seed=172)
+    enc_ms = time_ms(lambda: loaded.compression_model.encode(wav), 3)
+    codes32, _ = loaded.compression_model.encode(wav, compute_dtype='float32')
+    descriptions = [f'checkpoint {i}' for i in range(CKPT_GEN[0])]
+    tokens, gen_s = _greedy(loaded, descriptions, CKPT_GEN[1])
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    print(f'17a: reference export written in {written:.1f} s; import (CLI) compression '
+          f'{t1 - t0:.1f} s, lm {t2 - t1:.1f} s; cold get_pretrained {t3 - t2:.1f} s; '
+          f'state.npz {_gb(root / "model"):.3f} GB; device memory while loading: peak '
+          f'{peak / 2**30:.2f} GiB ({before / 2**30:.2f} GiB before, the original facade '
+          f'resident)', flush=True)
+
+    check(diff_models(loaded.compression_model, codec) == [],
+          f'codec config drift {diff_models(loaded.compression_model, codec)}')
+    check(diff_models(loaded.lm, lm) == [], f'LM config drift {diff_models(loaded.lm, lm)}')
+    check(diff_models(loaded.condition_provider, provider) == [], 'provider config drift')
+    for path in ('compression', 'lm'):
+        meta = json.loads((root / 'model' / path / 'config.json').read_text())
+        check(meta['extra']['unmapped_keys'] == [],
+              f'{path}: unmapped keys {meta["extra"]["unmapped_keys"][:4]}')
+    _states_equal(loaded.compression_model, codec, 'codec',
+                  folded=('conv.conv.weight', 'convtr.convtr.weight'))
+    _states_equal(loaded.lm, lm, 'LM')
+    _states_equal(loaded.condition_provider, provider, 'provider')
+    apart = _codes_apart_from_near_ties(codec, wav, codes32)
+    orig_enc_ms = time_ms(lambda: codec.encode(wav), 3)
+    orig_tokens, orig_gen_s = _greedy(mg, descriptions, CKPT_GEN[1])
+    check(torch.equal(tokens, orig_tokens), 'the loaded facade\'s greedy tokens differ from the '
+                                            'original facade\'s')
+    print(f'17a: fp32 codes of {batch} x {seconds} s equal the original codec\'s but at '
+          f'{apart} near-tie rows; bf16 encode {enc_ms:.2f} ms loaded, {orig_enc_ms:.2f} ms '
+          f'original (phase 9 times this shape on every route); greedy generate '
+          f'{CKPT_GEN[0]} x {CKPT_GEN[1]} s (bf16, graph steps) {gen_s:.2f} s loaded, '
+          f'{orig_gen_s:.2f} s original, tokens equal {tuple(tokens.shape)}', flush=True)
+    del loaded
+    return mg, launches
+
+
+def check_hf_snapshot(device, root, mg) -> None:
+    """17b: ``mg``'s modules written as a MusicgenForConditionalGeneration
+    snapshot, converted and loaded by get_pretrained, then loaded again from
+    the cache by load_model."""
+    from audiocraft_tpu_torch.ckpt import hf_import, loaders
+
+    src = root / 'musicgen-small'
+    src.mkdir()
+    t0 = time.perf_counter()
+    state = hf_snapshot_state(mg.compression_model, mg.lm, mg.condition_provider)
+    write_safetensors(src / 'model.safetensors', state)
+    (src / 'config.json').write_text(json.dumps(musicgen_small_hf_config()))
+    written = time.perf_counter() - t0
+    size = (src / 'model.safetensors').stat().st_size / 1e9
+    del state
+
+    convert = hf_import.import_hf_snapshot
+    spent = []
+
+    def timed_convert(*args, **kw):
+        t = time.perf_counter()
+        convert(*args, **kw)
+        spent.append(time.perf_counter() - t)
+
+    hf_import.import_hf_snapshot = timed_convert
+    try:
+        t0 = time.perf_counter()
+        loaded = loaders.get_pretrained(str(src), cache_dir=str(root / 'cache'))
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+    finally:
+        hf_import.import_hf_snapshot = convert
+    check(len(spent) == 1, 'get_pretrained did not convert the snapshot')
+    del loaded
+    loaders.clear_model_cache()
+    t0 = time.perf_counter()
+    loaded = loaders.load_model(str(src), cache_dir=str(root / 'cache'))
+    torch.cuda.synchronize()
+    cached = time.perf_counter() - t0
+    check(loaders.load_model(str(src), cache_dir=str(root / 'cache')) is loaded,
+          'load_model did not keep the model')
+    print(f'17b: snapshot written in {written:.1f} s ({size:.3f} GB of safetensors); cold '
+          f'get_pretrained {cold:.1f} s (conversion {spent[0]:.1f} s), cached load_model '
+          f'{cached:.1f} s; state.npz {_gb(root / "cache"):.3f} GB', flush=True)
+    for side in ('lm', 'compression'):
+        meta = json.loads((root / 'cache' / 'musicgen-small-hf' / side / 'config.json').read_text())
+        check(meta['extra']['unmapped_keys'] == [],
+              f'HF {side}: unmapped keys {meta["extra"]["unmapped_keys"][:4]}')
+    _states_equal(loaded.lm, mg.lm, 'HF LM')
+    _states_equal(loaded.condition_provider, mg.condition_provider, 'HF provider')
+    _states_equal(loaded.compression_model.model, mg.compression_model, 'HF codec')
+
+    loaded.condition_provider.conditioners['description'].load_tokenizer = SeededT5Ids
+    descriptions = [f'snapshot {i}' for i in range(CKPT_HF_GEN[0])]
+    attrs = [ConditioningAttributes(text={'description': d}) for d in descriptions]
+    with torch.no_grad():
+        cond = loaded.condition_provider(loaded.condition_provider.tokenize(attrs))
+        seq = torch.randint(0, 2048, (CKPT_HF_GEN[0], 4, CKPT_HF_STEPS),
+                            generator=torch.Generator().manual_seed(173)).to(device)
+        logits = loaded.lm(seq, cond)
+        cpu_lm = copy.deepcopy(loaded.lm).cpu()
+        cpu_logits = cpu_lm(seq.cpu(), {k: (t.cpu(), m.cpu()) for k, (t, m) in cond.items()})
+    rel = float((logits.cpu() - cpu_logits).abs().max() / cpu_logits.abs().max())
+    check(rel <= 1e-4, f'HF LM fp32 logits, card against CPU: {rel:.3g} > 1e-4')
+    del cpu_lm
+    loaded.set_generation_params(duration=CKPT_HF_GEN[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    audio = loaded.generate(descriptions, generator=torch.Generator().manual_seed(174))
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    check(tuple(audio.shape) == (CKPT_HF_GEN[0], 1, CKPT_HF_GEN[1] * SAMPLE_RATE)
+          and bool(torch.isfinite(audio).all()), f'HF generate gave {tuple(audio.shape)}')
+    print(f'17b: no unmapped keys; the imported state is the seeded modules\'; fp32 logits of '
+          f'{CKPT_HF_GEN[0]} x {CKPT_HF_STEPS} steps card vs CPU {rel:.3g} (<= 1e-4); sampled '
+          f'generate {CKPT_HF_GEN[0]} x {CKPT_HF_GEN[1]} s {gen_s:.2f} s', flush=True)
+    loaders.clear_model_cache()
+
+
+def phase_checkpoints(device) -> tp.Dict[str, int]:
+    print('== phase 17: checkpoints: a reference export through the import CLI and an HF '
+          'snapshot through get_pretrained, MusicGen-small and the 32 kHz codec', flush=True)
+    from pathlib import Path
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        mg, launches = check_reference_export(device, root)
+        print(f'-- 17a: {time.perf_counter() - start:.1f} s; launches {launches}', flush=True)
+        for name in ('rvq_encode', 'lstm_step', 'fused_stage', 'banded_mono_conv'):
+            check(launches[name] > 0, f'{name} did not launch on the loaded model\'s path')
+        check_hf_snapshot(device, root, mg)
+        del mg
+    torch.cuda.empty_cache()
+    print(f'phase 17: {time.perf_counter() - start:.1f} s; launches {launches}; card {card()}',
+          flush=True)
+    return launches
+
+
 def _seeded_codec(device):
     codec = get_encodec_32khz()
     seed_codebooks(codec, _clips(8, SECONDS * SAMPLE_RATE, device, seed=167))
@@ -4206,6 +4608,8 @@ def main() -> int:
           flush=True)
     slice16 = phase_pod_tp_diffusion(device)
     mark()
+    ckpt_launches = phase_checkpoints(device)
+    mark()
     launches['mono_input_conv'] = kernel_checks_k6
     launches['flash_attention'] = magnet_launches['flash_attention']
     for name in ('flash_attention_bwd_dkv', 'flash_attention_bwd_dq'):
@@ -4224,10 +4628,12 @@ def main() -> int:
         # metrics' four encodes, the rope forward
         for key, counts in slice16.items():
             kern[f'launches_{key}'] = counts.get(name, 0)
+        # phase 17's: the loaded checkpoint's import, load, encode and generate
+        kern['launches_ckpt'] = ckpt_launches.get(name, 0)
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'launches_jasco',
             'launches_joint_embed', 'launches_pod', 'launches_tp', 'launches_diffusion',
-            'launches_metrics', 'launches_rope', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
-            'bound_by', 'library_ms')
+            'launches_metrics', 'launches_rope', 'launches_ckpt', 'max_abs_err', 'ms',
+            'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
     print(card())
     print(json.dumps({'kernels': [{k: kern[k] for k in keys} for kern in kernels.values()]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

@@ -28,6 +28,8 @@ import copy
 import dataclasses
 import functools
 
+import json
+
 import numpy as np
 import optax
 import pytest
@@ -617,13 +619,23 @@ def _cli(capsys, *args):
     return [line for line in capsys.readouterr().out.splitlines() if line.startswith('step')]
 
 
-def test_train_encodec_cli():
-    """A data directory and a checkpoint are refused with a pointer to the
-    queue that ports them (the synthetic runs are the resume test's)."""
-    with pytest.raises(NotImplementedError, match='Queue 1'):
-        train_encodec.main(['--synthetic', '--debug', '--device', 'cpu', '--ckpt', 'x'])
+def test_train_encodec_cli(capsys, tmp_path):
+    """A data directory is refused (the data modules come later); ``--ckpt``
+    exports the trained codec as a checkpoint directory holding the run's
+    weights and codebooks."""
+    from audiocraft_tpu_torch.ckpt.io import load_checkpoint
+
     with pytest.raises(NotImplementedError, match='DATA_DIR'):
         train_encodec.main(['audio_dir', '--debug', '--device', 'cpu'])
+    _cli(capsys, '--steps', '1', '--save-every', '1', '--run-dir', str(tmp_path / 'run'),
+         '--ckpt', str(tmp_path / 'ckpt'))
+    codec, meta = load_checkpoint(tmp_path / 'ckpt', device='cpu')
+    assert meta['extra'] == {'steps': 1, 'weights': 'raw'}
+    paths = json.loads((tmp_path / 'run' / train_state.TRAIN_META_FILE).read_text())['paths']
+    with np.load(tmp_path / 'run' / train_state.TRAIN_STATE_FILE) as run:
+        for key, value in codec.state_dict().items():
+            np.testing.assert_array_equal(
+                value.numpy(), run[f'leaf{paths.index(f"/model/{key}"):05d}'], err_msg=key)
 
 
 @pytest.mark.parametrize('adversarial', [False, True], ids=['recon', 'gan'])

@@ -300,8 +300,12 @@ def test_cli_trains_two_steps_on_the_cpu(capsys):
     assert all(np.isfinite(float(ln.split(' ce ')[1].split()[0])) for ln in lines)
 
 
-@pytest.mark.parametrize('flag', [['data_dir'], ['--codec-ckpt', 'x'], ['--ckpt', 'x'],
-                                  ['--resume'], ['--save-every', '2']])
-def test_cli_refuses_what_waits_for_later_modules(flag):
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize('flag, error', [
+    (['data_dir'], NotImplementedError), (['--codec-ckpt', 'no_such_dir'], FileNotFoundError),
+    (['data_dir', '--ckpt', 'x'], NotImplementedError), (['--resume'], SystemExit),
+    (['--save-every', '2'], SystemExit)], ids=[f'flag{i}' for i in range(5)])
+def test_cli_refuses_what_waits_for_later_modules(flag, error):
+    """DATA_DIR waits for the data modules; a missing codec checkpoint, and
+    --resume or --save-every without --ckpt, are refused."""
+    with pytest.raises(error):
         train_lm.main(['--debug', '--device', 'cpu', *flag])
