@@ -27,7 +27,10 @@ the end as a checkpoint directory (``ckpt/io.py``; the weight EMA with
 ``--ema-decay``), the ``compression/`` half of what
 ``ckpt/loaders.get_pretrained`` serves.  The JAX package keeps the run's
 state beside its model checkpoint in ``--ckpt``; here it goes to
-``--run-dir``.  DATA_DIR waits for ``data/audio_dataset.py`` and raises.
+``--run-dir``.  DATA_DIR (a directory of audio files or a jsonl manifest) is
+read through ``data/audio_dataset.AudioDataset``: ``--steps`` x ``--batch``
+segments of ``--segment`` s at the codec's rate, epoch 0, step N training on
+the N-th global batch, each rank loading its stripe (so a resumed run too).
 ``--synthetic`` (the default without DATA_DIR) trains on seeded noise.  ``--debug`` is the debug codec (and a 2-scale discriminator
 of 4 filters); without it, the 32 kHz codec and the EnCodec discriminator.
 """
@@ -79,9 +82,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if (args.save_every or args.resume) and not args.run_dir:
         parser.error('--save-every/--resume require --run-dir')
-    if args.data and not args.synthetic:
-        raise NotImplementedError("DATA_DIR waits for data/audio_dataset.py, which is not "
-                                  "ported yet")
 
     import numpy as np
     import torch
@@ -90,10 +90,12 @@ def main(argv=None):
     from ..builders import get_debug_compression_model, get_encodec_32khz, resolve_device
     from ..ckpt.io import save_checkpoint
     from ..ckpt.train_state import has_train_state, load_train_state, save_train_state
-    from ..dist.mesh import in_torchrun, make_data_group, rank, shard_batch
+    from ..data.audio_dataset import AudioDataset
+    from ..dist.mesh import in_torchrun, make_data_group, rank, shard_batch, world_size
     from ..dist.train import GAN_WEIGHTS, make_encodec_gan_train_step, make_encodec_train_step
     from ..losses import Balancer
     from ..optim import ema_update, get_lr_schedule, make_optimizer
+    from ..utils.misc import enable_compilation_cache
 
     group = None
     device = resolve_device(args.device)
@@ -102,6 +104,7 @@ def main(argv=None):
             device = torch.device('cuda', int(os.environ.get('LOCAL_RANK', 0)))
             torch.cuda.set_device(device)
         group = make_data_group('nccl' if device.type == 'cuda' else 'gloo')
+    enable_compilation_cache(device)
     model = get_debug_compression_model(32000, device=device, seed=0) if args.debug \
         else get_encodec_32khz(compute_dtype=None, device=device, seed=0)
     lr = get_lr_schedule(args.lr_schedule, args.lr, warmup_steps=args.warmup,
@@ -137,16 +140,27 @@ def main(argv=None):
             return train_step(opt_state, x, generator)
 
     seg = int(args.segment * model.sample_rate)
+    ds = None
+    if args.data and not args.synthetic:
+        ds = AudioDataset.from_path(args.data, segment_duration=args.segment,
+                                    sample_rate=model.sample_rate, channels=1,
+                                    num_samples=args.steps * args.batch)
+        ds.start_epoch(0)
+        shards = list(ds.shard_indices(args.batch, rank(group), world_size(group)))
     start_step = 0
     if args.resume and has_train_state(args.run_dir):
         start_step, _ = load_train_state(args.run_dir, run)
         print(f"resumed at step {start_step}", flush=True)
     t0 = time.perf_counter()
     for step in range(start_step, args.steps):
-        # seeded by the step, so a resumed run sees the batches it would have
-        rng = np.random.RandomState(step)
-        wav = torch.from_numpy((rng.randn(args.batch, 1, seg) * 0.1).astype(np.float32))
-        metrics = step_fn(shard_batch(wav, group).to(device))
+        # chosen by the step, so a resumed run sees the batches it would have
+        if ds is None:
+            rng = np.random.RandomState(step)
+            wav = shard_batch(torch.from_numpy(
+                (rng.randn(args.batch, 1, seg) * 0.1).astype(np.float32)), group)
+        else:
+            wav = torch.from_numpy(ds.collater([ds[i] for i in shards[step % len(shards)]]))
+        metrics = step_fn(wav.to(device))
         if wema:
             ema_update(wema, params, args.ema_decay)
         if step % args.log_every == 0 or step == args.steps - 1:

@@ -16,8 +16,11 @@ checkpoint directory ``--codec-ckpt`` (``ckpt/io.py``).  ``--synthetic``
 (the default when no DATA_DIR is given) trains on seeded noise, each step's
 batch and condition dropout seeded by the step.  Without ``--debug`` the LM
 is MusicGen-small with T5-base text conditioning, whose tokenizer vocabulary
-is not in the repository, so its tokenize step raises.  DATA_DIR waits for
-``data/audio_dataset.py`` and raises ``NotImplementedError``.
+is not in the repository, so its tokenize step raises.  DATA_DIR (a
+directory of audio files or a jsonl manifest) is read through
+``data/audio_dataset.AudioDataset`` with ``--steps`` x ``--batch`` segments of
+``--segment`` s at the codec's rate, epoch 0, step N training on the N-th
+batch (so a resumed run too), with empty descriptions, as in the JAX package.
 
 ``--ckpt DIR`` exports the LM and its conditioners at the end as a
 checkpoint directory (the weight EMA with ``--ema-decay``), which
@@ -71,9 +74,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if (args.save_every or args.resume) and not args.ckpt:
         parser.error('--save-every/--resume require --ckpt')
-    if args.data and not args.synthetic:
-        raise NotImplementedError("DATA_DIR waits for data/audio_dataset.py, which is not "
-                                  "ported yet")
 
     import numpy as np
     import torch
@@ -83,10 +83,13 @@ def main(argv=None):
     from ..ckpt.io import load_checkpoint, save_checkpoint
     from ..ckpt.train_state import has_train_state, load_train_state, save_train_state
     from ..cond.attributes import ClassifierFreeGuidanceDropout, ConditioningAttributes
+    from ..data.audio_dataset import AudioDataset
     from ..dist.train import make_lm_train_step
     from ..optim import ema_update, get_lr_schedule, make_optimizer
+    from ..utils.misc import enable_compilation_cache
 
     device = resolve_device(args.device)
+    enable_compilation_cache(device)
     if args.codec_ckpt:
         codec = load_checkpoint(args.codec_ckpt, device)[0]
     else:
@@ -111,13 +114,24 @@ def main(argv=None):
         start_step, _ = load_train_state(args.ckpt, run)
         print(f"resumed at step {start_step}", flush=True)
     seg = int(args.segment * codec.sample_rate)
+    ds = None
+    if args.data and not args.synthetic:
+        ds = AudioDataset.from_path(args.data, segment_duration=args.segment,
+                                    sample_rate=codec.sample_rate, channels=1,
+                                    num_samples=args.steps * args.batch)
+        ds.start_epoch(0)
+        shards = list(ds.shard_indices(args.batch, 0, 1))
     t0 = time.perf_counter()
     for step in range(start_step, args.steps):
-        # seeded by the step, so a resumed run sees the batches it would have
-        wav = (np.random.RandomState(step).randn(args.batch, 1, seg) * 0.1).astype(np.float32)
+        # chosen by the step, so a resumed run sees the batches it would have
+        if ds is None:
+            wav = (np.random.RandomState(step).randn(args.batch, 1, seg) * 0.1
+                   ).astype(np.float32)
+            text = 'synthetic'
+        else:
+            wav, text = ds.collater([ds[i] for i in shards[step % len(shards)]]), ''
         attrs = ClassifierFreeGuidanceDropout(p=args.cfg_dropout, seed=step)(
-            [ConditioningAttributes(text={'description': 'synthetic'})
-             for _ in range(args.batch)])
+            [ConditioningAttributes(text={'description': text}) for _ in range(args.batch)])
         with torch.no_grad():
             cond_tensors = provider(provider.tokenize(attrs))
         codes = codec.encode(torch.from_numpy(wav).to(device))[0]

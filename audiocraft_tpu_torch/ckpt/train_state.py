@@ -17,7 +17,6 @@ the first difference, instead of misassigning moments.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import typing as tp
 from pathlib import Path
@@ -26,6 +25,7 @@ import numpy as np
 import torch
 
 from ..optim import OptState
+from ..utils.misc import write_and_rename
 
 TRAIN_STATE_FILE = 'train_state.npz'
 TRAIN_META_FILE = 'train_meta.json'
@@ -59,14 +59,6 @@ def _array(leaf: tp.Any) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-@contextlib.contextmanager
-def _write_and_rename(path: Path) -> tp.Iterator[tp.BinaryIO]:
-    tmp = path.with_name(path.name + '.tmp')
-    with open(tmp, 'wb') as f:
-        yield f
-    tmp.rename(path)
-
-
 def save_train_state(path: tp.Union[str, Path], state_tree: tp.Any, step: int,
                      extra: tp.Optional[dict] = None) -> Path:
     """Write ``state_tree``'s leaves and ``step`` into the directory ``path``."""
@@ -76,9 +68,9 @@ def save_train_state(path: tp.Union[str, Path], state_tree: tp.Any, step: int,
     flat = {f'leaf{i:05d}': _array(leaf) for i, (_, leaf) in enumerate(leaves)}
     meta = {'step': int(step), 'n_leaves': len(leaves), 'paths': [p for p, _ in leaves],
             'extra': extra or {}}
-    with _write_and_rename(path / TRAIN_STATE_FILE) as f:
+    with write_and_rename(path / TRAIN_STATE_FILE) as f:
         np.savez(f, **flat)
-    with _write_and_rename(path / TRAIN_META_FILE) as f:
+    with write_and_rename(path / TRAIN_META_FILE) as f:
         f.write(json.dumps(meta, indent=2).encode())
     return path
 

@@ -1,12 +1,13 @@
-"""WAV (RIFF) read and write in numpy (counterpart of
-``audiocraft_tpu/io/wav.py``, which the port may not import).
+"""Audio file read and write (counterpart of ``audiocraft_tpu/io/wav.py``,
+which the port may not import).
 
 ``audio_read`` and ``audio_write`` take the roles of the reference's
-``data/audio.py``:117-228 for WAV files: PCM 16, 24 and 32 bit and float32,
-with ``seek_time`` and ``duration`` as the reference reads them.  The JAX
-package reads and writes compressed formats through its native decoder
-(``io/native.py``), which the port has not taken over: other suffixes and
-formats raise ``ValueError``.
+``data/audio.py``:117-228.  WAV is read and written in numpy: PCM 16, 24 and
+32 bit and float32, with ``seek_time`` and ``duration`` as the reference
+reads them.  Every other suffix and format goes to the native codec library
+(``io/native.py``: mp3, ogg, flac, m4a, opus), as in the JAX package; where
+that library does not load, they raise ``NativeDecoderUnavailable`` saying
+why.
 """
 
 from __future__ import annotations
@@ -21,11 +22,6 @@ import torch
 from .audio_utils import f32_pcm, i16_pcm, normalize_audio
 
 PathLike = tp.Union[str, Path]
-
-
-def _not_wav(path: Path) -> ValueError:
-    return ValueError(f"{path.name}: only WAV files are read and written here; compressed "
-                      f"formats need the native decoder (io/native.py), not ported")
 
 
 def _parse_wav_header(data: bytes) -> tp.Tuple[dict, int, int]:
@@ -112,23 +108,27 @@ def wav_write(wav: np.ndarray, filepath: PathLike, sample_rate: int,
 
 
 def audio_info(filepath: PathLike) -> tp.Tuple[int, float, int]:
-    """(sample_rate, duration in seconds, channels) of a wav file, without
+    """(sample_rate, duration in seconds, channels) of an audio file, without
     decoding its samples."""
     path = Path(filepath)
     if path.suffix.lower() != '.wav':
-        raise _not_wav(path)
+        from .native import probe_audio
+        return probe_audio(path)
     fmt, _, size = _parse_wav_header(path.read_bytes())
     return fmt['sample_rate'], size // fmt['block_align'] / fmt['sample_rate'], fmt['channels']
 
 
 def audio_read(filepath: PathLike, seek_time: float = 0.0, duration: float = -1.0,
                pad: bool = False) -> tp.Tuple[np.ndarray, int]:
-    """(wav [C, T] float32, sample_rate) of a wav file (reference
-    ``audio.py``:117-151); ``pad`` zero-pads to ``duration``."""
+    """(wav [C, T] float32, sample_rate) of an audio file (reference
+    ``audio.py``:117-151): WAV in numpy, other containers through the native
+    library; ``pad`` zero-pads to ``duration``."""
     path = Path(filepath)
-    if path.suffix.lower() != '.wav':
-        raise _not_wav(path)
-    wav, sr = wav_read(path, seek_time, duration)
+    if path.suffix.lower() == '.wav':
+        wav, sr = wav_read(path, seek_time, duration)
+    else:
+        from .native import decode_audio
+        wav, sr = decode_audio(path, seek_time, duration)
     if pad and duration > 0:
         expected = int(duration * sr)
         if wav.shape[-1] < expected:
@@ -137,15 +137,17 @@ def audio_read(filepath: PathLike, seek_time: float = 0.0, duration: float = -1.
 
 
 def audio_write(stem_name: PathLike, wav: tp.Union[np.ndarray, torch.Tensor], sample_rate: int,
-                format: str = 'wav', normalize: bool = True, strategy: str = 'peak',
+                format: str = 'wav', mp3_rate: int = 320, ogg_rate: tp.Optional[int] = None,
+                normalize: bool = True, strategy: str = 'peak',
                 peak_clip_headroom_db: float = 1.0, rms_headroom_db: float = 18.0,
                 loudness_headroom_db: float = 14.0, loudness_compressor: bool = False,
                 make_parent_dir: bool = True, add_suffix: bool = True) -> Path:
-    """Normalize by ``strategy`` and write 16-bit PCM wav (reference
-    ``audio.py``:164-228): ``wav`` [C, T] or [T], float, numpy or a tensor on
-    any device.  Returns the path written."""
-    if format != 'wav':
-        raise _not_wav(Path(f'{stem_name}.{format}'))
+    """Normalize by ``strategy`` and write (reference ``audio.py``:164-228,
+    ``audio_write2``): ``wav`` [C, T] or [T], float, numpy or a tensor on any
+    device.  ``format`` 'wav' writes 16-bit PCM in numpy; 'mp3', 'ogg',
+    'flac', 'm4a' and 'opus' go through the native library, ``mp3_rate`` and
+    ``ogg_rate`` in kbps (``ogg_rate`` None: the encoder's default); a failed
+    encode leaves no file.  Returns the path written."""
     wav = torch.as_tensor(wav).detach().cpu()
     if not wav.is_floating_point():
         raise ValueError("wav is not a floating point array")
@@ -158,8 +160,19 @@ def audio_write(stem_name: PathLike, wav: tp.Union[np.ndarray, torch.Tensor], sa
                           rms_headroom_db=rms_headroom_db,
                           loudness_headroom_db=loudness_headroom_db,
                           loudness_compressor=loudness_compressor, sample_rate=sample_rate)
-    path = Path(str(stem_name) + ('.wav' if add_suffix else ''))
+    path = Path(str(stem_name) + (f'.{format}' if add_suffix else ''))
     if make_parent_dir:
         path.parent.mkdir(exist_ok=True, parents=True)
-    wav_write(wav.numpy(), path, sample_rate)
+    if format == 'wav':
+        wav_write(wav.numpy(), path, sample_rate)
+        return path
+    from .native import encode_audio
+    try:
+        encode_audio(path, wav.numpy(), sample_rate, format=format,
+                     bitrate_kbps={'mp3': mp3_rate, 'ogg': ogg_rate}.get(format))
+    except Exception:
+        # no half-written file (reference audio.py:221-227)
+        if path.exists():
+            path.unlink()
+        raise
     return path

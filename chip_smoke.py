@@ -154,7 +154,26 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    the CPU's but at near-ties.  The ``kernels`` line gives each kernel's
    phase-16 counts: ``launches_pod``, ``launches_tp``,
    ``launches_diffusion``, ``launches_metrics`` and ``launches_rope``.
-Every random-weight codec that encodes or decodes (phases 3-13, 15, 16) has its
+17. Checkpoints: MusicGen-small and the 32 kHz codec, seeded, written as a
+   reference export and imported by ``apps/import_checkpoint``, then as an
+   HF snapshot converted by ``get_pretrained`` and loaded again from the
+   cache by ``load_model``; the loaded state, codes, greedy tokens and fp32
+   logits against the originals (``launches_ckpt``).
+18. Data to tokens: a corpus of 12 mono WAVs of 25-40 s at 32 kHz and a
+   stereo WAV of 20 s at 44.1 kHz (and a FLAC and an MP3 copy where the
+   native audio library loads; the line ``native audio: ...`` says whether
+   it does) through ``apps/tokenize`` in batches of 32 rows x 10 s with a
+   checkpoint of the seeded 32 kHz codec: K1, K2, K4 and K5 launch once,
+   twice, twice and once a batch (``launches_data``), the npz codes equal
+   the codec's own encode of the rows the CLI built, batch 0 in fp32 equals
+   the CPU's codes but at near-ties, and the pipeline's audio-s/s, the
+   host's load time a batch, the card's busy share under the profiler and
+   the bare encode at b128 x 10 s through ``obs.chained_throughput`` are
+   printed; ``--chunk`` and ``--pod`` over one 120 s file in fp32 against
+   the whole-signal encode; ``apps/eval_codec`` on 4 batches of 8 x 1 s
+   (finite metrics, the bitrate, the codebook statistics of ``encode``'s
+   codes); two steps of ``train_encodec --debug`` from the corpus.
+Every random-weight codec that encodes or decodes (phases 3-13, 15-18) has its
 codebooks seeded from its own latents first (``seed_codebooks``): a fresh
 codebook is zeros, as the JAX package's ``kmeans_init`` makes it.
 Phase 2 also holds K3b (the attention backward, both dtypes, at the model
@@ -227,6 +246,7 @@ from audiocraft_tpu_torch.ops.seanet import (
     fused_stage_reference, mono_input_conv, mono_input_conv_reference, packed_stage_weights,
     stage_kernel_info, stage_plan, stage_weight_l2_bytes)
 from audiocraft_tpu_torch.losses import Balancer
+from audiocraft_tpu_torch.obs import PEAK_BF16, PEAK_BYTES, PEAK_FP32
 from audiocraft_tpu_torch.metrics import (FrechetAudioDistance, chroma_cosine,
                                           kl_divergence_metric, make_codec_embed_fn,
                                           make_codec_prob_fn)
@@ -234,11 +254,6 @@ from audiocraft_tpu_torch.optim import OptState, make_optimizer
 from audiocraft_tpu_torch.patterns import DelayedPatternProvider
 from audiocraft_tpu_torch.quant.codebook import compute_distances, quantize
 
-# Published H100 SXM peaks (dense): fp32 outside the tensor cores, bf16
-# tensor cores, and HBM bandwidth.
-PEAK_FP32 = 67e12
-PEAK_BF16 = 989e12
-PEAK_BYTES = 3.35e12
 
 BATCH, SECONDS, SAMPLE_RATE = 128, 10, 32000       # main path: b128 x 10 s clips
 RVQ_SHAPE = dict(n=BATCH * SECONDS * 50, d=128, k=2048, n_q=4)
@@ -3221,7 +3236,7 @@ def check_gan_step(device) -> dict:
     # Adam's first update is lr * g / (|g| + eps): an element moves iff its gradient is non-zero
     moved = {n: float((p.detach() != lstm[n]).float().mean())
              for n, p in tr.model.named_parameters() if n in lstm}
-    print(f'LSTM weights moved by the first Adam step (share of elements): '
+    print('LSTM weights moved by the first Adam step (share of elements): '
           + ', '.join(f'{n} {v:.4f}' for n, v in moved.items()), flush=True)
     check(len(moved) == 16 and min(moved.values()) > 0.5,
           f'LSTM weights got zero gradients: {moved}')
@@ -4554,6 +4569,273 @@ def _seeded_codec(device):
     return codec
 
 
+# phase 18: the data-to-tokens path.  A corpus of 12 mono WAVs of 25-40 s at
+# 32 kHz and one stereo WAV of 20 s at 44.1 kHz through apps/tokenize in
+# batches of 32 rows x 10 s; --chunk and --pod over one 120 s file;
+# apps/eval_codec on 4 batches of 8 x 1 s; train_encodec from the corpus.
+# Earlier runs of this script's phase 3 read the fused route's bf16 encode
+# at b128 x 10 s as 79.5-80.1 ms (NVIDIA H100 80GB HBM3, 700.00 W), printed
+# beside this run's.
+DATA_FILES, DATA_SECONDS, DATA_STEREO = 12, (25, 40), (20, 44100)
+TOK_ROWS, TOK_SECONDS, TOK_LONG_SECONDS = 32, 10, 120
+EVAL_ARGS = ['--batch', '8', '--batches', '4', '--segment', '1.0']
+PHASE3_ENCODE_MS = (79.5, 80.1)
+
+
+def _write_corpus(root) -> tp.List[str]:
+    """18a's corpus under ``root / 'corpus'``; where the native library
+    loads, also a FLAC and an MP3 copy.  Returns the audio files' paths."""
+    from audiocraft_tpu_torch.io import native
+    from audiocraft_tpu_torch.io.wav import wav_write
+    data = root / 'corpus'
+    data.mkdir()
+    paths = []
+    for i in range(DATA_FILES):
+        seconds = DATA_SECONDS[0] + (DATA_SECONDS[1] - DATA_SECONDS[0]) * i / (DATA_FILES - 1)
+        x = _clips(1, int(seconds * SAMPLE_RATE), 'cpu', seed=1800 + i)[0].numpy()
+        paths.append(str(data / f'mono{i:02d}.wav'))
+        wav_write(x, paths[-1], SAMPLE_RATE)
+    seconds, rate = DATA_STEREO
+    rng = np.random.RandomState(1812)
+    t = np.arange(seconds * rate) / rate
+    stereo = (0.15 * np.sin(2 * np.pi * (60 + 1500 * rng.rand(2, 3, 1)) * t).sum(1)
+              + 0.02 * rng.randn(2, t.size)).astype(np.float32)
+    paths.append(str(data / 'stereo44k.wav'))
+    wav_write(stereo, paths[-1], rate)
+    reason = native.unavailable_reason()
+    if reason is None:
+        native.encode_audio(data / 'mono00.flac', _clips(1, 20 * SAMPLE_RATE, 'cpu',
+                                                         seed=1813)[0].numpy(), SAMPLE_RATE)
+        native.encode_audio(data / 'stereo44k.mp3', stereo, rate)
+        paths += [str(data / 'mono00.flac'), str(data / 'stereo44k.mp3')]
+        print('native audio: loaded')
+    else:
+        print(f'native audio: not loadable ({reason})')
+    return paths
+
+
+def _quiet(fn):
+    """``fn()`` with its standard output captured: (result, the output)."""
+    import contextlib
+    import io
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn()
+    return result, out.getvalue()
+
+
+def check_tokenize(device, root, paths: tp.List[str], ckpt) -> tp.Dict[str, int]:
+    """18b: the tokenize CLI over the corpus; its launches, its codes
+    against the codec's own encode of the rows it built, one batch in fp32
+    against the CPU, its rate, the host's load time a batch, the card's
+    busy share across the pipeline, and the bare encode at b128 x 10 s."""
+    from audiocraft_tpu_torch.apps import tokenize
+    from audiocraft_tpu_torch.ckpt.io import load_checkpoint
+    from audiocraft_tpu_torch.io import native
+    from audiocraft_tpu_torch.io.wav import audio_info
+    from audiocraft_tpu_torch.obs import chained_throughput
+
+    out = root / 'tokens.npz'
+    _reset_launch_counts()
+    result = tokenize.main([*paths, '--out', str(out), '--checkpoint', str(ckpt),
+                            '--batch-rows', str(TOK_ROWS), '--batch-seconds', str(TOK_SECONDS),
+                            '--stats'])
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    chunks = tokenize.plan_chunks(paths, TOK_SECONDS, [audio_info(p) for p in paths])
+    batches = [chunks[i:i + TOK_ROWS] for i in range(0, len(chunks), TOK_ROWS)]
+    nb = len(batches)
+    check(launches == {'flash_attention': 0, 'flash_attention_bwd_dkv': 0,
+                       'flash_attention_bwd_dq': 0, 'rvq_encode': nb, 'lstm_step': 2 * nb,
+                       'fused_stage': 2 * nb, 'banded_mono_conv': nb},
+          f'tokenize over {nb} batches launched {launches} (K1 1, K2 2, K4 2, K5 1 a batch)')
+    rates = result['rates']
+    print(f'18b: tokenize CLI, {len(paths)} files, {len(chunks)} chunks of {TOK_SECONDS} s in '
+          f'{nb} batches of {TOK_ROWS} rows: {rates["audio_sec_per_s"]:.1f} audio-s/s '
+          f'({result["seconds"]:.3f} s for {len(chunks) * TOK_SECONDS} audio-s, the first batch '
+          f'included); host load a batch {[round(1e3 * s, 1) for s in result["load_s"]]} ms, the '
+          f'device loop waited {1e3 * result["wait_s"]:.1f} ms; launches {launches}; card '
+          f'{card()}', flush=True)
+
+    model = load_checkpoint(ckpt)[0]
+    use_native = native.available() and any(not p.endswith('.wav') for p in paths)
+
+    def load(batch):
+        return tokenize.load_rows(batch, TOK_ROWS, TOK_SECONDS, SAMPLE_RATE, use_native,
+                                  pin=True)
+
+    with np.load(out) as z:
+        codes = z['codes']
+    check(codes.shape == (len(chunks), 4, TOK_SECONDS * 50) and codes.dtype == np.int32,
+          f'tokenize wrote codes {codes.shape} {codes.dtype}')
+    start = 0
+    for batch in batches:
+        ref = model.encode(load(batch).to(device))[0][:len(batch)].cpu().numpy()
+        check(np.array_equal(codes[start:start + len(batch)], ref),
+              f'the CLI\'s codes of rows {start}.. differ from encode of the rows it built')
+        start += len(batch)
+    print(f'18b: the npz codes equal encode of the rows the CLI built, bit for bit ({len(chunks)} '
+          f'rows)', flush=True)
+    # batch 0 in fp32, the card's route against the plain versions on the CPU
+    rows = load(batches[0])
+    lat = model.encode_to_latent(rows.to(device), compute_dtype='float32')
+    t0 = time.perf_counter()
+    cpu_model = load_checkpoint(ckpt, 'cpu')[0]
+    lat_cpu = cpu_model.encode_to_latent(rows, compute_dtype='float32')
+    print(f'18b: batch 0 [{TOK_ROWS}, 1, {rows.shape[-1]}] in fp32 on the CPU: '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    _fp32_codes_vs_cpu('18b: tokenize batch 0', lat, lat_cpu, model, cpu_model)
+    del lat, lat_cpu, cpu_model
+
+    busy, window, kernels = _cuda_busy_ms(lambda: tokenize.encode_batches(model, batches, load,
+                                                                          device))
+    top = ', '.join(f'{e.key[:40]} {e.self_device_time_total / 1e3:.1f}' for e in kernels[:4])
+    print(f'18b: the pipeline under torch.profiler: the card busy {busy:.1f} of {window:.1f} ms '
+          f'({busy / max(window, 1e-9):.3f}); kernels by device ms: {top}', flush=True)
+
+    wav = _clips(BATCH, SECONDS * SAMPLE_RATE, device, seed=1814)
+
+    def step(carry, x):
+        c = model.encode(x)[0]
+        return c, carry + c[0, 0, 0]
+
+    dt, rate = chained_throughput(step, [wav], iters=5, units_per_iter=BATCH * SECONDS)
+    print(f'18b: bare encode b{BATCH} x {SECONDS} s through obs.chained_throughput: '
+          f'{1e3 * dt:.2f} ms ({rate:.1f} audio-s/s; earlier runs of phase 3 read '
+          f'{PHASE3_ENCODE_MS[0]}-{PHASE3_ENCODE_MS[1]} ms for this route); card {card()}',
+          flush=True)
+    del model, wav
+    return launches
+
+
+def check_whole_file(device, root, ckpt32) -> None:
+    """18c: ``--chunk`` and ``--pod`` over one 120 s file with the fp32
+    codec: their codes equal the whole-signal encode's (the module stack,
+    fp32) but at near-ties of its distances (1e-4 relative)."""
+    from audiocraft_tpu_torch.apps import tokenize
+    from audiocraft_tpu_torch.ckpt.io import load_checkpoint
+    from audiocraft_tpu_torch.io.wav import wav_write
+
+    x = _clips(1, TOK_LONG_SECONDS * SAMPLE_RATE, 'cpu', seed=1815)
+    path = root / 'long.wav'
+    wav_write(x[0].numpy(), path, SAMPLE_RATE)
+    model = load_checkpoint(ckpt32)[0]
+    from audiocraft_tpu_torch.io.wav import audio_read
+    signal = torch.from_numpy(audio_read(path)[0])[None].to(device)
+    with torch.no_grad():
+        lat = model.encoder(signal, lstm_kernel=True).float()
+        ref = model.quantizer.encode(lat)
+    near = _near_ties(lat[0].t(), model.quantizer.embeds(), ref[0], rel=1e-4)
+    for mode in (['--chunk'], ['--pod']):
+        out = root / f'long{mode[0].strip("-")}.npz'
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        tokenize.main([str(path), '--out', str(out), '--checkpoint', str(ckpt32), '--stats',
+                       *mode])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _launch_counts()
+        with np.load(out) as z:
+            codes = torch.from_numpy(z['codes_0']).to(device)
+        check(tuple(codes.shape) == (4, TOK_LONG_SECONDS * 50), f'{mode[0]}: {codes.shape}')
+        differ = (codes != ref[0]).any(0)
+        print(f'18c: tokenize {mode[0]} fp32 of 1 x {TOK_LONG_SECONDS} s: {int(differ.sum())} of '
+              f'{codes.shape[-1]} frames differ from the whole-signal encode, all at near-ties: '
+              f'{bool((near | ~differ).all())}; CLI {seconds:.2f} s with the load; launches '
+              f'K2 {launches["lstm_step"]}, K1 {launches["rvq_encode"]}', flush=True)
+        check(bool((near | ~differ).all()), f'{mode[0]}: {int((differ & ~near).sum())} frames '
+                                            'differ away from a near-tie')
+        check(launches['lstm_step'] == 2 and launches['rvq_encode'] == 1,
+              f'{mode[0]} launched {launches} (K2 2, K1 1)')
+    del model, lat
+
+
+def check_eval_codec(device, root, ckpt) -> tp.Dict[str, int]:
+    """18d: eval_codec over the corpus: finite metrics, the bitrate by its
+    formula, and its codebook statistics those of ``encode``'s codes of the
+    same batches."""
+    from audiocraft_tpu_torch.apps import eval_codec
+    from audiocraft_tpu_torch.ckpt.io import load_checkpoint
+    from audiocraft_tpu_torch.data.audio_dataset import AudioDataset
+
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics, printed = _quiet(lambda: eval_codec.main([str(root / 'corpus'), '--ckpt', str(ckpt),
+                                                       *EVAL_ARGS]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launch_counts()
+    print(printed.strip())
+    check(json.loads(printed.strip().splitlines()[-1]) == metrics, 'eval_codec printed another '
+                                                                   'line than it returned')
+    check(all(math.isfinite(metrics[k]) for k in ('sisnr_db', 'msspec_distance', 'l1')),
+          f'eval_codec: non-finite metrics {metrics}')
+    model = load_checkpoint(ckpt)[0]
+    check(metrics['bitrate_kbps'] == model.frame_rate * 4 * math.log2(2048) / 1000.0 == 2.2,
+          f'bitrate {metrics["bitrate_kbps"]}')
+    ds = AudioDataset.from_path(root / 'corpus', segment_duration=1.0, sample_rate=SAMPLE_RATE,
+                                channels=1, num_samples=32)
+    ds.start_epoch(0)
+    counts = np.zeros((4, 2048), np.int64)
+    for batch in list(ds.iter_batches(8))[:4]:
+        c = model.encode(torch.from_numpy(batch).to(device))[0].cpu().numpy()
+        for k in range(4):
+            counts[k] += np.bincount(c[:, k].ravel(), minlength=2048)
+    probs = counts / counts.sum(axis=1, keepdims=True)
+    with np.errstate(divide='ignore', invalid='ignore'):
+        entropy = (-np.nansum(np.where(probs > 0, probs * np.log2(probs), 0.0), axis=1)).tolist()
+    used = (counts > 0).mean(axis=1).tolist()
+    check(used == metrics['codebook_usage'] and entropy == metrics['codebook_entropy_bits'],
+          f'eval_codec usage {metrics["codebook_usage"]} and entropy '
+          f'{metrics["codebook_entropy_bits"]} are not those of encode\'s codes {used} {entropy}')
+    print(f'18d: eval_codec {seconds:.2f} s with the load; its codebook usage and entropy those '
+          f'of encode\'s codes of the same batches; launches {launches}', flush=True)
+    del model
+    return launches
+
+
+def check_train_from_data(device, root) -> None:
+    """18e: two debug steps of the codec trainer with the corpus as its
+    DATA_DIR: both losses finite."""
+    from audiocraft_tpu_torch.apps import train_encodec
+    _, printed = _quiet(lambda: train_encodec.main([str(root / 'corpus'), '--debug', '--steps',
+                                                    '2', '--log-every', '1']))
+    lines = [line for line in printed.splitlines() if line.startswith('step')]
+    losses = [float(line.split()[3]) for line in lines]
+    print(f'18e: train_encodec --debug from the corpus: {lines}', flush=True)
+    check(len(losses) == 2 and all(math.isfinite(v) for v in losses),
+          f'train_encodec from a DATA_DIR: losses {losses}')
+
+
+def phase_data_to_tokens(device) -> tp.Dict[str, int]:
+    print('== phase 18: data to tokens: a corpus through apps/tokenize (batched, --chunk, --pod), '
+          'apps/eval_codec and train_encodec from a DATA_DIR', flush=True)
+    from pathlib import Path
+
+    from audiocraft_tpu_torch.ckpt.io import save_checkpoint
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        paths = _write_corpus(root)
+        codec = _seeded_codec(device)
+        save_checkpoint(root / 'codec', codec)
+        codec.compute_dtype = None
+        save_checkpoint(root / 'codec32', codec)
+        del codec
+        print(f'-- 18a: corpus and checkpoints {time.perf_counter() - start:.1f} s', flush=True)
+        launches = check_tokenize(device, root, paths, root / 'codec')
+        print(f'-- 18b: {time.perf_counter() - start:.1f} s', flush=True)
+        check_whole_file(device, root, root / 'codec32')
+        print(f'-- 18c: {time.perf_counter() - start:.1f} s', flush=True)
+        check_eval_codec(device, root, root / 'codec')
+        print(f'-- 18d: {time.perf_counter() - start:.1f} s', flush=True)
+        check_train_from_data(device, root)
+    torch.cuda.empty_cache()
+    print(f'phase 18: {time.perf_counter() - start:.1f} s; tokenize launches {launches}; card '
+          f'{card()}', flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -4610,6 +4892,8 @@ def main() -> int:
     mark()
     ckpt_launches = phase_checkpoints(device)
     mark()
+    data_launches = phase_data_to_tokens(device)
+    mark()
     launches['mono_input_conv'] = kernel_checks_k6
     launches['flash_attention'] = magnet_launches['flash_attention']
     for name in ('flash_attention_bwd_dkv', 'flash_attention_bwd_dq'):
@@ -4630,9 +4914,12 @@ def main() -> int:
             kern[f'launches_{key}'] = counts.get(name, 0)
         # phase 17's: the loaded checkpoint's import, load, encode and generate
         kern['launches_ckpt'] = ckpt_launches.get(name, 0)
+        # phase 18's: the tokenize CLI's batched pipeline over the corpus
+        kern['launches_data'] = data_launches.get(name, 0)
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'launches_jasco',
             'launches_joint_embed', 'launches_pod', 'launches_tp', 'launches_diffusion',
-            'launches_metrics', 'launches_rope', 'launches_ckpt', 'max_abs_err', 'ms',
+            'launches_metrics', 'launches_rope', 'launches_ckpt', 'launches_data',
+            'max_abs_err', 'ms',
             'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
     print(card())
     print(json.dumps({'kernels': [{k: kern[k] for k in keys} for kern in kernels.values()]}))

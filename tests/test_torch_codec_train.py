@@ -620,13 +620,13 @@ def _cli(capsys, *args):
 
 
 def test_train_encodec_cli(capsys, tmp_path):
-    """A data directory is refused (the data modules come later); ``--ckpt``
-    exports the trained codec as a checkpoint directory holding the run's
-    weights and codebooks."""
+    """A data directory without audio is refused (``data/audio_dataset.py``
+    finds no file); ``--ckpt`` exports the trained codec as a checkpoint
+    directory holding the run's weights and codebooks."""
     from audiocraft_tpu_torch.ckpt.io import load_checkpoint
 
-    with pytest.raises(NotImplementedError, match='DATA_DIR'):
-        train_encodec.main(['audio_dir', '--debug', '--device', 'cpu'])
+    with pytest.raises(ValueError, match='No audio meta'):
+        train_encodec.main([str(tmp_path / 'audio_dir'), '--debug', '--device', 'cpu'])
     _cli(capsys, '--steps', '1', '--save-every', '1', '--run-dir', str(tmp_path / 'run'),
          '--ckpt', str(tmp_path / 'ckpt'))
     codec, meta = load_checkpoint(tmp_path / 'ckpt', device='cpu')

@@ -301,11 +301,12 @@ def test_cli_trains_two_steps_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize('flag, error', [
-    (['data_dir'], NotImplementedError), (['--codec-ckpt', 'no_such_dir'], FileNotFoundError),
-    (['data_dir', '--ckpt', 'x'], NotImplementedError), (['--resume'], SystemExit),
+    (['no_such_data_dir'], ValueError), (['--codec-ckpt', 'no_such_dir'], FileNotFoundError),
+    (['no_such_data_dir', '--ckpt', 'x'], ValueError), (['--resume'], SystemExit),
     (['--save-every', '2'], SystemExit)], ids=[f'flag{i}' for i in range(5)])
 def test_cli_refuses_what_waits_for_later_modules(flag, error):
-    """DATA_DIR waits for the data modules; a missing codec checkpoint, and
-    --resume or --save-every without --ckpt, are refused."""
+    """A DATA_DIR without audio (``data/audio_dataset.py`` finds no file), a
+    missing codec checkpoint, and --resume or --save-every without --ckpt,
+    are refused."""
     with pytest.raises(error):
         train_lm.main(['--debug', '--device', 'cpu', *flag])
