@@ -63,14 +63,16 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    with 1-pass CFG and top-k sampling, its decode steps replayed as CUDA
    graphs, and the codec decodes them (K2 twice); the capture, generate and
    decode times, steps/s, tokens/s, audio-s/s, the KV-cache bytes and peak
-   memory are printed, beside the eager loop's whole generate and the
-   step's eager host and device ms, the replayed step's ms, the device's
-   idle share over replays and the attention's and heads' part of a step.
+   memory are printed, beside the step's eager host and device ms, the
+   replayed step's ms, the device's idle share over replays and the
+   attention's and heads' part of a step.
    Then ``optimize_for_serving()`` on a copy of the LM, stride extension to
    45 s at B = 1 (two windows; the tokens decoded in windows, K2 in the
    head once), and the debug facade's public ``generate``,
    ``generate_unconditional`` and ``generate_continuation`` (decoded in
-   windows).  Parity in fp32 (TF32 off) at 24 layers over 2 s: the graph
+   windows); the graph route over 4 x 10 s against the eager loop's whole
+   generate (the graph's must be faster).  Parity in fp32 (TF32 off) at
+   the published widths on the first 4 of the 24 layers over 2 s: the graph
    route's greedy and sampled tokens equal the eager loop's, the cached
    steps' logits the cache-free forward's within 1e-4 relative, and the
    card's greedy tokens the CPU's, or differ first at a near-tie.
@@ -150,8 +152,9 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    of 10 s, fp32 card vs CPU (FAD and ``chroma_cosine`` 1e-4, codes equal
    but at near-ties); MusicGen-small's widths with rope and ``kv_repeat=2``:
    K3f (24) against plain (1e-4), 2 x 10 s generated through replayed
-   graphs, the step beside its byte bound, fp32 greedy tokens at 2 s equal
-   the CPU's but at near-ties.  The ``kernels`` line gives each kernel's
+   graphs, the step beside its byte bound, fp32 greedy tokens at 2 s on the
+   first 4 of the 24 layers equal the CPU's but at near-ties.  The
+   ``kernels`` line gives each kernel's
    phase-16 counts: ``launches_pod``, ``launches_tp``,
    ``launches_diffusion``, ``launches_metrics`` and ``launches_rope``.
 17. Checkpoints: MusicGen-small and the 32 kHz codec, seeded, written as a
@@ -165,15 +168,31 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    it does) through ``apps/tokenize`` in batches of 32 rows x 10 s with a
    checkpoint of the seeded 32 kHz codec: K1, K2, K4 and K5 launch once,
    twice, twice and once a batch (``launches_data``), the npz codes equal
-   the codec's own encode of the rows the CLI built, batch 0 in fp32 equals
-   the CPU's codes but at near-ties, and the pipeline's audio-s/s, the
-   host's load time a batch, the card's busy share under the profiler and
+   the codec's own encode of the rows the CLI built, 8 rows of batch 0 in
+   fp32 equal the CPU's codes but at near-ties, and the pipeline's
+   audio-s/s, the host's load time a batch, the card's busy share under the profiler and
    the bare encode at b128 x 10 s through ``obs.chained_throughput`` are
    printed; ``--chunk`` and ``--pod`` over one 120 s file in fp32 against
    the whole-signal encode; ``apps/eval_codec`` on 4 batches of 8 x 1 s
    (finite metrics, the bitrate, the codebook statistics of ``encode``'s
    codes); two steps of ``train_encodec --debug`` from the corpus.
-Every random-weight codec that encodes or decodes (phases 3-13, 15-18) has its
+19. Serving: MusicGen-small at its published widths (seeded weights, the
+   decode in bf16) written as a checkpoint directory, loaded by
+   ``load_model`` and served by ``apps/serve``'s ``GenerationService``
+   behind a ``ThreadingHTTPServer`` on 127.0.0.1 (continuous batching:
+   a 200 ms window, at most 4 a batch): ``/health`` and ``/models``; three
+   concurrent 5 s text requests coalesced into one facade call at bucket 4
+   (K2 twice) while other threads poll ``/health`` (the decode captures its
+   CUDA graphs on the batcher's thread; nothing else touches the card); a
+   continuation from a 2 s WAV prompt (K5 1, K4 2, K2 4, K1 1); a greedy
+   request whose WAV equals a direct ``generate`` of the same text; a bad
+   duration (400) and an unknown model (404).  Each request's seconds to
+   its body, the batch's audio-s/s and the peak memory are printed.  Then
+   ``apps/generate`` (10 s), ``apps/batch_generate`` (4 prompts in one
+   batch) and ``apps/scale_bench`` (one card, b8 x 10 s, on its
+   ``get_encodec_32khz()``, the codebooks seeded) once each; whether the
+   video muxer loads is printed (``launches_serve``).
+Every random-weight codec that encodes or decodes (phases 3-13, 15-19) has its
 codebooks seeded from its own latents first (``seed_codebooks``): a fresh
 codebook is zeros, as the JAX package's ``kmeans_init`` makes it.
 Phase 2 also holds K3b (the attention backward, both dtypes, at the model
@@ -246,7 +265,7 @@ from audiocraft_tpu_torch.ops.seanet import (
     fused_stage_reference, mono_input_conv, mono_input_conv_reference, packed_stage_weights,
     stage_kernel_info, stage_plan, stage_weight_l2_bytes)
 from audiocraft_tpu_torch.losses import Balancer
-from audiocraft_tpu_torch.obs import PEAK_BF16, PEAK_BYTES, PEAK_FP32
+from audiocraft_tpu_torch.obs import PEAK_BF16, PEAK_BYTES, PEAK_FP32, WARMUP_CALLS
 from audiocraft_tpu_torch.metrics import (FrechetAudioDistance, chroma_cosine,
                                           kl_divergence_metric, make_codec_embed_fn,
                                           make_codec_prob_fn)
@@ -276,9 +295,11 @@ CONV0_CHANNELS, CONV0_TAPS = 64, 7
 RVQ_OLD_MS, RVQ_OLD_WIDE_MS, MONO_OLD_MS = 6.267, 23.509, 5.797
 ENCODES = 3   # timed encodes per route in phase 9
 # MusicGen-small generate: 4 descriptions x 30 s with 1-pass CFG (model batch
-# 8, 1503 steps); stride extension to 45 s at B = 1; fp32 parity over 2 s;
-# the step timed over 50 steps from offset 1000
+# 8, 1503 steps); stride extension to 45 s at B = 1; fp32 parity over 2 s at
+# the published widths on the first 4 of the 24 layers; the step timed over
+# 50 steps from offset 1000
 MG_PROMPTS, MG_SECONDS, MG_STRIDE_SECONDS, MG_PARITY_SECONDS = 4, 30, 45, 2
+MG_PARITY_LAYERS = 4
 MG_TIMED_STEPS, MG_STEP_OFFSET = 50, 1000
 # phase 12: 64 stereo clips x 10 s (the mono codec at b128); MusicGen-stereo-
 # small, 4 descriptions x 10 s, fp32 parity over 1 s; the 24 kHz codec
@@ -2243,22 +2264,27 @@ def phase_musicgen(device) -> tp.Dict[str, int]:
           f'copy\'s refresh from the fp32 weights, in every generate, {refresh_ms:.3f} ms; card '
           f'{name}', flush=True)
 
-    t0 = time.perf_counter()
-    eager = _musicgen_generate(lm, cond, frames, 42, None, eager=True)
-    torch.cuda.synchronize()
-    eager_s = time.perf_counter() - t0
-    share = float((eager == tokens).float().mean())
-    print(f'the eager loop, same generate: {eager_s:.3f} s against the graph\'s {gen_s:.3f} s '
-          f'({eager_s / gen_s:.2f}x); token match share with the graph route {share:.6f} '
-          f'(bf16; information, the fp32 parity below is gated)', flush=True)
-    check(gen_s < eager_s, f'the graph route ({gen_s:.3f} s) is not faster than the eager '
-                           f'loop ({eager_s:.3f} s)')
     print_decode_step(lm, state, 2 * MG_PROMPTS)
-    del eager
-    # the mono step at phase 12's stereo shape (10 s: caches of 508 steps)
+    # the graph route and the eager loop over 4 x 10 s (phase 12's stereo
+    # shape: caches of 508 steps); the graph's time includes its capture
     short: list = []
-    _musicgen_generate(lm, cond, int(MGS_SECONDS * mg.frame_rate), 42, DecodeCache(),
-                       states=short)
+    short_frames = int(MGS_SECONDS * mg.frame_rate)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    short_tokens = _musicgen_generate(lm, cond, short_frames, 42, DecodeCache(), states=short)
+    torch.cuda.synchronize()
+    short_s = time.perf_counter() - t0
+    eager = _musicgen_generate(lm, cond, short_frames, 42, None, eager=True)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0 - short_s
+    share = float((eager == short_tokens).float().mean())
+    print(f'the eager loop over {MG_PROMPTS} x {MGS_SECONDS} s: {eager_s:.3f} s against the '
+          f'graph route\'s {short_s:.3f} s with its capture ({eager_s / short_s:.2f}x); token '
+          f'match share with the graph route {share:.6f} (bf16; information, the fp32 parity '
+          f'below is gated)', flush=True)
+    check(short_s < eager_s, f'the graph route ({short_s:.3f} s) is not faster than the eager '
+                             f'loop ({eager_s:.3f} s)')
+    del eager, short_tokens
     mono_short_ms = replay_ms(short[0], MGS_STEP_OFFSET)
     print(f'MusicGen-small replayed decode step at 4 x {MGS_SECONDS} s (caches of '
           f'{short[0].plan["S"]} steps), offset {MGS_STEP_OFFSET}: {mono_short_ms:.3f} ms, mean '
@@ -2293,20 +2319,21 @@ def phase_musicgen(device) -> tp.Dict[str, int]:
           f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; token match share with the '
           f'bf16 route {float((stokens == tokens).float().mean()):.4f} (information); card {name}',
           flush=True)
-    # the recipe's three parts one at a time (capture included in each)
+    # the recipe's three parts one at a time over 4 x 10 s, beside the bf16
+    # graph route there (capture included in each)
     parts = {}
     for part, (model, kv_dtype, kv_buckets) in {
             'int8 weights': (slm, None, None), 'int8 KV': (lm, 'int8', None),
             "kv_buckets 'auto'": (lm, None, 'auto')}.items():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _musicgen_generate(model, cond, frames, 42, DecodeCache(), kv_dtype=kv_dtype,
+        _musicgen_generate(model, cond, short_frames, 42, DecodeCache(), kv_dtype=kv_dtype,
                            kv_buckets=kv_buckets)
         torch.cuda.synchronize()
         parts[part] = time.perf_counter() - t0
-    print('the serving recipe by part, one generate each (s): ' + ', '.join(
-        f'{part} {sec:.3f}' for part, sec in parts.items()) + f'; bf16 route {gen_s:.3f}, the '
-          f'whole recipe {serve_s:.3f}; card {name}', flush=True)
+    print(f'the serving recipe by part, one generate of {MG_PROMPTS} x {MGS_SECONDS} s each (s): '
+          + ', '.join(f'{part} {sec:.3f}' for part, sec in parts.items())
+          + f'; the bf16 route there {short_s:.3f}; card {name}', flush=True)
     del served, slm, sstate, sstates, stokens
 
     # stride extension to MG_STRIDE_SECONDS at B = 1 through the public
@@ -2381,11 +2408,26 @@ def phase_musicgen(device) -> tp.Dict[str, int]:
     return {'lstm_step': launches['lstm_step'], 'rvq_encode': launches_debug['rvq_encode']}
 
 
+def _first_layers(lm: LMModel, n: int) -> LMModel:
+    """A copy of ``lm`` with its first ``n`` transformer layers: the same
+    widths, the depth cut."""
+    layers = lm.transformer.layers
+    lm.transformer.layers = torch.nn.ModuleList()   # the copy takes n layers, not all
+    try:
+        cut = copy.deepcopy(lm)
+    finally:
+        lm.transformer.layers = layers
+    cut.transformer.layers = copy.deepcopy(layers[:n])
+    cut.num_layers = n
+    return cut
+
+
 def phase_musicgen_parity(device, mg) -> None:
-    print('== phase 11 parity: MusicGen-small (24 layers) in fp32 (TF32 off), graph vs eager, '
-          'cached vs cache-free, card vs CPU', flush=True)
+    print(f'== phase 11 parity: MusicGen-small\'s widths cut to {MG_PARITY_LAYERS} of 24 layers '
+          'in fp32 (TF32 off), graph vs eager, cached vs cache-free, card vs CPU', flush=True)
     check(not torch.backends.cuda.matmul.allow_tf32, 'TF32 is on')
-    lm, n, frames = mg.lm, 2, int(MG_PARITY_SECONDS * mg.frame_rate)
+    lm, n, frames = (_first_layers(mg.lm, MG_PARITY_LAYERS), 2,
+                     int(MG_PARITY_SECONDS * mg.frame_rate))
     check(lm.float_dtype == torch.float32, 'the parity LM is not fp32')
     with torch.no_grad():
         cond = mg.condition_provider(_descriptions(n, device, seed=43))
@@ -4079,7 +4121,8 @@ def check_rope(device) -> tp.Dict[str, int]:
     repeated to the q heads) against the plain route (1e-4 relative, phase
     6's bar); 2 x 10 s generated in
     bf16 with the replayed CUDA-graph step, the step beside its byte bound;
-    fp32 greedy tokens at 2 s equal the CPU's but at near-ties.  No published
+    fp32 greedy tokens at 2 s on the first ``MG_PARITY_LAYERS`` layers equal
+    the CPU's but at near-ties.  No published
     size uses rope or ``kv_repeat``: the LM is ``get_musicgen_lm('small')``'s
     with those two set."""
     small, provider = get_musicgen_lm('small', seed=3)
@@ -4133,10 +4176,13 @@ def check_rope(device) -> tp.Dict[str, int]:
           f'{kv_read / 1e9:.3f} GB of {state.current[0].k.shape[2]} kv heads); card {card()}',
           flush=True)
     del cache, states, state
-    parity = ROPE_PARITY_SECONDS * 50
+    parity, cut = ROPE_PARITY_SECONDS * 50, _first_layers(lm, MG_PARITY_LAYERS)
     states = []
-    greedy = _musicgen_generate(lm, cond_t, parity, None, DecodeCache(), states=states)
-    check_greedy_against_cpu(lm, cond_t, parity, ROPE_BATCH, greedy, states[0].seq)
+    greedy = _musicgen_generate(cut, cond_t, parity, None, DecodeCache(), states=states)
+    print(f'rope + kv_repeat 2 fp32 greedy tokens at {ROPE_PARITY_SECONDS} s on the first '
+          f'{MG_PARITY_LAYERS} of the 24 layers:', flush=True)
+    check_greedy_against_cpu(cut, cond_t, parity, ROPE_BATCH, greedy, states[0].seq)
+    del cut
     del lm, provider, states
     torch.cuda.empty_cache()
     return launches
@@ -4578,6 +4624,7 @@ def _seeded_codec(device):
 # beside this run's.
 DATA_FILES, DATA_SECONDS, DATA_STEREO = 12, (25, 40), (20, 44100)
 TOK_ROWS, TOK_SECONDS, TOK_LONG_SECONDS = 32, 10, 120
+TOK_PARITY_ROWS = 8   # of batch 0, encoded in fp32 on the card and on the CPU
 EVAL_ARGS = ['--batch', '8', '--batches', '4', '--segment', '1.0']
 PHASE3_ENCODE_MS = (79.5, 80.1)
 
@@ -4676,13 +4723,15 @@ def check_tokenize(device, root, paths: tp.List[str], ckpt) -> tp.Dict[str, int]
         start += len(batch)
     print(f'18b: the npz codes equal encode of the rows the CLI built, bit for bit ({len(chunks)} '
           f'rows)', flush=True)
-    # batch 0 in fp32, the card's route against the plain versions on the CPU
-    rows = load(batches[0])
+    # batch 0's first rows in fp32, the card's route against the plain
+    # versions on the CPU
+    rows = load(batches[0])[:TOK_PARITY_ROWS]
     lat = model.encode_to_latent(rows.to(device), compute_dtype='float32')
     t0 = time.perf_counter()
     cpu_model = load_checkpoint(ckpt, 'cpu')[0]
     lat_cpu = cpu_model.encode_to_latent(rows, compute_dtype='float32')
-    print(f'18b: batch 0 [{TOK_ROWS}, 1, {rows.shape[-1]}] in fp32 on the CPU: '
+    print(f'18b: batch 0\'s first rows [{TOK_PARITY_ROWS}, 1, {rows.shape[-1]}] in fp32 on the '
+          f'CPU: '
           f'{time.perf_counter() - t0:.1f} s', flush=True)
     _fp32_codes_vs_cpu('18b: tokenize batch 0', lat, lat_cpu, model, cpu_model)
     del lat, lat_cpu, cpu_model
@@ -4836,6 +4885,287 @@ def phase_data_to_tokens(device) -> tp.Dict[str, int]:
     return launches
 
 
+
+# phase 19: serving.  MusicGen-small (seeded, the decode in bf16) from a
+# checkpoint directory behind apps/serve's HTTP server: three concurrent
+# 5 s text requests coalesced at bucket 4, a 5 s continuation of a 2 s
+# prompt, a 5 s greedy request; then generate (10 s), batch_generate (4 x
+# 10 s in one batch) and scale_bench (b8 x 10 s, 4 timed encodes).
+SERVE_SECONDS, SERVE_PROMPT_SECONDS, SERVE_WINDOW_MS, SERVE_MAX_BATCH = 5.0, 2, 200, 4
+SERVE_CONCURRENT, SERVE_GEN_SECONDS, SERVE_BATCH_PROMPTS = 3, 10, 4
+SERVE_SCALE = (8, 10, 4)   # scale_bench's rows a card, seconds, timed iterations
+SERVE_TIMEOUT_S = 300   # any one HTTP request or thread join
+
+
+def _http(url: str, body: tp.Optional[dict] = None) -> tp.Tuple[int, dict, bytes, float]:
+    """GET ``url`` (or POST ``body`` as JSON) -> (status, headers, body,
+    seconds to the body)."""
+    import urllib.error
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={'Content-Type': 'application/json'})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=SERVE_TIMEOUT_S) as r:
+            payload = r.read()
+            return r.status, dict(r.headers), payload, time.perf_counter() - t0
+    except urllib.error.HTTPError as exc:
+        with exc:
+            return exc.code, dict(exc.headers), exc.read(), time.perf_counter() - t0
+
+
+def _wav_samples(body: bytes) -> np.ndarray:
+    """A mono 16-bit WAV body's int16 samples."""
+    check(body[:4] == b'RIFF' and body[8:12] == b'WAVE', 'the body is not a WAV file')
+    return np.frombuffer(body[44:], '<i2')
+
+
+def _write_serving_checkpoint(device, path) -> None:
+    """MusicGen-small, seeded, with its codebooks seeded, written by
+    ``ckpt/io.save_checkpoint`` (the codec and the LM bundle)."""
+    from audiocraft_tpu_torch.ckpt.io import save_checkpoint
+    mg = get_musicgen('small', seed=190)
+    seed_codebooks(mg.compression_model, _clips(8, SECONDS * SAMPLE_RATE, device, seed=191))
+    save_checkpoint(path / 'compression', mg.compression_model)
+    save_checkpoint(path / 'lm', {'lm': mg.lm, 'condition_provider': mg.condition_provider})
+    del mg
+    torch.cuda.empty_cache()
+
+
+def check_served_requests(service, model, url: str) -> tp.Dict[str, int]:
+    """19b: the requests over HTTP to ``service``, which serves ``model``;
+    returns the kernels' launches while they were served."""
+    import base64
+    import threading
+    from audiocraft_tpu_torch.apps import serve
+
+    status, _, body, _ = _http(f'{url}/health')
+    health = json.loads(body)
+    check(status == 200 and health['status'] == 'ok', f'/health: {status} {health}')
+    status, _, body, _ = _http(f'{url}/models')
+    check(status == 200 and json.loads(body)['current'] == health['model'], f'/models: {body}')
+    name, sr = health['model'], model.sample_rate
+    samples = int(SERVE_SECONDS * model.frame_rate) * int(sr // model.frame_rate)
+
+    calls: tp.List[int] = []
+    generate = model.generate
+
+    def counted(texts, **kw):
+        calls.append(len(texts))
+        return generate(texts, **kw)
+
+    model.generate = counted
+    _reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    served: tp.Dict[str, tp.Any] = {}
+    polls: tp.List[int] = []
+    stop = threading.Event()
+
+    def fire(i: int) -> None:
+        served[i] = _http(f'{url}/generate', {'text': f'served tune {i}', 'model': name,
+                                               'duration': SERVE_SECONDS, 'seed': 190 + i})
+
+    def poll() -> None:   # handler threads that stay on the host meanwhile
+        while not stop.is_set():
+            polls.append(_http(f'{url}/health')[0])
+            time.sleep(0.01)
+
+    poller = threading.Thread(target=poll, daemon=True)
+    threads = [threading.Thread(target=fire, args=(i,), daemon=True)
+               for i in range(SERVE_CONCURRENT)]
+    poller.start()
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(SERVE_TIMEOUT_S)
+        check(not th.is_alive(), 'a served request did not end')
+    batch_s = time.perf_counter() - t0
+    stop.set()
+    poller.join(SERVE_TIMEOUT_S)
+    check(not poller.is_alive(), 'the /health poller did not end')
+    model.generate = generate
+    batch_launches = _launch_counts()
+    check(calls == [4], f'{SERVE_CONCURRENT} concurrent requests made facade calls of {calls} '
+                        'texts, not one call at bucket 4')
+    seeds = {headers.get('X-Seed') for _, headers, _, _ in served.values()}
+    check(len(seeds) == 1 and int(seeds.pop()) in range(190, 190 + SERVE_CONCURRENT),
+          'the batch\'s responses do not share its lead\'s seed')
+    for i, (status, headers, body, _) in served.items():
+        check(status == 200 and headers['Content-Type'] == 'audio/wav',
+              f'request {i}: {status} {headers}')
+        wav = _wav_samples(body)
+        check(wav.size == samples and np.abs(wav).max() > 0, f'request {i}: {wav.size} samples')
+    check(len(polls) > 0 and set(polls) == {200}, f'/health during the batch: {set(polls)}')
+    check(batch_launches == {**{k: 0 for k in batch_launches}, 'lstm_step': 2},
+          f'the coalesced batch launched {batch_launches} (K2 2 in the decode only)')
+    secs = [round(served[i][3], 3) for i in range(SERVE_CONCURRENT)]
+    print(f'19b: {SERVE_CONCURRENT} concurrent {SERVE_SECONDS:g} s requests, one facade call '
+          f'at bucket 4: seconds to each body {secs}, the batch {batch_s:.3f} s, '
+          f'{SERVE_CONCURRENT * SERVE_SECONDS / batch_s:.2f} audio-s/s; {len(polls)} /health '
+          f'polls answered meanwhile; launches {batch_launches}; card {card()}', flush=True)
+
+    prompt = _clips(1, SERVE_PROMPT_SECONDS * sr, 'cpu', seed=192)[0].numpy()
+    _reset_launch_counts()
+    status, headers, body, cont_s = _http(f'{url}/generate', {
+        'text': 'continue this', 'model': name, 'duration': SERVE_SECONDS, 'seed': 193,
+        'prompt_wav': base64.b64encode(serve._wav_bytes(prompt, sr)).decode(),
+        'return_history_json': True})
+    cont_launches = _launch_counts()
+    doc = json.loads(body)
+    check(status == 200 and doc['metadata']['continuation'] is True,
+          f'continuation: {status} {doc.get("error")}')
+    check(_wav_samples(base64.b64decode(doc['audio_b64'])).size == samples,
+          'continuation: the audio\'s length')
+    check(cont_launches == {**{k: 0 for k in cont_launches}, 'banded_mono_conv': 1,
+                            'fused_stage': 2, 'lstm_step': 4, 'rvq_encode': 1},
+          f'the continuation launched {cont_launches} (K5 1, K4 2, K2 4, K1 1)')
+    print(f'19b: continuation of a {SERVE_PROMPT_SECONDS} s prompt to {SERVE_SECONDS:g} s: '
+          f'{cont_s:.3f} s to the body; launches {cont_launches}', flush=True)
+
+    greedy_req = {'text': 'a greedy tune', 'model': name, 'duration': SERVE_SECONDS,
+                  'seed': 194, 'topk': 1}
+    _reset_launch_counts()
+    status, _, body, greedy_s = _http(f'{url}/generate', greedy_req)
+    launches = {k: batch_launches[k] + cont_launches[k] + n
+                for k, n in _launch_counts().items()}
+    for bad, code in (({'text': 'x', 'model': name, 'duration': 0}, 400),
+                      ({'text': 'x', 'model': 'no-such-model'}, 404)):
+        got = _http(f'{url}/generate', bad)[0]
+        check(got == code, f'{bad}: {got}, not {code}')
+    peak = torch.cuda.max_memory_allocated()
+    check(status == 200, f'greedy request: {status}')
+    with service.lock:   # the direct generate takes the service's lock too
+        model.set_generation_params(duration=SERVE_SECONDS, top_k=1, top_p=0.0,
+                                    temperature=1.0, cfg_coef=3.0,
+                                    extend_stride=min(10.0, model.max_duration / 2))
+        direct = model.generate([greedy_req['text']],
+                                generator=torch.Generator().manual_seed(194))
+        direct = direct[0].float().cpu().numpy()
+    check(body == serve._wav_bytes(direct, sr), 'the greedy request\'s WAV differs from a direct '
+                                                'generate of the same text')
+    print(f'19b: greedy request (top-k 1) {greedy_s:.3f} s to the body, its WAV equal to a direct '
+          f'generate of the same text, byte for byte; a bad duration 400, an unknown model 404; '
+          f'peak memory over the requests {peak / 2**30:.2f} GiB; card {card()}', flush=True)
+    return launches
+
+
+def check_cli_apps(device, root, ckpt: str, cache: str) -> None:
+    """19c: generate, batch_generate and scale_bench on the card, once each."""
+    from audiocraft_tpu_torch import builders
+    from audiocraft_tpu_torch.apps import batch_generate, generate, scale_bench
+    from audiocraft_tpu_torch.io.wav import wav_read
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path, printed = _quiet(lambda: generate.main(['a generated tune', '--checkpoint', ckpt,
+                                                  '--duration', str(SERVE_GEN_SECONDS),
+                                                  '--out', str(root / 'generated.wav')]))
+    gen_s = time.perf_counter() - t0
+    wav, rate = wav_read(path)
+    check(rate == SAMPLE_RATE and wav.shape == (1, SERVE_GEN_SECONDS * SAMPLE_RATE)
+          and np.isfinite(wav).all(), f'generate CLI wrote {wav.shape} at {rate}')
+
+    prompts = root / 'prompts.txt'
+    prompts.write_text(''.join(f'batch tune {i}\n' for i in range(SERVE_BATCH_PROMPTS)))
+    t0 = time.perf_counter()
+    manifest, _ = _quiet(lambda: batch_generate.main([
+        str(prompts), '--out', str(root / 'batch'), '--model', ckpt, '--cache-dir', cache,
+        '--duration', str(SERVE_GEN_SECONDS), '--batch-size', str(SERVE_BATCH_PROMPTS)]))
+    batch_s = time.perf_counter() - t0
+    check(len(manifest) == SERVE_BATCH_PROMPTS and all(
+        wav_read(root / 'batch' / m['wav'])[0].shape == (1, SERVE_GEN_SECONDS * SAMPLE_RATE)
+        for m in manifest), f'batch_generate wrote {manifest}')
+
+    build = builders.get_encodec_32khz
+
+    def seeded(*args, **kw):
+        codec = build(*args, **kw)
+        seed_codebooks(codec, _clips(8, SECONDS * SAMPLE_RATE, device, seed=195))
+        _reset_launch_counts()   # count scale_bench's encodes only
+        return codec
+
+    builders.get_encodec_32khz = seeded
+    try:
+        rows, seconds, iters = SERVE_SCALE
+        results, printed = _quiet(lambda: scale_bench.main([
+            '--devices', '1', '--batch-per-device', str(rows), '--seconds', str(seconds),
+            '--iters', str(iters)]))
+    finally:
+        builders.get_encodec_32khz = build
+    launches = _launch_counts()
+    print(printed.strip())
+    check(len(results) == 1 and results[0]['devices'] == 1
+          and results[0]['audio_sec_per_s'] > 0, f'scale_bench: {results}')
+    encodes = iters + WARMUP_CALLS   # chained_throughput's warm-up calls too
+    check(launches == {**{k: 0 for k in launches}, 'rvq_encode': encodes,
+                       'lstm_step': 2 * encodes, 'fused_stage': 2 * encodes,
+                       'banded_mono_conv': encodes},
+          f'scale_bench\'s {encodes} encodes launched {launches} (K1 1, K2 2, K4 2, K5 1 each)')
+    print(f'19c: generate CLI {SERVE_GEN_SECONDS} s in {gen_s:.2f} s with the write; '
+          f'batch_generate {SERVE_BATCH_PROMPTS} x {SERVE_GEN_SECONDS} s in one batch '
+          f'{batch_s:.2f} s; scale_bench one card b{rows} x {seconds} s '
+          f'{results[0]["audio_sec_per_s"]} audio-s/s, launches {launches}; card {card()}',
+          flush=True)
+
+
+def phase_serving(device) -> tp.Dict[str, int]:
+    print('== phase 19: serving: apps/serve over HTTP with continuous batching, then the '
+          'generate, batch_generate and scale_bench CLIs', flush=True)
+    import threading
+    from http.server import ThreadingHTTPServer
+    from pathlib import Path
+
+    from audiocraft_tpu_torch.apps import serve
+    from audiocraft_tpu_torch.ckpt import loaders
+    from audiocraft_tpu_torch.io import video
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        ckpt, cache = root / 'musicgen-small', str(root / 'cache')
+        _write_serving_checkpoint(device, ckpt)
+        written = time.perf_counter() - start
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = loaders.load_model(str(ckpt), cache)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        model.condition_provider.conditioners['description'].load_tokenizer = SeededT5Ids
+        check(model.decode_dtype == 'bfloat16' and model.lm.dim == 1024
+              and len(model.lm.transformer.layers) == 24, 'not MusicGen-small in bf16')
+        print(f'19a: checkpoint written in {written:.1f} s; load_model {load_s:.2f} s '
+              f'(cold, from {cache})', flush=True)
+
+        service = serve.GenerationService(str(ckpt), cache_dir=cache,
+                                          batch_window_ms=SERVE_WINDOW_MS,
+                                          max_batch=SERVE_MAX_BATCH)
+        check(service._get_model(None) is model, 'the service did not take the cached model')
+        server = ThreadingHTTPServer(('127.0.0.1', 0), serve.make_handler(service))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            launches = check_served_requests(service, model,
+                                             f'http://127.0.0.1:{server.server_address[1]}')
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(SERVE_TIMEOUT_S)
+            service.close()
+        check(not thread.is_alive(), 'the HTTP server\'s thread did not end')
+        print(f'-- 19b: {time.perf_counter() - start:.1f} s', flush=True)
+        check_cli_apps(device, root, str(ckpt), cache)
+        reason = video.unavailable_reason()
+        print(f'video muxer: {"loaded" if reason is None else f"not loadable ({reason})"}',
+              flush=True)
+        del model
+        loaders.clear_model_cache()
+    torch.cuda.empty_cache()
+    print(f'phase 19: {time.perf_counter() - start:.1f} s; served launches {launches}; card '
+          f'{card()}', flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -4894,6 +5224,8 @@ def main() -> int:
     mark()
     data_launches = phase_data_to_tokens(device)
     mark()
+    serve_launches = phase_serving(device)
+    mark()
     launches['mono_input_conv'] = kernel_checks_k6
     launches['flash_attention'] = magnet_launches['flash_attention']
     for name in ('flash_attention_bwd_dkv', 'flash_attention_bwd_dq'):
@@ -4916,10 +5248,13 @@ def main() -> int:
         kern['launches_ckpt'] = ckpt_launches.get(name, 0)
         # phase 18's: the tokenize CLI's batched pipeline over the corpus
         kern['launches_data'] = data_launches.get(name, 0)
+        # phase 19's: the served requests (the coalesced batch, the
+        # continuation, the greedy request)
+        kern['launches_serve'] = serve_launches.get(name, 0)
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'launches_jasco',
             'launches_joint_embed', 'launches_pod', 'launches_tp', 'launches_diffusion',
             'launches_metrics', 'launches_rope', 'launches_ckpt', 'launches_data',
-            'max_abs_err', 'ms',
+            'launches_serve', 'max_abs_err', 'ms',
             'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
     print(card())
     print(json.dumps({'kernels': [{k: kern[k] for k in keys} for kern in kernels.values()]}))
