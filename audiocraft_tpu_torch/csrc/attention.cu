@@ -66,11 +66,33 @@
 //   the wrapper (ops/attention.py) copies a view that does not.
 // Left for later: wgmma with TMA and a producer warp, and a persistent grid.
 //
-// fp32 (the parity path): fp32 FMA outside the tensor cores, so its ceiling
-// is the fp32 rate (1.1 ms at the shape above).  256 threads: thread
-// (ty, tx) owns query rows 4 ty .. 4 ty + 3, key columns tx + 16 j of a
-// tile and output features tx + 16 c; probabilities go through shared
-// memory into P.V.
+// fp32 (the parity path): fp32 FMA outside the tensor cores (TF32 would
+// round the products), so its ceiling is the fp32 rate: 1.1 ms at the shape
+// above, 0.046 ms at JASCO's U-net [6, 500, 8, 64].  The first version (256
+// threads, a 4 x 4 register tile fed by scalar shared loads, about 2 FMAs a
+// load; K and V copied element by element behind three barriers a tile;
+// expf; 0.1417 ms at JASCO's shape against 0.1142 for SDPA in fp32 on an
+// NVIDIA H100 80GB HBM3 at 700 W, PERF.md) is replaced by:
+// - a block of 4 warps owns 64 query rows, so that JASCO's 384 blocks fill
+//   the card in one wave; q is scaled once, by scale and log2(e), into q^T
+//   (feature-major) in shared memory;
+// - 32-key K and V tiles stream through a 2-stage ring of 16-byte cp.async
+//   copies, rows as they are in memory (K's pieces swizzled), one barrier a
+//   tile; 56 KiB a block at D = 64, so four blocks (16 warps) share an SM;
+// - each thread holds a 4-row x 4-key tile of S and a 4-row x DP / 8
+//   feature tile of O, fed by 128-bit shared loads (S: 64 FMAs per 8 loads;
+//   P.V: 4 DP / 8 FMAs per 1 + DP / 32 loads).  Against 8-row tiles on 2
+//   warps a block, this halves the reuse of each load and doubles the warps
+//   that hide each other's latency, which at JASCO's 2.9 blocks an SM is
+//   what limits;
+// - the online softmax in base 2 (ex2.approx.ftz, the row max and sum over
+//   the 8 lanes of a row by shuffles), lse written in natural units;
+// - P leaves registers once, into the warp's own P^T rows (a __syncwarp,
+//   not a block barrier), and P.V reads it back as broadcasts.
+// Rows must lie on 16 bytes: the wrapper (ops/attention.py) copies a view
+// that does not, and pads D to a multiple of 4.  After, on the same card:
+// 0.1014 ms at JASCO's shape (SDPA 0.1102), 2.118 ms at the shape above
+// (SDPA 2.296); 8-row tiles on 2 warps a block took 0.121-0.128 and 2.07-2.16.
 #include <math.h>
 
 #include "attention_common.cuh"
@@ -284,141 +306,211 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // ---------------------------------------------------------------- fp32, FMA
 
-constexpr int kRowsQ = kRows;  // query rows per block
-constexpr int kRowsK = kRows;  // key and value rows per streamed tile
-constexpr int kThreadsF32 = 256;  // 16 x 16 threads: 4 query rows x 4 keys each
+constexpr int kRowsF32 = 64;      // query rows of a block: 4 warps of 16
+constexpr int kKeysF32 = 32;      // keys of a streamed K / V tile
+constexpr int kThreadsF32 = 128;
+constexpr int kWarpsF32 = kThreadsF32 / 32;
 
+// Shared floats of a block: q^T [DP][64], a ring of 2 stages of K [32][DP]
+// and V [32][DP], each warp's P^T [32 keys][16 rows] (ops/attention.py:
+// fwd_f32_geometry computes the same).  57,344 bytes at DP = 64: four
+// blocks (16 warps) an SM.
 template <int DP>
-constexpr size_t smem_bytes_f32() {
-  return sizeof(float) * (3 * kRowsQ * (DP + 1) + kRowsQ * (kRowsK + 1));
+constexpr size_t smem_floats_f32() {
+  return (size_t)DP * kRowsF32 + 2 * kKeysF32 * 2 * DP + kWarpsF32 * kKeysF32 * 16;
 }
 
+// The 16-byte piece `c4` of row `r` of a K tile, swizzled by the row's low 3
+// bits, so that the 8 rows one warp-wide 128-bit load touches fall on 8
+// distinct groups of 4 banks with no padding
+__device__ __forceinline__ int swz(int r, int c4) { return 4 * (c4 ^ (r & 7)); }
+
+// Lane l of warp w owns query rows 16 w + 4 (l / 8) .. + 3 of the block, keys
+// l % 8 + 8 j (j < 4) of each tile for S = q K^T, and features 4 (l % 8) +
+// 32 u .. + 3 (u < DP / 32) for P.V.  S takes, for 4 features at a time, one
+// 128-bit load of each of its 4 keys (K rows swizzled, so that the 8 keys a
+// warp's load reads lie on distinct banks) and one of q^T for each feature:
+// 64 FMAs per 8 loads.  The probabilities leave registers once, into the
+// warp's P^T rows (a 128-bit store a key, the 8 lanes of a key group on
+// distinct banks); P.V takes, per key, one 128-bit load of P^T (a broadcast)
+// and DP / 32 of V: 4 DP / 8 FMAs per 1 + DP / 32 loads.
 template <int DP>
 __global__ void __launch_bounds__(kThreadsF32)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, Strides qs_,
-                     Strides ks_, Strides vs_, int seq, int heads, int dim, float scale,
-                     int causal) {
-  constexpr int LD = DP + 1;  // padded rows: the 16 key rows a half-warp reads hit 16 banks
-  constexpr int NC = DP / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;                  // [kRowsQ][LD], pre-scaled
-  float* ks = qs + kRowsQ * LD;      // [kRowsK][LD]
-  float* vs = ks + kRowsK * LD;      // [kRowsK][LD]
-  float* ps = vs + kRowsK * LD;      // [kRowsQ][kRowsK + 1]
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int tx = lane % 16;
-  const int ty = (tid / 32) * 2 + lane / 16;
-  const int q0 = blockIdx.x * kRowsQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-
-  const float* qb = q + b * qs_.b + h * qs_.h;
+                     float* __restrict__ lse, Strides qs_, Strides ks_, Strides vs_, int batch,
+                     int seq, int heads, int dim, float scale, int causal) {
+  constexpr int TD = DP / 8, NU = DP / 32;
+  constexpr int STAGE = 2 * kKeysF32 * DP;         // K then V
+  constexpr int PIECES = kKeysF32 * DP / 4;        // 16-byte copies of one K (or V) tile
+  extern __shared__ __align__(16) float smem_f32[];
+  float* qt = smem_f32;                            // [DP][64]: q * scale * log2(e)
+  float* ring = qt + DP * kRowsF32;
+  const int tid = threadIdx.x, lane = tid % 32, w = tid / 32, kg = lane % 8, rg = lane / 8;
+  float* pt = ring + 2 * STAGE + w * kKeysF32 * 16;     // this warp's P^T [key][row]
+  const int bh = blockIdx.x % (batch * heads), rank = blockIdx.x / (batch * heads);
+  const int b = bh / heads, h = bh % heads;
+  const int tiles_q = (seq + kRowsF32 - 1) / kRowsF32;
+  // causal: the last query tile, which sees every key tile, runs first
+  const int q0 = (causal ? tiles_q - 1 - rank : rank) * kRowsF32;
+  const int row0 = 16 * w + 4 * rg;                // the lane's first row in the block
+  const int n_tiles = (seq + kKeysF32 - 1) / kKeysF32;
+  const int count = causal ? min(n_tiles, (q0 + kRowsF32) / kKeysF32) : n_tiles;
   const float* kb = k + b * ks_.b + h * ks_.h;
   const float* vb = v + b * vs_.b + h * vs_.h;
 
-  for (int e = tid; e < kRowsQ * DP; e += kThreadsF32) {
-    const int r = e / DP, d = e % DP, t = q0 + r;
-    qs[r * LD + d] = (t < seq && d < dim) ? qb[t * qs_.t + d] * scale : 0.f;
+  // key tile i into stage s: 16-byte copies, rows past seq and features past dim zero
+  auto load_kv = [&](int s, int i) {
+    float* kt = ring + s * STAGE;
+    float* vt = kt + kKeysF32 * DP;
+#pragma unroll
+    for (int e0 = 0; e0 < PIECES; e0 += kThreadsF32) {
+      const int e = e0 + tid, r = e / (DP / 4), c = 4 * (e % (DP / 4)), t = i * kKeysF32 + r;
+      const bool in = t < seq && c < dim;
+      cp_async16(kt + r * DP + swz(r, c / 4), in ? kb + t * ks_.t + c : kb, in);
+      cp_async16(vt + r * DP + c, in ? vb + t * vs_.t + c : vb, in);
+    }
+  };
+  if (count > 0) load_kv(0, 0);
+  cp_commit();
+
+  // q^T, scaled once: thread tid takes block row tid % 64, half of its features
+  {
+    const int r = tid % kRowsF32, t = q0 + r;
+    const float* qrow = q + b * qs_.b + t * qs_.t + h * qs_.h;
+#pragma unroll 4
+    for (int c = 4 * (tid / kRowsF32); c < DP; c += 8) {
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (t < seq && c < dim) x = *reinterpret_cast<const float4*>(qrow + c);
+      qt[(c + 0) * kRowsF32 + r] = (x.x * scale) * kLog2e;
+      qt[(c + 1) * kRowsF32 + r] = (x.y * scale) * kLog2e;
+      qt[(c + 2) * kRowsF32 + r] = (x.z * scale) * kLog2e;
+      qt[(c + 3) * kRowsF32 + r] = (x.w * scale) * kLog2e;
+    }
   }
 
-  float m[4], l[4], acc[4][NC];
+  // running max (base 2) and sum of each of the lane's 4 rows, its outputs
+  float m[4], l[4], acc[4][TD];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+    for (int f = 0; f < TD; ++f) acc[i][f] = 0.f;
   }
 
-  const int k_end = causal ? min(seq, q0 + kRowsQ) : seq;
-  for (int k0 = 0; k0 < k_end; k0 += kRowsK) {
-    __syncthreads();  // the previous tile's P.V is done with ks, vs and ps
-    for (int e = tid; e < kRowsK * DP; e += kThreadsF32) {
-      const int r = e / DP, d = e % DP, s = k0 + r;
-      const bool in = s < seq && d < dim;
-      ks[r * LD + d] = in ? kb[s * ks_.t + d] : 0.f;
-      vs[r * LD + d] = in ? vb[s * vs_.t + d] : 0.f;
-    }
-    __syncthreads();
+  for (int i = 0; i < count; ++i) {
+    cp_wait<0>();
+    __syncthreads();   // tile i is in; every warp is done with the stage refilled next
+    if (i + 1 < count) load_kv((i + 1) & 1, i + 1);
+    cp_commit();
 
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DP; ++d) {
-      float a[4], kk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(4 * ty + i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kk[j] = ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(a[i], kk[j], sc[i][j]);
-    }
+    const int k0 = i * kKeysF32;
+    // every key of the tile after the warp's rows: nothing to add
+    if (causal && k0 > q0 + 16 * w + 15) continue;
+    const float* kt = ring + (i & 1) * STAGE;
+    const float* vt = kt + kKeysF32 * DP;
 
+    float s[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = q0 + 4 * ty + i;
-      float mx = -INFINITY;
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < DP; c += 4) {
+      float kk[4][4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int s = k0 + tx + 16 * j;
-        if (s >= seq || (causal && s > t)) sc[i][j] = -INFINITY;
-        mx = fmaxf(mx, sc[i][j]);
+        const float4 x = *reinterpret_cast<const float4*>(kt + (kg + 8 * j) * DP + swz(kg, c / 4));
+        kk[j][0] = x.x, kk[j][1] = x.y, kk[j][2] = x.z, kk[j][3] = x.w;
       }
 #pragma unroll
-      for (int off = 8; off > 0; off /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = expf(m[i] - m_use);
+      for (int dd = 0; dd < 4; ++dd) {
+        const float4 x = *reinterpret_cast<const float4*>(qt + (c + dd) * kRowsF32 + row0);
+        const float a[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[r][j] = fmaf(a[r], kk[j][dd], s[r][j]);
+      }
+    }
+    if (k0 + kKeysF32 > seq || (causal && k0 + kKeysF32 - 1 > q0 + row0)) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = k0 + kg + 8 * j;
+          if (key >= seq || (causal && key > q0 + row0 + r)) s[r][j] = -INFINITY;
+        }
+    }
+
+    // online softmax in base 2 (the scores carry log2(e)); a row whose keys
+    // so far are all masked keeps max -inf and takes its exponentials
+    // against 0
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float mx = fmaxf(fmaxf(s[r][0], s[r][1]), fmaxf(s[r][2], s[r][3]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m[r], mx);
+      const float mb = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = exp2_ftz(m[r] - mb);
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = expf(sc[i][j] - m_use);
-        ps[(4 * ty + i) * (kRowsK + 1) + tx + 16 * j] = p;
-        sum += p;
+        s[r][j] = exp2_ftz(s[r][j] - mb);
+        sum += s[r][j];
       }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+      l[r] = l[r] * alpha + sum;
+      m[r] = m_new;
 #pragma unroll
-      for (int off = 8; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
+      for (int f = 0; f < TD; ++f) acc[r][f] *= alpha;
     }
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float4*>(pt + (kg + 8 * j) * 16 + 4 * rg) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    __syncwarp();
 
 #pragma unroll 8
-    for (int s = 0; s < kRowsK; ++s) {
-      float p[4], vv[NC];
+    for (int key = 0; key < kKeysF32; ++key) {
+      const float4 x = *reinterpret_cast<const float4*>(pt + key * 16 + 4 * rg);
+      const float p[4] = {x.x, x.y, x.z, x.w};
+      float vv[TD];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(4 * ty + i) * (kRowsK + 1) + s];
+      for (int u = 0; u < NU; ++u) {
+        const float4 y = *reinterpret_cast<const float4*>(vt + key * DP + 32 * u + 4 * kg);
+        vv[4 * u] = y.x, vv[4 * u + 1] = y.y, vv[4 * u + 2] = y.z, vv[4 * u + 3] = y.w;
+      }
 #pragma unroll
-      for (int c = 0; c < NC; ++c) vv[c] = vs[s * LD + tx + 16 * c];
+      for (int r = 0; r < 4; ++r)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(p[i], vv[c], acc[i][c]);
+        for (int f = 0; f < TD; ++f) acc[r][f] = fmaf(p[r], vv[f], acc[r][f]);
     }
+    __syncwarp();   // P^T is read before the next tile's scores overwrite it
   }
+  cp_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + 4 * ty + i;
+  for (int r = 0; r < 4; ++r) {
+    const int t = q0 + row0 + r;
     if (t >= seq) continue;
-    if (lse != nullptr && tx == 0)
-      lse[((size_t)b * heads + h) * seq + t] = l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    if (lse != nullptr && kg == 0)   // natural units: (m + log2 l) ln 2
+      lse[((size_t)b * heads + h) * seq + t] =
+          l[r] > 0.f ? (m[r] + log2f(l[r])) * 0.6931471805599453f : -INFINITY;
     float* row = o + (((size_t)b * seq + t) * heads + h) * dim;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = tx + 16 * c;
-      if (d < dim) row[d] = l[i] > 0.f ? acc[i][c] / l[i] : 0.f;
+    for (int u = 0; u < NU; ++u) {
+      const int d = 32 * u + 4 * kg;
+      if (d < dim)
+        *reinterpret_cast<float4*>(row + d) = make_float4(
+            acc[r][4 * u] * inv, acc[r][4 * u + 1] * inv, acc[r][4 * u + 2] * inv,
+            acc[r][4 * u + 3] * inv);
     }
   }
 }
@@ -462,19 +554,25 @@ int launch_bf16(const Args& a) {
 
 template <int DP>
 auto fwd_f32() {
-  return make_launch(flash_fwd_f32_kernel<DP>, kThreadsF32, smem_bytes_f32<DP>());
+  return make_launch(flash_fwd_f32_kernel<DP>, kThreadsF32, sizeof(float) * smem_floats_f32<DP>());
 }
 
 template <int DP>
 int launch_f32(const Args& a) {
+  if (a.dim % 4 != 0 || !rows_aligned(a.q, a.qs, 4) || !rows_aligned(a.k, a.ks, 4) ||
+      !rows_aligned(a.v, a.vs, 4) || reinterpret_cast<uintptr_t>(a.o) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  // one block per (tile of query rows, batch, head), batch * head fastest
+  const long long blocks =
+      (long long)((a.seq + kRowsF32 - 1) / kRowsF32) * a.batch * a.heads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const auto l = fwd_f32<DP>();
   const cudaError_t err = l.prepare();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.seq + kRowsQ - 1) / kRowsQ, a.heads, a.batch);
-  l.kernel<<<grid, l.threads, l.smem, a.stream>>>(
+  l.kernel<<<(unsigned)blocks, l.threads, l.smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.qs, a.ks, a.vs, a.seq,
-      a.heads, a.dim, a.scale, a.causal);
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.qs, a.ks, a.vs,
+      a.batch, a.seq, a.heads, a.dim, a.scale, a.causal);
   return (int)cudaGetLastError();
 }
 

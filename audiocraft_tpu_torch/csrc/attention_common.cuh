@@ -149,8 +149,9 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[DP / 8]
   }
 }
 
-bool rows_aligned(const void* x, Strides s) {  // every row starts on 16 bytes
-  return (uintptr_t)x % 16 == 0 && s.b % 8 == 0 && s.t % 8 == 0 && s.h % 8 == 0;
+// every row starts on 16 bytes: `per16` elements to 16 bytes (8 bf16, 4 fp32)
+bool rows_aligned(const void* x, Strides s, int per16 = 8) {
+  return (uintptr_t)x % 16 == 0 && s.b % per16 == 0 && s.t % per16 == 0 && s.h % per16 == 0;
 }
 
 // A kernel with its block size and dynamic shared memory, the latter allowed

@@ -58,9 +58,12 @@
 // bound by L2; stage 1's ring waits, batch by batch, for the products that
 // read a slot before it refills it (a deeper ring, w1 streamed beside wd,
 // ran slower).
-// fp32 (the parity path) and other stages run stage_kernel, the first
-// version's phases on fp32 FMA, one block a tile.  Offsets into the
-// activations are 64-bit: stage 0 at b128 holds 2.6e9 elements.
+// fp32 (the parity path) runs stage_tiled_kernel, register-tiled fp32 FMA
+// (its notes below), at the stages it is built for (those above and the
+// debug codecs' C = 4, s = 16 and 8, in either dtype); any other stage runs
+// stage_kernel, the first version's phases on fp32 FMA, one block a tile.
+// Offsets into the activations are 64-bit: stage 0 at b128 holds 2.6e9
+// elements.
 //
 // K5 and K6 replace _banded_conv_kernel and _mono_conv_kernel of the same
 // file: y[b, c, t] = sum_d w[c, d] x[b, t + d] + bias[c] for C_in = 1, a
@@ -334,10 +337,8 @@ int choose_tile(int c, int h, int c_out, int stride, int is_bf16) {
   return 0;
 }
 
-// ------------------------------------------------- K4, bf16 on tensor cores
+// ------------------------------------------------- mbarriers, bulk copies
 
-constexpr int kMmaThreads = 512;   // 16 warps: one block an SM, and enough warps to hide latency
-constexpr int kMmaWarps = kMmaThreads / 32;
 // cycles (about 10 s) a wait on an mbarrier may spin before it traps, so that
 // a fault ends the launch with an error instead of hanging the card
 constexpr unsigned long long kSpinLimit = 20000000000ull;
@@ -360,6 +361,10 @@ __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
       : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
   return done != 0;
 }
+// Arrive (no bytes expected)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_addr(bar)) : "memory");
+}
 // Wait until the barrier's phase of `parity` has completed; trap after kSpinLimit cycles
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   if (mbar_try_wait(bar, parity)) return;
@@ -375,6 +380,468 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
       :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
 }
 
+// ------------------------------------------- K4, fp32 FMA, register-tiled
+
+// The fp32 parity path's stage kernel at the stages it is instantiated for
+// (ops/seanet.py:tiled_plan; any other stage keeps stage_kernel above).
+// Its products run on the CUDA cores in fp32 FMA: the tensor cores' TF32
+// would round the products and move codes.  Bound: 2 operations a multiply-
+// add at the fp32 rate (67 TFLOP/s): [16, 64, 320000] -> [16, 128, 80000]
+// does 252 GFLOP (3.76 ms), as does stage 1 at the same batch.
+//
+// stage_kernel above computes one output a thread, reads a weight from
+// global memory for every FMA and launches a block per tile of frames that
+// re-reads every weight.  Here:
+// - one persistent block an SM walks over items of one batch row and kTile =
+//   kFrames - 1 output frames (kRows = S * kFrames r rows: 256 where shared
+//   memory allows, else 128); 8 warps compute, a ninth streams the weights;
+// - every product is a register tile: a thread owns 8 consecutive r rows
+//   (or frames) x TN output channels (2, 4 or 8) and takes each operand row by
+//   128-bit shared loads, the activations stored channel-major ([channel]
+//   [row]) so that 8 rows are contiguous.  conv3 loads 12 rows of ELU(a) a
+//   channel once for its three taps; the downsample loads 12 frames of one
+//   phase of ELU(r) once for its two taps (k and k + S), ELU(r) being stored
+//   by phase (r row S j + p at phase p, frame j);
+// - w1, w2 and wd stream through a ring of kFmaStages slots of k-chunks, the
+//   chunk sequence running on over the block's items: one lane of the
+//   weight warp refills a slot by bulk copies completing on its full
+//   mbarrier as soon as the 8 warps have arrived on its empty one, so no
+//   block-wide barrier falls between chunks (the first design's one barrier
+//   a chunk cost 13 % of stage 0's cycles and 22 % of stage 1's).  None
+//   stays resident: at 256 r rows the activations of stage 0 leave no room
+//   for w1 and w2 (33 KiB);
+// - the next item's input tile is copied (16-byte cp.async) into the input
+//   buffer once conv1 has read it, under the downsample; tiles at a row's
+//   edges are gathered through reflected indices by the threads;
+// - the output tile goes through shared memory and out along T.
+// Rounding as stage_kernel: ELU(a), z and ELU(r) are stored rounded to the
+// input dtype (kept as fp32 values in shared memory), every product and bias
+// sums in fp32, y is rounded once.  Weights and biases arrive in fp32 (exact
+// copies of bf16 ones).  The per-phase counter's phases: TiledPhase.  Nine
+// warps put three on one SM sub-partition, which caps a thread at 168
+// registers (stage 1 spills 64 bytes); the weight warp bought more than the
+// 181 registers of 8 warps did.
+// After (NVIDIA H100 80GB HBM3 at 700 W, PERF.md): 7.01 + 6.91 ms at B = 16
+// x 10 s (35.9 and 36.4 TFLOP/s; the first design 206.1 + 427.7, cuDNN's
+// module stack 20.2 + 11.7); stage 0's split: downsample 50 %, conv3 19 %,
+// conv1 14 %, ELU(a) 6 %, output 4 %, chunk waits 4 %.
+
+constexpr int kFmaWorkers = 256;                 // 8 warps compute
+constexpr int kFmaThreads = kFmaWorkers + 32;    // and one warp streams the weights
+constexpr int kFmaStages = 3;     // weight chunks in the ring
+constexpr int kFmaSlot = 4096;    // floats a ring slot holds at most (16 KiB)
+
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ constexpr int cround(int v, int m) { return (v + m - 1) / m * m; }
+// the largest power of two dividing n whose chunk (d rows of `per` weight
+// rows of `width` floats) fits a slot
+__host__ __device__ constexpr int chunk_rows(int n, int per, int width) {
+  int d = n & -n;
+  while (d > 1 && d * per * width > kFmaSlot) d /= 2;
+  return d;
+}
+// output channels of a thread's register tile for an M x N product: as many
+// as keep the 256 computing threads busy, 2 to 8
+__host__ __device__ constexpr int tile_cols(int m, int n) {
+  const int t = m / 8 * n / kFmaWorkers;
+  return t >= 8 ? 8 : t >= 4 ? 4 : 2;
+}
+
+// Shared floats of an item of `rows` r rows: the input tile, ELU(a) (then
+// ELU(r) by phase), z (then the output tile), the ring, the biases, the
+// ring's full and empty mbarriers.  ops/seanet.py:_tiled_floats computes the
+// same.
+__host__ __device__ constexpr int tiled_floats(int c, int h, int co, int s, int rows) {
+  const int rs = rows + 8, es = rows / s + 4;
+  const int slot = cmax(cmax(3 * chunk_rows(c, 3, h) * h, chunk_rows(h, 1, c) * c),
+                        2 * chunk_rows(c, 2, co) * co);
+  return c * rs + cmax(c * rs, s * c * es) + cmax(h * rows, co * es) + kFmaStages * slot +
+         cround(h + c + co, 4) + 4 * kFmaStages;
+}
+
+template <int C, int H, int CO, int S>
+struct Tiled {
+  static constexpr int kRows = 4 * tiled_floats(C, H, CO, S, 256) <= kSmemLimit ? 256 : 128;
+  static constexpr int kFrames = kRows / S, kTile = kFrames - 1, kNa = kRows + 2;
+  static constexpr int kRs = kRows + 8;        // input tile and ELU(a) rows: 12-row loads past kRows
+  static constexpr int kEs = kFrames + 4;      // ELU(r) phase rows and output tile rows
+  static constexpr int kC3 = chunk_rows(C, 3, H), kC1 = chunk_rows(H, 1, C), kCd = chunk_rows(C, 2, CO);
+  static constexpr int kN3 = C / kC3, kN1 = H / kC1, kNd = S * (C / kCd);
+  static constexpr int kChunks = kN3 + kN1 + kNd;
+  static constexpr int kSlot = cmax(cmax(3 * kC3 * H, kC1 * C), 2 * kCd * CO);
+  static constexpr int kE = C * kRs, kZ = kE + cmax(C * kRs, S * C * kEs);
+  static constexpr int kRing = kZ + cmax(H * kRows, CO * kEs);
+  static constexpr int kBias = kRing + kFmaStages * kSlot;
+  static constexpr int kBar = kBias + cround(H + C + CO, 4);   // 8-byte aligned
+  static constexpr int kBytes = 4 * tiled_floats(C, H, CO, S, kRows);
+  static constexpr int kT3 = tile_cols(kRows, H), kT1 = tile_cols(kRows, C), kTd = tile_cols(kFrames, CO);
+  static_assert(kBytes <= kSmemLimit && kFrames % 8 == 0, "an item fits");
+  static_assert(kNd >= 2, "the next input lands before the next item's first chunk");
+  static_assert((kC3 * H) % 4 == 0 && (kC1 * C) % 4 == 0 && CO % 4 == 0, "16-byte chunks");
+};
+
+// How the 256 threads cover an M x N product in 8 x TN register tiles: a
+// warp spans WM row groups x WN column groups, so that its operand loads
+// are broadcasts along one axis and distinct 16-byte pieces along the other.
+template <int M, int N, int TN>
+struct Tiling {
+  static constexpr int MG = M / 8, NG = N / TN, WN = NG < 8 ? NG : 8, WM = 32 / WN;
+  static constexpr int WARPS_N = NG / WN, WARPS_M = (MG + WM - 1) / WM;
+  static_assert(N % TN == 0 && (TN != 8 || N % 8 == 0), "whole tiles");
+  static_assert(WARPS_N * WARPS_M * 32 <= kFmaWorkers, "one tile a thread");
+  int mi, ni;
+  bool valid;
+  __device__ explicit Tiling(int tid) {
+    const int lane = tid & 31, w = tid >> 5;
+    mi = (w / WARPS_N) * WM + lane / WN;
+    ni = (w % WARPS_N) * WN + lane % WN;
+    valid = w < WARPS_N * WARPS_M && mi < MG;
+  }
+  // the output column of element j of the tile: TN = 8 takes two groups of
+  // 4 (4 ni .., N / 2 + 4 ni ..), so that a warp's 128-bit loads of a row are
+  // contiguous
+  __device__ static int col(int ni, int j) {
+    return TN == 8 ? (j < 4 ? 4 * ni + j : N / 2 + 4 * ni + j - 4) : TN * ni + j;
+  }
+};
+
+// Element j < TN of a weight row's tile columns, by 128-bit (or 64-bit) loads
+template <int TN, int N>
+__device__ __forceinline__ void load_cols(float (&b)[TN], const float* row, int ni) {
+  if constexpr (TN == 8) {
+    const float4 lo = *reinterpret_cast<const float4*>(row + 4 * ni);
+    const float4 hi = *reinterpret_cast<const float4*>(row + N / 2 + 4 * ni);
+    b[0] = lo.x, b[1] = lo.y, b[2] = lo.z, b[3] = lo.w, b[4] = hi.x, b[5] = hi.y, b[6] = hi.z, b[7] = hi.w;
+  } else if constexpr (TN == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(row + 4 * ni);
+    b[0] = v.x, b[1] = v.y, b[2] = v.z, b[3] = v.w;
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(row + 2 * ni);
+    b[0] = v.x, b[1] = v.y;
+  }
+}
+
+// N floats from a 16-byte-aligned shared address
+template <int N>
+__device__ __forceinline__ void load_rows(float (&a)[N], const float* p) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p + i);
+    a[i] = v.x, a[i + 1] = v.y, a[i + 2] = v.z, a[i + 3] = v.w;
+  }
+}
+
+template <typename T> __device__ __forceinline__ float rounded(float v) { return to_f32(from_f32<T>(v)); }
+
+// Phases of the register-tiled variant's cycle counter (ops/seanet.py:TILED_PHASES)
+enum TiledPhase { kTIn, kTElu, kTConv3, kTConv1, kTReflect, kTDown, kTOut, kTWait };
+
+// The 256 threads of warps 0-7 meet (named barrier 1; the weight warp never does)
+__device__ __forceinline__ void workers_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(kFmaWorkers) : "memory");
+}
+
+// grid: one persistent block an SM; block b takes items b, b + grid, ...
+// Warps 0-7 compute; warp 8 (one lane) streams the weight chunks by bulk
+// copies, each completing on its slot's full barrier, a slot refilled once
+// the 8 warps have arrived on its empty barrier.
+template <typename T, int C, int H, int CO, int S, bool kClocks>
+__global__ void __launch_bounds__(kFmaThreads, 1)
+stage_tiled_kernel(const T* __restrict__ x, const float* __restrict__ w1,
+                   const float* __restrict__ b1, const float* __restrict__ w2,
+                   const float* __restrict__ b2, const float* __restrict__ wd,
+                   const float* __restrict__ bd, T* __restrict__ y, int len, int frames,
+                   int tiles, int items, int vec, unsigned long long* clocks) {
+  using G = Tiled<C, H, CO, S>;
+  constexpr int ROWS = G::kRows, NF = G::kFrames, TILE = G::kTile, NA = G::kNa;
+  constexpr int RS = G::kRs, ES = G::kEs, SLOT = G::kSlot, STAGES = kFmaStages;
+  constexpr int LEFT = S - S / 2, RIGHT = S / 2;
+  extern __shared__ __align__(16) float fsmem[];
+  float* raw = fsmem;                 // [C][RS]: the input tile, a row t_lo + p at column p + roff
+  float* ea = fsmem + G::kE;          // [C][RS]: ELU(a), a row t_lo + p at column p
+  float* er = ea;                     // [S][C][ES]: ELU(r) by phase, after conv3
+  float* zs = fsmem + G::kZ;          // [H][ROWS]: z; then the output tile [CO][ES]
+  float* ring = fsmem + G::kRing;     // [STAGES][SLOT]
+  float* sb1 = fsmem + G::kBias;
+  float* sb2 = sb1 + H;
+  float* sbd = sb2 + C;
+  const int tid = threadIdx.x;
+  PhaseClock<kClocks> laps(clocks);
+  const int iters = (items - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  auto item_of = [&](int n) { return n * (int)gridDim.x + (int)blockIdx.x; };
+  auto first_row = [&](int item) { return (item % tiles) * TILE * S - LEFT - 1; };   // a row of local 0
+  // an interior tile of an fp32 input comes by 16-byte copies from the
+  // aligned column at or before its first row
+  auto interior = [&](int t_lo) {
+    return sizeof(T) == 4 && vec && t_lo >= 0 && (t_lo & ~3) + RS <= len;
+  };
+
+  // the input tile of `item` into raw: cp.async copies (committed by the
+  // next issue) or, at a row's edges, reflected rows by the threads
+  auto prefetch = [&](int item) {
+    const int t_lo = first_row(item);
+    const T* xb = x + (size_t)(item / tiles) * C * len;
+    if (interior(t_lo)) {
+      const T* src = xb + (t_lo & ~3);
+      for (int e = tid; e < C * (RS / 4); e += kFmaWorkers) {
+        const int c = e / (RS / 4), v = e - c * (RS / 4);
+        cp_async16(raw + c * RS + 4 * v, src + (size_t)c * len + 4 * v, true);
+      }
+    } else {
+      for (int e = tid; e < C * NA; e += kFmaWorkers) {
+        const int c = e / NA, p = e - c * NA;
+        int t = t_lo + p;
+        t = t < 0 ? -t : t;
+        t = t >= len ? 2 * len - 2 - t : t;
+        raw[c * RS + p] = to_f32(xb[(size_t)c * len + min(max(t, 0), len - 1)]);
+      }
+    }
+  };
+
+  uint64_t* full = reinterpret_cast<uint64_t*>(fsmem + G::kBar);   // a chunk has landed in the slot
+  uint64_t* empty = full + STAGES;                                  // the 8 warps are done with it
+  for (int i = tid; i < H; i += kFmaThreads) sb1[i] = b1[i];
+  for (int i = tid; i < C; i += kFmaThreads) sb2[i] = b2[i];
+  for (int i = tid; i < CO; i += kFmaThreads) sbd[i] = bd[i];
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) mbar_init(full + i, 1), mbar_init(empty + i, kFmaWorkers / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the weight chunk sequence: per item kN3 chunks of w1 (kC3 channels, 3
+  // taps: [tap][c][H]), kN1 of w2 (kC1 rows: [h][C]) and kNd of wd (phase p,
+  // kCd channels, taps p and p + S: [2][c][CO]); chunk q in slot q % STAGES
+  const int total = iters * G::kChunks;
+  if (tid >= kFmaWorkers) {
+    if (tid == kFmaWorkers) {
+      for (int q = 0; q < total; ++q) {
+        const int slot = q % STAGES;
+        mbar_wait(empty + slot, ((q / STAGES) & 1) ^ 1);   // its last chunk has been read
+        float* dst = ring + slot * SLOT;
+        uint64_t* bar = full + slot;
+        int k = q % G::kChunks;
+        if (k < G::kN3) {
+          mbar_expect_tx(bar, 4 * 3 * G::kC3 * H);
+          for (int t = 0; t < 3; ++t)
+            bulk_copy(dst + t * G::kC3 * H, w1 + (size_t)(t * C + k * G::kC3) * H, 4 * G::kC3 * H, bar);
+        } else if ((k -= G::kN3) < G::kN1) {
+          mbar_expect_tx(bar, 4 * G::kC1 * C);
+          bulk_copy(dst, w2 + (size_t)k * G::kC1 * C, 4 * G::kC1 * C, bar);
+        } else {
+          k -= G::kN1;
+          const int p = k / (C / G::kCd), c0 = (k % (C / G::kCd)) * G::kCd;
+          mbar_expect_tx(bar, 4 * 2 * G::kCd * CO);
+          bulk_copy(dst, wd + (size_t)(p * C + c0) * CO, 4 * G::kCd * CO, bar);
+          bulk_copy(dst + G::kCd * CO, wd + (size_t)((p + S) * C + c0) * CO, 4 * G::kCd * CO, bar);
+        }
+      }
+    }
+    return;
+  }
+  // chunk q has landed (the wait's cycles counted apart); done with chunk q
+  auto wait_chunk = [&](int q, int phase) {
+    laps.lap(phase);
+    mbar_wait(full + q % STAGES, (q / STAGES) & 1);
+    laps.lap(kTWait);
+  };
+  auto release = [&](int q) {
+    __syncwarp();
+    if ((tid & 31) == 0) mbar_arrive(empty + q % STAGES);
+  };
+
+  prefetch(item_of(0));
+  cp_commit();
+
+  const Tiling<ROWS, H, G::kT3> t3(tid);
+  const Tiling<ROWS, C, G::kT1> t1(tid);
+  const Tiling<NF, CO, G::kTd> td(tid);
+  int q = 0;   // the chunk being multiplied
+  for (int n = 0; n < iters; ++n) {
+    const int item = item_of(n);
+    const int t_lo = first_row(item), roff = interior(t_lo) ? t_lo & 3 : 0;
+    const int r0 = t_lo + 1, u0 = (r0 + LEFT) / S;   // global r row of local 0, first frame
+    laps.lap(kTOut);
+    cp_wait<0>();      // this item's input has landed (copied under the last downsample)
+    workers_sync();
+    laps.lap(kTWait);
+
+#pragma unroll 4
+    for (int e = tid; e < C * NA; e += kFmaWorkers) {
+      const int c = e / NA, p = e - c * NA;
+      ea[c * RS + p] = rounded<T>(elu(raw[c * RS + p + roff]));
+    }
+    workers_sync();
+    laps.lap(kTElu);
+
+    // z = ELU(conv3(ELU(a)) + b1): r row m reads ELU(a) columns m .. m + 2
+    {
+      constexpr int TN = G::kT3;
+      float acc[8][TN] = {};
+      const int m0 = 8 * t3.mi;
+      for (int k = 0; k < G::kN3; ++k, ++q) {
+        wait_chunk(q, kTConv3);
+        const float* slot = ring + (q % STAGES) * SLOT;
+        if (t3.valid) {
+#pragma unroll 4
+          for (int cc = 0; cc < G::kC3; ++cc) {
+            float a[12];
+            load_rows(a, ea + (k * G::kC3 + cc) * RS + m0);
+#pragma unroll
+            for (int tap = 0; tap < 3; ++tap) {
+              float b[TN];
+              load_cols<TN, H>(b, slot + (tap * G::kC3 + cc) * H, t3.ni);
+#pragma unroll
+              for (int i = 0; i < 8; ++i)
+#pragma unroll
+                for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i + tap], b[j], acc[i][j]);
+            }
+          }
+        }
+        release(q);
+      }
+      if (t3.valid) {
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const int h = t3.col(t3.ni, j);
+          float v[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) v[i] = rounded<T>(elu(acc[i][j] + sb1[h]));
+          *reinterpret_cast<float4*>(zs + h * ROWS + m0) = make_float4(v[0], v[1], v[2], v[3]);
+          *reinterpret_cast<float4*>(zs + h * ROWS + m0 + 4) = make_float4(v[4], v[5], v[6], v[7]);
+        }
+      }
+    }
+    workers_sync();   // z is whole
+
+    // ELU(r), r = a + conv1(z) + b2, by phase over ELU(a) (no longer read)
+    {
+      constexpr int TN = G::kT1;
+      float acc[8][TN] = {};
+      const int m0 = 8 * t1.mi;
+      for (int k = 0; k < G::kN1; ++k, ++q) {
+        wait_chunk(q, k == 0 ? kTConv3 : kTConv1);
+        const float* slot = ring + (q % STAGES) * SLOT;
+        if (t1.valid) {
+#pragma unroll 4
+          for (int hh = 0; hh < G::kC1; ++hh) {
+            float a[8], b[TN];
+            load_rows(a, zs + (k * G::kC1 + hh) * ROWS + m0);
+            load_cols<TN, C>(b, slot + hh * C, t1.ni);
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+              for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+          }
+        }
+        release(q);
+      }
+      if (t1.valid) {
+        // the thread's 8 r rows m0 + i (r row m is a row m + 1) hold V
+        // consecutive frames of each phase where S divides 8: one vector store a phase
+        constexpr int V = S <= 8 ? 8 / S : 1;
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const int c = t1.col(t1.ni, j);
+          float v[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            v[i] = rounded<T>(elu(raw[c * RS + m0 + i + 1 + roff] + acc[i][j] + sb2[c]));
+          if constexpr (V == 2 || V == 4) {
+#pragma unroll
+            for (int p = 0; p < S; ++p) {
+              float* dst = er + (p * C + c) * ES + m0 / S;
+              if constexpr (V == 2)
+                *reinterpret_cast<float2*>(dst) = make_float2(v[p], v[p + S]);
+              else
+                *reinterpret_cast<float4*>(dst) = make_float4(v[p], v[p + 2], v[p + 4], v[p + 6]);
+            }
+          } else {
+#pragma unroll
+            for (int i = 0; i < 8; ++i) er[(((m0 + i) % S) * C + c) * ES + (m0 + i) / S] = v[i];
+          }
+        }
+      }
+    }
+    workers_sync();   // ELU(r) is whole; the input tile is free
+    laps.lap(kTConv1);
+    if (n + 1 < iters) prefetch(item_of(n + 1));
+    cp_commit();
+    laps.lap(kTIn);
+
+    // the downsample's reflect pad at the sequence edges: ELU(r) row -i :=
+    // row i, row L+i := row L-2-i (sources and destinations never overlap)
+    auto er_at = [&](int r, int c) -> float& { return er[((r % S) * C + c) * ES + r / S]; };
+    if (r0 < 0 || u0 + TILE >= frames) {
+      if (r0 < 0)
+        for (int e = tid; e < LEFT * C; e += kFmaWorkers)
+          er_at(-(e / C + 1) - r0, e % C) = er_at(e / C + 1 - r0, e % C);
+      if (u0 + TILE >= frames)
+        for (int e = tid; e < RIGHT * C; e += kFmaWorkers)
+          er_at(len + e / C - r0, e % C) = er_at(len - 2 - e / C - r0, e % C);
+      workers_sync();
+    }
+    laps.lap(kTReflect);
+
+    // downsample: frame m = sum over phases p and channels c of ELU(r)_p[c][m] .
+    // wd[p][c] + ELU(r)_p[c][m + 1] . wd[p + S][c]
+    {
+      constexpr int TN = G::kTd;
+      float acc[8][TN] = {};
+      const int m0 = 8 * td.mi;
+      for (int k = 0; k < G::kNd; ++k, ++q) {
+        wait_chunk(q, kTDown);
+        const float* slot = ring + (q % STAGES) * SLOT;
+        const int p = k / (C / G::kCd), c0 = (k % (C / G::kCd)) * G::kCd;
+        if (td.valid) {
+#pragma unroll 4
+          for (int cc = 0; cc < G::kCd; ++cc) {
+            float a[12], b0[TN], b1v[TN];
+            load_rows(a, er + (p * C + c0 + cc) * ES + m0);
+            load_cols<TN, CO>(b0, slot + cc * CO, td.ni);
+            load_cols<TN, CO>(b1v, slot + (G::kCd + cc) * CO, td.ni);
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+              for (int j = 0; j < TN; ++j)
+                acc[i][j] = fmaf(a[i + 1], b1v[j], fmaf(a[i], b0[j], acc[i][j]));
+          }
+        }
+        release(q);
+      }
+      if (td.valid) {
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const int co = td.col(td.ni, j);
+          float v[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) v[i] = acc[i][j] + sbd[co];
+          *reinterpret_cast<float4*>(zs + co * ES + m0) = make_float4(v[0], v[1], v[2], v[3]);
+          *reinterpret_cast<float4*>(zs + co * ES + m0 + 4) = make_float4(v[4], v[5], v[6], v[7]);
+        }
+      }
+    }
+    laps.lap(kTDown);
+    workers_sync();
+    const int fr = min(TILE, frames - u0);
+    T* yb = y + (size_t)(item / tiles) * CO * frames + u0;
+#pragma unroll 4
+    for (int e = tid; e < CO * TILE; e += kFmaWorkers) {
+      const int co = e / TILE, m = e - co * TILE;
+      if (m < fr) yb[(size_t)co * frames + m] = from_f32<T>(zs[co * ES + m]);
+    }
+  }
+  if constexpr (kClocks) {
+    workers_sync();
+    laps.lap(kTOut);
+  }
+  laps.flush();
+}
+
+// ------------------------------------------------- K4, bf16 on tensor cores
+
+constexpr int kMmaThreads = 512;   // 16 warps: one block an SM, and enough warps to hide latency
+constexpr int kMmaWarps = kMmaThreads / 32;
 // A box of a 2D tensor map (coordinates: column, row) to shared memory by the
 // copy engine, completing on `bar`; columns past the tensor arrive as zeros
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int col, int row,
@@ -1049,6 +1516,42 @@ int launch_mma(const void* x, const void* w1, const void* b1, const void* w2, co
                             static_cast<const bf16*>(bd), static_cast<bf16*>(y), g, clocks, xmap);
 }
 
+// The register-tiled fp32 FMA variant: plan = {tile, rows, ring stages, slot
+// floats, conv3 / conv1 / downsample chunk rows, shared bytes}, recomputed
+// here and compared (ops/seanet.py:TiledPlan).
+template <typename T, int C, int H, int CO, int S, bool kClocks>
+int launch_tiled(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
+                 const void* wd, const void* bd, void* y, int batch, int len, const int* plan,
+                 cudaStream_t stream, unsigned long long* clocks, int* info, int max_blocks) {
+  using G = Tiled<C, H, CO, S>;
+  const int own[8] = {G::kTile, G::kRows, kFmaStages, G::kSlot, G::kC3, G::kC1, G::kCd, G::kBytes};
+  for (int i = 0; i < 8; ++i)
+    if (plan[i] != own[i]) return (int)cudaErrorInvalidValue;
+  const uintptr_t align = reinterpret_cast<uintptr_t>(w1) | reinterpret_cast<uintptr_t>(w2) |
+                          reinterpret_cast<uintptr_t>(wd);
+  if (align % 16) return (int)cudaErrorMisalignedAddress;
+  const int frames = len / S, tiles = (frames + G::kTile - 1) / G::kTile;
+  if ((long long)batch * tiles > (1 << 30)) return (int)cudaErrorInvalidValue;
+  auto kernel = stage_tiled_kernel<T, C, H, CO, S, kClocks>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kBytes);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kFmaThreads, G::kBytes);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int items = batch * tiles;
+  const int resident = max_blocks > 0 ? min(max_blocks, per_sm * sms) : per_sm * sms;
+  const int vec = len % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  return launch_or_describe(kernel, dim3(min(items, resident)), kFmaThreads, G::kBytes, G::kTile,
+                            stream, info, static_cast<const T*>(x), static_cast<const float*>(w1),
+                            static_cast<const float*>(b1), static_cast<const float*>(w2),
+                            static_cast<const float*>(b2), static_cast<const float*>(wd),
+                            static_cast<const float*>(bd), static_cast<T*>(y), len, frames, tiles,
+                            items, vec, clocks);
+}
+
 template <typename T, bool kClocks>
 int launch_stage(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
                  const void* wd, const void* bd, void* y, Stage g, size_t smem,
@@ -1261,20 +1764,42 @@ int run_mono(const void* x, const void* w, const float* bias, void* y, Mono g, c
                      : launch_mono<T, kMaxTaps, 4, false>(x, w, bias, y, g, own[4], stream);
 }
 
-// K4 by plan: plan == nullptr runs the fp32-FMA variant (its tile chosen
-// here); else plan = {tile, in_bufs, ring, shared bytes} of the tensor-core
-// variant, whose shared bytes are recomputed and must agree.
+// The variants of K4 (ops/seanet.py:stage_route)
+enum Variant { kSimt = 0, kTiledFma = 1, kTensorCores = 2 };
+
+// K4 by variant: kSimt, stage_kernel (no plan; its tile chosen here);
+// kTiledFma, plan as launch_tiled takes it; kTensorCores, plan = {tile,
+// in_bufs, ring, shared bytes}, whose shared bytes are recomputed and must
+// agree.
 template <bool kClocks>
 int run_stage(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
               const void* wd, const void* bd, void* y, int batch, int c, int h, int c_out,
-              int len, int stride, int is_bf16, const int* plan, void* stream,
+              int len, int stride, int is_bf16, int variant, const int* plan, void* stream,
               unsigned long long* clocks, int* info, int max_blocks = 0) {
   if (batch <= 0 || c <= 0 || h <= 0 || c_out <= 0 || stride <= 0 || len < 2 ||
       len % stride != 0)
     return (int)cudaErrorInvalidValue;
+  if ((variant == kSimt) != (plan == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int right = stride / 2, left = stride - right, frames = len / stride;
-  if (plan) {
+  if (variant == kTiledFma) {
+#define ACX_TILED(C, H, CO, S)                                                                 \
+  if (c == C && h == H && c_out == CO && stride == S)                                          \
+    return is_bf16 ? launch_tiled<bf16, C, H, CO, S, kClocks>(x, w1, b1, w2, b2, wd, bd, y,    \
+                                                             batch, len, plan, s, clocks,      \
+                                                             info, max_blocks)                 \
+                   : launch_tiled<float, C, H, CO, S, kClocks>(x, w1, b1, w2, b2, wd, bd, y,   \
+                                                              batch, len, plan, s, clocks,     \
+                                                              info, max_blocks);
+    ACX_TILED(64, 32, 128, 4)
+    ACX_TILED(128, 64, 256, 4)
+    ACX_TILED(32, 16, 64, 2)
+    ACX_TILED(4, 2, 8, 16)
+    ACX_TILED(4, 2, 8, 8)
+#undef ACX_TILED
+    return (int)cudaErrorInvalidValue;
+  }
+  if (variant == kTensorCores) {
     MmaStage g{};
     g.batch = batch, g.len = len, g.frames = frames, g.left = left, g.right = right;
     g.in_bufs = plan[1], g.ring = plan[2];
@@ -1302,6 +1827,7 @@ int run_stage(const void* x, const void* w1, const void* b1, const void* w2, con
 #undef ACX_MMA
     return (int)cudaErrorInvalidValue;
   }
+  if (variant != kSimt) return (int)cudaErrorInvalidValue;
   const int tile = choose_tile(c, h, c_out, stride, is_bf16);
   if (tile == 0) return (int)cudaErrorInvalidValue;
   Stage g{};
@@ -1316,44 +1842,45 @@ int run_stage(const void* x, const void* w1, const void* b1, const void* w2, con
 
 }  // namespace
 
-// One fused encoder stage (K4): x [B, C, L] -> y [B, C_out, L / stride], all
-// in one dtype (bf16 when is_bf16, else fp32).  Weights are K-major: w1
-// [3C, H], w2 [H, C], wd [2 stride C, C_out]; with a plan (bf16 on the tensor
-// cores, at the widths instantiated above) they come in the order of
-// ops/seanet.py:pack_mma_fragments instead.  Returns cudaErrorInvalidValue
-// for widths, lengths or plans the kernels do not take.
+// One fused encoder stage (K4): x [B, C, L] -> y [B, C_out, L / stride], x
+// and y in one dtype (bf16 when is_bf16, else fp32).  Weights are K-major:
+// w1 [3C, H], w2 [H, C], wd [2 stride C, C_out]: in x's dtype for kSimt, in
+// fp32 (biases too) for kTiledFma, in the order of
+// ops/seanet.py:pack_b_tiles for kTensorCores (bf16, at the widths
+// instantiated above).  Returns cudaErrorInvalidValue for widths, lengths,
+// variants or plans the kernels do not take.
 extern "C" int acx_seanet_stage(const void* x, const void* w1, const void* b1, const void* w2,
                                 const void* b2, const void* wd, const void* bd, void* y,
                                 int batch, int c, int h, int c_out, int len, int stride,
-                                int is_bf16, const int* plan, void* stream) {
+                                int is_bf16, int variant, const int* plan, void* stream) {
   return run_stage<false>(x, w1, b1, w2, b2, wd, bd, y, batch, c, h, c_out, len, stride,
-                          is_bf16, plan, stream, nullptr, nullptr);
+                          is_bf16, variant, plan, stream, nullptr, nullptr);
 }
 
 // The same launch with the per-phase cycle counter on: clocks[2 * kPhases]
 // (zeroed by the caller) collects each phase's cycles summed over blocks, then
-// each phase's work cycles summed over the warps; with max_blocks > 0 the
-// tensor-core variant's persistent grid takes at most that many blocks (how
-// its time scales with the SMs it is given).  A measurement: no model path
+// each phase's work cycles summed over the warps (tensor-core variant); with
+// max_blocks > 0 a persistent grid takes at most that many blocks (how its
+// time scales with the SMs it is given).  A measurement: no model path
 // calls it.
 extern "C" int acx_seanet_stage_clocks(const void* x, const void* w1, const void* b1,
                                        const void* w2, const void* b2, const void* wd,
                                        const void* bd, void* y, int batch, int c, int h,
-                                       int c_out, int len, int stride, int is_bf16,
+                                       int c_out, int len, int stride, int is_bf16, int variant,
                                        const int* plan, void* clocks, int max_blocks,
                                        void* stream) {
   return run_stage<true>(x, w1, b1, w2, b2, wd, bd, y, batch, c, h, c_out, len, stride,
-                         is_bf16, plan, stream, static_cast<unsigned long long*>(clocks),
+                         is_bf16, variant, plan, stream, static_cast<unsigned long long*>(clocks),
                          nullptr, max_blocks);
 }
 
 // What the production instance for this launch uses, into out[7] (see
 // launch_or_describe); nothing is launched.
 extern "C" int acx_seanet_stage_info(int batch, int c, int h, int c_out, int len, int stride,
-                                     int is_bf16, const int* plan, int* out) {
+                                     int is_bf16, int variant, const int* plan, int* out) {
   return run_stage<false>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                          nullptr, batch, c, h, c_out, len, stride, is_bf16, plan, nullptr,
-                          nullptr, out);
+                          nullptr, batch, c, h, c_out, len, stride, is_bf16, variant, plan,
+                          nullptr, nullptr, out);
 }
 
 // The mono input conv: K5 (half < 0: x [B, 1, t_out + taps - 1] already

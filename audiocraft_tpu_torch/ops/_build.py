@@ -44,9 +44,9 @@ _SIGNATURES = {
     'acx_attention_bwd_dq': ([*[_P] * 7, _I, _I, _I, _I, *[_L] * 12, _F, _I, _I, _P], _I),
     'acx_attention_bwd_info': ([_I, _I, _I, ctypes.POINTER(_I)], _I),
     'acx_attention_max_dim': ([], _I),
-    'acx_seanet_stage': ([*[_P] * 8, *[_I] * 7, ctypes.POINTER(_I), _P], _I),
-    'acx_seanet_stage_clocks': ([*[_P] * 8, *[_I] * 7, ctypes.POINTER(_I), _P, _I, _P], _I),
-    'acx_seanet_stage_info': ([*[_I] * 7, ctypes.POINTER(_I), ctypes.POINTER(_I)], _I),
+    'acx_seanet_stage': ([*[_P] * 8, *[_I] * 8, ctypes.POINTER(_I), _P], _I),
+    'acx_seanet_stage_clocks': ([*[_P] * 8, *[_I] * 8, ctypes.POINTER(_I), _P, _I, _P], _I),
+    'acx_seanet_stage_info': ([*[_I] * 8, ctypes.POINTER(_I), ctypes.POINTER(_I)], _I),
     'acx_mono_conv': ([_P, _P, _P, _P, *[_I] * 7, ctypes.POINTER(_I), _P], _I),
     'acx_probe_gather': ([_P, _P, _I, _I, _L, _L, _P], _I),
     'acx_probe_contract': ([_P, _P, _P, _I, _I, _I, _P], _I),

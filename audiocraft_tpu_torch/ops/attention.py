@@ -221,21 +221,44 @@ def _check_stats(q: torch.Tensor, *stats: torch.Tensor) -> None:
 
 
 def _rows_on_16_bytes(*xs: torch.Tensor) -> tp.List[torch.Tensor]:
-    """The bf16 kernels copy rows in 16-byte pieces.  Views whose
-    rows all start on 16 bytes (D a multiple of 8, strides multiples of 8
-    elements, an aligned start) pass as they are, the fused qkv projection's
-    slices among them; any other is copied to a fresh contiguous tensor, with
-    D zero-padded to a multiple of 8 (zero features add nothing to s or dP,
-    and the outputs and gradients of the padding are dropped)."""
-    pad = -xs[0].shape[-1] % 8
+    """The bf16 kernels and the fp32 forward copy rows in 16-byte pieces
+    (``n`` = 8 bf16 or 4 fp32 elements).  Views whose rows all start on 16
+    bytes (D a multiple of n, strides multiples of n elements, an aligned
+    start) pass as they are, the fused qkv projection's slices among them;
+    any other is copied to a fresh contiguous tensor, with D zero-padded to a
+    multiple of n (zero features add nothing to s or dP, and the outputs and
+    gradients of the padding are dropped)."""
+    n = 16 // xs[0].element_size()
+    pad = -xs[0].shape[-1] % n
     out = []
     for x in xs:
         if pad:
             x = torch.nn.functional.pad(x, (0, pad))
-        elif x.data_ptr() % 16 or any(s % 8 for s in x.stride()[:3]):
+        elif x.data_ptr() % 16 or any(s % n for s in x.stride()[:3]):
             x = x.clone(memory_format=torch.contiguous_format)
         out.append(x)
     return out
+
+
+# K3f's fp32 kernel (csrc/attention.cu:flash_fwd_f32_kernel): query rows of a
+# block, keys of a streamed tile, threads
+F32_ROWS, F32_KEYS, F32_THREADS = 64, 32, 128
+SMEM_LIMIT = 232448   # shared bytes an H100 block may take
+
+
+def fwd_f32_geometry(dim: int) -> tp.Dict[str, int]:
+    """The fp32 forward's block for heads of ``dim`` (held in a width class
+    of 32, 64 or 128 features, as ``by_width`` picks it): its rows, keys a
+    tile, threads and shared bytes (q^T [DP][64], two stages of K [32][DP]
+    and V [32][DP], each warp's P^T [32 keys][16 rows]; K swizzled, not
+    padded; csrc/attention.cu:smem_floats_f32 computes the same, and
+    chip_smoke.py holds the two equal on the card)."""
+    if not 0 < dim <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {dim} is outside 1 .. {MAX_HEAD_DIM}")
+    dp = 32 if dim <= 32 else 64 if dim <= 64 else 128
+    floats = dp * F32_ROWS + 2 * F32_KEYS * 2 * dp + (F32_THREADS // 32) * F32_KEYS * 16
+    return dict(width=dp, rows=F32_ROWS, keys=F32_KEYS, threads=F32_THREADS,
+                shared_bytes=4 * floats)
 
 
 def _backward_launch(name: str, q, k, v, do, lse, di, n_out: int, causal: bool,
@@ -292,8 +315,7 @@ def _forward_kernel(q, k, v, causal: bool, sm_scale: float, with_lse: bool):
     _check_cuda('the attention kernel', q, k, v)
     B, T, H, D = q.shape
     bf16 = q.dtype == torch.bfloat16
-    if bf16:
-        q, k, v = _rows_on_16_bytes(q, k, v)
+    q, k, v = _rows_on_16_bytes(q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device) if with_lse else None
     if T == 0 or B == 0 or H == 0:
@@ -305,6 +327,8 @@ def _forward_kernel(q, k, v, causal: bool, sm_scale: float, with_lse: bool):
         sm_scale, int(causal), int(bf16))
     _build.check(err, 'acx_attention_fwd')
     fused_attention.launches += 1
+    if not bf16:
+        fused_attention.fp32_launches += 1
     return out[..., :D], lse
 
 
@@ -329,6 +353,7 @@ def attention_bwd_dkv(q, k, v, do, lse, di, *, causal: bool,
     dk, dv = _backward_launch('acx_attention_bwd_dkv', q, k, v, do, lse, di, 2, causal,
                               sm_scale)
     attention_bwd_dkv.launches += 1
+    attention_bwd_dkv.fp32_launches += q.dtype == torch.float32
     return dk, dv
 
 
@@ -341,6 +366,7 @@ def attention_bwd_dq(q, k, v, do, lse, di, *, causal: bool,
                                           sm_scale=sm_scale)
     dq, = _backward_launch('acx_attention_bwd_dq', q, k, v, do, lse, di, 1, causal, sm_scale)
     attention_bwd_dq.launches += 1
+    attention_bwd_dq.fp32_launches += q.dtype == torch.float32
     return dq
 
 
@@ -386,7 +412,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     return _forward_kernel(q, k, v, causal, sm_scale, with_lse=False)[0]
 
 
-# kernel launches since the last reset
-fused_attention.launches = 0     # K3f
-attention_bwd_dkv.launches = 0   # K3b, dK and dV
-attention_bwd_dq.launches = 0    # K3b, dQ
+# kernel launches since the last reset (and of them, the fp32 FMA kernels')
+fused_attention.launches = fused_attention.fp32_launches = 0         # K3f
+attention_bwd_dkv.launches = attention_bwd_dkv.fp32_launches = 0     # K3b, dK and dV
+attention_bwd_dq.launches = attention_bwd_dq.fp32_launches = 0       # K3b, dQ

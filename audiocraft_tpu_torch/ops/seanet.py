@@ -198,7 +198,8 @@ def pack_b_tiles(w: torch.Tensor) -> torch.Tensor:
 
 # The stages the tensor-core K4 is built for, (C, H, C_out, stride): the
 # fused stages of the 32 kHz and 24 kHz codecs (csrc/seanet.cu:run_stage
-# instantiates the same); other stages run the fp32-FMA variant.
+# instantiates the same); other stages, and fp32, run an FMA variant
+# (:func:`stage_route`).
 _MMA_STAGES = ((32, 16, 64, 2), (64, 32, 128, 4), (128, 64, 256, 4))
 SMEM_LIMIT = 232448   # shared bytes an H100 block may take (csrc/seanet.cu:kSmemLimit)
 RING = 8              # k-chunks of wd in a warpgroup's streaming ring (csrc/seanet.cu:kRing)
@@ -245,7 +246,7 @@ def _mma_smem_bytes(spec: StageSpec, in_bufs: int, ring: int) -> int:
 
 
 def stage_plan(spec: StageSpec, dtype: torch.dtype) -> tp.Optional[StagePlan]:
-    """The tensor-core K4's plan for this stage, or None where the fp32-FMA
+    """The tensor-core K4's plan for this stage, or None where an FMA
     variant runs it (fp32, or a stage it is not built for).
 
     The tile is fixed by the stride: s * (tile + 1) = 128 r rows, two m64
@@ -260,6 +261,97 @@ def stage_plan(spec: StageSpec, dtype: torch.dtype) -> tp.Optional[StagePlan]:
         if smem <= SMEM_LIMIT:
             return StagePlan(128 // spec.stride - 1, in_bufs, ring, smem)
     return None
+
+
+# The stages the register-tiled fp32-FMA K4 is built for, (C, H, C_out,
+# stride): the tensor-core stages and the debug codecs' at 32 and 16 kHz
+# (csrc/seanet.cu:run_stage instantiates the same); any other stage runs
+# the first FMA kernel, stage_kernel.
+_TILED_STAGES = _MMA_STAGES + ((4, 2, 8, 16), (4, 2, 8, 8))
+FMA_WORKERS = 256   # computing threads (csrc/seanet.cu:kFmaWorkers), and a weight warp
+FMA_STAGES = 3      # weight chunks in the ring (kFmaStages)
+FMA_SLOT = 4096     # floats a ring slot holds at most (kFmaSlot)
+
+
+@dataclasses.dataclass(frozen=True)
+class TiledPlan:
+    """How the register-tiled fp32-FMA K4 lays one stage over the card: a
+    persistent block an SM (8 computing warps, one weight warp) walks over
+    items of ``tile`` output frames (``rows`` = stride * (tile + 1) r rows,
+    256 where shared memory allows, else 128); w1, w2 and wd stream through
+    a ring of ``stages`` slots of ``slot`` floats, in chunks of ``chunks`` =
+    (conv3 channels, three taps each; conv1 rows; downsample channels of one
+    phase, two taps each).  The C entry recomputes every field and must find
+    it equal."""
+    tile: int
+    rows: int
+    stages: int
+    slot: int
+    chunks: tp.Tuple[int, int, int]
+    smem_bytes: int
+
+    def args(self) -> ctypes.Array:
+        return (ctypes.c_int * 8)(self.tile, self.rows, self.stages, self.slot, *self.chunks,
+                                  self.smem_bytes)
+
+
+def _chunk_rows(n: int, per: int, width: int) -> int:
+    """The largest power of two dividing n whose chunk (d rows of ``per``
+    weight rows of ``width`` floats) fits a slot (csrc/seanet.cu:chunk_rows)."""
+    d = n & -n
+    while d > 1 and d * per * width > FMA_SLOT:
+        d //= 2
+    return d
+
+
+def _tiled_chunks(spec: StageSpec) -> tp.Tuple[tp.Tuple[int, int, int], int]:
+    """The chunk rows of conv3, conv1 and the downsample, and the floats of
+    the slot that holds the largest chunk."""
+    C, H, CO = spec.c_in, spec.res_hidden, spec.c_out
+    c3, c1, cd = _chunk_rows(C, 3, H), _chunk_rows(H, 1, C), _chunk_rows(C, 2, CO)
+    return (c3, c1, cd), max(3 * c3 * H, c1 * C, 2 * cd * CO)
+
+
+def _tiled_floats(spec: StageSpec, rows: int) -> int:
+    """Shared floats of an item of ``rows`` r rows (csrc/seanet.cu:
+    tiled_floats): the input tile and ELU(a) [C][rows + 8] (ELU(r) by phase
+    [s][C][rows / s + 4] over ELU(a)), z [H][rows] (the output tile
+    [C_out][rows / s + 4] over it), the ring, the biases, the ring's full and
+    empty mbarriers (8 bytes each)."""
+    C, H, s, CO = spec.c_in, spec.res_hidden, spec.stride, spec.c_out
+    rs, es = rows + 8, rows // s + 4
+    slot = _tiled_chunks(spec)[1]
+    return (C * rs + max(C * rs, s * C * es) + max(H * rows, CO * es) + FMA_STAGES * slot
+            + _round_up(H + C + CO, 4) + 4 * FMA_STAGES)
+
+
+def tiled_plan(spec: StageSpec) -> tp.Optional[TiledPlan]:
+    """The register-tiled fp32-FMA K4's plan for this stage (fp32, and bf16
+    where the tensor-core variant is not built), or None for a stage it is
+    not built for, which runs ``stage_kernel`` (the first FMA kernel)."""
+    key = (spec.c_in, spec.res_hidden, spec.c_out, spec.stride)
+    if key not in _TILED_STAGES:
+        return None
+    rows = 256 if 4 * _tiled_floats(spec, 256) <= SMEM_LIMIT else 128
+    chunks, slot = _tiled_chunks(spec)
+    return TiledPlan(rows // spec.stride - 1, rows, FMA_STAGES, slot, chunks,
+                     4 * _tiled_floats(spec, rows))
+
+
+# The kernel variants of K4 (csrc/seanet.cu:Variant)
+SIMT, TILED, TENSOR_CORES = 0, 1, 2
+
+
+def stage_route(spec: StageSpec, dtype: torch.dtype
+                ) -> tp.Tuple[int, tp.Union[StagePlan, TiledPlan, None]]:
+    """Which K4 variant runs this stage in ``dtype``, and its plan: the
+    tensor cores (bf16 at the widths they are built for), else the
+    register-tiled FMA kernel where it is built, else ``stage_kernel``."""
+    plan = stage_plan(spec, dtype)
+    if plan is not None:
+        return TENSOR_CORES, plan
+    tiled = tiled_plan(spec)
+    return (TILED, tiled) if tiled is not None else (SIMT, None)
 
 
 def stage_weight_l2_bytes(spec: StageSpec, plan: StagePlan, batch: int, length: int,
@@ -308,7 +400,7 @@ def packed_stage_weights(params: tp.Dict[str, torch.Tensor], spec: StageSpec
                          ) -> tp.Dict[str, torch.Tensor]:
     """``w1_mma``, ``w2_mma``, ``wd_mma``: the stage's K-major weights in the
     layouts the tensor-core K4 reads (:func:`stage_plan` for their dtype);
-    empty where the fp32-FMA variant runs the stage."""
+    empty where an FMA variant runs the stage."""
     if stage_plan(spec, params['w1'].dtype) is None:
         return {}
     return {f'{k}_mma': pack_b_tiles(params[k]) for k in ('w1', 'w2', 'wd')}
@@ -321,17 +413,20 @@ def _launch_stage(x: torch.Tensor, params: tp.Dict[str, torch.Tensor], spec: Sta
     C, H, s, C_out = spec.c_in, spec.res_hidden, spec.stride, spec.c_out
     B, _, L = x.shape
     lib = _build.library()
-    plan = stage_plan(spec, x.dtype)
+    variant, plan = stage_route(spec, x.dtype)
     y = torch.empty(B, C_out, L // s, dtype=x.dtype, device=x.device)
     if B == 0:
         return y
-    w1, w2, wd = params['w1'], params['w2'], params['wd']
-    if plan is not None:
-        w1, w2, wd = (params[f'{k}_mma'] if f'{k}_mma' in params else pack_b_tiles(w)
-                      for k, w in (('w1', w1), ('w2', w2), ('wd', wd)))
-    args = (x.data_ptr(), w1.data_ptr(), params['b1'].data_ptr(), w2.data_ptr(),
-            params['b2'].data_ptr(), wd.data_ptr(), params['bd'].data_ptr(), y.data_ptr(), B, C,
-            H, C_out, L, s, int(x.dtype == torch.bfloat16), plan.args() if plan else None)
+    w = {k: params[k] for k in ('w1', 'b1', 'w2', 'b2', 'wd', 'bd')}
+    if variant == TENSOR_CORES:
+        w.update({k: params[f'{k}_mma'] if f'{k}_mma' in params else pack_b_tiles(w[k])
+                  for k in ('w1', 'w2', 'wd')})
+    elif variant == TILED:   # fp32 weights (exact for bf16 ones)
+        w = {k: v.float() for k, v in w.items()}
+    args = (x.data_ptr(), w['w1'].data_ptr(), w['b1'].data_ptr(), w['w2'].data_ptr(),
+            w['b2'].data_ptr(), w['wd'].data_ptr(), w['bd'].data_ptr(), y.data_ptr(), B, C,
+            H, C_out, L, s, int(x.dtype == torch.bfloat16), variant,
+            plan.args() if plan else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if clocks is None:
@@ -347,11 +442,11 @@ def fused_stage(x: torch.Tensor, params: tp.Dict[str, torch.Tensor],
     """One fused encoder stage (K4): x [B, C, L] (fp32 or bf16, L % s == 0)
     and :func:`stage_params` weights in x's dtype -> [B, C_out, L / s].
 
-    bf16 at the widths the tensor-core variant is built for runs it (by
-    :func:`stage_plan`); any other width, and fp32, the fp32-FMA variant.
-    ``params`` may also hold ``w1_mma``, ``w2_mma`` and ``wd_mma``, the
-    weights already in :func:`pack_b_tiles` layout
-    (:func:`packed_stage_weights`)
+    The variant is :func:`stage_route`'s: bf16 at the widths the
+    tensor-core variant is built for runs it; fp32 (and bf16 at the debug
+    codecs' widths) the register-tiled FMA variant; any other width the
+    first FMA kernel.  ``params`` may also hold ``w1_mma``, ``w2_mma`` and
+    ``wd_mma``, the weights already in :func:`pack_b_tiles` layout
     (:func:`encoder_stage_weights` packs them once); else they are packed
     here.  Forward only (``ops/_grad.py``)."""
     refuse_grad('fused_stage (K4)', (x, *params.values()), 'fused_stages=0')
@@ -359,13 +454,22 @@ def fused_stage(x: torch.Tensor, params: tp.Dict[str, torch.Tensor],
         return fused_stage_reference(x, params, spec)
     y = _launch_stage(x, params, spec)
     fused_stage.launches += 1
+    if x.dtype == torch.float32:
+        fused_stage.fp32_launches += 1
     return y
 
 
-fused_stage.launches = 0  # kernel launches since the last reset
+fused_stage.launches = 0       # kernel launches since the last reset, every variant
+fused_stage.fp32_launches = 0  # of which fp32 (the parity path: an FMA kernel)
 
 FMA_PHASES = ('input', 'conv3', 'conv1', 'reflect', 'downsample', 'output')
 MMA_PHASES = ('input wait', 'ELU(a)', 'conv3', 'conv1', 'reflect', 'downsample', 'output')
+# the register-tiled FMA variant (csrc/seanet.cu:TiledPhase): 'input' issues
+# the next item's copy (or gathers an edge tile), 'chunk wait' sums the
+# computing warps' waits for weight chunks and, at each item's start, for
+# its input
+TILED_PHASES = ('input', 'ELU(a)', 'conv3', 'conv1', 'reflect', 'downsample', 'output',
+                'chunk wait')
 _CLOCK_PHASES = 8   # csrc/seanet.cu:kPhases
 
 
@@ -374,17 +478,18 @@ def fused_stage_clocks(x: torch.Tensor, params: tp.Dict[str, torch.Tensor], spec
                        ) -> tp.Tuple[torch.Tensor, tp.Dict[str, int], tp.Dict[str, int]]:
     """A measurement, not a route: one K4 launch built with its per-phase
     cycle counter, on a CUDA tensor.  Returns the output and, for each phase
-    of the variant that ran (:data:`MMA_PHASES` or :data:`FMA_PHASES`), the
+    of the variant that ran (:data:`MMA_PHASES`, :data:`TILED_PHASES` or
+    :data:`FMA_PHASES`), the
     %clock64 cycles thread 0 of every block spent in it, barrier included,
     summed over the blocks; and (tensor-core variant) the cycles each warp
     spent on the phase's own work before the barrier, summed over the warps
-    of every block.  ``max_blocks`` > 0 caps the tensor-core variant's
-    persistent grid.  Not counted in the launches."""
+    of every block.  ``max_blocks`` > 0 caps a persistent grid.  Not counted
+    in the launches."""
     if _check_stage(x, params, spec, 'fused_stage_clocks'):
         raise ValueError("fused_stage_clocks measures the kernel: it takes a CUDA tensor")
     clocks = torch.zeros(2 * _CLOCK_PHASES, dtype=torch.int64, device=x.device)
     y = _launch_stage(x, params, spec, clocks, max_blocks)
-    phases = MMA_PHASES if stage_plan(spec, x.dtype) else FMA_PHASES
+    phases = (FMA_PHASES, TILED_PHASES, MMA_PHASES)[stage_route(spec, x.dtype)[0]]
     counts = clocks.tolist()
     return (y, dict(zip(phases, counts)),
             dict(zip(phases, counts[_CLOCK_PHASES:])) if phases is MMA_PHASES else {})
@@ -396,10 +501,10 @@ def stage_kernel_info(spec: StageSpec, batch: int, length: int,
     per tile and blocks launched of the K4 instance that
     :func:`fused_stage` launches for this input on the current card."""
     out = (ctypes.c_int * 7)()
-    plan = stage_plan(spec, dtype)
+    variant, plan = stage_route(spec, dtype)
     _build.check(_build.library().acx_seanet_stage_info(
         batch, spec.c_in, spec.res_hidden, spec.c_out, length, spec.stride,
-        int(dtype == torch.bfloat16), plan.args() if plan else None, out),
+        int(dtype == torch.bfloat16), variant, plan.args() if plan else None, out),
         'acx_seanet_stage_info')
     return dict(zip(('registers', 'shared_bytes', 'blocks_per_sm', 'threads', 'spill_bytes',
                      'tile', 'blocks'), out))

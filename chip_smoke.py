@@ -24,7 +24,11 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    module stack's, layer by layer.
 4. fp32 codec parity: the same weights with ``compute_dtype=None`` on the
    card and on the CPU (plain versions), with torch's default TF32 flags:
-   the codec turns cuDNN's TF32 off itself.
+   the codec turns cuDNN's TF32 off itself.  Then the fp32 parity path at
+   b16 x 10 s: the card's default route (K5, then K4's register-tiled fp32
+   kernel twice, counted: the ``kernels`` line's ``launches`` of
+   ``fused_stage_fp32``) and the module stack, both timed, the fused and
+   module-stack codes of rows 0-1 equal to the CPU's but at near-ties.
 5. The MAGNeT path: ``get_magnet_lm('small', segment_duration=30)`` with its
    T5-base conditioning (bf16, random weights from a seed) generates 30 s for
    4 seeded descriptions with CFG, and the 32 kHz codec decodes them; every
@@ -33,7 +37,8 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    from a text prompt on the card.
 6. MAGNeT parity: the same LM in fp32 (TF32 off), one stage-0 forward
    through the attention kernel against the plain path, and the greedy
-   token match of a generate on each route.
+   token match of a generate on each route (K3f's fp32 kernel: the
+   ``launches`` of ``flash_attention_fp32``).
 7. The training path: ``get_musicgen_lm('small')`` (published widths, 24
    layers, random weights from a seed) trains with AdamW in bf16 compute on
    fp32 masters, each step encoding 4 clips of 30 s with
@@ -44,8 +49,10 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    optimizer calls.  Then the training CLI takes two debug steps on the
    card.
 8. Training parity in fp32 (TF32 off): loss and every gradient of the
-   kernel route against the plain route, then three AdamW steps on each;
-   and the bf16-compute gradients of both routes on the same batch.
+   kernel route against the plain route (K3b's fp32 kernels: the
+   ``launches`` of ``flash_attention_bwd_*_fp32``), then three AdamW steps
+   on each; and the bf16-compute gradients of both routes on the same
+   batch.
 9. The encode routes: ``get_encodec_32khz()`` encodes 128 clips of 10 s
    three times on each route, the module stack (``fused=False``), the fused
    route with K5 as its input conv (the default on the card) and
@@ -99,7 +106,9 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    embeddings (the fp32 codec through K5, K4's fp32 variant, K2 and K1,
    then K1 in the bottleneck) against the CPU's (1e-4), the bottleneck
    codes equal but at near-ties, K1 at D = 512, K = 1024, n_q = 3, K4 fp32
-   and K2 fp32 at the 3 s excerpt against their plain versions and timed,
+   (its register-tiled kernel: beside the cuDNN module stack, the bound and
+   its per-phase split) and K2 fp32 at the 3 s excerpt against their plain
+   versions and timed,
    and a double-CFG generate of 10 s for 2 descriptions with 10 s clips.
 14. Codec training: ``get_encodec_32khz()`` from fresh codebooks (k-means
    on the first batch) against ``MultiScaleSTFTDiscriminator()``, the JAX
@@ -199,7 +208,14 @@ Phase 2 also holds K3b (the attention backward, both dtypes, at the model
 shapes, phase 14's data-parallel LM step's included, and the tiles'
 edges), K4 (both 32 kHz stage shapes and the edges of its tiles; its
 resources, per-phase cycle split and weight bytes from L2 printed), K5 and
-K6 against their plain versions.  Then
+K6 against their plain versions.  The fp32 kernels are timed there too
+(``apps/time_fp32_kernels``): K4 fp32 at both 32 kHz stages at B = 16 x 10 s
+beside its plain version, the cuDNN module stack in fp32 (TF32 off), the
+bound, the counter's per-phase split and its resources (lines ``K4 fp32
+stage N (B=16 x 10 s)``); K3f fp32 at [8, 1500, 16, 64] and [6, 500, 8,
+64] beside SDPA in fp32 and the bound (lines ``K3f fp32 ...``); K3b's fp32
+kernels at [4, 1501, 16, 64] causal beside SDPA's fp32 backward.  The
+``kernels`` line has a row for each fp32 kernel (``*_fp32``).  Then
 one JSON line on the kernels and, last, one JSON line with the result.
 Any failed check ends the run with a non-zero exit and no result line, as
 does a host without a CUDA card.
@@ -221,7 +237,7 @@ import numpy as np
 import torch
 
 from audiocraft_tpu_torch.adversarial import MultiScaleSTFTDiscriminator
-from audiocraft_tpu_torch.apps import probe_ops, train_lm
+from audiocraft_tpu_torch.apps import probe_ops, time_fp32_kernels, train_lm
 from audiocraft_tpu_torch.builders import (get_encodec_24khz, get_encodec_32khz, get_htdemucs,
                                            get_jasco_model, get_magnet_lm, get_musicgen,
                                            get_musicgen_lm, get_wrapped_compression_model)
@@ -263,7 +279,7 @@ from audiocraft_tpu_torch.ops.seanet import (
     StageSpec, banded_mono_conv, banded_mono_conv_reference, encoder_stage_plan,
     encoder_stage_weights, fused_encoder_apply, fused_stage, fused_stage_clocks,
     fused_stage_reference, mono_input_conv, mono_input_conv_reference, packed_stage_weights,
-    stage_kernel_info, stage_plan, stage_weight_l2_bytes)
+    stage_kernel_info, stage_plan, stage_route, stage_weight_l2_bytes, tiled_plan)
 from audiocraft_tpu_torch.losses import Balancer
 from audiocraft_tpu_torch.obs import PEAK_BF16, PEAK_BYTES, PEAK_FP32, WARMUP_CALLS
 from audiocraft_tpu_torch.metrics import (FrechetAudioDistance, chroma_cosine,
@@ -294,6 +310,7 @@ CONV0_CHANNELS, CONV0_TAPS = 64, 7
 # (this script's phase 2 on the earlier designs, NVIDIA H100 80GB HBM3, 700.00 W)
 RVQ_OLD_MS, RVQ_OLD_WIDE_MS, MONO_OLD_MS = 6.267, 23.509, 5.797
 ENCODES = 3   # timed encodes per route in phase 9
+PARITY_BATCH = 16   # phase 4's fp32 encode: b16 x 10 s on both routes
 # MusicGen-small generate: 4 descriptions x 30 s with 1-pass CFG (model batch
 # 8, 1503 steps); stride extension to 45 s at B = 1; fp32 parity over 2 s at
 # the published widths on the first 4 of the 24 layers; the step timed over
@@ -707,10 +724,9 @@ def phase_kernels(device) -> dict:
     results['rvq_encode'] = check_rvq_main(device)
     results['lstm_step'] = check_lstm(device)
     check_lstm_carry(device)
-    results['flash_attention'] = check_attention(device)
-    dkv, dq = check_attention_backward(device)
-    results[dkv['name']], results[dq['name']] = dkv, dq
-    results['fused_stage'] = check_fused_stage(device)
+    for entry in (*check_attention(device), *check_attention_backward(device),
+                  *check_fused_stage(device)):
+        results[entry['name']] = entry
     results.update(check_mono_conv(device))
     return results
 
@@ -748,17 +764,22 @@ def _attn_case(shape, how: str, gen, device) -> tp.Callable[[torch.dtype], tp.Li
 
 def print_attention_fwd_resources() -> None:
     """Registers per thread, shared memory per block and blocks per SM of
-    K3f's instances (cudaFuncGetAttributes and the occupancy API)."""
+    K3f's instances (cudaFuncGetAttributes and the occupancy API); the fp32
+    kernel's shared bytes must equal ``fwd_f32_geometry``'s."""
     for dtype, dim in ((torch.bfloat16, 32), (torch.bfloat16, 64), (torch.bfloat16, 128),
-                       (torch.float32, 64)):
+                       (torch.float32, 32), (torch.float32, 64), (torch.float32, 128)):
         i = attention.attention_fwd_kernel_info(dim, dtype)
         what = 'tensor cores' if dtype == torch.bfloat16 else 'FMA'
         print(f"attention forward kernel {dtype} D={dim} {what}: {i['registers']} registers x "
               f"{i['threads']} threads, {i['shared_bytes']} B shared, {i['blocks_per_sm']} "
               f"blocks/SM, {i['spill_bytes']} B spilled", flush=True)
+        if dtype == torch.float32:
+            plan = attention.fwd_f32_geometry(dim)['shared_bytes']
+            check(i['shared_bytes'] == plan,
+                  f'K3f fp32 D={dim}: {i["shared_bytes"]} B shared, the plan says {plan}')
 
 
-def check_attention(device) -> dict:
+def check_attention(device) -> tp.Tuple[dict, dict]:
     """K3f against its plain version (the plain one computed from the same
     inputs in the same dtype), fp32 at 1e-5 (TF32 off; only the order of the
     fp32 sums differs) and bf16 at 2e-2 (the online rescaling, P carried as
@@ -772,7 +793,9 @@ def check_attention(device) -> dict:
     transformer layer with heads of 256 and attn_kernel='auto' must take the
     plain path by shape, launch nothing and equal the plain route (fp32,
     1e-5).  Then times in bf16: K3f at S = 1500 and 500 (not causal) and at the
-    training shape (causal) beside SDPA and the bound."""
+    training shape (causal) beside SDPA and the bound; and the fp32 kernel at
+    [8, 1500, 16, 64] and JASCO's [6, 500, 8, 64] beside SDPA in fp32 and the
+    bound.  Returns the bf16 entry and the fp32 one (JASCO's shape)."""
     print_attention_fwd_resources()
     gen = torch.Generator().manual_seed(10)
     both = (False, True)
@@ -864,11 +887,26 @@ def check_attention(device) -> dict:
     fused_ms = time_ms(lambda: fused_attention_with_lse(fq, fk, fv, causal=True), 20)
     print(f'attention bf16 {TRAIN_ATTN_SHAPE} causal on the fused qkv slices (the model\'s '
           f'layout): kernel {fused_ms:.4f} ms (information)', flush=True)
-    return dict(name='flash_attention', route='cuda',
-                source='audiocraft_tpu_torch/csrc/attention.cu',
-                replaces='audiocraft_tpu/ops/attention_pallas.py:117',
-                max_abs_err=errs[('main', torch.bfloat16, False)],
-                **times[(ATTN_SHAPE['t'], False)])
+    del fused, fq, fk, fv
+    # the fp32 kernel at MAGNeT-small's width and at JASCO's U-net (its entry)
+    name = card()
+    f32 = {}
+    for shape in reversed(time_fp32_kernels.ATTN_SHAPES):
+        f32[shape] = time_fp32_kernels.time_attention(shape, device, seed=162)
+        time_fp32_kernels.print_attention(f32[shape], name)
+        check(f32[shape]['max_abs_err'] <= 1e-5, f'attention fp32 {shape}: max-abs > 1e-5')
+    jasco = f32[time_fp32_kernels.ATTN_SHAPES[0]]
+    entry = dict(name='flash_attention', route='cuda',
+                 source='audiocraft_tpu_torch/csrc/attention.cu',
+                 replaces='audiocraft_tpu/ops/attention_pallas.py:117',
+                 max_abs_err=errs[('main', torch.bfloat16, False)],
+                 **times[(ATTN_SHAPE['t'], False)])
+    entry_f32 = dict(name='flash_attention_fp32', route='cuda',
+                     source='audiocraft_tpu_torch/csrc/attention.cu',
+                     replaces='audiocraft_tpu/ops/attention_pallas.py:117',
+                     **{k: jasco[k] for k in ('max_abs_err', 'ms', 'plain_ms', 'library_ms',
+                                              'bound_ms', 'bound_by')})
+    return entry, entry_f32
 
 
 def _attn_bwd_errs(q, k, v, do, causal: bool) -> tp.Tuple[float, float, float]:
@@ -922,7 +960,7 @@ def print_attention_bwd_resources() -> None:
                 f"{i['spill_bytes']} B spilled" for name, i in info.items()), flush=True)
 
 
-def check_attention_backward(device) -> tp.Tuple[dict, dict]:
+def check_attention_backward(device) -> tp.List[dict]:
     """K3b (and K3f's lse) against the plain versions: fp32 (TF32 off; only
     the order of fp32 sums differs) within 1e-4 of each gradient's max-abs,
     bf16 within 2e-2 (the gradients are rounded to bf16; P and dS are
@@ -933,7 +971,8 @@ def check_attention_backward(device) -> tp.Tuple[dict, dict]:
     slices of one fused projection, and D = 36 (padded to 40 by the wrapper
     for the bf16 kernels' 16-byte copies); both masks except at the model
     shapes.  Then each kernel timed at the training shape in
-    bf16 beside SDPA's backward and the bound."""
+    bf16 beside SDPA's backward and the bound, and in fp32 beside SDPA's
+    fp32 backward: the entries of both dtypes."""
     print_attention_bwd_resources()
     gen = torch.Generator().manual_seed(11)
     both = (True, False)
@@ -1002,7 +1041,17 @@ def check_attention_backward(device) -> tp.Tuple[dict, dict]:
                 for fn in (attention_bwd_dkv, attention_bwd_dq)]
     print(f'the same on strided q, k, v slices of one fused projection (the model\'s layout): '
           f'dK/dV {fused_ms[0]:.4f} ms, dQ {fused_ms[1]:.4f} ms (information)', flush=True)
-    return entries[0], entries[1]
+    del fq, fk, fv, fdo, fused, args, o, lse, di
+    # the fp32 FMA kernels (the fp32 parity path's training step) at the same shape
+    name = card()
+    rows = time_fp32_kernels.time_attention_backward(TRAIN_ATTN_SHAPE, device, seed=11)
+    for entry, (kname, row) in zip(list(entries), rows.items()):
+        check(row['max_rel'] <= 1e-4, f'K3b fp32 {kname}: {row["max_rel"]:.3g} > 1e-4')
+        time_fp32_kernels.print_attention_backward(kname, row, name)
+        entries.append(dict(entry, name=entry['name'] + '_fp32', max_abs_err=row['max_abs_err'],
+                            **{k: row[k] for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms',
+                                                   'bound_by')}))
+    return entries
 
 
 def _stage_params(spec: StageSpec, device, dtype, seed: int) -> tp.Dict[str, torch.Tensor]:
@@ -1072,7 +1121,7 @@ def print_stage_profile(si: int, spec: StageSpec, x: torch.Tensor,
               flush=True)
 
 
-def check_fused_stage(device) -> dict:
+def check_fused_stage(device) -> tp.Tuple[dict, dict]:
     """K4 against its plain version on the same inputs: fp32 (TF32 off; only
     the order of fp32 sums differs) within 1e-5 of the max at B = 16, bf16
     within 1e-2 (the same rounding points; a sum in another order can move a
@@ -1080,26 +1129,40 @@ def check_fused_stage(device) -> dict:
     checked on their own, at both stage shapes of the fused encode; then
     shapes off the tiles: B = 1, a length whose frames fill no whole tile,
     the shortest length the route takes (one frame), the debug codec's
-    widths (C = 4, s = 16, the fp32-FMA variant in bf16), and the
+    widths (C = 4, s = 16, the register-tiled FMA variant in bf16), and the
     tensor-core plan's ragged edges (frames of one tile, one more, one
-    fewer; fewer items than SMs).  Then each stage timed in bf16 at b128
-    beside its bound, its plain version and the module stack it replaces
-    (resnet block, ELU, downsample conv: cuDNN), with its resources, its
-    per-phase split from the cycle counter and its weight bytes from L2."""
+    fewer; fewer items than SMs), the register-tiled fp32 plan's likewise,
+    and a stage only stage_kernel takes.  The fp32 kernel timed at B = 16 x
+    10 s (both stages) beside its bound, its plain version and the cuDNN
+    module stack in fp32, with its per-phase split and resources.  Then each
+    stage timed in bf16 at b128 beside its bound, its plain version and the
+    module stack it replaces (resnet block, ELU, downsample conv: cuDNN),
+    with its resources, its per-phase split from the cycle counter and its
+    weight bytes from L2.  Returns the bf16 entry and the fp32 one."""
     gen = torch.Generator(device=device).manual_seed(60)   # b128 inputs are drawn on the card
     lines = []
-    bf16_abs = 0.0
+    bf16_abs = fp32_abs = 0.0
+    fp32_rows = []   # K4 fp32 timed at B = 16 x 10 s, both stages
+    name = card()
+    encoder32 = get_encodec_32khz(compute_dtype=None).encoder
     for si, (spec, L) in enumerate(STAGES):
         for dtype, batch, tol in ((torch.float32, 16, 1e-5), (torch.bfloat16, BATCH, 1e-2)):
             params = _stage_params(spec, device, dtype, seed=61 + si)
             x = (torch.randn(batch, spec.c_in, L, generator=gen, device=device) * 0.5).to(dtype)
             errs, abs_err = _stage_errs(x, params, spec, chunk=16)
-            del x
             if dtype == torch.bfloat16:
                 bf16_abs = max(bf16_abs, abs_err)
+            else:
+                fp32_abs = max(fp32_abs, abs_err)
+                stack = torch.nn.Sequential(*encoder32.model[1 + 3 * si:4 + 3 * si])
+                fp32_rows.append(time_fp32_kernels.time_stage(spec, x, params, stack))
+                time_fp32_kernels.print_stage(si, 'B=16 x 10 s', spec, fp32_rows[-1], name)
+                check(fp32_rows[-1]['max_rel'] <= 1e-5, f'K4 fp32 stage {si}: timed run apart')
+            del x
             lines.append(f'stage {si} {dtype} B={batch}: max-abs / max {errs[0]:.3g}, first 4 '
                          f'frames {errs[1]:.3g}, last 4 {errs[2]:.3g} (<= {tol})')
             check(max(errs) <= tol, f'fused_stage {si} {dtype}: {errs} > {tol}')
+    del encoder32
     debug = StageSpec(c_in=4, c_out=8, stride=16)
     cases = [(spec, L, 1) for spec, L in ((STAGES[0][0], 4 * 67), (STAGES[1][0], 4 * 97),
                                            (STAGES[0][0], 4), (STAGES[1][0], 4),
@@ -1112,16 +1175,27 @@ def check_fused_stage(device) -> dict:
         tile = stage_plan(spec, torch.bfloat16).tile
         cases += [(spec, spec.stride * f, 3) for f in (tile, tile + 1, tile - 1)]
         cases.append((spec, spec.stride * (2 * tile + 5), 2))
+    # the register-tiled fp32 plan's ragged edges: frames of one item, one
+    # more and one fewer, and fewer items than SMs, at every stage it is
+    # built for; a stage it is not built for (C = 48) runs stage_kernel
+    for spec in (STAGES[0][0], STAGES[1][0], StageSpec(c_in=32, c_out=64, stride=2), debug):
+        tile = tiled_plan(spec).tile
+        cases += [(spec, spec.stride * f, 3) for f in (tile, tile + 1, tile - 1)]
+        cases.append((spec, spec.stride * (2 * tile + 5), 2))
+    simt = StageSpec(c_in=48, c_out=96, stride=4)
+    check(stage_route(simt, torch.float32)[0] == 0, 'C = 48 does not take stage_kernel')
+    cases.append((simt, 4 * 70, 2))
     for spec, L, batch in cases:
         for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
             params = _stage_params(spec, device, dtype, seed=65)
             x = (torch.randn(batch, spec.c_in, L, generator=gen, device=device) * 0.5).to(dtype)
             errs, _ = _stage_errs(x, params, spec, chunk=batch)
             check(max(errs) <= tol, f'fused_stage {spec} B={batch} L={L} {dtype}: {errs} > {tol}')
-    lines.append('off the tiles (B = 1; frames 67, 97, 1; C = 4, s = 16) and at the plan\'s '
-                 'ragged edges (B = 3, frames tile, tile + 1, tile - 1; B = 2, 2 tile + 5 frames; '
-                 'both 32 kHz stages and the 24 kHz stage): fp32 <= 1e-5, bf16 <= 1e-2, edges '
-                 'included')
+    lines.append('off the tiles (B = 1; frames 67, 97, 1; C = 4, s = 16), at the tensor-core '
+                 'plan\'s ragged edges (B = 3, frames tile, tile + 1, tile - 1; B = 2, 2 tile + 5 '
+                 'frames; both 32 kHz stages and the 24 kHz stage), at the register-tiled fp32 '
+                 'plan\'s (the same at its tiles, the debug codec\'s stage too) and on a stage '
+                 'only stage_kernel takes (C = 48): fp32 <= 1e-5, bf16 <= 1e-2, edges included')
     try:
         x = torch.zeros(1, 64, 6, device=device)
         fused_stage(x, _stage_params(STAGES[0][0], device, torch.float32, seed=66), STAGES[0][0])
@@ -1163,11 +1237,24 @@ def check_fused_stage(device) -> dict:
         bound_by[b_by] = bound_by.get(b_by, 0.0) + b_ms
         del x
     # the two launches are bounded one by one; the larger share names the limit
-    return dict(name='fused_stage', route='cuda', source='audiocraft_tpu_torch/csrc/seanet.cu',
-                replaces='audiocraft_tpu/ops/seanet_pallas.py:157',
-                max_abs_err=bf16_abs, ms=total['ms'], plain_ms=total['plain_ms'],
-                bound_ms=total['bound_ms'], bound_by=max(bound_by, key=bound_by.get),
-                library_ms=None)
+    entry = dict(name='fused_stage', route='cuda', source='audiocraft_tpu_torch/csrc/seanet.cu',
+                 replaces='audiocraft_tpu/ops/seanet_pallas.py:157',
+                 max_abs_err=bf16_abs, ms=total['ms'], plain_ms=total['plain_ms'],
+                 bound_ms=total['bound_ms'], bound_by=max(bound_by, key=bound_by.get),
+                 library_ms=None)
+    # the fp32 parity path's register-tiled kernel: both stages at B = 16 x 10
+    # s, its library time the cuDNN module stack in fp32 with TF32 off
+    sums = {k: sum(r[k] for r in fp32_rows) for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms')}
+    print(f"K4 fp32 both stages at B = 16 x 10 s: kernel {sums['ms']:.3f} ms, plain "
+          f"{sums['plain_ms']:.3f} ms, module stack {sums['library_ms']:.3f} ms, bound "
+          f"{sums['bound_ms']:.4f} ms; card {name}", flush=True)
+    by = {b: sum(r['bound_ms'] for r in fp32_rows if r['bound_by'] == b)
+          for b in ('operations', 'bytes')}
+    entry_f32 = dict(name='fused_stage_fp32', route='cuda',
+                     source='audiocraft_tpu_torch/csrc/seanet.cu',
+                     replaces='audiocraft_tpu/ops/seanet_pallas.py:157', max_abs_err=fp32_abs,
+                     bound_by=max(by, key=by.get), **sums)
+    return entry, entry_f32
 
 
 def _mono_errs(fn, ref, x, w, b) -> tp.Tuple[float, float]:
@@ -1371,7 +1458,9 @@ def phase_main_path(device) -> dict:
     return launches
 
 
-def phase_parity(device) -> None:
+def phase_parity(device) -> int:
+    """fp32 parity, card against CPU; then the fp32 b16 x 10 s encode on
+    both routes.  Returns K4 fp32's launches in one fused encode."""
     print("== phase 4: fp32 parity, card vs CPU (TF32 flags at torch's defaults)", flush=True)
     check(not torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32,
           "TF32 flags not at torch's defaults: this phase shows the codec turns cuDNN's off")
@@ -1391,6 +1480,35 @@ def phase_parity(device) -> None:
     check(rel <= 1e-4, f'latent rel {rel:.3g} > 1e-4')
     check(share >= 0.995, f'code match share {share:.6f} < 0.995')
     check(torch.backends.cudnn.allow_tf32, "the codec did not restore cuDNN's TF32 flag")
+
+    # the fp32 parity path at b16 x 10 s: the card's default route (fused: K5,
+    # then K4's register-tiled fp32 kernel for two stages) against the module
+    # stack, timed; rows 0-1 against the CPU's module stack
+    wav = _clips(PARITY_BATCH, SECONDS * SAMPLE_RATE, device, seed=8)
+    name = card()
+    check(gpu.fused_default(wav), 'the fp32 default route at b16 x 10 s is not the fused one')
+    _reset_launch_counts()
+    with torch.no_grad():
+        gpu.encode(wav)
+    torch.cuda.synchronize()
+    k4_fp32 = fused_stage.fp32_launches
+    check(k4_fp32 == 2, f'the fp32 fused encode launched K4 fp32 {k4_fp32} times, not 2')
+    times = {}
+    for route, kw in (('fused (default)', {}), ('module stack', dict(fused=False))):
+        with torch.no_grad():
+            times[route] = time_ms(lambda: gpu.encode(wav, **kw), 3)
+    audio = PARITY_BATCH * SECONDS
+    print(f'fp32 encode b{PARITY_BATCH} x {SECONDS} s: ' + ', '.join(
+        f'{r} {ms:.3f} ms ({audio / ms * 1e3:.1f} audio-s/s)' for r, ms in times.items())
+        + f'; module stack / fused {times["module stack"] / times["fused (default)"]:.2f}; K4 '
+        f'fp32 launches in one fused encode {k4_fp32}; card {name}', flush=True)
+    with torch.no_grad():
+        lat_cpu = cpu.encoder(wav[:2].cpu()).float()
+        for route, stages in (('fp32 b16 x 10 s, rows 0-1, fused', 2),
+                              ('fp32 b16 x 10 s, rows 0-1, module stack', 0)):
+            lat = gpu.encoder(wav, fused_stages=stages)[:2].float()
+            _fp32_codes_vs_cpu(route, lat, lat_cpu, gpu, cpu)
+    return k4_fp32
 
 
 def set_attn_kernel(lm, flag) -> None:
@@ -1495,11 +1613,12 @@ def phase_magnet(device, lm32, provider32, codec) -> dict:
     return launches
 
 
-def phase_magnet_parity(device, lm, provider) -> None:
+def phase_magnet_parity(device, lm, provider) -> int:
     print('== phase 6: MAGNeT parity in fp32 (TF32 off), attention kernel vs plain path',
           flush=True)
     check(not torch.backends.cuda.matmul.allow_tf32, 'TF32 is on')
     n = 2
+    fused_attention.fp32_launches = 0
     with torch.no_grad():
         cond = provider(_descriptions(n, device, seed=30))
         seq = _stage_sequence(lm, 2 * n, device, seed=31)
@@ -1524,8 +1643,12 @@ def phase_magnet_parity(device, lm, provider) -> None:
                                           max_gen_len=MAGNET_SECONDS * 50, use_sampling=False)
     set_attn_kernel(lm, 'auto')
     match = float((tokens['auto'] == tokens[False]).float().mean())
+    k3f_fp32 = fused_attention.fp32_launches
     print(f'greedy generate, kernel route vs plain route: token match share {match:.6f} '
-          f'(information; re-masking feeds back its own choices)', flush=True)
+          f'(information; re-masking feeds back its own choices); K3f fp32 launches in this '
+          f'phase {k3f_fp32}', flush=True)
+    check(k3f_fp32 > 0, 'the fp32 parity phase launched no K3f fp32')
+    return k3f_fp32
 
 
 def _train_conditions(provider, n: int, device, seed: int,
@@ -1547,18 +1670,27 @@ def _train_conditions(provider, n: int, device, seed: int,
         return provider({'description': (ids.to(device), mask.to(device))})
 
 
+# the fp32 FMA kernels' own counts (of the launches each wrapper counts in all)
+FP32_COUNTERS = {'fused_stage_fp32': fused_stage, 'flash_attention_fp32': fused_attention,
+                 'flash_attention_bwd_dkv_fp32': attention_bwd_dkv,
+                 'flash_attention_bwd_dq_fp32': attention_bwd_dq}
+
+
 def _launch_counts() -> tp.Dict[str, int]:
     return {'flash_attention': fused_attention.launches,
             'flash_attention_bwd_dkv': attention_bwd_dkv.launches,
             'flash_attention_bwd_dq': attention_bwd_dq.launches,
             'rvq_encode': rvq_encode.launches, 'lstm_step': lstm_layer.launches,
-            'fused_stage': fused_stage.launches, 'banded_mono_conv': banded_mono_conv.launches}
+            'fused_stage': fused_stage.launches, 'banded_mono_conv': banded_mono_conv.launches,
+            **{name: fn.fp32_launches for name, fn in FP32_COUNTERS.items()}}
 
 
 def _reset_launch_counts() -> None:
     fused_attention.launches = attention_bwd_dkv.launches = attention_bwd_dq.launches = 0
     rvq_encode.launches = lstm_layer.launches = 0
     fused_stage.launches = banded_mono_conv.launches = 0
+    for fn in FP32_COUNTERS.values():
+        fn.fp32_launches = 0
 
 
 def print_train_breakdown(lm, optimizer, state, codec, wav, codes, cond) -> None:
@@ -1662,7 +1794,8 @@ def phase_train(device, lm, provider) -> tp.Dict[str, int]:
     check((B, K, T) == (TRAIN_BATCH, 4, TRAIN_SECONDS * 50), f'codes {tuple(codes.shape)}')
     expect = {'flash_attention': n_layers, 'flash_attention_bwd_dkv': n_layers,
               'flash_attention_bwd_dq': n_layers, 'rvq_encode': 1, 'lstm_step': 2,
-              'fused_stage': 2, 'banded_mono_conv': 1}   # the encode's default, fused route
+              'fused_stage': 2, 'banded_mono_conv': 1,   # the encode's default, fused route
+              **{name: 0 for name in FP32_COUNTERS}}     # bf16 compute: no fp32 kernel
     for i, counts in enumerate(per_step):
         check(counts == expect, f'step {i} launches {counts} != {expect}')
     check(all(math.isfinite(x) for x in losses), f'non-finite loss {losses}')
@@ -1745,7 +1878,7 @@ def _route_gradients(lm, codes, cond, compute_dtype) -> tp.Tuple[float, float, f
     return loss_k, loss_p, worst, worst_name, float(diff / norm)
 
 
-def phase_train_parity(device, lm, provider) -> None:
+def phase_train_parity(device, lm, provider) -> tp.Dict[str, int]:
     """fp32 (TF32 off): loss within 1e-5 relative, every parameter's gradient
     within 1e-3 of its max-abs and the whole within 1e-4 relative L2 of the
     plain route, then three AdamW steps on each route.  bf16 compute on the
@@ -1762,7 +1895,12 @@ def phase_train_parity(device, lm, provider) -> None:
     codes = codec.encode(_clips(2, SECONDS * SAMPLE_RATE, device, seed=51))[0]
     cond = _train_conditions(provider, 2, device, seed=52)
     start = {k: v.clone() for k, v in lm.state_dict().items()}
+    _reset_launch_counts()
     loss_k, loss_p, worst, worst_name, rel_l2 = _route_gradients(lm, codes, cond, None)
+    fp32_launches = {k: v for k, v in _launch_counts().items() if k.endswith('_fp32')}
+    check(all(fp32_launches[k] > 0 for k in ('flash_attention_fp32', 'flash_attention_bwd_dkv_fp32',
+                                             'flash_attention_bwd_dq_fp32')),
+          f'the fp32 gradients launched {fp32_launches}')
     rel_loss = abs(loss_k - loss_p) / abs(loss_p)
     print(f'B=2 T={codes.shape[-1]} fp32: loss {loss_k:.6f} vs {loss_p:.6f}, relative '
           f'{rel_loss:.3g} (<= 1e-5); worst parameter gradient max-abs / max {worst:.3g} '
@@ -1795,8 +1933,10 @@ def phase_train_parity(device, lm, provider) -> None:
     print(f'3 AdamW steps (lr {TRAIN_LR}): losses kernel {trajectories["auto"]}, plain '
           f'{trajectories[False]}; relative {[f"{r:.3g}" for r in rels]} (step 1 <= 1e-5, '
           f'later <= 1e-4: Adam turns rounding of near-zero gradients into whole lr steps); '
-          f'parameters max-abs apart {moved:.3g} (information)', flush=True)
+          f'parameters max-abs apart {moved:.3g} (information); the fp32 kernels\' launches '
+          f'in the fp32 gradients {fp32_launches}', flush=True)
     check(rels[0] <= 1e-5 and max(rels[1:]) <= 1e-4, f'AdamW losses apart: {rels}')
+    return fp32_launches
 
 
 def _event() -> torch.cuda.Event:
@@ -3013,22 +3153,15 @@ def check_style_kernels(device, style, x: WavCondition) -> None:
         y = enc.model[0](wav[..., start:start + n_samples].contiguous())
         for si, (spec, ids) in enumerate(encoder_stage_plan(enc)[:2]):
             params = encoder_stage_weights(enc, spec, ids, torch.float32)
-            out, ref = fused_stage(y, params, spec), fused_stage_reference(y, params, spec)
-            rel = float((out - ref).abs().max() / ref.abs().max())
-            check(rel <= 1e-5, f'K4 fp32 stage {si} at the style excerpt: {rel:.3g} > 1e-5')
-            B, C, L = y.shape
-            U, H = L // spec.stride, spec.res_hidden
-            ops = 2.0 * B * L * (3 * C * H + H * C) + 2.0 * B * U * (2 * spec.stride * C
-                                                                     * spec.c_out)
-            nbytes = 4.0 * (B * C * L + B * spec.c_out * U + 3 * C * H + H * C
-                            + 2 * spec.stride * C * spec.c_out)
-            s_ms, s_by = bound_ms(ops, PEAK_FP32, nbytes)
-            print(f'K4 fp32 (FMA variant; plan {stage_plan(spec, torch.float32)}) stage {si} '
-                  f'[{B}, {C}, {L}] -> [{B}, {spec.c_out}, {U}]: max-abs / max against plain '
-                  f'{rel:.3g} (<= 1e-5); kernel {time_ms(lambda: fused_stage(y, params, spec), 5):.3f}'
-                  f' ms, plain {time_ms(lambda: fused_stage_reference(y, params, spec), 3):.3f} ms, '
-                  f'bound {s_ms:.4f} ms ({s_by}); card {name}', flush=True)
-            y = out
+            check(stage_route(spec, torch.float32)[1] == tiled_plan(spec),
+                  f'K4 fp32 stage {si} at the style excerpt does not take the tiled kernel')
+            # beside the cuDNN module stack it replaces (the encoder's own layers, fp32)
+            stack = torch.nn.Sequential(*enc.model[ids[0]:ids[1] + 1])
+            row = time_fp32_kernels.time_stage(spec, y, params, stack, reps=5)
+            time_fp32_kernels.print_stage(si, 'style excerpt', spec, row, name)
+            check(row['max_rel'] <= 1e-5, f'K4 fp32 stage {si} at the style excerpt: '
+                                          f'{row["max_rel"]:.3g} > 1e-5')
+            y = fused_stage(y, params, spec)
     T, B, H = int(style.length * style.feat_extractor.frame_rate), wav.shape[0], 1024
     args = [a.to(device) for a in _lstm_args(T, B, H, seed=92)]
     out, ref = lstm_layer(*args), lstm_layer_reference(*args)
@@ -3744,9 +3877,9 @@ def check_jasco(device, demucs: HTDemucs) -> tp.Dict[str, int]:
           f'{plain_ms:.3f} ms; max-abs / max kernel vs plain {err:.3g} (<= 1e-5), card vs CPU '
           f'{cpu_err:.3g} (<= 1e-4); card {name}', flush=True)
 
-    fused_attention.launches = 0
+    fused_attention.launches = fused_attention.fp32_launches = 0
     euler, euler_s = _generate(model, cond, 'euler', seed=165)
-    euler_launches = fused_attention.launches
+    euler_launches, euler_fp32 = fused_attention.launches, fused_attention.fp32_launches
     check(euler_launches == n_layers * JASCO_STEPS,
           f'the Euler generate launched K3f {euler_launches} times')
     set_attn_kernel(model, False)
@@ -3773,8 +3906,8 @@ def check_jasco(device, demucs: HTDemucs) -> tp.Dict[str, int]:
           f'host reads, K3f launches {fused_attention.launches}; max-abs / max against the '
           f'Euler latents {_rel_err(dopri, euler):.3g} (information); card {name}', flush=True)
     return {**{k: drum_launches[k] for k in ('rvq_encode', 'lstm_step', 'fused_stage',
-                                            'banded_mono_conv')},
-            'flash_attention': euler_launches}
+                                            'banded_mono_conv', 'fused_stage_fp32')},
+            'flash_attention': euler_launches, 'flash_attention_fp32': euler_fp32}
 
 
 def _seeded_joint_embed(x: JointEmbedCondition) -> tp.Tuple[np.ndarray, tp.List[int]]:
@@ -4694,7 +4827,8 @@ def check_tokenize(device, root, paths: tp.List[str], ckpt) -> tp.Dict[str, int]
     nb = len(batches)
     check(launches == {'flash_attention': 0, 'flash_attention_bwd_dkv': 0,
                        'flash_attention_bwd_dq': 0, 'rvq_encode': nb, 'lstm_step': 2 * nb,
-                       'fused_stage': 2 * nb, 'banded_mono_conv': nb},
+                       'fused_stage': 2 * nb, 'banded_mono_conv': nb,
+                       **{name: 0 for name in FP32_COUNTERS}},
           f'tokenize over {nb} batches launched {launches} (K1 1, K2 2, K4 2, K5 1 a batch)')
     rates = result['rates']
     print(f'18b: tokenize CLI, {len(paths)} files, {len(chunks)} chunks of {TOK_SECONDS} s in '
@@ -5184,16 +5318,20 @@ def main() -> int:
     kernel_checks_k6 = mono_input_conv.launches
     mark()
     launches = phase_main_path(device)
-    phase_parity(device)
+    # the fp32 FMA kernels' main paths: the fp32 encode (phase 4), MAGNeT's
+    # fp32 parity (phase 6), the fp32 training gradients (phase 8)
+    launches['fused_stage_fp32'] = phase_parity(device)
     mark()
     lm, provider = get_magnet_lm('small', segment_duration=MAGNET_SECONDS)
     magnet_launches = phase_magnet(device, lm, provider, get_encodec_32khz())
-    phase_magnet_parity(device, lm, provider)
+    launches['flash_attention_fp32'] = phase_magnet_parity(device, lm, provider)
     del lm, provider
     mark()
     lm, provider = get_musicgen_lm('small', seed=1)
     train_launches = phase_train(device, lm, provider)
-    phase_train_parity(device, lm, provider)
+    train_fp32 = phase_train_parity(device, lm, provider)
+    for name in ('flash_attention_bwd_dkv_fp32', 'flash_attention_bwd_dq_fp32'):
+        launches[name] = train_fp32[name]
     del lm, provider
     mark()
     launches.update(phase_fused_encode(device))
@@ -5232,6 +5370,8 @@ def main() -> int:
         launches[name] = train_launches[name]
     for name, n in launches.items():
         kernels[name]['launches'] = n
+    idle = [name for name, kern in kernels.items() if kern.get('launches', 0) == 0]
+    check(not idle, f'kernels without a launch on their path: {idle}')
     # phase 15's counts beside the main path's: the drums encode and the
     # 100-step Euler generate, and the joint embedding's RVQ forward
     joint_embed = jasco_launches.pop('rvq_encode (joint embedding)')

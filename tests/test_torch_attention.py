@@ -211,10 +211,59 @@ def test_forward_pads_a_narrow_head_and_slices_the_output_back(fake_kernel):
 
 
 def test_forward_passes_fp32_views_as_they_are(fake_kernel):
-    """The fp32 kernel reads element by element: nothing is copied or padded."""
-    flat = torch.randn(3, 2 * 7 * 3 * 36 + 1)
-    q, k, v = (x[1:].view(2, 7, 3, 36) for x in flat)
-    out, _ = attention._forward_kernel(q, k, v, False, 36 ** -0.5, with_lse=False)
-    ptrs, dim, _, bf16 = _launched(fake_kernel)
+    """The fp32 kernel copies rows in 16-byte pieces too: fp32 views whose
+    rows lie on 16 bytes (D = 36, strides of whole 4-element pieces, as the
+    fused qkv slices in fp32) reach it uncopied and unpadded."""
+    B, T, H, D = 2, 7, 3, 36
+    qkv = torch.randn(B, T, 3 * H * D)
+    q, k, v = (x.unflatten(-1, (H, D)) for x in qkv.split(H * D, -1))
+    fused_attention.fp32_launches = 0
+    out, _ = attention._forward_kernel(q, k, v, False, D ** -0.5, with_lse=False)
+    ptrs, dim, strides, bf16 = _launched(fake_kernel)
     assert ptrs == tuple(x.data_ptr() for x in (q, k, v)) and dim == 36 and bf16 == 0
+    assert strides == (T * 3 * H * D, 3 * H * D, D) * 3 and fused_attention.fp32_launches == 1
     assert out.shape == (2, 7, 3, 36) and out.is_contiguous()
+
+
+@pytest.mark.parametrize('D,padded', [(36, 36), (30, 32), (1, 4)])
+def test_forward_copies_an_fp32_view_off_16_bytes_and_pads_its_head(fake_kernel, D, padded):
+    """A view one element past 16 bytes is copied; a head that is not a
+    multiple of 4 features is zero-padded to one and sliced back."""
+    flat = torch.randn(3, 2 * 7 * 3 * D + 1)
+    q, k, v = (x[1:].view(2, 7, 3, D) for x in flat)
+    assert q.data_ptr() % 16
+    out, lse = attention._forward_kernel(q, k, v, True, D ** -0.5, with_lse=True)
+    ptrs, dim, strides, bf16 = _launched(fake_kernel)
+    assert all(p % 16 == 0 and p != x.data_ptr() for p, x in zip(ptrs, (q, k, v)))
+    assert dim == padded and strides == (7 * 3 * padded, 3 * padded, padded) * 3 and bf16 == 0
+    assert out.shape == (2, 7, 3, D) and lse.shape == (2, 3, 7)
+
+
+@pytest.mark.parametrize('dim', [1, 4, 31, 32, 33, 36, 63, 64, 65, 100, 127, 128])
+def test_fp32_forward_geometry_fits_every_head_up_to_the_widest(dim):
+    """K3f's fp32 block (csrc/attention.cu:smem_floats_f32) at every width
+    class: 64 rows of 4 warps, 32-key tiles, within a block's shared memory,
+    four blocks an SM at D = 64 (JASCO's 384 blocks in one wave), two at 128;
+    the unpadded K rows, swizzled, and the P^T rows spread a warp's accesses
+    over the banks."""
+    g = attention.fwd_f32_geometry(dim)
+    assert g['width'] >= dim and g['width'] in (32, 64, 128)
+    assert (g['rows'], g['keys'], g['threads']) == (64, 32, 128)
+    dp = g['width']
+    assert g['shared_bytes'] == 4 * (dp * 64 + 2 * 32 * 2 * dp + 4 * 32 * 16)
+    per_sm = 233472 // (g['shared_bytes'] + 1024)   # an SM's 228 KiB, 1 KiB reserved a block
+    assert g['shared_bytes'] <= attention.SMEM_LIMIT and per_sm >= {32: 6, 64: 4, 128: 2}[dp]
+    swz = lambda r, c4: c4 ^ (r & 7)   # csrc/attention.cu:swz, in 16-byte pieces
+    for j in range(4):
+        # a warp's P^T stores (key kg + 8 j, rows 4 rg ..): 4 lanes a bank group
+        groups = [((kg + 8 * j) * 16 // 4 + rg) % 8 for kg in range(8) for rg in range(4)]
+        assert sorted(groups) == sorted(list(range(8)) * 4)
+        for c4 in range(dp // 4):
+            # the 8 keys of one K load (rows kg + 8 j, piece c4) on distinct bank groups
+            assert len({((kg + 8 * j) * dp // 4 + swz(kg, c4)) % 8 for kg in range(8)}) == 8
+            assert all(0 <= swz(r, c4) < dp // 4 for r in range(32))
+
+
+def test_fp32_forward_geometry_refuses_heads_past_the_widest():
+    with pytest.raises(ValueError):
+        attention.fwd_f32_geometry(attention.MAX_HEAD_DIM + 1)

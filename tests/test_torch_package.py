@@ -2,6 +2,7 @@
 and what it builds."""
 
 import ast
+import ctypes
 import functools
 from pathlib import Path
 
@@ -132,6 +133,41 @@ def test_each_ported_kernel_has_a_cuda_source_and_entry_point():
     for call in ("__stcs(reinterpret_cast<uint4*>(dst)", "cp_async4(buf", "wr[c][d]"):
         assert call in seanet
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+def _section(source: str, start: str, end: str) -> str:
+    return source[source.index(start):source.index(end, source.index(start))]
+
+
+def test_fp32_kernels_are_register_tiled_fma_on_streamed_operands():
+    """K4's fp32 kernel: 8 x TN register tiles fed by 128-bit shared loads,
+    w1, w2 and wd streamed by a weight warp's bulk copies on full / empty
+    mbarriers, the next input by cp.async, the computing warps meeting on a
+    named barrier; K3f's fp32 kernel: K and V through a 2-stage cp.async
+    ring, q^T scaled by log2(e), exp2 on the hardware unit, P^T through the
+    warp's own rows.  Both stay fp32 FMA: no tensor-core instruction."""
+    seanet = (PORT / "csrc" / "seanet.cu").read_text()
+    tiled = _section(seanet, "// ------------------------------------------- K4, fp32 FMA, register-tiled",
+                     "// ------------------------------------------------- K4, bf16 on tensor cores")
+    for marker in ("stage_tiled_kernel", "load_rows(a, ea + ", "load_cols<TN, H>(b, slot",
+                   "bulk_copy(dst, wd", "mbar_wait(empty + slot", "mbar_wait(full + q % STAGES",
+                   "mbar_arrive(empty + q % STAGES)", "cp_async16(raw + c * RS", "workers_sync()",
+                   "fmaf(a[i + tap], b[j], acc[i][j])"):
+        assert marker in tiled, marker
+    assert 'ACX_TILED(64, 32, 128, 4)' in seanet and 'ACX_TILED(4, 2, 8, 16)' in seanet
+    attention = (PORT / "csrc" / "attention.cu").read_text()
+    f32 = _section(attention, "// ---------------------------------------------------------------- fp32, FMA",
+                   "// ---------------------------------------------------------------- launch")
+    for marker in ("flash_fwd_f32_kernel", "cp_async16(kt + r * DP + swz(r, c / 4)", "cp_wait<0>()",
+                   "* kLog2e", "exp2_ftz(s[r][j] - mb)", "__syncwarp()", "fmaf(p[r], vv[f], acc[r][f])"):
+        assert marker in f32, marker
+    for section in (tiled, f32):
+        assert not any(op in section for op in ("mma", ".tf32", "expf(", "__ldg"))
+    # the variant argument of K4's entries (csrc/seanet.cu:Variant)
+    for name, n_ints in (("acx_seanet_stage", 8), ("acx_seanet_stage_clocks", 9),
+                         ("acx_seanet_stage_info", 8)):
+        assert 'int variant' in seanet.split(f'extern "C" int {name}(')[1].split(')')[0]
+        assert sum(t is ctypes.c_int for t in _build._SIGNATURES[name][0]) == n_ints
 
 
 def test_build_is_named_by_the_sources_and_the_headers(tmp_path, monkeypatch):

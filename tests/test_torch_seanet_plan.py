@@ -162,7 +162,8 @@ def test_counter_and_info_take_the_card_only():
     with pytest.raises(ValueError, match="CUDA"):
         tsp.fused_stage_clocks(x, params, STAGE0)
     assert len(tsp.MMA_PHASES) == 7 and len(tsp.FMA_PHASES) == 6
-    assert tsp._CLOCK_PHASES >= len(tsp.MMA_PHASES)
+    assert len(tsp.TILED_PHASES) == 8
+    assert tsp._CLOCK_PHASES >= max(len(tsp.MMA_PHASES), len(tsp.TILED_PHASES))
 
 
 # ------------------------------------------------ the mono input conv (K5, K6)
@@ -201,3 +202,148 @@ def test_an_input_buffer_holds_the_furthest_window_a_lane_reads(taps, dtype):
 def test_mono_plan_args_are_the_five_ints_the_entry_compares():
     plan = tsp.mono_conv_plan(7, torch.bfloat16)
     assert list(plan.args()) == [7, 8, 8, 1024, 4128]
+
+
+# ------------------------------------- K4's register-tiled fp32 FMA variant
+
+STAGE_DEBUG = StageSpec(c_in=4, c_out=8, stride=16)      # the debug codec, 32 kHz
+STAGE_DEBUG16 = StageSpec(c_in=4, c_out=8, stride=8)     # and 16 kHz
+TILED = (STAGE0, STAGE1, STAGE24, STAGE_DEBUG, STAGE_DEBUG16)
+SM_SHARED = 232448   # the most shared memory an H100 block may take (227 KiB)
+
+
+def test_tiled_plans_of_the_codec_stages():
+    """Stage 0: 256 r rows (63 frames an item); stage 1's [128][136] tiles
+    leave room only for 128 (31 frames); 16 KiB ring slots."""
+    assert tsp.tiled_plan(STAGE0) == tsp.TiledPlan(63, 256, 3, 4096, (32, 32, 16), 222128)
+    assert tsp.tiled_plan(STAGE1) == tsp.TiledPlan(31, 128, 3, 4096, (16, 32, 8), 231216)
+    assert tsp.tiled_plan(STAGE24) == tsp.TiledPlan(127, 256, 3, 4096, (32, 16, 32), 151024)
+    assert tsp.tiled_plan(STAGE_DEBUG) == tsp.TiledPlan(15, 256, 3, 64, (4, 2, 4), 12272)
+    assert list(tsp.tiled_plan(STAGE0).args()) == [63, 256, 3, 4096, 32, 32, 16, 222128]
+
+
+def test_tiled_stage0_shared_bytes_by_part():
+    """The parts csrc/seanet.cu:Tiled lays out, one by one (floats)."""
+    C, H, CO, s, rows = 64, 32, 128, 4, 256
+    raw = elu = C * (rows + 8)              # the input tile; ELU(a)
+    phases = s * C * (rows // s + 4)        # ELU(r) by phase, over ELU(a)
+    z, out = H * rows, CO * (rows // s + 4)
+    ring, bias, barriers = 3 * 4096, H + C + CO, 4 * 3
+    assert phases > elu and out > z
+    assert tsp.tiled_plan(STAGE0).smem_bytes == 4 * (raw + phases + out + ring + bias + barriers)
+
+
+@pytest.mark.parametrize("build", [
+    lambda: builders.get_encodec_32khz(device='cpu'),
+    lambda: builders.get_encodec_32khz(compute_dtype=None, device='cpu'),   # the style codec's
+    lambda: builders.get_debug_compression_model(32000, device='cpu'),
+    lambda: builders.get_debug_compression_model(16000, device='cpu'),
+])
+def test_every_fused_codec_stage_takes_the_tiled_fp32_kernel(build):
+    enc = build().encoder
+    plan = tsp.encoder_stage_plan(enc)[:2]
+    assert plan
+    for spec, _ in plan:
+        tiled = tsp.tiled_plan(spec)
+        assert tiled is not None and tiled.smem_bytes <= SM_SHARED
+        assert tsp.stage_route(spec, torch.float32) == (tsp.TILED, tiled)
+
+
+def test_the_24khz_stage_takes_it_too():
+    assert tsp.stage_route(STAGE24, torch.float32) == (tsp.TILED, tsp.tiled_plan(STAGE24))
+
+
+@pytest.mark.parametrize("spec,dtype,variant", [
+    (STAGE0, torch.bfloat16, 2), (STAGE1, torch.bfloat16, 2), (STAGE24, torch.bfloat16, 2),
+    (STAGE_DEBUG, torch.bfloat16, 1), (STAGE_DEBUG16, torch.bfloat16, 1),
+    (STAGE0, torch.float32, 1), (STAGE_DEBUG, torch.float32, 1),
+    # widths no instance is built for keep the first FMA kernel, stage_kernel
+    (StageSpec(c_in=48, c_out=96, stride=4), torch.float32, 0),
+    (StageSpec(c_in=48, c_out=96, stride=4), torch.bfloat16, 0),
+    (StageSpec(c_in=64, c_out=128, stride=8), torch.float32, 0),
+])
+def test_stage_route(spec, dtype, variant):
+    got, plan = tsp.stage_route(spec, dtype)
+    assert got == variant and (plan is None) == (variant == tsp.SIMT)
+
+
+def _tile_cols(m: int, n: int) -> int:
+    """csrc/seanet.cu:tile_cols: a thread's output channels in an M x N product."""
+    t = m // 8 * n // tsp.FMA_WORKERS
+    return 8 if t >= 8 else 4 if t >= 4 else 2
+
+
+@pytest.mark.parametrize("spec", TILED)
+def test_tiled_register_tiles_fit_the_workers(spec):
+    """Each product (conv3 rows x H, conv1 rows x C, downsample frames x
+    C_out) in 8 x TN tiles, a warp spanning WM x WN tiles: at most one tile
+    for each of the 256 computing threads, 128-bit rows of whole tiles, and
+    the 12-row operand loads inside their buffers."""
+    plan = tsp.tiled_plan(spec)
+    frames = plan.rows // spec.stride
+    assert frames == plan.tile + 1 and frames % 8 == 0
+    for m, n in ((plan.rows, spec.res_hidden), (plan.rows, spec.c_in), (frames, spec.c_out)):
+        tn = _tile_cols(m, n)
+        mg, ng = m // 8, n // tn
+        wn = min(ng, 8)
+        wm = 32 // wn
+        assert n % tn == 0 and (tn != 8 or n % 8 == 0)
+        assert (ng // wn) * -(-mg // wm) * 32 <= tsp.FMA_WORKERS
+    # conv3 reads ELU(a) columns m0 .. m0 + 11 (m0 <= rows - 8) of rows + 8;
+    # the downsample ELU(r) frames m0 .. m0 + 11 of frames + 4
+    assert plan.rows - 8 + 11 < plan.rows + 8 and frames - 8 + 11 < frames + 4
+
+
+@pytest.mark.parametrize("spec", TILED)
+def test_tiled_chunks_stream_each_weight_row_once_an_item(spec):
+    """Replays the chunk sequence of one item (csrc/seanet.cu: the weight
+    warp's loop): every row of w1, w2 and wd arrives once, in 16-byte pieces
+    from 16-byte offsets, no chunk larger than a slot, and at least two
+    downsample chunks, under which the next item's input lands."""
+    C, H, CO, s = spec.c_in, spec.res_hidden, spec.c_out, spec.stride
+    plan = tsp.tiled_plan(spec)
+    c3, c1, cd = plan.chunks
+    assert C % c3 == 0 and H % c1 == 0 and C % cd == 0 and s * (C // cd) >= 2
+    rows = {'w1': [], 'w2': [], 'wd': []}
+    pieces = []
+    for k in range(C // c3):
+        for t in range(3):
+            pieces.append(('w1', t * C + k * c3, c3, H))
+    for k in range(H // c1):
+        pieces.append(('w2', k * c1, c1, C))
+    for p in range(s):
+        for j in range(C // cd):
+            pieces += [('wd', p * C + j * cd, cd, CO), ('wd', (p + s) * C + j * cd, cd, CO)]
+    for name, first, n, width in pieces:
+        assert (4 * first * width) % 16 == 0 and (4 * n * width) % 16 == 0
+        rows[name] += range(first, first + n)
+    assert sorted(rows['w1']) == list(range(3 * C)) and sorted(rows['w2']) == list(range(H))
+    assert sorted(rows['wd']) == list(range(2 * s * C))
+    assert max(3 * c3 * H, c1 * C, 2 * cd * CO) == plan.slot <= tsp.FMA_SLOT
+
+
+@pytest.mark.parametrize("spec", TILED)
+@pytest.mark.parametrize("frames_of", [lambda t: 1, lambda t: t - 1, lambda t: t,
+                                       lambda t: t + 1, lambda t: 2 * t + 5])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_tiled_items_cover_ragged_edges(spec, frames_of, batch):
+    """Items of `tile` frames cover every frame once, the last one ragged;
+    an item's r rows hold its frames' downsample windows and, at the
+    sequence's end, the reflected rows (on the card, B = 3 of one item is
+    also fewer items than SMs: chip_smoke.py phase 2)."""
+    plan = tsp.tiled_plan(spec)
+    s, tile = spec.stride, plan.tile
+    frames = max(1, frames_of(tile))
+    length = s * frames
+    tiles = -(-frames // tile)
+    covered = [u for i in range(tiles) for u in range(i * tile, min((i + 1) * tile, frames))]
+    assert covered == list(range(frames))
+    left, right = spec.left_pad, spec.right_pad
+    for i in range(tiles):
+        u0 = i * tile
+        r0 = s * u0 - left                      # global r row of local row 0
+        last = min(tile, frames - u0) - 1
+        assert s * last + 2 * s - 1 < plan.rows  # the last frame's window
+        if u0 + tile >= frames:                  # rows L .. L + right - 1 and their sources
+            assert length + right - 1 - r0 < plan.rows and length - 2 - (right - 1) - r0 >= 0
+    assert batch * tiles == batch * -(-length // s // tile)
