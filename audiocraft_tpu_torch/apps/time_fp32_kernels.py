@@ -1,5 +1,6 @@
 """Time the fp32 parity path's kernels on the card: K4's fp32 stage kernel
-and K3f's fp32 flash-attention forward, and K3b's fp32 backward kernels.
+and K3f's fp32 flash-attention forward, and K3b's fp32 backward kernels
+(dK/dV and dQ), which the training CLI's default fp32 step launches.
 
     python -m audiocraft_tpu_torch.apps.time_fp32_kernels
 
@@ -12,9 +13,12 @@ the fp32 rate and the bytes over the memory rate of an H100 SXM).  K4 also
 prints its per-phase cycle split (``fused_stage_clocks``) and its resources.
 The stage shapes: both fused 32 kHz stages at B = 16 x 10 s and at the
 style conditioner's excerpt (6 x 3 s); the attention shapes: JASCO's
-U-net [6, 500, 8, 64] and [8, 1500, 16, 64], not causal; the backward at
-the training shape [4, 1501, 16, 64], causal.  Every line names the card
-and its power limit.  Needs a CUDA card.
+U-net [6, 500, 8, 64] and [8, 1500, 16, 64], not causal; the backward,
+causal, at the training shape [4, 1501, 16, 64] (MusicGen-small, 4 x 30 s)
+and at the data-parallel LM step's [2, 501, 16, 64], each kernel run twice
+on the same inputs for equal bits, and the two kernels' registers, shared
+bytes, blocks an SM and spills.  Every line names the card and its power
+limit.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -31,8 +35,9 @@ from ..builders import get_encodec_32khz
 from ..nn.conv import fp32_convs
 from ..obs import PEAK_BYTES, PEAK_FP32
 from ..ops.attention import (attention_bwd_dkv, attention_bwd_dkv_reference, attention_bwd_dq,
-                             attention_bwd_dq_reference, attention_di, attention_fwd_kernel_info,
-                             fused_attention, fused_attention_reference, fused_attention_with_lse)
+                             attention_bwd_dq_reference, attention_bwd_kernel_info, attention_di,
+                             attention_fwd_kernel_info, fused_attention, fused_attention_reference,
+                             fused_attention_with_lse)
 from ..ops.seanet import (StageSpec, fused_stage, fused_stage_clocks, fused_stage_reference,
                           stage_kernel_info)
 
@@ -41,7 +46,7 @@ STAGE1 = StageSpec(c_in=128, c_out=256, stride=4)
 # (name, batch, samples at the stage's input) for both fused 32 kHz stages
 STAGE_SHAPES = (('B=16 x 10 s', 16, 320000), ('style excerpt 6 x 3 s', 6, 96000))
 ATTN_SHAPES = ((6, 500, 8, 64), (8, 1500, 16, 64))
-BWD_SHAPE = (4, 1501, 16, 64)
+BWD_SHAPES = ((4, 1501, 16, 64), (2, 501, 16, 64))
 
 
 def card() -> str:
@@ -167,8 +172,9 @@ def print_attention(row: tp.Dict[str, tp.Any], name: str) -> None:
 def time_attention_backward(shape: tp.Sequence[int], device, seed: int,
                             reps: int = 10) -> tp.Dict[str, tp.Dict[str, tp.Any]]:
     """K3b's fp32 kernels (causal) against their plain versions (max-abs /
-    max of each gradient), each timed beside its plain version, the backward
-    of one fp32 SDPA call (dq, dk and dv together) and its bound."""
+    max of each gradient), run twice for equal bits, each timed beside its
+    plain version, the backward of one fp32 SDPA call (dq, dk and dv
+    together) and its bound."""
     B, T, H, D = shape
     gen = torch.Generator().manual_seed(seed)
     q, k, v, do = (torch.randn(tuple(shape), generator=gen).to(device) for _ in range(4))
@@ -184,12 +190,14 @@ def time_attention_backward(shape: tp.Sequence[int], device, seed: int,
     for name, fn, ref, n_products, n_out in (
             ('dkv', attention_bwd_dkv, attention_bwd_dkv_reference, 4, 2),
             ('dq', attention_bwd_dq, attention_bwd_dq_reference, 3, 1)):
-        got, want = fn(*args, causal=True), ref(*args, causal=True)
-        pairs = list(zip(got, want)) if n_out == 2 else [(got, want)]
-        err = max(float((g - w).abs().max()) for g, w in pairs)
-        rel = max(float((g - w).abs().max() / w.abs().max()) for g, w in pairs)
+        got, again, want = fn(*args, causal=True), fn(*args, causal=True), ref(*args, causal=True)
+        if n_out == 1:
+            got, again, want = (got,), (again,), (want,)
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        rel = max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
+        same = all(torch.equal(g, a) for g, a in zip(got, again))
         b_ms, b_by = bound_ms(n_products * product, 4.0 * (4 + n_out) * elems + 4.0 * 2 * stats)
-        rows[name] = dict(shape=list(shape), max_rel=rel, max_abs_err=err,
+        rows[name] = dict(shape=list(shape), max_rel=rel, max_abs_err=err, repeat_equal=same,
                           ms=time_ms(lambda: fn(*args, causal=True), reps),
                           plain_ms=time_ms(lambda: ref(*args, causal=True), 2),
                           library_ms=library, bound_ms=b_ms, bound_by=b_by)
@@ -198,10 +206,21 @@ def time_attention_backward(shape: tp.Sequence[int], device, seed: int,
 
 def print_attention_backward(kname: str, row: tp.Dict[str, tp.Any], name: str) -> None:
     print(f"K3b fp32 {kname} {tuple(row['shape'])} causal: max-abs / max against plain "
-          f"{row['max_rel']:.3g} (<= 1e-4; max-abs {row['max_abs_err']:.3g}); kernel "
-          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, SDPA fp32 backward (dq, dk, dv) "
-          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); card "
-          f"{name}", flush=True)
+          f"{row['max_rel']:.3g} (<= 1e-4; max-abs {row['max_abs_err']:.3g}); a second run "
+          f"{'gives equal bits' if row['repeat_equal'] else 'DIFFERS'}; kernel "
+          f"{row['ms']:.4f} ms (the bound / kernel {row['bound_ms'] / row['ms']:.2f}), plain "
+          f"{row['plain_ms']:.3f} ms, SDPA fp32 backward (dq, dk, dv) {row['library_ms']:.4f} "
+          f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); card {name}", flush=True)
+
+
+def print_attention_backward_resources(dim: int = 64) -> None:
+    """The two fp32 backward kernels' registers, shared bytes, blocks an SM,
+    threads and spills at head width ``dim``."""
+    info = attention_bwd_kernel_info(dim, torch.float32)
+    print(f'K3b fp32 backward resources D={dim}: ' + '; '.join(
+        f"{kname} {i['registers']} registers x {i['threads']} threads, {i['shared_bytes']} B "
+        f"shared, {i['blocks_per_sm']} blocks/SM, {i['spill_bytes']} B spilled"
+        for kname, i in info.items()), flush=True)
 
 
 def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
@@ -224,8 +243,10 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
         f'{k} {v}' for k, v in attention_fwd_kernel_info(64, torch.float32).items()), flush=True)
     for shape in ATTN_SHAPES:
         print_attention(time_attention(shape, device, seed=162), name)
-    for kname, row in time_attention_backward(BWD_SHAPE, device, seed=11).items():
-        print_attention_backward(kname, row, name)
+    print_attention_backward_resources()
+    for shape in BWD_SHAPES:
+        for kname, row in time_attention_backward(shape, device, seed=11).items():
+            print_attention_backward(kname, row, name)
     return 0
 
 

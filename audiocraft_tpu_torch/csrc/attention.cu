@@ -126,16 +126,6 @@ constexpr size_t smem_fwd_bf16() {
 template <int DP>
 constexpr int min_blocks() { return DP <= 64 ? 16 / kWarpsFwd : 1; }
 
-// 2^x, with a result below 2^-126 flushed to 0: exp2f's care for such
-// results (about three more instructions an exponential) buys nothing here,
-// where every exponential is taken against the row's running max, whose own
-// weight of 1 is in the same fp32 sum.
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 template <int DP>
 __global__ void __launch_bounds__(32 * kWarpsFwd, min_blocks<DP>())
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -319,11 +309,6 @@ template <int DP>
 constexpr size_t smem_floats_f32() {
   return (size_t)DP * kRowsF32 + 2 * kKeysF32 * 2 * DP + kWarpsF32 * kKeysF32 * 16;
 }
-
-// The 16-byte piece `c4` of row `r` of a K tile, swizzled by the row's low 3
-// bits, so that the 8 rows one warp-wide 128-bit load touches fall on 8
-// distinct groups of 4 banks with no padding
-__device__ __forceinline__ int swz(int r, int c4) { return 4 * (c4 ^ (r & 7)); }
 
 // Lane l of warp w owns query rows 16 w + 4 (l / 8) .. + 3 of the block, keys
 // l % 8 + 8 j (j < 4) of each tile for S = q K^T, and features 4 (l % 8) +

@@ -80,10 +80,56 @@
 // Left for later: wgmma with TMA and a producer warp, a deeper ring, and a
 // persistent grid; D = 128 spills a few registers at 4 warps (no model here
 // uses it).
-// fp32 (the parity path, held to 1e-4 of the plain version, which TF32 would
-// break) keeps the FMA kernels: 256 threads, thread (ty, tx) owns rows
-// 4 ty .. 4 ty + 3 of its tile, columns tx + 16 j of the streamed tile and
-// features tx + 16 c; P and dS go through shared memory.
+//
+// fp32 (the parity path, and the training CLI's default dtype): fp32 FMA
+// outside the tensor cores (TF32 would round the products past the 1e-4 that
+// the plain version is held to), so its ceiling is the fp32 rate: 4 products
+// for dK/dV and 3 for dQ, 0.551 + 0.414 ms at the training shape above.  The
+// first kernels (256 threads, 4 x 4 register tiles fed by scalar shared
+// loads, two FMAs a load; tiles copied element by element behind three block
+// barriers a tile, P^T and dS^T through block-shared memory, expf, dQ's
+// causal tiles shortest first, 100 KB of shared memory a dK/dV block: 1.688
+// + 1.349 ms at that shape on an NVIDIA H100 80GB HBM3 at 700 W, against
+// 1.751 for SDPA's fp32 backward) are replaced by two kernels built as K3f's
+// fp32 forward (attention.cu) is:
+// - dQ: a block of 4 warps owns 64 query rows; (q * scale)^T and dO^T lie
+//   feature-major in shared memory, loaded once, and each lane keeps its 4
+//   rows' lse and di in registers.  dK/dV, its mirror image: a block of 4
+//   warps owns 64 keys, K^T and V^T loaded once.
+// - 32-row tiles of the streamed operands (K and V; or q, dO, lse and di)
+//   come through a 2-stage ring of 16-byte cp.async copies, rows as they are
+//   in memory with their pieces swizzled (swz), one block barrier a tile;
+//   the dK/dV kernel's thread scales the q pieces it copied, once landed, so
+//   that S^T and dK read q * scale, the plain version's operand (no log2(e)
+//   in it: P takes exp2(s * log2(e) - lse * log2(e)), one FMA).
+// - A lane holds a 4-row x 4-column tile of S and of dP (or S^T and dP^T),
+//   fed by 128-bit shared loads: 128 FMAs per 16 loads (per 4 features, one
+//   load of each of its 4 columns' rows and of each feature's 4 rows).
+// - P on ex2.approx.ftz; dS (and P^T) formed in registers, then written once
+//   into the warp's own rows (a __syncwarp, not a block barrier); dQ += dS K,
+//   dV += P^T dO and dK += dS^T (q * scale) take 4 rows x DP / 8 features a
+//   lane, the warp's rows as broadcasts against 128-bit loads of the tile's
+//   rows.  dK/dV writes P^T and then dS^T into one buffer, so that a block
+//   takes 74 KB and three blocks (12 warps) share an SM, at 168 registers.
+// - Causal: dQ runs the longest query tiles first and skips the key tiles
+//   after the diagonal; dK/dV starts each key tile at its diagonal and key
+//   tile 0 runs first; a warp skips the tiles wholly masked for its rows.
+// - Each gradient is written by one thread, in a fixed order: two runs give
+//   the same bits.  The order of the sums is not cuBLAS's, so the gradients
+//   differ from the plain version's by rounding (held to 1e-4 of each
+//   gradient's max-abs by chip_smoke.py).
+// Rows must lie on 16 bytes and D be a multiple of 4: the wrapper
+// (ops/attention.py) copies a view that does not, and pads D.
+// After, on the same card (apps/time_fp32_kernels, PERF.md): 1.091-1.119 +
+// 0.847-0.867 ms at the training shape, about 50 % and 48 % of the bound,
+// against 1.751-1.885 ms for SDPA's fp32 backward, so the pair is still 8-12 %
+// slower than SDPA; 0.113-0.148 + 0.086-0.116 ms at [2, 501, 16, 64].  Tried
+// and slower: 8 warps a dK/dV block (128 registers, 104 bytes spilled:
+// 1.286 ms), and 8 rows a lane in both kernels (32 rows a warp, 2.7 to 4
+// times the FMAs a load, but 250-255 registers and 6-8 warps an SM: 1.215-
+// 1.222 + 0.949-0.959 ms).  What holds the kernels near half the fp32 rate
+// is not separated yet: the bytes the shared loads deliver (2 FMAs a float
+// in the products) would allow about 55 %.
 #include <math.h>
 
 #include "attention_common.cuh"
@@ -388,259 +434,369 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // ================================================================ fp32, FMA
 
-constexpr int kThreadsF32 = 256;  // 16 x 16
-constexpr int kLP = kRows + 1;    // padded row of a P or dS tile
+constexpr int kTileF32 = 32;      // rows of a streamed tile: keys (dQ) or queries (dK/dV)
+constexpr int kWarpsDqF32 = 4;    // dQ: warps a block, 16 query rows each
+constexpr int kWarpsDkvF32 = 4;   // dK/dV: warps a block, 16 keys each
 
-// Rows r0 .. r0 + 63 of x (one batch and head) into tile[r][d], rows and
-// features past the end as zeros, times `scale`.
+// Shared floats of the dQ block: (q * scale)^T and dO^T [DP][64], a ring of
+// 2 stages of K [32][DP] and V [32][DP], each warp's dS^T [32 keys][16 rows]
+// (ops/attention.py:bwd_f32_geometry computes the same).  73,728 bytes at
+// DP = 64: three blocks an SM.
 template <int DP>
-__device__ __forceinline__ void load_tile_f32(float* tile, const float* x, Strides st, int r0,
-                                              int seq, int dim, float scale) {
-  constexpr int LD = DP + 1;
-  for (int e = threadIdx.x; e < kRows * DP; e += kThreadsF32) {
-    const int r = e / DP, d = e % DP, t = r0 + r;
-    tile[r * LD + d] = t < seq && d < dim ? x[t * st.t + d] * scale : 0.f;
+constexpr size_t smem_floats_dq_f32() {
+  return (size_t)2 * DP * 16 * kWarpsDqF32 + 2 * 2 * kTileF32 * DP + kWarpsDqF32 * kTileF32 * 16;
+}
+
+// Shared floats of the dK/dV block: K^T and V^T [DP][64], a ring of 2 stages
+// of q * scale [32][DP], dO [32][DP], lse [32] and di [32], each warp's P^T,
+// then dS^T, [32 queries][16 keys].  74,240 bytes at DP = 64: three blocks an
+// SM.
+template <int DP>
+constexpr size_t smem_floats_dkv_f32() {
+  return (size_t)2 * DP * 16 * kWarpsDkvF32 + 2 * (2 * kTileF32 * DP + 2 * kTileF32) +
+         kWarpsDkvF32 * kTileF32 * 16;
+}
+
+// Blocks an SM the launch bounds ask for: three (168 registers a thread) up
+// to DP = 64, where shared memory holds three; one at DP = 128
+template <int DP>
+constexpr int min_blocks_f32() { return DP > 64 ? 1 : 3; }
+
+// Rows r0 .. r0 + 31 of x (one batch and head, row stride st) into
+// tile[32][DP] by THREADS threads, 16-byte cp.async copies, each row's pieces
+// swizzled (swz); rows >= seq and features >= dim zero.  A thread always
+// copies the same pieces, which scale_rows relies on.
+template <int DP, int THREADS>
+__device__ __forceinline__ void load_rows(float* tile, const float* x, long long st, int r0,
+                                          int seq, int dim) {
+  constexpr int PIECES = kTileF32 * DP / 4;
+  static_assert(PIECES % THREADS == 0, "a tile is a whole number of copies per thread");
+#pragma unroll
+  for (int e0 = 0; e0 < PIECES; e0 += THREADS) {
+    const int e = e0 + threadIdx.x, r = e / (DP / 4), c4 = e % (DP / 4), t = r0 + r;
+    const bool in = t < seq && 4 * c4 < dim;
+    cp_async16(tile + r * DP + swz(r, c4), in ? x + t * st + 4 * c4 : x, in);
   }
 }
 
-template <int DP>
-constexpr size_t smem_dkv_f32() {  // K, V, q * scale, dO tiles; P^T and dS^T; lse, di
-  return sizeof(float) * (4 * kRows * (DP + 1) + 2 * kRows * kLP + 2 * kRows);
+// The pieces this thread copied with load_rows, once landed: x -> x * scale
+template <int DP, int THREADS>
+__device__ __forceinline__ void scale_rows(float* tile, float scale) {
+  constexpr int PIECES = kTileF32 * DP / 4;
+#pragma unroll
+  for (int e0 = 0; e0 < PIECES; e0 += THREADS) {
+    const int e = e0 + threadIdx.x, r = e / (DP / 4), c4 = e % (DP / 4);
+    float4* p = reinterpret_cast<float4*>(tile + r * DP + swz(r, c4));
+    float4 x = *p;
+    x.x *= scale, x.y *= scale, x.z *= scale, x.w *= scale;
+    *p = x;
+  }
 }
 
-template <int DP>
-constexpr size_t smem_dq_f32() {   // q * scale, dO, K, V tiles; dS
-  return sizeof(float) * (4 * kRows * (DP + 1) + kRows * kLP);
-}
-
-// s and dP of a 4 x 4 patch: rows of a and b (4 ty + i) against rows of c and
-// e (tx + 16 j), over DP features.
-template <int DP>
-__device__ __forceinline__ void two_products(const float* a, const float* c, const float* b,
-                                             const float* e, int ty, int tx, float (&s)[4][4],
-                                             float (&p)[4][4]) {
-  constexpr int LD = DP + 1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = p[i][j] = 0.f;
+// Rows r0 .. r0 + ROWS - 1 of x into xt[DP][ROWS] (feature-major) times mul,
+// by THREADS = 2 ROWS threads with 16-byte loads; rows >= seq and features
+// >= dim zero.  A warp's stores fall on 32 consecutive floats.
+template <int DP, int ROWS, int THREADS>
+__device__ __forceinline__ void load_transposed(float* xt, const float* x, long long st, int r0,
+                                                int seq, int dim, float mul) {
+  static_assert(THREADS == 2 * ROWS, "two threads a row");
+  const int r = threadIdx.x % ROWS, t = r0 + r;
 #pragma unroll 4
-  for (int d = 0; d < DP; ++d) {
-    float ra[4], rb[4], rc[4], re[4];
+  for (int c = 4 * (threadIdx.x / ROWS); c < DP; c += 8) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (t < seq && c < dim) v = *reinterpret_cast<const float4*>(x + t * st + c);
+    xt[(c + 0) * ROWS + r] = v.x * mul;
+    xt[(c + 1) * ROWS + r] = v.y * mul;
+    xt[(c + 2) * ROWS + r] = v.z * mul;
+    xt[(c + 3) * ROWS + r] = v.w * mul;
+  }
+}
+
+// acc[i][4 u + e] += p[i] * row[32 u + 4 g + e] for the 32 rows of a streamed
+// tile: p (4 values a row) from the warp's own buffer buf[32][16] at 4 rg (a
+// broadcast), the tile's rows by 128-bit loads of their swizzled pieces
+// 8 u + g (8 lanes read 128 consecutive bytes of one row)
+template <int DP>
+__device__ __forceinline__ void rows_product(float (&acc)[4][DP / 8], const float* buf,
+                                             const float* tile, int rg, int g) {
+#pragma unroll 8
+  for (int r = 0; r < kTileF32; ++r) {
+    const float4 x = *reinterpret_cast<const float4*>(buf + r * 16 + 4 * rg);
+    const float p[4] = {x.x, x.y, x.z, x.w};
+    float y[DP / 8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      ra[i] = a[(4 * ty + i) * LD + d];
-      rb[i] = b[(4 * ty + i) * LD + d];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      rc[j] = c[(tx + 16 * j) * LD + d];
-      re[j] = e[(tx + 16 * j) * LD + d];
+    for (int u = 0; u < DP / 32; ++u) {
+      const float4 z = *reinterpret_cast<const float4*>(tile + r * DP + swz(r, 8 * u + g));
+      y[4 * u] = z.x, y[4 * u + 1] = z.y, y[4 * u + 2] = z.z, y[4 * u + 3] = z.w;
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(ra[i], rc[j], s[i][j]);
-        p[i][j] = fmaf(rb[i], re[j], p[i][j]);
-      }
+      for (int f = 0; f < DP / 8; ++f) acc[i][f] = fmaf(p[i], y[f], acc[i][f]);
   }
 }
 
+// Two products of a 4 x 4 patch over DP features: a[i][j] += at[., ra + i] .
+// rows[j] and b[i][j] += bt[., ra + i] . rows2[j], the columns ra .. ra + 3
+// of the feature-major at, bt [DP][LD] against rows g + 8 j of the
+// row-major, swizzled tiles [32][DP]: for 4 features at a time, one 128-bit
+// load of each of the 8 rows and of each of the 8 feature columns, 128 FMAs.
+template <int DP, int LD>
+__device__ __forceinline__ void pair_products(float (&a)[4][4], float (&b)[4][4],
+                                              const float* at, const float* bt,
+                                              const float* rows, const float* rows2, int ra,
+                                              int g) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[i][j] = b[i][j] = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < DP; c += 4) {
+    float x[4][4], y[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 u = *reinterpret_cast<const float4*>(rows + (g + 8 * j) * DP + swz(g, c / 4));
+      const float4 v = *reinterpret_cast<const float4*>(rows2 + (g + 8 * j) * DP + swz(g, c / 4));
+      x[j][0] = u.x, x[j][1] = u.y, x[j][2] = u.z, x[j][3] = u.w;
+      y[j][0] = v.x, y[j][1] = v.y, y[j][2] = v.z, y[j][3] = v.w;
+    }
+#pragma unroll
+    for (int dd = 0; dd < 4; ++dd) {
+      const float4 u = *reinterpret_cast<const float4*>(at + (c + dd) * LD + ra);
+      const float4 v = *reinterpret_cast<const float4*>(bt + (c + dd) * LD + ra);
+      const float pa[4] = {u.x, u.y, u.z, u.w}, pb[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          a[i][j] = fmaf(pa[i], x[j][dd], a[i][j]);
+          b[i][j] = fmaf(pb[i], y[j][dd], b[i][j]);
+        }
+    }
+  }
+}
+
+// 4 rows (or keys) x 4 columns as a 128-bit store a column into the warp's
+// buf[32][16]: column g + 8 j, rows 4 rg .. 4 rg + 3 (the 8 lanes of a row
+// group on distinct bank groups)
+__device__ __forceinline__ void store_transposed(float* buf, const float (&x)[4][4], int rg,
+                                                 int g) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    *reinterpret_cast<float4*>(buf + (g + 8 * j) * 16 + 4 * rg) =
+        make_float4(x[0][j], x[1][j], x[2][j], x[3][j]);
+}
+
+// Rows row0 .. row0 + 3 of a [B, T, H, D] fp32 output: acc[i][4 u + e] * mul
+// at features 32 u + 4 g + e, as 16-byte stores where row < seq, d < dim
 template <int DP>
-__global__ void __launch_bounds__(kThreadsF32)
-flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+__device__ __forceinline__ void store_rows_f32(float* out, const float (&acc)[4][DP / 8],
+                                               int row0, int g, int b, int h, int seq,
+                                               int heads, int dim, float mul) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = row0 + i;
+    if (t >= seq) continue;
+    float* row = out + (((size_t)b * seq + t) * heads + h) * dim;
+#pragma unroll
+    for (int u = 0; u < DP / 32; ++u) {
+      const int d = 32 * u + 4 * g;
+      if (d < dim)
+        *reinterpret_cast<float4*>(row + d) =
+            make_float4(acc[i][4 * u] * mul, acc[i][4 * u + 1] * mul, acc[i][4 * u + 2] * mul,
+                        acc[i][4 * u + 3] * mul);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- dQ (fp32)
+
+// Lane l of warp w owns query rows 16 w + 4 (l / 8) .. + 3 of the block, keys
+// l % 8 + 8 j (j < 4) of each 32-key tile for S and dP, and features
+// 4 (l % 8) + 32 u .. + 3 (u < DP / 32) of dQ.
+template <int DP>
+__global__ void __launch_bounds__(32 * kWarpsDqF32, min_blocks_f32<DP>())
+flash_bwd_dq_f32_tiled(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ di,
+                        float* __restrict__ dq, Strides qs_, Strides ks_, Strides vs_,
+                        Strides dos_, int batch, int seq, int heads, int dim, float scale,
+                        int causal) {
+  constexpr int ROWS = 16 * kWarpsDqF32, THREADS = 32 * kWarpsDqF32;
+  constexpr int STAGE = 2 * kTileF32 * DP;  // K then V
+  extern __shared__ __align__(16) float smem_f32[];
+  float* qt = smem_f32;                     // [DP][64]: q * scale
+  float* ot = qt + DP * ROWS;               // [DP][64]: dO
+  float* ring = ot + DP * ROWS;
+  const int tid = threadIdx.x, lane = tid % 32, w = tid / 32, kg = lane % 8, rg = lane / 8;
+  float* dst = ring + 2 * STAGE + w * kTileF32 * 16;  // this warp's dS^T [key][row]
+  const int bh = blockIdx.x % (batch * heads), rank = blockIdx.x / (batch * heads);
+  const int b = bh / heads, h = bh % heads;
+  const int tiles_q = (seq + ROWS - 1) / ROWS;
+  // causal: the last query tile, which sees every key tile, runs first
+  const int q0 = (causal ? tiles_q - 1 - rank : rank) * ROWS;
+  const int row0 = 16 * w + 4 * rg;         // the lane's first row in the block
+  const int n_tiles = (seq + kTileF32 - 1) / kTileF32;
+  const int count = causal ? min(n_tiles, (q0 + ROWS) / kTileF32) : n_tiles;  // key tiles
+  const float* kb = k + b * ks_.b + h * ks_.h;
+  const float* vb = v + b * vs_.b + h * vs_.h;
+
+  auto load_kv = [&](int s, int i) {
+    float* kt = ring + s * STAGE;
+    load_rows<DP, THREADS>(kt, kb, ks_.t, i * kTileF32, seq, dim);
+    load_rows<DP, THREADS>(kt + kTileF32 * DP, vb, vs_.t, i * kTileF32, seq, dim);
+  };
+  if (count > 0) load_kv(0, 0);
+  cp_commit();
+  load_transposed<DP, ROWS, THREADS>(qt, q + b * qs_.b + h * qs_.h, qs_.t, q0, seq, dim, scale);
+  load_transposed<DP, ROWS, THREADS>(ot, dout + b * dos_.b + h * dos_.h, dos_.t, q0, seq, dim,
+                                     1.f);
+  // the lane's rows: lse in base 2, di
+  float lse2[4], drow[4], acc[4][DP / 8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = q0 + row0 + i;
+    const size_t at = ((size_t)b * heads + h) * seq + t;
+    lse2[i] = t < seq ? lse[at] * kLog2e : 0.f;
+    drow[i] = t < seq ? di[at] : 0.f;
+#pragma unroll
+    for (int f = 0; f < DP / 8; ++f) acc[i][f] = 0.f;
+  }
+
+  for (int i = 0; i < count; ++i) {
+    cp_wait<0>();
+    __syncthreads();   // tile i is in; every warp is done with the stage refilled next
+    if (i + 1 < count) load_kv((i + 1) & 1, i + 1);
+    cp_commit();
+
+    const int k0 = i * kTileF32;
+    // every key of the tile after the warp's rows: nothing to add
+    if (causal && k0 > q0 + 16 * w + 15) continue;
+    const float* kt = ring + (i & 1) * STAGE;
+    const float* vt = kt + kTileF32 * DP;
+    float s[4][4], dp[4][4];   // [row 4 rg + i][key kg + 8 j]
+    pair_products<DP, ROWS>(s, dp, qt, ot, kt, vt, row0, kg);
+    const bool edge = k0 + kTileF32 > seq || (causal && k0 + kTileF32 - 1 > q0 + row0);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float p = exp2_ftz(fmaf(s[r][j], kLog2e, -lse2[r]));
+        if (edge) {
+          const int key = k0 + kg + 8 * j;
+          if (key >= seq || (causal && key > q0 + row0 + r)) p = 0.f;
+        }
+        s[r][j] = p * (dp[r][j] - drow[r]);   // dS
+      }
+    store_transposed(dst, s, rg, kg);
+    __syncwarp();
+    rows_product<DP>(acc, dst, kt, rg, kg);   // dQ += dS K
+    __syncwarp();   // dS^T is read before the next tile's overwrites it
+  }
+  cp_wait<0>();
+  store_rows_f32<DP>(dq, acc, q0 + row0, kg, b, h, seq, heads, dim, scale);
+}
+
+// ---------------------------------------------------------------- dK, dV (fp32)
+
+// Lane l of warp w owns keys 16 w + 4 (l / 8) .. + 3 of the block, queries
+// l % 8 + 8 j (j < 4) of each 32-query tile for S^T and dP^T, and features
+// 4 (l % 8) + 32 u .. + 3 (u < DP / 32) of dK and dV.
+template <int DP>
+__global__ void __launch_bounds__(32 * kWarpsDkvF32, min_blocks_f32<DP>())
+flash_bwd_dkv_f32_tiled(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ di,
                          float* __restrict__ dk, float* __restrict__ dv, Strides qs_,
-                         Strides ks_, Strides vs_, Strides dos_, int seq, int heads, int dim,
-                         float scale, int causal) {
-  constexpr int LD = DP + 1;
-  constexpr int NC = DP / 16;
-  extern __shared__ float smem[];
-  float* ks = smem;                 // [kRows][LD]  this block's keys
-  float* vs = ks + kRows * LD;      // [kRows][LD]  and values
-  float* qs = vs + kRows * LD;      // [kRows][LD]  streamed q * scale
-  float* dos = qs + kRows * LD;     // [kRows][LD]  streamed dO
-  float* pt = dos + kRows * LD;     // [kRows][kLP] P^T: [key][query]
-  float* dst = pt + kRows * kLP;    // [kRows][kLP] dS^T
-  float* lse_s = dst + kRows * kLP; // [kRows]
-  float* di_s = lse_s + kRows;      // [kRows]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int k0 = blockIdx.x * kRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+                         Strides ks_, Strides vs_, Strides dos_, int batch, int seq, int heads,
+                         int dim, float scale, int causal) {
+  constexpr int KEYS = 16 * kWarpsDkvF32, THREADS = 32 * kWarpsDkvF32;
+  constexpr int TILE = kTileF32 * DP;              // one streamed q * scale or dO tile
+  constexpr int STAGE = 2 * TILE + 2 * kTileF32;   // q * scale, dO, lse, di
+  extern __shared__ __align__(16) float smem_f32[];
+  float* kt = smem_f32;                            // [DP][KEYS]: K^T
+  float* vt = kt + DP * KEYS;                      // [DP][KEYS]: V^T
+  float* ring = vt + DP * KEYS;
+  const int tid = threadIdx.x, lane = tid % 32, w = tid / 32, qg = lane % 8, rg = lane / 8;
+  float* pt = ring + 2 * STAGE + w * kTileF32 * 16;  // this warp's P^T, then dS^T [query][key]
+  const int bh = blockIdx.x % (batch * heads), tile = blockIdx.x / (batch * heads);
+  const int b = bh / heads, h = bh % heads;
+  const int k0 = tile * KEYS;   // key tile 0, the longest when causal, runs first
+  const int key0 = 16 * w + 4 * rg;   // the lane's first key in the block
+  const int n_tiles = (seq + kTileF32 - 1) / kTileF32;
+  const int first = causal ? k0 / kTileF32 : 0;   // query tiles before the diagonal see nothing
+  const int count = n_tiles - first;
   const float* qb = q + b * qs_.b + h * qs_.h;
   const float* dob = dout + b * dos_.b + h * dos_.h;
   const float* lse_b = lse + ((size_t)b * heads + h) * seq;
   const float* di_b = di + ((size_t)b * heads + h) * seq;
 
-  load_tile_f32<DP>(ks, k + b * ks_.b + h * ks_.h, ks_, k0, seq, dim, 1.f);
-  load_tile_f32<DP>(vs, v + b * vs_.b + h * vs_.h, vs_, k0, seq, dim, 1.f);
+  auto load_queries = [&](int s, int i) {   // query tile first + i into stage s
+    float* st = ring + s * STAGE;
+    const int q0 = (first + i) * kTileF32;
+    load_rows<DP, THREADS>(st, qb, qs_.t, q0, seq, dim);
+    load_rows<DP, THREADS>(st + TILE, dob, dos_.t, q0, seq, dim);
+    if (tid < 2 * kTileF32) {   // lse at 2 TILE, di at 2 TILE + 32
+      const int t = q0 + tid % kTileF32;
+      const float* src = tid < kTileF32 ? lse_b : di_b;
+      cp_async4(st + 2 * TILE + tid, t < seq ? src + t : src, t < seq);
+    }
+  };
+  if (count > 0) load_queries(0, 0);
+  cp_commit();
+  load_transposed<DP, KEYS, THREADS>(kt, k + b * ks_.b + h * ks_.h, ks_.t, k0, seq, dim, 1.f);
+  load_transposed<DP, KEYS, THREADS>(vt, v + b * vs_.b + h * vs_.h, vs_.t, k0, seq, dim, 1.f);
 
-  float dk_acc[4][NC], dv_acc[4][NC];
+  float dk_acc[4][DP / 8], dv_acc[4][DP / 8];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+    for (int f = 0; f < DP / 8; ++f) dk_acc[i][f] = dv_acc[i][f] = 0.f;
 
-  // causal: query tiles that end before this key tile sees nothing of it
-  for (int q0 = causal ? k0 : 0; q0 < seq; q0 += kRows) {
-    __syncthreads();  // the previous tile's products are done with qs, dos, pt, dst
-    load_tile_f32<DP>(qs, qb, qs_, q0, seq, dim, scale);
-    load_tile_f32<DP>(dos, dob, dos_, q0, seq, dim, 1.f);
-    if (tid < kRows) {
-      const int t = q0 + tid;
-      lse_s[tid] = t < seq ? lse_b[t] : 0.f;
-      di_s[tid] = t < seq ? di_b[t] : 0.f;
-    }
-    __syncthreads();
+  for (int i = 0; i < count; ++i) {
+    float* st = ring + (i & 1) * STAGE;
+    cp_wait<0>();
+    scale_rows<DP, THREADS>(st, scale);   // the pieces of q this thread copied: q * scale
+    __syncthreads();   // tile i is in and scaled; every warp is done with the stage refilled next
+    if (i + 1 < count) load_queries((i + 1) & 1, i + 1);
+    cp_commit();
 
-    float s[4][4], dp[4][4];  // [key 4 ty + i][query tx + 16 j]
-    two_products<DP>(ks, qs, vs, dos, ty, tx, s, dp);
+    const int q0 = (first + i) * kTileF32;
+    // every key of the warp after every query of the tile: nothing to add
+    if (causal && k0 + 16 * w > q0 + kTileF32 - 1) continue;
+    const float* qt = st;                 // q * scale [32][DP], swizzled
+    const float* ot = st + TILE;          // dO [32][DP], swizzled
+    const float* lse_s = st + 2 * TILE;
+    const float* di_s = lse_s + kTileF32;
+    float s[4][4], dp[4][4];   // S^T, dP^T: [key 4 rg + i][query qg + 8 j]
+    pair_products<DP, KEYS>(s, dp, kt, vt, qt, ot, key0, qg);
+    const bool edge = q0 + kTileF32 > seq || (causal && k0 + 16 * w + 15 > q0);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j) {
+      const float l2 = lse_s[qg + 8 * j] * kLog2e, dj = di_s[qg + 8 * j];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + 4 * ty + i, r = tx + 16 * j, query = q0 + r;
-        const bool in = key < seq && query < seq && !(causal && key > query);
-        const float p = in ? expf(s[i][j] - lse_s[r]) : 0.f;
-        pt[(4 * ty + i) * kLP + r] = p;
-        dst[(4 * ty + i) * kLP + r] = p * (dp[i][j] - di_s[r]);
-      }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int r = 0; r < kRows; ++r) {
-      float p[4], ds[4], o[NC], x[NC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i] = pt[(4 * ty + i) * kLP + r];
-        ds[i] = dst[(4 * ty + i) * kLP + r];
-      }
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        o[c] = dos[r * LD + tx + 16 * c];
-        x[c] = qs[r * LD + tx + 16 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          dv_acc[i][c] = fmaf(p[i], o[c], dv_acc[i][c]);
-          dk_acc[i][c] = fmaf(ds[i], x[c], dk_acc[i][c]);
+      for (int r = 0; r < 4; ++r) {
+        float p = exp2_ftz(fmaf(s[r][j], kLog2e, -l2));
+        if (edge) {
+          const int query = q0 + qg + 8 * j;
+          if (query >= seq || (causal && k0 + key0 + r > query)) p = 0.f;
         }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + 4 * ty + i;
-    if (key >= seq) continue;
-    const size_t row = (((size_t)b * seq + key) * heads + h) * dim;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = tx + 16 * c;
-      if (d < dim) {
-        dk[row + d] = dk_acc[i][c];
-        dv[row + d] = dv_acc[i][c];
+        s[r][j] = p;                          // P^T
+        dp[r][j] = p * (dp[r][j] - dj);       // dS^T
       }
     }
+    store_transposed(pt, s, rg, qg);
+    __syncwarp();
+    rows_product<DP>(dv_acc, pt, ot, rg, qg);   // dV += P^T dO
+    __syncwarp();
+    store_transposed(pt, dp, rg, qg);
+    __syncwarp();
+    rows_product<DP>(dk_acc, pt, qt, rg, qg);   // dK += dS^T (q * scale)
+    __syncwarp();   // dS^T is read before the next tile's P^T overwrites it
   }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kThreadsF32)
-flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ di,
-                        float* __restrict__ dq, Strides qs_, Strides ks_, Strides vs_,
-                        Strides dos_, int seq, int heads, int dim, float scale, int causal) {
-  constexpr int LD = DP + 1;
-  constexpr int NC = DP / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;              // [kRows][LD]  this block's q * scale
-  float* dos = qs + kRows * LD;  // [kRows][LD]  and dO
-  float* ks = dos + kRows * LD;  // [kRows][LD]  streamed keys
-  float* vs = ks + kRows * LD;   // [kRows][LD]  and values
-  float* dss = vs + kRows * LD;  // [kRows][kLP] dS: [query][key]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int q0 = blockIdx.x * kRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const float* kb = k + b * ks_.b + h * ks_.h;
-  const float* vb = v + b * vs_.b + h * vs_.h;
-  const float* lse_b = lse + ((size_t)b * heads + h) * seq;
-  const float* di_b = di + ((size_t)b * heads + h) * seq;
-
-  load_tile_f32<DP>(qs, q + b * qs_.b + h * qs_.h, qs_, q0, seq, dim, scale);
-  load_tile_f32<DP>(dos, dout + b * dos_.b + h * dos_.h, dos_, q0, seq, dim, 1.f);
-  float row_lse[4], row_di[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + 4 * ty + i;
-    row_lse[i] = t < seq ? lse_b[t] : 0.f;
-    row_di[i] = t < seq ? di_b[t] : 0.f;
-  }
-
-  float dq_acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dq_acc[i][c] = 0.f;
-
-  // causal: key tiles that start after this query tile's last row are skipped
-  const int k_end = causal ? min(seq, q0 + kRows) : seq;
-  for (int k0 = 0; k0 < k_end; k0 += kRows) {
-    __syncthreads();  // the previous tile's product is done with ks and dss
-    load_tile_f32<DP>(ks, kb, ks_, k0, seq, dim, 1.f);
-    load_tile_f32<DP>(vs, vb, vs_, k0, seq, dim, 1.f);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];  // [query 4 ty + i][key tx + 16 j]
-    two_products<DP>(qs, ks, dos, vs, ty, tx, s, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int query = q0 + 4 * ty + i, c = tx + 16 * j, key = k0 + c;
-        const bool in = key < seq && query < seq && !(causal && key > query);
-        const float p = in ? expf(s[i][j] - row_lse[i]) : 0.f;
-        dss[(4 * ty + i) * kLP + c] = p * (dp[i][j] - row_di[i]);
-      }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kRows; ++c) {
-      float ds[4], x[NC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = dss[(4 * ty + i) * kLP + c];
-#pragma unroll
-      for (int f = 0; f < NC; ++f) x[f] = ks[c * LD + tx + 16 * f];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int f = 0; f < NC; ++f) dq_acc[i][f] = fmaf(ds[i], x[f], dq_acc[i][f]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + 4 * ty + i;
-    if (t >= seq) continue;
-    const size_t row = (((size_t)b * seq + t) * heads + h) * dim;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = tx + 16 * c;
-      if (d < dim) dq[row + d] = scale * dq_acc[i][c];
-    }
-  }
+  cp_wait<0>();
+  store_rows_f32<DP>(dk, dk_acc, k0 + key0, qg, b, h, seq, heads, dim, 1.f);
+  store_rows_f32<DP>(dv, dv_acc, k0 + key0, qg, b, h, seq, heads, dim, 1.f);
 }
 
 // ---------------------------------------------------------------- launch
@@ -656,9 +812,15 @@ auto dq_bf16() {
                      smem_bf16<DP, kWarpsDq>(false));
 }
 template <int DP>
-auto dkv_f32() { return make_launch(flash_bwd_dkv_f32_kernel<DP>, kThreadsF32, smem_dkv_f32<DP>()); }
+auto dkv_f32() {
+  return make_launch(flash_bwd_dkv_f32_tiled<DP>, 32 * kWarpsDkvF32,
+                     sizeof(float) * smem_floats_dkv_f32<DP>());
+}
 template <int DP>
-auto dq_f32() { return make_launch(flash_bwd_dq_f32_kernel<DP>, kThreadsF32, smem_dq_f32<DP>()); }
+auto dq_f32() {
+  return make_launch(flash_bwd_dq_f32_tiled<DP>, 32 * kWarpsDqF32,
+                     sizeof(float) * smem_floats_dq_f32<DP>());
+}
 
 template <int DP>
 int launch_bf16(const Args& a, bool dkv) {
@@ -691,24 +853,31 @@ int launch_bf16(const Args& a, bool dkv) {
 
 template <int DP>
 int launch_f32(const Args& a, bool dkv) {
-  if (a.heads > 65535 || a.batch > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((a.seq + kRows - 1) / kRows, a.heads, a.batch);
+  if (a.dim % 4 != 0 || !rows_aligned(a.q, a.qs, 4) || !rows_aligned(a.k, a.ks, 4) ||
+      !rows_aligned(a.v, a.vs, 4) || !rows_aligned(a.dout, a.dos, 4) ||
+      (reinterpret_cast<uintptr_t>(a.dq) | reinterpret_cast<uintptr_t>(a.dk) |
+       reinterpret_cast<uintptr_t>(a.dv)) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  // one block per (tile of rows, batch, head), batch * head fastest
+  const int rows = 16 * (dkv ? kWarpsDkvF32 : kWarpsDqF32);
+  const long long blocks = (long long)((a.seq + rows - 1) / rows) * a.batch * a.heads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const auto q = static_cast<const float*>(a.q), k = static_cast<const float*>(a.k),
              v = static_cast<const float*>(a.v), dout = static_cast<const float*>(a.dout);
   if (dkv) {
     const auto l = dkv_f32<DP>();
     const cudaError_t err = l.prepare();
     if (err != cudaSuccess) return (int)err;
-    l.kernel<<<grid, l.threads, l.smem, a.stream>>>(
+    l.kernel<<<(unsigned)blocks, l.threads, l.smem, a.stream>>>(
         q, k, v, dout, a.lse, a.di, static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.qs,
-        a.ks, a.vs, a.dos, a.seq, a.heads, a.dim, a.scale, a.causal);
+        a.ks, a.vs, a.dos, a.batch, a.seq, a.heads, a.dim, a.scale, a.causal);
   } else {
     const auto l = dq_f32<DP>();
     const cudaError_t err = l.prepare();
     if (err != cudaSuccess) return (int)err;
-    l.kernel<<<grid, l.threads, l.smem, a.stream>>>(
-        q, k, v, dout, a.lse, a.di, static_cast<float*>(a.dq), a.qs, a.ks, a.vs, a.dos, a.seq,
-        a.heads, a.dim, a.scale, a.causal);
+    l.kernel<<<(unsigned)blocks, l.threads, l.smem, a.stream>>>(
+        q, k, v, dout, a.lse, a.di, static_cast<float*>(a.dq), a.qs, a.ks, a.vs, a.dos, a.batch,
+        a.seq, a.heads, a.dim, a.scale, a.causal);
   }
   return (int)cudaGetLastError();
 }

@@ -149,6 +149,23 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[DP / 8]
   }
 }
 
+// 2^x, with a result below 2^-126 flushed to 0 (ex2.approx.ftz, one MUFU
+// instruction): exp2f's care for such results (about three more
+// instructions an exponential) buys nothing where every exponential is taken
+// against a row's max or its log-sum-exp, so that the row's own weights sum
+// to about 1 in fp32.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The 16-byte piece `c4` of row `r` of an fp32 tile kept as rows, swizzled by
+// the row's low 3 bits, so that the 8 rows one warp-wide 128-bit load touches
+// fall on 8 distinct groups of 4 banks with no padding (rows of at least 32
+// floats)
+__device__ __forceinline__ int swz(int r, int c4) { return 4 * (c4 ^ (r & 7)); }
+
 // every row starts on 16 bytes: `per16` elements to 16 bytes (8 bf16, 4 fp32)
 bool rows_aligned(const void* x, Strides s, int per16 = 8) {
   return (uintptr_t)x % 16 == 0 && s.b % per16 == 0 && s.t % per16 == 0 && s.h % per16 == 0;

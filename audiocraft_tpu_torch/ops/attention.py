@@ -8,13 +8,13 @@ through a ring in shared memory with an fp32 online softmax, so the
 ``[B, H, T, T]`` scores never reach device memory, and writes each row's
 fp32 log-sum-exp when asked; ``csrc/attention_bwd.cu`` (K3b) recomputes P
 from it in two kernels, one for dK and dV and one for dQ.  In bf16 all three
-run on the tensor cores and copy rows in 16-byte pieces
-(:func:`_rows_on_16_bytes`).  q, k, v and dO are read in the JAX package's
-``[B, T, H, D]`` layout by strides (a slice of a fused qkv projection needs
-no copy); the ragged tail of T and the causal mask are masked inside the
-kernels, so nothing is padded but a head width that is not a multiple of 8
-in bf16.  Bounds on an H100 and designs: see the notes at the top of the two
-sources.
+run on the tensor cores, in fp32 on register-tiled FMA; all copy rows in
+16-byte pieces (:func:`_rows_on_16_bytes`).  q, k, v and dO are read in the
+JAX package's ``[B, T, H, D]`` layout by strides (a slice of a fused qkv
+projection needs no copy); the ragged tail of T and the causal mask are
+masked inside the kernels, so nothing is padded but a head width that is
+not a multiple of 8 in bf16 or of 4 in fp32.  Bounds on an H100 and
+designs: see the notes at the top of the two sources.
 
 :func:`plain_attention` is the plain PyTorch version, the twin of the JAX
 package's ``_xla_attention`` and ``nn/transformer._attend``: q pre-scaled in
@@ -221,8 +221,8 @@ def _check_stats(q: torch.Tensor, *stats: torch.Tensor) -> None:
 
 
 def _rows_on_16_bytes(*xs: torch.Tensor) -> tp.List[torch.Tensor]:
-    """The bf16 kernels and the fp32 forward copy rows in 16-byte pieces
-    (``n`` = 8 bf16 or 4 fp32 elements).  Views whose rows all start on 16
+    """The attention kernels copy rows in 16-byte pieces (``n`` = 8 bf16 or
+    4 fp32 elements).  Views whose rows all start on 16
     bytes (D a multiple of n, strides multiples of n elements, an aligned
     start) pass as they are, the fused qkv projection's slices among them;
     any other is copied to a fresh contiguous tensor, with D zero-padded to a
@@ -261,14 +261,39 @@ def fwd_f32_geometry(dim: int) -> tp.Dict[str, int]:
                 shared_bytes=4 * floats)
 
 
+# K3b's fp32 kernels (csrc/attention_bwd.cu): rows a block owns (dQ: query
+# rows, dK/dV: keys; 4 a lane, 16 a warp), rows of a streamed tile, threads
+BWD_F32_ROWS, BWD_F32_TILE, BWD_F32_THREADS = 64, 32, 128
+
+
+def bwd_f32_geometry(dim: int) -> tp.Dict[str, tp.Dict[str, int]]:
+    """K3b's fp32 blocks for heads of ``dim`` (in the width class of 32, 64
+    or 128 features that ``by_width`` picks): for 'dkv' and 'dq', the rows a
+    block owns, the rows of a streamed tile, threads and shared bytes.  dQ:
+    (q * scale)^T and dO^T [DP][64], two stages of K and V [32][DP], each
+    warp's dS^T [32][16]; dK/dV: K^T and V^T [DP][64], two stages of q * scale
+    and dO [32][DP] with lse and di [32], each warp's P^T (then dS^T)
+    [32][16].  csrc/attention_bwd.cu:smem_floats_dq_f32 and
+    smem_floats_dkv_f32 compute the same, and chip_smoke.py holds them equal
+    on the card."""
+    if not 0 < dim <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {dim} is outside 1 .. {MAX_HEAD_DIM}")
+    dp = 32 if dim <= 32 else 64 if dim <= 64 else 128
+    rows, tile, warps = BWD_F32_ROWS, BWD_F32_TILE, BWD_F32_THREADS // 32
+    buffers = warps * tile * 16
+    floats = {'dq': 2 * dp * rows + 2 * 2 * tile * dp + buffers,
+              'dkv': 2 * dp * rows + 2 * (2 * tile * dp + 2 * tile) + buffers}
+    return {name: dict(width=dp, rows=rows, tile=tile, threads=BWD_F32_THREADS,
+                       shared_bytes=4 * n) for name, n in floats.items()}
+
+
 def _backward_launch(name: str, q, k, v, do, lse, di, n_out: int, causal: bool,
                      sm_scale: float) -> tp.List[torch.Tensor]:
     """Launch one backward kernel: n_out gradients [B, T, H, D] in q's dtype."""
     _check_cuda('the attention backward', q, k, v, do)
     _check_stats(q, lse, di)
     D = q.shape[-1]
-    if q.dtype == torch.bfloat16:
-        q, k, v, do = _rows_on_16_bytes(q, k, v, do)
+    q, k, v, do = _rows_on_16_bytes(q, k, v, do)
     outs = [torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(n_out)]
     if q.numel() == 0:
         return [x[..., :D] for x in outs]

@@ -46,13 +46,16 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    and both backward kernels, the loss must fall, and every parameter must
    get a finite, non-zero gradient.  A profiled step prints the device's
    busy time and the host's: operators by self time, dtype copies and
-   optimizer calls.  Then the training CLI takes two debug steps on the
-   card.
+   optimizer calls.  Then the fp32 LM step, the training CLI's default
+   dtype, on the same batch: one warm-up and two timed steps, each
+   launching K3f fp32 and both K3b fp32 kernels once a layer (K3b fp32:
+   the ``launches`` of ``flash_attention_bwd_*_fp32``), its ms, peak memory
+   and K3b fp32's share of it (the two kernels' device time in one more
+   step under torch.profiler); the model's state is restored after.  Then
+   the training CLI takes two debug steps on the card.
 8. Training parity in fp32 (TF32 off): loss and every gradient of the
-   kernel route against the plain route (K3b's fp32 kernels: the
-   ``launches`` of ``flash_attention_bwd_*_fp32``), then three AdamW steps
-   on each; and the bf16-compute gradients of both routes on the same
-   batch.
+   kernel route against the plain route, then three AdamW steps on each;
+   and the bf16-compute gradients of both routes on the same batch.
 9. The encode routes: ``get_encodec_32khz()`` encodes 128 clips of 10 s
    three times on each route, the module stack (``fused=False``), the fused
    route with K5 as its input conv (the default on the card) and
@@ -214,7 +217,9 @@ beside its plain version, the cuDNN module stack in fp32 (TF32 off), the
 bound, the counter's per-phase split and its resources (lines ``K4 fp32
 stage N (B=16 x 10 s)``); K3f fp32 at [8, 1500, 16, 64] and [6, 500, 8,
 64] beside SDPA in fp32 and the bound (lines ``K3f fp32 ...``); K3b's fp32
-kernels at [4, 1501, 16, 64] causal beside SDPA's fp32 backward.  The
+kernels (held at the tiles' edges T = 31, 33, 63-65, 127 and 129 too, and
+to equal bits on a second run) at [4, 1501, 16, 64] and [2, 501, 16, 64]
+causal beside SDPA's fp32 backward, with their resources.  The
 ``kernels`` line has a row for each fp32 kernel (``*_fp32``).  Then
 one JSON line on the kernels and, last, one JSON line with the result.
 Any failed check ends the run with a non-zero exit and no result line, as
@@ -912,7 +917,8 @@ def check_attention(device) -> tp.Tuple[dict, dict]:
 def _attn_bwd_errs(q, k, v, do, causal: bool) -> tp.Tuple[float, float, float]:
     """K3f's lse and K3b's gradients against their plain versions on the
     same inputs: (lse max-abs, worst gradient max-abs / max-abs of the plain
-    gradient, worst gradient max-abs).  A gradient that is zero in exact
+    gradient, worst gradient max-abs); a second run of the kernels must give
+    the same bits (each gradient has one writer).  A gradient that is zero in exact
     arithmetic is rounding noise on both sides (dq and dk at T = 1, where
     P = 1 and dS = dP - di = 0), so each gradient's max-abs is floored at
     1e-2 of the largest of the three."""
@@ -923,8 +929,10 @@ def _attn_bwd_errs(q, k, v, do, causal: bool) -> tp.Tuple[float, float, float]:
     floor = 1e-2 * max(tops)
     rel = err = 0.0
     grads = fused_attention_backward(q, k, v, o, lse, do, causal=causal)
-    for g, r, top in zip(grads, refs, tops):
-        what = f'attention backward {tuple(q.shape)}'
+    again = fused_attention_backward(q, k, v, o, lse, do, causal=causal)
+    for g, a, r, top in zip(grads, again, refs, tops):
+        what = f'attention backward {tuple(q.shape)} {q.dtype}'
+        check(torch.equal(g, a), f'{what}: a second run gives other bits')
         check(g.shape == r.shape and g.dtype == r.dtype,
               f'{what}: gradient {tuple(g.shape)} {g.dtype}')
         check(bool(torch.isfinite(g).all()), f'{what}: non-finite')
@@ -950,14 +958,23 @@ def _attn_inputs(shape, fused: bool, gen, device) -> tp.Callable[[torch.dtype], 
 
 def print_attention_bwd_resources() -> None:
     """Registers per thread, shared memory per block and blocks per SM of the
-    K3b kernels (cudaFuncGetAttributes and the occupancy API)."""
-    for dtype, dims in ((torch.bfloat16, (32, 64, 128)), (torch.float32, (64,))):
+    K3b kernels (cudaFuncGetAttributes and the occupancy API); the fp32
+    kernels' threads and shared bytes at every width class must equal
+    ``attention.bwd_f32_geometry``'s."""
+    for dtype, dims in ((torch.bfloat16, (32, 64, 128)), (torch.float32, (32, 64, 128))):
         for dim in dims:
             info = attention.attention_bwd_kernel_info(dim, dtype)
             print(f'attention backward kernels {dtype} D={dim}: ' + '; '.join(
                 f"{name} {i['registers']} registers x {i['threads']} threads, "
                 f"{i['shared_bytes']} B shared, {i['blocks_per_sm']} blocks/SM, "
                 f"{i['spill_bytes']} B spilled" for name, i in info.items()), flush=True)
+            if dtype == torch.float32:
+                geometry = attention.bwd_f32_geometry(dim)
+                for name, i in info.items():
+                    want = geometry[name]
+                    check((i['threads'], i['shared_bytes']) == (want['threads'],
+                                                                 want['shared_bytes']),
+                          f'K3b fp32 {name} D={dim}: {i} against bwd_f32_geometry {want}')
 
 
 def check_attention_backward(device) -> tp.List[dict]:
@@ -965,28 +982,34 @@ def check_attention_backward(device) -> tp.List[dict]:
     the order of fp32 sums differs) within 1e-4 of each gradient's max-abs,
     bf16 within 2e-2 (the gradients are rounded to bf16; P and dS are
     rounded once to bf16 on both sides, at the same points), lse within
-    1e-5.  Shapes: the training shapes (causal; phase 7's and phase 14's
-    data-parallel step's), MAGNeT's (not causal), the tiles' edges at D = 64
-    (T = 1, 63, 65, 129), D = 32 and 128 at T = 130, q, k, v as strided
+    1e-5; a second run gives equal bits.  Shapes: the training shapes
+    (causal; phase 7's and phase 14's data-parallel step's), MAGNeT's (not
+    causal), the tiles' edges at D = 64 (T = 1, 63, 65, 129; and in fp32 the
+    32-row tiles' T = 31, 33, 64, 127), D = 32 and 128 at T = 130, q, k, v as strided
     slices of one fused projection, and D = 36 (padded to 40 by the wrapper
     for the bf16 kernels' 16-byte copies); both masks except at the model
     shapes.  Then each kernel timed at the training shape in
-    bf16 beside SDPA's backward and the bound, and in fp32 beside SDPA's
-    fp32 backward: the entries of both dtypes."""
+    bf16 beside SDPA's backward and the bound, and in fp32 (also at phase
+    14's [2, 501, 16, 64]) beside SDPA's fp32 backward: the entries of both
+    dtypes, the fp32 ones at the training shape."""
     print_attention_bwd_resources()
     gen = torch.Generator().manual_seed(11)
     both = (True, False)
-    cases = [(TRAIN_ATTN_SHAPE, (True,), False), (LM_DP_ATTN_SHAPE, (True,), False),
-             (tuple(ATTN_SHAPE.values()), (False,), False),
-             *(((2, t, 3, 64), both, False) for t in (1, 63, 65, 129)),
-             ((1, 130, 3, 32), both, False), ((1, 130, 3, 128), both, False),
-             ((2, 257, 4, 64), both, True), ((1, 70, 2, 36), both, False)]
+    fp32_only = ((torch.float32, 1e-4),)
+    every = (*fp32_only, (torch.bfloat16, 2e-2))
+    cases = [(TRAIN_ATTN_SHAPE, (True,), False, every), (LM_DP_ATTN_SHAPE, (True,), False, every),
+             (tuple(ATTN_SHAPE.values()), (False,), False, every),
+             *(((2, t, 3, 64), both, False, every) for t in (1, 63, 65, 129)),
+             # the edges of the fp32 kernels' 32-row tiles and 64-row blocks
+             *(((2, t, 3, 64), both, False, fp32_only) for t in (31, 33, 64, 127)),
+             ((1, 130, 3, 32), both, False, every), ((1, 130, 3, 128), both, False, every),
+             ((2, 257, 4, 64), both, True, every), ((1, 70, 2, 36), both, False, every)]
     worst = {}
-    for shape, masks, fused in cases:
+    for shape, masks, fused, dtypes in cases:
         inputs = _attn_inputs(shape, fused, gen, device)
         layout = ' fused qkv' if fused else ''
         for causal in masks:
-            for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            for dtype, tol in dtypes:
                 lse_err, rel, err = _attn_bwd_errs(*inputs(dtype), causal)
                 worst[(shape, causal, dtype)] = err
                 print(f'attention backward {shape}{layout} causal={causal} {dtype}: lse '
@@ -1042,15 +1065,25 @@ def check_attention_backward(device) -> tp.List[dict]:
     print(f'the same on strided q, k, v slices of one fused projection (the model\'s layout): '
           f'dK/dV {fused_ms[0]:.4f} ms, dQ {fused_ms[1]:.4f} ms (information)', flush=True)
     del fq, fk, fv, fdo, fused, args, o, lse, di
-    # the fp32 FMA kernels (the fp32 parity path's training step) at the same shape
+    # the fp32 FMA kernels (the training CLI's default fp32 step) at the same
+    # shape and at phase 14's data-parallel step's
     name = card()
-    rows = time_fp32_kernels.time_attention_backward(TRAIN_ATTN_SHAPE, device, seed=11)
-    for entry, (kname, row) in zip(list(entries), rows.items()):
-        check(row['max_rel'] <= 1e-4, f'K3b fp32 {kname}: {row["max_rel"]:.3g} > 1e-4')
-        time_fp32_kernels.print_attention_backward(kname, row, name)
-        entries.append(dict(entry, name=entry['name'] + '_fp32', max_abs_err=row['max_abs_err'],
-                            **{k: row[k] for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms',
-                                                   'bound_by')}))
+    for shape in (TRAIN_ATTN_SHAPE, LM_DP_ATTN_SHAPE):
+        rows = time_fp32_kernels.time_attention_backward(shape, device, seed=11)
+        for kname, row in rows.items():
+            check(row['max_rel'] <= 1e-4, f'K3b fp32 {kname} {shape}: {row["max_rel"]:.3g} > 1e-4')
+            check(row['repeat_equal'], f'K3b fp32 {kname} {shape}: a second run gives other bits')
+            time_fp32_kernels.print_attention_backward(kname, row, name)
+        if shape == TRAIN_ATTN_SHAPE:
+            pair_ms = sum(row['ms'] for row in rows.values())
+            for entry, row in zip(list(entries), rows.values()):
+                entries.append(dict(entry, name=entry['name'] + '_fp32',
+                                    max_abs_err=row['max_abs_err'],
+                                    **{k: row[k] for k in ('ms', 'plain_ms', 'library_ms',
+                                                           'bound_ms', 'bound_by')}))
+    print(f'K3b fp32 {TRAIN_ATTN_SHAPE} causal: both kernels {pair_ms:.4f} ms, SDPA fp32 '
+          f'backward (dq, dk, dv in one call) {entries[-1]["library_ms"]:.4f} ms; card {name}',
+          flush=True)
     return entries
 
 
@@ -1715,13 +1748,9 @@ def print_train_breakdown(lm, optimizer, state, codec, wav, codes, cond) -> None
           + f', total {sum(parts):.2f}', flush=True)
 
 
-def print_train_profile(step, state, codes, cond) -> None:
-    """torch.profiler over one LM step: device busy time against the step's
-    wall time (both under the profiler), and the kernels that take most; then
-    the host side: the operators that take most host time by self time, and
-    the step's count of dtype copies (``aten::_to_copy``, ``aten::copy_``)
-    and of the optimizer's ``torch._foreach`` calls."""
-    from torch.autograd import DeviceType
+def _profiled_step(step, state, codes, cond) -> tp.Tuple[tp.Any, float]:
+    """torch.profiler (host and device) over one LM step: the profile and
+    the step's wall ms under it."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1729,6 +1758,37 @@ def print_train_profile(step, state, codes, cond) -> None:
         step(state, codes, cond)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return prof, wall_ms
+
+
+def _timed_steps(run: tp.Callable[[], tp.Any], n: int, expect: tp.Dict[str, int],
+                 what: str) -> tp.Tuple[list, tp.Dict[str, int], tp.Dict[str, int], int]:
+    """One warm-up call of ``run`` (not counted), then ``n`` counted calls,
+    each of which must launch exactly ``expect``.  Returns the calls'
+    results, the last call's launches, the launches of all ``n`` and the peak
+    memory of the ``n`` calls."""
+    run()   # warm-up, not counted
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    results = []
+    for i in range(n):
+        before = _launch_counts()
+        results.append(run())
+        after = _launch_counts()
+        counts = {k: after[k] - before[k] for k in after}
+        check(counts == expect, f'{what} {i} launches {counts} != {expect}')
+    return results, counts, _launch_counts(), torch.cuda.max_memory_allocated()
+
+
+def print_train_profile(step, state, codes, cond) -> None:
+    """torch.profiler over one LM step: device busy time against the step's
+    wall time (both under the profiler), and the kernels that take most; then
+    the host side: the operators that take most host time by self time, and
+    the step's count of dtype copies (``aten::_to_copy``, ``aten::copy_``)
+    and of the optimizer's ``torch._foreach`` calls."""
+    from torch.autograd import DeviceType
+    prof, wall_ms = _profiled_step(step, state, codes, cond)
     kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                      key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -1775,29 +1835,16 @@ def phase_train(device, lm, provider) -> tp.Dict[str, int]:
         loss = float(step(state, codes, cond)['loss'])   # synchronises
         return codes, cond, loss, t1 - t0, time.perf_counter() - t1
 
-    one_step()   # warm-up, not counted
-    _reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    losses, encode_s, step_s, per_step = [], [], [], []
-    for i in range(TRAIN_STEPS):
-        before = _launch_counts()
-        codes, cond, loss, t_enc, t_step = one_step()
-        after = _launch_counts()
-        per_step.append({k: after[k] - before[k] for k in after})
-        losses.append(loss)
-        encode_s.append(t_enc)
-        step_s.append(t_step)
-    launches = _launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-
-    B, K, T = codes.shape
-    check((B, K, T) == (TRAIN_BATCH, 4, TRAIN_SECONDS * 50), f'codes {tuple(codes.shape)}')
     expect = {'flash_attention': n_layers, 'flash_attention_bwd_dkv': n_layers,
               'flash_attention_bwd_dq': n_layers, 'rvq_encode': 1, 'lstm_step': 2,
               'fused_stage': 2, 'banded_mono_conv': 1,   # the encode's default, fused route
               **{name: 0 for name in FP32_COUNTERS}}     # bf16 compute: no fp32 kernel
-    for i, counts in enumerate(per_step):
-        check(counts == expect, f'step {i} launches {counts} != {expect}')
+    results, _, launches, peak = _timed_steps(one_step, TRAIN_STEPS, expect, 'step')
+    codes, cond = results[-1][:2]
+    losses, encode_s, step_s = ([r[i] for r in results] for i in (2, 3, 4))
+
+    B, K, T = codes.shape
+    check((B, K, T) == (TRAIN_BATCH, 4, TRAIN_SECONDS * 50), f'codes {tuple(codes.shape)}')
     check(all(math.isfinite(x) for x in losses), f'non-finite loss {losses}')
     check(losses[-1] < losses[0], f'the loss did not fall: {losses}')
     check(all(p.dtype == torch.float32 for p in lm.parameters()), 'master parameters not fp32')
@@ -1828,11 +1875,69 @@ def phase_train(device, lm, provider) -> tp.Dict[str, int]:
     print(f'gradients: {len(names)} parameters finite and non-zero, the q, k and v rows of '
           f'{in_proj} self_attn.in_proj_weight included', flush=True)
     del grads, state
+    launches.update(time_fp32_step(lm, codes, cond))
 
     train_lm.main(['--debug', '--synthetic', '--steps', '2', '--log-every', '1'])
     torch.cuda.synchronize()
     print('training CLI: --debug --synthetic --steps 2 on the card', flush=True)
     return launches
+
+
+FP32_STEPS = 2   # timed fp32 LM steps in phase 7, after one warm-up
+
+
+def time_fp32_step(lm, codes, cond) -> tp.Dict[str, int]:
+    """The fp32 LM step (``compute_dtype=None``, the training CLI's default)
+    on phase 7's batch: one warm-up, then FP32_STEPS timed steps, each of
+    which must launch K3f fp32 and both K3b fp32 kernels once a layer and no
+    bf16 attention kernel.  Prints each step's ms, the peak memory and K3b
+    fp32's share of the step: its kernels' device time in one more step under
+    torch.profiler, against the timed steps' mean.  Restores the model's
+    parameters after, so that phase 8 starts from phase 7's bf16 state.
+    Returns the K3b fp32 launches of the timed steps."""
+    from torch.autograd import DeviceType
+    n_layers = len(lm.transformer.layers)
+    saved = {k: v.clone() for k, v in lm.state_dict().items()}
+    optimizer = make_optimizer('adamw', TRAIN_LR, betas=(0.9, 0.95), weight_decay=0.1)
+    step = make_lm_train_step(lm, optimizer, compute_dtype=None)
+    state = optimizer.init(list(lm.parameters()))
+
+    def one_step():
+        t0 = time.perf_counter()
+        loss = float(step(state, codes, cond)['loss'])   # synchronises
+        return loss, (time.perf_counter() - t0) * 1e3
+
+    attn = ('flash_attention', 'flash_attention_bwd_dkv', 'flash_attention_bwd_dq')
+    expect = {name: 0 for name in _launch_counts()}
+    expect.update({name: n_layers for name in attn})   # every dtype's launches
+    expect.update({name + '_fp32': n_layers for name in attn})
+    results, per_step, launches, peak = _timed_steps(one_step, FP32_STEPS, expect, 'fp32 step')
+    losses, step_ms = ([r[i] for r in results] for i in (0, 1))
+    check(all(math.isfinite(x) for x in losses), f'fp32 step: non-finite loss {losses}')
+    mean = sum(step_ms) / FP32_STEPS
+    prof, _ = _profiled_step(step, state, codes, cond)
+    k3b = {name: [0.0, 0] for name in ('flash_bwd_dkv_f32_tiled', 'flash_bwd_dq_f32_tiled')}
+    for e in prof.key_averages():
+        for name, row in k3b.items():
+            if e.device_type == DeviceType.CUDA and name in e.key:
+                row[0] += e.self_device_time_total / 1e3
+                row[1] += e.count
+    check(all(n == n_layers for _, n in k3b.values()),
+          f'profiled fp32 step: K3b fp32 launches {k3b} (want {n_layers} each)')
+    k3b_ms = sum(ms for ms, _ in k3b.values())
+    B, K, T = codes.shape
+    print(f'fp32 LM step (compute_dtype=None, the training CLI\'s default) at B={B} T={T}: '
+          f'{[round(x, 2) for x in step_ms]} ms, mean {mean:.2f} ms, {B * K * T / mean * 1e3:.0f} '
+          f'codes trained/s; losses {[round(x, 5) for x in losses]}; peak memory '
+          f'{peak / 2**30:.2f} GiB; launches a step {per_step}; K3b fp32 device time in a '
+          f'profiled step: ' + ', '.join(f'{name} {ms:.3f} ms ({n} launches)'
+                                        for name, (ms, n) in k3b.items())
+          + f', {k3b_ms:.2f} ms, {k3b_ms / mean:.1%} of the timed mean; card {card()}',
+          flush=True)
+    del state, step, optimizer, prof
+    lm.load_state_dict(saved)
+    torch.cuda.empty_cache()
+    return {name + '_fp32': launches[name + '_fp32'] for name in attn[1:]}
 
 
 # bf16 model gradients, kernel route against plain route (phase 8): the whole
@@ -5319,7 +5424,8 @@ def main() -> int:
     mark()
     launches = phase_main_path(device)
     # the fp32 FMA kernels' main paths: the fp32 encode (phase 4), MAGNeT's
-    # fp32 parity (phase 6), the fp32 training gradients (phase 8)
+    # fp32 parity (phase 6), the fp32 LM step (phase 7, the training CLI's
+    # default dtype)
     launches['fused_stage_fp32'] = phase_parity(device)
     mark()
     lm, provider = get_magnet_lm('small', segment_duration=MAGNET_SECONDS)
@@ -5329,9 +5435,9 @@ def main() -> int:
     mark()
     lm, provider = get_musicgen_lm('small', seed=1)
     train_launches = phase_train(device, lm, provider)
-    train_fp32 = phase_train_parity(device, lm, provider)
+    phase_train_parity(device, lm, provider)
     for name in ('flash_attention_bwd_dkv_fp32', 'flash_attention_bwd_dq_fp32'):
-        launches[name] = train_fp32[name]
+        launches[name] = train_launches.pop(name)
     del lm, provider
     mark()
     launches.update(phase_fused_encode(device))

@@ -22,6 +22,7 @@ from jax.experimental.pallas.ops.tpu import flash_attention as pallas_flash
 
 from audiocraft_tpu.ops import attention_pallas
 from audiocraft_tpu.ops.attention_pallas import fused_attention as jax_fused_attention
+from audiocraft_tpu_torch.ops import attention
 from audiocraft_tpu_torch.ops.attention import (_rows_on_16_bytes, attention_bwd_dkv,
                                                 attention_bwd_dq, attention_di,
                                                 attention_lse_reference, fused_attention,
@@ -204,3 +205,140 @@ def test_rows_on_16_bytes_copies_only_what_the_kernels_cannot_read():
     padded, = _rows_on_16_bytes(narrow)
     assert padded.shape == (B_, T_, H_, 40) and padded.is_contiguous()
     assert torch.equal(padded[..., :36], narrow) and not padded[..., 36:].any()
+
+
+class _FakeBackwardLibrary:
+    """Stands in for the built kernels on a host without a card: records the
+    arguments that the backward wrapper hands to ``acx_attention_bwd_dkv``
+    and ``acx_attention_bwd_dq``."""
+
+    def __init__(self):
+        self.calls = []
+
+    def acx_attention_max_dim(self):
+        return attention.MAX_HEAD_DIM
+
+    def acx_attention_bwd_dkv(self, *args):
+        self.calls.append(('dkv', args))
+        return 0
+
+    def acx_attention_bwd_dq(self, *args):
+        self.calls.append(('dq', args))
+        return 0
+
+
+@pytest.fixture
+def fake_backward(monkeypatch):
+    lib = _FakeBackwardLibrary()
+    monkeypatch.setattr(attention._build, 'library', lambda: lib)
+    monkeypatch.setattr(attention, '_check_cuda', lambda what, *xs: None)
+    monkeypatch.setattr(attention, '_launch', lambda fn, x, *args: fn(*args, None))
+    return lib
+
+
+def _backward(q, k, v, do, causal=True):
+    """Both fp32 backward launches as fused_attention_backward makes them:
+    (dq, dk, dv) and the recorded (pointers of q, k, v, dO; D; strides of
+    q, k, v, dO; bf16) of each launch."""
+    B, T, H, _ = q.shape
+    lse, di = torch.zeros(B, H, T), torch.zeros(B, H, T)
+    scale = q.shape[-1] ** -0.5
+    dk, dv = attention._backward_launch('acx_attention_bwd_dkv', q, k, v, do, lse, di, 2,
+                                        causal, scale)
+    dq, = attention._backward_launch('acx_attention_bwd_dq', q, k, v, do, lse, di, 1,
+                                     causal, scale)
+    return (dq, dk, dv)
+
+
+def _launched_backward(lib):
+    """{'dkv' | 'dq': (pointers of q, k, v, dO; D; strides; bf16; output pointers)}."""
+    out = {}
+    for name, args in lib.calls[-2:]:
+        n_out = 2 if name == 'dkv' else 1
+        dims = args[6 + n_out:10 + n_out]
+        strides = args[10 + n_out:22 + n_out]
+        out[name] = (args[:4], dims[3], strides, args[24 + n_out], args[6:6 + n_out])
+    return out
+
+
+@pytest.mark.parametrize('shape', [(2, 501, 16, 64),   # phase 14's data-parallel LM step
+                                   (2, 9, 4, 32)])     # debug widths
+def test_fp32_backward_passes_the_models_fused_qkv_slices_uncopied(fake_backward, shape):
+    """The transformer's q, k and v are strided slices of one fp32 [B, T,
+    3 H D] projection; their rows lie on 16 bytes, so the fp32 backward
+    kernels read them as they are, and dO as autograd gives it."""
+    B, T, H, D = shape
+    qkv = torch.empty(B, T, 3 * H * D)
+    q, k, v = (x.unflatten(-1, (H, D)) for x in qkv.split(H * D, -1))
+    do = torch.empty(shape)
+    grads = _backward(q, k, v, do)
+    launched = _launched_backward(fake_backward)
+    for name in ('dkv', 'dq'):
+        ptrs, dim, strides, bf16, outs = launched[name]
+        assert ptrs == tuple(x.data_ptr() for x in (q, k, v, do))
+        assert dim == D and bf16 == 0
+        assert strides == (T * 3 * H * D, 3 * H * D, D) * 3 + (T * H * D, H * D, D)
+        assert all(p % 16 == 0 for p in outs)
+    assert all(g.shape == shape and g.is_contiguous() and g.dtype == torch.float32
+               for g in grads)
+
+
+def test_fp32_backward_copies_a_view_off_16_bytes(fake_backward):
+    shape = (2, 5, 3, 64)
+    n = 2 * 5 * 3 * 64
+    flat = torch.randn(4, n + 4)   # rows start on 16 bytes; each view one element past
+    q, k, v, do = (x[1:n + 1].view(shape) for x in flat)
+    assert all(x.data_ptr() % 16 for x in (q, k, v, do))
+    _backward(q, k, v, do, causal=False)
+    for name, (ptrs, dim, strides, bf16, _) in _launched_backward(fake_backward).items():
+        assert all(p % 16 == 0 and p != x.data_ptr() for p, x in zip(ptrs, (q, k, v, do)))
+        assert dim == 64 and strides == (5 * 3 * 64, 3 * 64, 64) * 4 and bf16 == 0
+
+
+def test_fp32_backward_pads_a_head_of_34_and_slices_the_gradients_back(fake_backward):
+    """D = 34 in fp32: the kernels get rows zero-padded to 36 features and
+    write [B, T, H, 36] gradients, of which the caller sees the first 34."""
+    q, k, v, do = (torch.randn(2, 7, 3, 34) for _ in range(4))
+    dq, dk, dv = _backward(q, k, v, do)
+    for name, (_, dim, strides, bf16, _) in _launched_backward(fake_backward).items():
+        assert dim == 36 and strides == (7 * 3 * 36, 3 * 36, 36) * 4 and bf16 == 0
+    for g in (dq, dk, dv):
+        assert g.shape == (2, 7, 3, 34) and g.stride(2) == 36
+
+
+@pytest.mark.parametrize('dim', [1, 4, 31, 32, 33, 34, 63, 64, 65, 100, 127, 128])
+def test_fp32_backward_geometry_fits_every_head_up_to_the_widest(dim):
+    """K3b's fp32 blocks (csrc/attention_bwd.cu:smem_floats_dq_f32 and
+    smem_floats_dkv_f32) at every width class: 64 rows of 4 warps, 32-row
+    streamed tiles, within a block's shared memory; three blocks an SM up to
+    D = 64, one at 128.  A warp's dS^T (or P^T) stores, 4 rows of a column a
+    lane, fill the bank groups evenly, and the 8 columns of one swizzled
+    row load fall on distinct bank groups."""
+    geometry = attention.bwd_f32_geometry(dim)
+    assert set(geometry) == {'dkv', 'dq'}
+    for name, g in geometry.items():
+        dp = g['width']
+        assert g['width'] >= dim and dp in (32, 64, 128)
+        assert (g['rows'], g['tile'], g['threads']) == (64, 32, 128)
+        extra = 2 * 2 * 32 if name == 'dkv' else 0   # lse and di of each stage
+        assert g['shared_bytes'] == 4 * (2 * dp * 64 + 2 * 2 * 32 * dp + extra + 4 * 32 * 16)
+        per_sm = 233472 // (g['shared_bytes'] + 1024)   # an SM's 228 KiB, 1 KiB a block
+        assert g['shared_bytes'] <= attention.SMEM_LIMIT
+        assert per_sm >= {32: 5, 64: 3, 128: 1}[dp]
+    # a warp's buffer [32 columns][16 rows]: lane (g, rg) stores column g + 8 j
+    # at rows 4 rg ..; the 32 lanes' 128-bit stores hit each bank group 4 times
+    for j in range(4):
+        groups = [((g + 8 * j) * 16 // 4 + rg) % 8 for g in range(8) for rg in range(4)]
+        assert sorted(groups) == sorted(list(range(8)) * 4)
+    swz = lambda r, c4: c4 ^ (r & 7)   # csrc/attention_common.cuh:swz, in 16-byte pieces
+    dp = geometry['dq']['width']
+    for c4 in range(dp // 4):
+        for j in range(4):
+            assert len({((g + 8 * j) * dp // 4 + swz(g + 8 * j, c4)) % 8 for g in range(8)}) == 8
+
+
+def test_fp32_backward_geometry_refuses_heads_past_the_widest():
+    with pytest.raises(ValueError):
+        attention.bwd_f32_geometry(attention.MAX_HEAD_DIM + 1)
+    with pytest.raises(ValueError):
+        attention.bwd_f32_geometry(0)

@@ -145,7 +145,11 @@ def test_fp32_kernels_are_register_tiled_fma_on_streamed_operands():
     mbarriers, the next input by cp.async, the computing warps meeting on a
     named barrier; K3f's fp32 kernel: K and V through a 2-stage cp.async
     ring, q^T scaled by log2(e), exp2 on the hardware unit, P^T through the
-    warp's own rows.  Both stay fp32 FMA: no tensor-core instruction."""
+    warp's own rows; K3b's fp32 kernels (dK/dV and dQ): the streamed tiles
+    through a cp.async ring, exp2 on the hardware unit, P^T and dS^T through
+    each warp's own rows, dQ's causal tiles longest first, the first
+    design's kernels gone.  All stay fp32 FMA: no tensor-core instruction,
+    no expf, no atomics."""
     seanet = (PORT / "csrc" / "seanet.cu").read_text()
     tiled = _section(seanet, "// ------------------------------------------- K4, fp32 FMA, register-tiled",
                      "// ------------------------------------------------- K4, bf16 on tensor cores")
@@ -161,8 +165,21 @@ def test_fp32_kernels_are_register_tiled_fma_on_streamed_operands():
     for marker in ("flash_fwd_f32_kernel", "cp_async16(kt + r * DP + swz(r, c / 4)", "cp_wait<0>()",
                    "* kLog2e", "exp2_ftz(s[r][j] - mb)", "__syncwarp()", "fmaf(p[r], vv[f], acc[r][f])"):
         assert marker in f32, marker
-    for section in (tiled, f32):
-        assert not any(op in section for op in ("mma", ".tf32", "expf(", "__ldg"))
+    backward = (PORT / "csrc" / "attention_bwd.cu").read_text()
+    bwd = _section(backward, "// ================================================================ fp32, FMA",
+                   "// ---------------------------------------------------------------- launch")
+    for marker in ("flash_bwd_dkv_f32_tiled", "flash_bwd_dq_f32_tiled",
+                   "cp_async16(tile + r * DP + swz(r, c4)", "cp_async4(st + 2 * TILE + tid",
+                   "cp_wait<0>()", "exp2_ftz(fmaf(s[r][j], kLog2e", "__syncwarp()",
+                   "scale_rows<DP, THREADS>(st, scale)", "tiles_q - 1 - rank",
+                   "*reinterpret_cast<const float4*>(buf + r * 16 + 4 * rg)",
+                   "fmaf(p[i], y[f], acc[i][f])"):
+        assert marker in bwd, marker
+    for gone in ("load_tile_f32", "two_products", "kThreadsF32", "flash_bwd_dkv_f32_kernel",
+                 "flash_bwd_dq_f32_kernel"):
+        assert gone not in backward, gone
+    for section in (tiled, f32, bwd):
+        assert not any(op in section for op in ("mma", ".tf32", "expf(", "__ldg", "atomicAdd"))
     # the variant argument of K4's entries (csrc/seanet.cu:Variant)
     for name, n_ints in (("acx_seanet_stage", 8), ("acx_seanet_stage_clocks", 9),
                          ("acx_seanet_stage_info", 8)):
