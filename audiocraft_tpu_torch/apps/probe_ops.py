@@ -26,29 +26,37 @@ def _bf16(rng: np.random.RandomState, *shape: int, device) -> torch.Tensor:
     return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(device, torch.bfloat16)
 
 
-def probes(device, seed: int = 0) -> tp.List[tp.Tuple[str, tp.Callable, tp.Callable]]:
-    """(name, kernel call, plain torch call) for each of the seven operations."""
-    rng = np.random.RandomState(seed)
-    x = _bf16(rng, 512, 64, device=device)
-    x128 = _bf16(rng, 512, 128, device=device)
-    xu = _bf16(rng, 520, 64, device=device)
-    taps = _bf16(rng, 4, 64, 32, device=device)
+def probes(device, seed: int = 0,
+           scale: int = 1) -> tp.List[tp.Tuple[str, tp.Callable, tp.Callable]]:
+    """(name, kernel call, plain torch call) for each of the seven operations,
+    at ``scale`` times the probe's rows (1: the shapes of
+    ``scripts/probe_mosaic_ops.py``)."""
+    if scale == 1:
+        rng = np.random.RandomState(seed)
+        make = lambda *shape: _bf16(rng, *shape, device=device)
+    else:   # hundreds of MiB: drawn where they are used
+        gen = torch.Generator(device).manual_seed(seed)
+        make = lambda *shape: torch.randn(*shape, generator=gen, device=device).bfloat16()
+    r = 512 * scale
+    x, x128, xu = make(r, 64), make(r, 128), make(r + 8 * scale, 64)
+    taps = make(4, 64, 32)
+    m, mu = r // 4, (r + 8 * scale) // 4
     return [
-        ('reshape merge 512x64->128x256', lambda: reshape(x, (128, 256)),
-         lambda: x.reshape(128, 256)),
-        ('reshape merge 512x128->128x512', lambda: reshape(x128, (128, 512)),
-         lambda: x128.reshape(128, 512)),
+        (f'reshape merge {r}x64->{m}x256', lambda: reshape(x, (m, 256)),
+         lambda: x.reshape(m, 256)),
+        (f'reshape merge {r}x128->{m}x512', lambda: reshape(x128, (m, 512)),
+         lambda: x128.reshape(m, 512)),
         ('3d split + dot_general', lambda: split_contract(x, taps),
-         lambda: torch.einsum('msc,scn->mn', x.float().reshape(128, 4, 64),
+         lambda: torch.einsum('msc,scn->mn', x.float().reshape(m, 4, 64),
                               taps.float()).to(torch.bfloat16)),
         ('lane stride slice [:, ::4]', lambda: strided_slice(x128, 1, 4),
          lambda: x128[:, ::4]),
         ('sublane stride slice [::4, :]', lambda: strided_slice(x128, 4, 1),
          lambda: x128[::4, :]),
-        ('reshape merge 520x64->130x256', lambda: reshape(xu, (130, 256)),
-         lambda: xu.reshape(130, 256)),
-        ('reshape split 512x64->4x128x64', lambda: reshape(x, (4, 128, 64)),
-         lambda: x.reshape(4, 128, 64)),
+        (f'reshape merge {r + 8 * scale}x64->{mu}x256', lambda: reshape(xu, (mu, 256)),
+         lambda: xu.reshape(mu, 256)),
+        (f'reshape split {r}x64->4x{m}x64', lambda: reshape(x, (4, m, 64)),
+         lambda: x.reshape(4, m, 64)),
     ]
 
 

@@ -48,8 +48,8 @@ _SIGNATURES = {
     'acx_seanet_stage_clocks': ([*[_P] * 8, *[_I] * 8, ctypes.POINTER(_I), _P, _I, _P], _I),
     'acx_seanet_stage_info': ([*[_I] * 8, ctypes.POINTER(_I), ctypes.POINTER(_I)], _I),
     'acx_mono_conv': ([_P, _P, _P, _P, *[_I] * 7, ctypes.POINTER(_I), _P], _I),
-    'acx_probe_gather': ([_P, _P, _I, _I, _L, _L, _P], _I),
-    'acx_probe_contract': ([_P, _P, _P, _I, _I, _I, _P], _I),
+    'acx_probe_gather': ([_P, _P, _I, _I, _L, _L, _I, _P], _I),
+    'acx_probe_contract': ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
     'acx_error_string': ([_I], ctypes.c_char_p),
 }
 

@@ -2,21 +2,46 @@
 kernels in ``scripts/probe_mosaic_ops.py`` (``try_kernel``, ``k_dotg``).
 
 :func:`gather` covers the merge and split reshapes and the strided slices
-(``csrc/probe.cu``: ``y[r, c] = x[r * row_stride + c * col_stride]``);
+(``csrc/probe.cu``: ``y[r, c] = x[r * row_stride + c * col_stride]``, by
+16-byte vectors where :func:`gather_plan` allows);
 :func:`split_contract` is the 3-D split of ``[M * S, C]`` into ``[M, S, C]``
 contracted with taps ``[S, C, N]`` over (slot, channel), fp32 sums and a bf16
-result.  :func:`reshape` and :func:`strided_slice` name the gathers the probe
-runs.  On a CPU tensor each runs its plain version; on a CUDA tensor its
-kernel, or raises.  ``apps/probe_ops.py`` drives the seven probe operations.
+result (on the tensor cores where :func:`contract_plan` allows).
+:func:`reshape` and :func:`strided_slice` name the gathers the probe runs.
+On a CPU tensor each runs its plain version; on a CUDA tensor its kernel, or
+raises.  ``apps/probe_ops.py`` drives the seven probe operations.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 import typing as tp
 
 import torch
 
 from . import _build
+
+
+@functools.cache
+def _entry_points() -> tp.Tuple[tp.Callable, tp.Callable]:
+    """The two C entries, fetched from the built library once."""
+    lib = _build.library()
+    return lib.acx_probe_gather, lib.acx_probe_contract
+
+
+def _launch(entry: int, x: torch.Tensor, args: tuple, what: str) -> None:
+    """Call C entry ``entry`` (0 gather, 1 contract) on the current stream of
+    x's card, entering that card only when it is not the current device;
+    raise if the launch returned an error."""
+    fn, index = _entry_points()[entry], x.device.index
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if err:
+        _build.check(err, what)
 
 
 def _check(x: torch.Tensor, what: str) -> bool:
@@ -40,10 +65,38 @@ def gather_reference(x: torch.Tensor, rows: int, cols: int, row_stride: int,
     return x.reshape(-1)[r * row_stride + c * col_stride]
 
 
+def gather_plan(rows: int, cols: int, row_stride: int, col_stride: int, numel: int,
+                offset: int = 0) -> tp.Tuple[int, int, int, int]:
+    """How the gather kernel copies ``y[r, c] = x[r * row_stride + c *
+    col_stride]``: ``(vector, rows, cols, row_stride)``.
+
+    Rows that follow each other in x (``row_stride == cols``, column stride
+    1) merge into one row, so a flat copy needs only its count to be a
+    multiple of 8.  ``vector`` k > 0: each thread reads k 16-byte vectors of
+    a row of x and stores one of y, every k-th element (k is the column
+    stride: 1, 2, 4 or 8); that needs x on 16 bytes (``offset``, its address
+    modulo 16, is 0), cols and row_stride multiples of 8, the last row's k *
+    cols elements inside x's ``numel`` and fewer than 2^31 elements.
+    ``vector`` 0: one element a thread."""
+    if col_stride == 1 and row_stride == cols and rows * cols < 2 ** 31:
+        rows, cols, row_stride = 1, rows * cols, rows * cols
+    k = col_stride
+    vector = (k in (1, 2, 4, 8) and offset % 16 == 0 and cols % 8 == 0
+              and row_stride % 8 == 0 and (rows - 1) * row_stride + cols * k <= numel
+              and rows * cols < 2 ** 31)
+    return (k if vector else 0), rows, cols, row_stride
+
+
 def gather(x: torch.Tensor, rows: int, cols: int, row_stride: int,
            col_stride: int) -> torch.Tensor:
     """y [rows, cols] gathered from the contiguous x at r * row_stride +
     c * col_stride (every index must lie inside x)."""
+    return _gather(x, rows, cols, row_stride, col_stride, (rows, cols))
+
+
+def _gather(x: torch.Tensor, rows: int, cols: int, row_stride: int, col_stride: int,
+            shape: tp.Tuple[int, ...]) -> torch.Tensor:
+    """:func:`gather`, its output allocated as ``shape`` (rows * cols elements)."""
     cpu = _check(x, 'gather')
     if rows < 1 or cols < 1 or row_stride < 0 or col_stride < 0:
         raise ValueError(f"gather of [{rows}, {cols}] with strides {row_stride}, {col_stride}")
@@ -51,13 +104,12 @@ def gather(x: torch.Tensor, rows: int, cols: int, row_stride: int,
         raise ValueError(f"gather of [{rows}, {cols}] with strides {row_stride}, {col_stride} "
                          f"reads past the {x.numel()} elements of x")
     if cpu:
-        return gather_reference(x, rows, cols, row_stride, col_stride)
-    y = torch.empty(rows, cols, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _build.library().acx_probe_gather(x.data_ptr(), y.data_ptr(), rows, cols,
-                                                row_stride, col_stride,
-                                                torch.cuda.current_stream().cuda_stream)
-    _build.check(err, 'acx_probe_gather')
+        return gather_reference(x, rows, cols, row_stride, col_stride).reshape(shape)
+    y = torch.empty(shape, dtype=x.dtype, device=x.device)
+    vector, r, c, rs = gather_plan(rows, cols, row_stride, col_stride, x.numel(),
+                                   x.data_ptr() % 16)
+    _launch(0, x, (x.data_ptr(), y.data_ptr(), r, c, rs, col_stride, vector),
+            'acx_probe_gather')
     gather.launches += 1
     return y
 
@@ -69,13 +121,11 @@ def reshape(x: torch.Tensor, shape: tp.Sequence[int]) -> torch.Tensor:
     """A merge or split reshape of a contiguous array, copied by the gather
     kernel in flat order."""
     shape = tuple(shape)
-    n = 1
-    for d in shape:
-        n *= d
+    n = math.prod(shape)
     if n != x.numel():
         raise ValueError(f"cannot reshape {tuple(x.shape)} to {shape}")
     cols = shape[-1]
-    return gather(x, n // cols, cols, cols, 1).reshape(shape)
+    return _gather(x, n // cols, cols, cols, 1, shape)
 
 
 def strided_slice(x: torch.Tensor, row_step: int, col_step: int) -> torch.Tensor:
@@ -95,6 +145,14 @@ def split_contract_reference(x: torch.Tensor, taps: torch.Tensor) -> torch.Tenso
     return (m3 @ taps.float().reshape(S * C, N)).to(torch.bfloat16)
 
 
+def contract_plan(depth: int, n_cols: int, x_offset: int = 0, taps_offset: int = 0) -> int:
+    """1 where the contraction runs on the tensor cores (depth a multiple of
+    16 up to 512, the probe's 32 columns, x and taps on 16 bytes: their
+    addresses modulo 16 are 0), else 0: one output a thread on fp32 FMA."""
+    return int(depth % 16 == 0 and depth <= 512 and n_cols == 32
+               and x_offset % 16 == 0 and taps_offset % 16 == 0)
+
+
 def split_contract(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     """The 3-D split + dot_general of the probe: x [M * S, C], taps [S, C, N]
     -> [M, N], bf16 in and out, fp32 sums."""
@@ -110,11 +168,9 @@ def split_contract(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     M = x.shape[0] // S
     w = taps.contiguous()
     y = torch.empty(M, N, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _build.library().acx_probe_contract(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                                                  M, S * C, N,
-                                                  torch.cuda.current_stream().cuda_stream)
-    _build.check(err, 'acx_probe_contract')
+    mma = contract_plan(S * C, N, x.data_ptr() % 16, w.data_ptr() % 16)
+    _launch(1, x, (x.data_ptr(), w.data_ptr(), y.data_ptr(), M, S * C, N, mma),
+            'acx_probe_contract')
     split_contract.launches += 1
     return y
 

@@ -67,7 +67,15 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    Then every route (and the fused route with cuDNN's input conv, the
    earlier default's) timed at every encode shape this script runs.
 10. The data-movement probe (P1): ``apps/probe_ops`` runs its seven bf16
-   operations on the card, each of which must equal torch's result.
+   operations on the card, each of which must equal torch's result (6
+   gather and 1 contraction launches).  Then each operation's kernel, the
+   torch call that copies the same result (``clone()`` of the view,
+   ``torch.matmul``) and its plain version, by device time per launch
+   (torch.profiler over 100 launches) and host time per call (1000 calls,
+   no synchronize between), beside the gather kernel's launch floor at [1,
+   1]; the same at 2048x the probe's rows, past the L2, beside the bytes
+   bound (TB/s, fraction of it); every kernel equal to plain there and on
+   ragged shapes (flat counts off 8, odd strides, a column stride of 3).
 11. The MusicGen path: ``get_musicgen('small')`` (random weights from a
    seed, the LM decoding in bf16) generates 30 s for 4 seeded descriptions
    with 1-pass CFG and top-k sampling, its decode steps replayed as CUDA
@@ -277,7 +285,8 @@ from audiocraft_tpu_torch.ops.attention import (
     attention_di, attention_lse_reference, fused_attention, fused_attention_backward,
     fused_attention_backward_reference, fused_attention_reference, fused_attention_with_lse)
 from audiocraft_tpu_torch.ops.lstm import lstm_kernel_info, lstm_layer, lstm_layer_reference
-from audiocraft_tpu_torch.ops.probe import gather, split_contract, split_contract_reference
+from audiocraft_tpu_torch.ops.probe import (gather, gather_reference, split_contract,
+                                           split_contract_reference)
 from audiocraft_tpu_torch.ops.rvq import (rvq_encode, rvq_encode_clocks, rvq_encode_reference,
                                          rvq_kernel_info, rvq_plan)
 from audiocraft_tpu_torch.ops.seanet import (
@@ -338,6 +347,9 @@ EXTEND_SECONDS, EXTEND_SEGMENT, EXTEND_OVERLAP = 20, 10, 1
 # the encode shapes this script runs (batch, seconds): phases 3 / 9, the
 # training encode of phase 7, and B = 1 and 4 at 10 s
 ROUTE_SHAPES = ((BATCH, SECONDS), (TRAIN_BATCH, TRAIN_SECONDS), (4, SECONDS), (1, SECONDS))
+# phase 10: P1 also at 2048x the probe's rows (128-260 MiB an input, past the
+# 50 MB L2); device time per launch by torch.profiler, host time per call
+PROBE_SCALE, PROBE_LAUNCHES, PROBE_CALLS = 2048, 100, 1000
 
 
 class CheckFailed(RuntimeError):
@@ -2231,8 +2243,124 @@ def phase_fused_encode(device) -> tp.Dict[str, int]:
     return path_launches
 
 
+def _device_ms(fn, n: int = PROBE_LAUNCHES) -> float:
+    """Device time per call of ``fn``: torch.profiler over ``n`` back-to-back
+    calls, after one warm call."""
+    def launches():
+        for _ in range(n):
+            fn()
+
+    fn()
+    busy, _, _ = _cuda_busy_ms(launches)
+    check(busy > 0, 'the profiler saw no device time')
+    return busy / n
+
+
+def _host_us(fn, n: int = PROBE_CALLS) -> float:
+    """Host time per call of ``fn``: ``time.perf_counter`` over ``n`` calls
+    with no synchronize between them, after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(n):
+        fn()
+    seconds = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return seconds / n * 1e6
+
+
+def _gather_args(view: torch.Tensor) -> tp.Tuple[torch.Tensor, int, int, int, int]:
+    """(x, rows, cols, row_stride, col_stride): the gather that copies ``view``,
+    a reshape or a 2-D strided slice of the contiguous x."""
+    x = view if view._base is None else view._base
+    cols = view.shape[-1]
+    return x, view.numel() // cols, cols, view.stride(-2), view.stride(-1)
+
+
+def _read_bytes(view: torch.Tensor) -> int:
+    """Bytes a copy of ``view`` must read: every 32-byte sector of x that its
+    elements lie in (its rows start on sectors).  For [:, ::4] that is all of
+    x; for [::4, :] a quarter of it."""
+    _, rows, cols, _, col_stride = _gather_args(view)
+    if col_stride * 2 >= 32:
+        return rows * cols * 32
+    return rows * 32 * -(-((cols - 1) * col_stride + 1) * 2 // 32)
+
+
+def _probe_timed(device, scale: int) -> tp.List[dict]:
+    """P1's seven operations at ``scale`` times the probe's rows, each with
+    its kernel call, the one torch call that copies the same result (the view
+    made once, then ``clone()``; ``torch.matmul`` for the contraction), its
+    plain version, the bytes and operations of its bound and its check."""
+    items = []
+    for name, kernel, plain in probe_ops.probes(device, scale=scale):
+        if 'dot_general' in name:
+            continue
+        view = plain()
+        x, *args = _gather_args(view)
+        check(view.clone().data_ptr() != view.data_ptr(), f'{name}: clone() copied nothing')
+        items.append(dict(
+            name=name, shape=tuple(view.shape), kernel=kernel,
+            library=lambda view=view: view.clone(),
+            plain=lambda x=x, args=args: gather_reference(x, *args),
+            nbytes=_read_bytes(view) + 2 * view.numel(), ops=0.0,
+            ok=lambda kernel=kernel, view=view: bool(torch.equal(kernel(), view))))
+    gen = torch.Generator(device).manual_seed(7)
+    x = torch.randn(512 * scale, 64, generator=gen, device=device).bfloat16()
+    taps = torch.randn(4, 64, 32, generator=gen, device=device).bfloat16()
+    m = 128 * scale
+    items.insert(2, dict(
+        name='3d split + dot_general', shape=(m, 32),
+        kernel=lambda: split_contract(x, taps),
+        library=lambda: x.reshape(m, 256) @ taps.reshape(256, 32),
+        plain=lambda: split_contract_reference(x, taps),
+        nbytes=2 * (x.numel() + taps.numel() + m * 32), ops=2.0 * m * 256 * 32,
+        ok=lambda: _contract_ok(split_contract(x, taps), x, taps)))
+    return items
+
+
+def _contract_ok(out: torch.Tensor, x: torch.Tensor, taps: torch.Tensor) -> bool:
+    """The contraction against its plain version: one bf16 step
+    (``probe_ops.check``), widened by the bound on how far two fp32 sums of
+    the same K = S * C products, taken in other orders, can lie apart
+    (K * 2^-24 * sum |x . taps|).  Over 8 M outputs some lie near 0, where
+    the order alone moves a sum by more than one bf16 step of it."""
+    ref = split_contract_reference(x, taps).float()
+    depth = taps.shape[0] * taps.shape[1]
+    spread = depth * 2.0 ** -24 * (x.float().abs().reshape(-1, depth)
+                                   @ taps.float().abs().reshape(depth, -1))
+    diff = (out.float() - ref).abs()
+    return out.shape == ref.shape and bool((diff <= 2 ** -7 * ref.abs() + 1e-6 + spread).all())
+
+
+def _probe_ragged(device) -> None:
+    """The gathers and the contraction off the probe's shapes, each equal to
+    its plain version (the contraction within probe_ops.check's bf16 step)."""
+    gen = torch.Generator(device).manual_seed(11)
+    rand = lambda *shape: torch.randn(*shape, generator=gen, device=device).bfloat16()
+    flat = rand(1030)
+    gathers = [('flat count 481, not a multiple of 8', rand(37, 13), (13, 37, 37, 1)),
+               ('col_stride 3', rand(64, 96), (64, 32, 96, 3)),
+               ('odd row_stride 231', rand(63, 77), (21, 77, 231, 1)),
+               ('col_stride 2', rand(64, 128), (32, 64, 256, 2)),
+               ('col_stride 8', rand(64, 256), (64, 32, 256, 8)),
+               ('x 6 bytes past a 16-byte boundary', flat[3:1027], (8, 128, 128, 1)),
+               ('a 16-byte read would pass the end', rand(37), (2, 8, 8, 4))]
+    for name, x, args in gathers:
+        check(torch.equal(gather(x, *args), gather_reference(x, *args)),
+              f'gather, {name} {args}: kernel != plain')
+    for x, taps in ((rand(520, 64), rand(4, 64, 32)), (rand(30, 20), rand(3, 20, 12))):
+        ok, err = probe_ops.check(split_contract(x, taps), split_contract_reference(x, taps))
+        check(ok, f'split_contract of {tuple(x.shape)} with taps {tuple(taps.shape)}: '
+                  f'max-abs {err:.3g} from plain')
+    print(f'off the probe\'s shapes, equal to plain: {len(gathers)} gathers '
+          f'({"; ".join(name for name, _, _ in gathers)}), 2 contractions ([520, 64] x '
+          f'[4, 64, 32]: M = 130 ends mid-tile; [30, 20] x [3, 20, 12])', flush=True)
+
+
 def phase_probe(device) -> tp.Tuple[tp.Dict[str, int], tp.Dict[str, dict]]:
     print('== phase 10: data-movement probe (P1), apps/probe_ops on the card', flush=True)
+    name_card = card()
     gather.launches = split_contract.launches = 0
     results = probe_ops.run(device)
     launches = {'probe_gather': gather.launches, 'probe_contract': split_contract.launches}
@@ -2242,38 +2370,72 @@ def phase_probe(device) -> tp.Tuple[tp.Dict[str, int], tp.Dict[str, dict]]:
     check(all(ok for _, ok, _, _ in results), 'a probe operation failed')
     check(launches == {'probe_gather': 6, 'probe_contract': 1}, f'probe launches {launches}')
 
-    ops = probe_ops.probes(device)
-    gathers = [(kernel, plain) for name, kernel, plain in ops if 'dot_general' not in name]
-    contract = next((kernel, plain) for name, kernel, plain in ops if 'dot_general' in name)
-    moved = sum(2.0 * 2 * plain().numel() for _, plain in gathers)  # each element read + written
-    g_bound = bound_ms(0.0, PEAK_BF16, moved)
-    # a view is no copy: the plain version, and the one torch call doing each
-    # gather, is the plain result cloned
-    copy_ms = sum(time_ms(lambda: plain().clone(), 20) for _, plain in gathers)
-    entries = {'probe_gather': dict(
-        name='probe_gather', route='cuda', source='audiocraft_tpu_torch/csrc/probe.cu',
-        replaces='scripts/probe_mosaic_ops.py:13',
-        max_abs_err=max(err for name, _, _, err in results if 'dot_general' not in name),
-        ms=sum(time_ms(kernel, 20) for kernel, _ in gathers),
-        plain_ms=copy_ms, bound_ms=g_bound[0], bound_by=g_bound[1], library_ms=copy_ms)}
-    x, taps = torch.randn(512, 64, device=device).bfloat16(), torch.randn(4, 64, 32,
-                                                                          device=device).bfloat16()
-    c_bound = bound_ms(2.0 * 128 * 256 * 32, PEAK_BF16, 2.0 * (512 * 64 + 4 * 64 * 32 + 128 * 32))
-    entries['probe_contract'] = dict(
-        name='probe_contract', route='cuda', source='audiocraft_tpu_torch/csrc/probe.cu',
-        replaces='scripts/probe_mosaic_ops.py:46',
-        max_abs_err=next(err for name, _, _, err in results if 'dot_general' in name),
-        ms=time_ms(contract[0], 20),
-        plain_ms=time_ms(lambda: split_contract_reference(x, taps), 20),
-        bound_ms=c_bound[0], bound_by=c_bound[1],
-        library_ms=time_ms(lambda: x.reshape(128, 256) @ taps.reshape(256, 32), 20))
-    library = {'probe_gather': 'torch clone, one per gather; the six together',
-               'probe_contract': 'torch matmul'}
-    for name, entry in entries.items():
-        print(f'{name}: kernel {entry["ms"]:.4f} ms, plain {entry["plain_ms"]:.4f} ms, '
-              f'bound {entry["bound_ms"]:.6f} ms ({entry["bound_by"]}), {library[name]} '
-              f'{entry["library_ms"]:.4f} ms', flush=True)
+    gather.launches = split_contract.launches = 0
+    one = torch.zeros(1, 1, dtype=torch.bfloat16, device=device)
+    floor = _device_ms(lambda: gather(one, 1, 1, 1, 1))
+    print(f'launch floor: the gather kernel at [1, 1] {floor * 1e3:.2f} us a launch (device '
+          f'time, torch.profiler over {PROBE_LAUNCHES} launches)', flush=True)
+    small = _probe_timed(device, 1)
+    for item in small:
+        item.update(ms=_device_ms(item['kernel']), host_us=_host_us(item['kernel']),
+                    library_ms=_device_ms(item['library']),
+                    library_host_us=_host_us(item['library']), plain_ms=_device_ms(item['plain']),
+                    bound=bound_ms(item['ops'], PEAK_BF16, item['nbytes']))
+        yard = 'matmul' if item['ops'] else 'clone()'
+        print(f'{item["name"]} {item["shape"]}: kernel {item["ms"] * 1e3:.2f} us a launch '
+              f'({item["ms"] / floor:.2f}x the floor), {item["host_us"]:.2f} us a call on the '
+              f'host; {yard} {item["library_ms"] * 1e3:.2f} us, {item["library_host_us"]:.2f} us; '
+              f'plain {item["plain_ms"] * 1e3:.2f} us; bound {item["bound"][0] * 1e3:.4f} us '
+              f'({item["bound"][1]})', flush=True)
+    big = _probe_timed(device, PROBE_SCALE)
+    for item in big:
+        item.update(ms=_device_ms(item['kernel']), library_ms=_device_ms(item['library']),
+                    bound=bound_ms(item['ops'], PEAK_BF16, item['nbytes']))
+        yard = 'matmul' if item['ops'] else 'clone()'
+        print(f'{item["name"]} {item["shape"]} ({PROBE_SCALE}x): kernel {item["ms"]:.4f} ms, '
+              f'{item["nbytes"] / item["ms"] / 1e9:.3f} TB/s, {item["bound"][0] / item["ms"]:.3f} '
+              f'of the bound {item["bound"][0]:.4f} ms ({item["bound"][1]}: '
+              f'{item["nbytes"] / 2 ** 20:.1f} MiB); {yard} {item["library_ms"]:.4f} ms, '
+              f'{item["nbytes"] / item["library_ms"] / 1e9:.3f} TB/s', flush=True)
+    timing_launches = {'probe_gather': gather.launches, 'probe_contract': split_contract.launches}
+    print(f'the timing\'s own launches (apart from the probe\'s {launches}): {timing_launches}; '
+          f'card {name_card}', flush=True)
+    for item in small + big:
+        check(item['ok'](), f'{item["name"]} {item["shape"]}: kernel != plain')
+    _probe_ragged(device)
+
+    def entry(name: str, replaces: str, items: tp.List[dict], big_items: tp.List[dict],
+              max_abs_err: float) -> dict:
+        total = lambda key, of=items: sum(item[key] for item in of)
+        return dict(name=name, route='cuda', source='audiocraft_tpu_torch/csrc/probe.cu',
+                    replaces=replaces, max_abs_err=max_abs_err, ms=total('ms'),
+                    plain_ms=total('plain_ms'), bound_ms=sum(i['bound'][0] for i in items),
+                    bound_by=items[0]['bound'][1], library_ms=total('library_ms'),
+                    host_us=total('host_us'), library_host_us=total('library_host_us'),
+                    launch_floor_ms=floor, ms_2048x=total('ms', big_items),
+                    bound_ms_2048x=sum(i['bound'][0] for i in big_items),
+                    library_ms_2048x=total('library_ms', big_items))
+
+    is_contract = lambda item: item['ops'] > 0
+    errs = {name: err for name, _, _, err in results}
+    entries = {
+        'probe_gather': entry('probe_gather', 'scripts/probe_mosaic_ops.py:13',
+                              [i for i in small if not is_contract(i)],
+                              [i for i in big if not is_contract(i)],
+                              max(e for n, e in errs.items() if 'dot_general' not in n)),
+        'probe_contract': entry('probe_contract', 'scripts/probe_mosaic_ops.py:46',
+                                [i for i in small if is_contract(i)],
+                                [i for i in big if is_contract(i)],
+                                errs['3d split + dot_general'])}
+    library = {'probe_gather': 'six clone()s of views made once', 'probe_contract': 'torch matmul'}
+    for name, e in entries.items():
+        print(f'{name}: kernel {e["ms"]:.5f} ms ({e["host_us"]:.2f} us on the host), plain '
+              f'{e["plain_ms"]:.5f} ms, bound {e["bound_ms"]:.6f} ms ({e["bound_by"]}), '
+              f'{library[name]} {e["library_ms"]:.5f} ms ({e["library_host_us"]:.2f} us); '
+              f'{PROBE_SCALE}x: kernel {e["ms_2048x"]:.4f} ms, bound {e["bound_ms_2048x"]:.4f}, '
+              f'{library[name]} {e["library_ms_2048x"]:.4f}', flush=True)
     return launches, entries
+
 
 class SeededT5Ids:
     """Stands in for the T5 vocabulary, which is not in the repository: each
@@ -5502,8 +5664,12 @@ def main() -> int:
             'launches_metrics', 'launches_rope', 'launches_ckpt', 'launches_data',
             'launches_serve', 'max_abs_err', 'ms',
             'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
+    # P1's entries also carry phase 10's host times, launch floor and 2048x shapes
+    extra = ('host_us', 'library_host_us', 'launch_floor_ms', 'ms_2048x', 'bound_ms_2048x',
+             'library_ms_2048x')
     print(card())
-    print(json.dumps({'kernels': [{k: kern[k] for k in keys} for kern in kernels.values()]}))
+    print(json.dumps({'kernels': [{k: kern[k] for k in keys + extra if k in kern}
+                                  for kern in kernels.values()]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),
                                              'count': torch.cuda.device_count()}}))
